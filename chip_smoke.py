@@ -4,14 +4,22 @@
     python3 chip_smoke.py
 
 Builds the kernels (one nvcc call), builds the procedural scene of
-``bench.py`` (8x8 chunk columns, distance-banded LOD), drives the main path
-(``Svo.update``, then per pose a full-frame ``intersect_octree`` ray query
-and ``Svo.render``), holds each kernel against its plain PyTorch version on
-the card, checks a small frame against ``tests/goldens/render_basic.npy``,
-and times the 1080p frame with CUDA events. Every phase prints its seconds.
+``bench.py`` (8x8 chunk columns, distance-banded LOD), drives the renderer's
+path (``Svo.update``, then per pose a full-frame ``intersect_octree`` ray
+query and ``Svo.render``), holds each kernel against its plain PyTorch
+version on the card, checks a small frame against
+``tests/goldens/render_basic.npy``, and times the 1080p frame with CUDA
+events. Then it drives the game loop's path: ``Game(GameArgs())`` at its
+defaults (render distance 20, 1920x1080, shadows, the procedural world)
+loads its world and plays a scripted run of about 120 frames — flying
+across chunk boundaries (chunks unload, load and change LOD), falling to
+the ground, breaking and placing a block — then holds K5 against its plain
+version on every picker batch of that run, K3 against the plain frame on the
+streamed buffer, and times the frame loop and K5. Every phase prints its
+seconds.
 
 Tolerances: K1 against its plain version — every field of every ray
-equal (torch.equal); K3 against the plain frame — max |d| <= 1e-6 over all
+equal (torch.equal); K5 — every column of every task equal; K3 against the plain frame — max |d| <= 1e-6 over all
 pixels and channels; the golden frame — mean |d| < 0.015, the repository's
 image budget. Both kernels run the same IEEE float32 operations as their
 plain versions in the same order (built with -fmad=false); H100 runs
@@ -22,7 +30,9 @@ Times: ``ms`` of a kernel is the kernel alone — its inputs prepared
 beforehand, KERNEL_REPS launches back to back between two CUDA events —
 and the host time of its Python wrapper is printed apart. The frame time
 is CUDA events around ``Svo.render``, i.e. from the call to the finished
-frame, host work included.
+frame, host work included. The game's frame time is the host clock around
+``Game.step_frame`` and a ``torch.cuda.synchronize()``: streaming, the look
+ray, physics and the 1080p frame.
 
 Exits non-zero, printing no result, when no CUDA device is present or a
 phase fails. The last line is {"ok": true, "device": {...}}.
@@ -42,7 +52,13 @@ REPS = 5
 KERNEL_REPS = 20
 HOST_REPS = 50
 K3_MAX_ABS = 1e-6
-BUDGET_S = 300  # this script's own wall-clock budget on one H100
+BUDGET_S = 600  # this script's own wall-clock budget on one H100
+# the game phase: GameArgs() defaults; its scripted run (frames at 1/60 s)
+GAME_RENDER_DISTANCE = 20
+FLY_FRAMES = 84  # forward at 60 blocks/s: three chunk boundaries
+DESCEND_FRAMES = 36  # the last frames of the flight also descend
+FALL_FRAMES = 60  # at most, until the player lands
+EDIT_WAIT_FRAMES = 30  # at most, for the broken block's chunk to upload
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -50,6 +66,8 @@ FP32_OPS_PER_S = 67e12
 # csrc/k1_traversal.cuh (plane distances, centre tests, position updates,
 # min/max); integer work and loads are not counted, so the bound is low
 OPS_PER_STEP = 30
+# bytes a traversal step reads (one 4-byte descriptor word)
+BYTES_PER_STEP = 4
 # float operations of K3 per pixel outside the traversal (raygen, sampling,
 # normal mapping, lighting, sky), counted from csrc/kernels.cu
 OPS_PER_PIXEL = 150
@@ -233,6 +251,282 @@ def golden_check(repo: str) -> float:
     golden = np.load(os.path.join(repo, "tests", "goldens", "render_basic.npy"))
     return float(np.abs(img.astype(np.float64) - golden).mean())
 
+class PickerRecorder:
+    """Stands in for ``ops.picker.raycast`` inside ``graphics.svo``: calls
+    it, and keeps each batch, its K5 rows and the buffer it was cast on (one
+    device copy per buffer state), for the comparison after the run."""
+
+    def __init__(self, raycast):
+        self.raycast = raycast
+        self.buffers = {}  # (address, version, words) -> buffer copy
+        self.batches = []  # (buffer key, octree_scale, tasks, rows)
+
+    def __call__(self, desc, octree_scale, tasks):
+        rows = self.raycast(desc, octree_scale, tasks)
+        key = (desc.data_ptr(), desc._version, desc.numel())
+        if key not in self.buffers:
+            self.buffers[key] = desc.clone()
+        self.batches.append((key, octree_scale, tasks.clone(), rows.clone()))
+        return rows
+
+
+def play_game(game, recorder):
+    """Load the game's world, then play the scripted run with ``recorder``
+    in place of the picker's kernel call. Returns the run's numbers."""
+    import math
+
+    import torch
+
+    from voxelrs_tpu_torch.gamelogic import content
+    from voxelrs_tpu_torch.ops import picker
+
+    out = {}
+    with Phase("game load") as ph:
+        loaded = game.wait_for_world(timeout=BUDGET_S / 3)
+    out["load_s"] = ph.seconds
+    stats = game.world.world_svo.get_stats()
+    out.update(chunks=len(game.world.world.chunks),
+               svo_leaves=len(game.world.world_svo.leaf_ids),
+               svo_mb=stats.used_bytes / 1e6, depth=stats.depth)
+    log(f"game load: {out['load_s']:.2f} s (wait_for_world, loaded "
+        f"{loaded}); {out['chunks']} chunks, {out['svo_leaves']} SVO "
+        f"leaves, {out['svo_mb']:.2f} MB SVO, depth {out['depth']}, device "
+        f"buffer {game.world.world_svo.graphics_svo.device_buf.numel()} words")
+    if not loaded:
+        raise RuntimeError("the world did not finish loading")
+
+    world, player, inp = game.world, game.player, game.input
+    frame_s = []
+    # the frame's spans: host clock around each, the render's ending in a
+    # synchronize (the frame's own synchronize follows it anyway)
+    spans = {"streaming": [], "look ray": [], "physics": [], "render": []}
+    timed = [(world, "update", "streaming", False),
+             (game.gameplay, "update_look_ray", "look ray", False),
+             (world, "update_fixed", "physics", False),
+             (world, "render", "render", True)]
+
+    def span(name, fn, sync):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spans[name].append(time.perf_counter() - t0)
+            return r
+        return run
+
+    by_part = {}  # part of the run -> [(frame s, {span: s}, busy jobs)]
+
+    def frame(part):
+        """One frame, timed from the call to the finished frame, then paced
+        to 60 Hz as a display paces the game: the job threads stream chunks
+        in the rest of the 1/60 s (the pause is not in the frame time)."""
+        n0 = {k: len(v) for k, v in spans.items()}
+        busy = game.job_system.len()  # queued + running jobs
+        t0 = time.perf_counter()
+        img = game.step_frame(dt=1 / 60, render=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frame_s.append(t1 - t0)
+        by_part.setdefault(part, []).append(
+            (t1 - t0, {k: sum(v[n0[k]:]) for k, v in spans.items()}, busy))
+        time.sleep(max(0.0, 1 / 60 - (t1 - t0)))
+        return img
+
+    for obj, attr, name, sync in timed:
+        setattr(obj, attr, span(name, getattr(obj, attr), sync))
+    svo_mod = sys.modules["voxelrs_tpu_torch.graphics.svo"]
+    svo_mod.raycast = recorder
+    k5_0 = picker.launches
+    try:
+        with Phase("game run") as ph:
+            start = player.position.copy()
+            for i in range(FLY_FRAMES):
+                inp.keys_down = {"w"} | (
+                    {"shift"} if i >= FLY_FRAMES - DESCEND_FRAMES else set())
+                img = frame("fly")
+            inp.keys_down = set()
+            inp.keys_pressed = {"f"}  # flying off: the player falls
+            for _ in range(FALL_FRAMES):
+                img = frame("fall")
+                if player.state.is_grounded:
+                    break
+            landed = bool(player.state.is_grounded)
+            out["flown"] = [float(v) for v in player.position - start]
+            # break and place through the look ray, 45 degrees down ahead
+            player.euler_rotation[0] = -math.pi / 4
+            frame("edit")
+            hit = game.gameplay.looking_at
+            if hit is None:
+                raise RuntimeError("the look ray hits nothing after landing")
+            cell = tuple(int(math.floor(v)) for v in hit.pos)
+            before = world.world.get_block(*cell)
+            inp.buttons_pressed = {1}
+            frame("edit")
+            broken = world.world.get_block(*cell)
+            for _ in range(EDIT_WAIT_FRAMES):
+                frame("edit")
+                if not (world.world.has_changed_chunks()
+                        or world.world_svo.has_pending_jobs()):
+                    break
+            hit = game.gameplay.looking_at
+            target = tuple(int(math.floor(v))
+                           for v in hit.pos + hit.normal)
+            placed_before = world.world.get_block(*target)
+            inp.buttons_pressed = {2}
+            img = frame("edit")
+            placed = world.world.get_block(*target)
+    finally:
+        for obj, attr, _, _ in timed:
+            delattr(obj, attr)  # the class's method again
+        svo_mod.raycast = recorder.raycast
+    out["run_s"] = ph.seconds
+    out["frames"] = len(frame_s)
+    out["k5_per_frame"] = (picker.launches - k5_0) / len(frame_s)
+    out["landed"] = landed
+    out["edit"] = dict(cell=cell, before=int(before), broken=int(broken),
+                       placed_cell=target, placed_before=int(placed_before),
+                       placed=int(placed))
+    out["edit_ok"] = (before != content.AIR and broken == content.AIR
+                      and placed_before == content.AIR
+                      and placed == game.gameplay.selected_block)
+    fs = sorted(frame_s)
+    out["frame_ms_median"] = fs[len(fs) // 2] * 1e3
+    # p90 is the highest percentile with ten frames beyond it; p99 has one
+    out["frame_ms_p90"] = fs[int(0.9 * len(fs))] * 1e3
+    out["frame_ms_p99"] = fs[min(len(fs) - 1, int(0.99 * len(fs)))] * 1e3
+    out["frame_ms_max"] = fs[-1] * 1e3
+    total = sum(frame_s)
+    out["share"] = {k: sum(v) / total for k, v in spans.items()}
+    out["ms_per_frame"] = {k: sum(v) / len(frame_s) * 1e3
+                           for k, v in spans.items()}
+    out["physics_steps"] = len(spans["physics"])
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    out["parts"] = {part: dict(
+        frames=len(rows), frame_ms_median=med([r[0] for r in rows]) * 1e3,
+        busy_jobs_median=med([r[2] for r in rows]),
+        span_ms_median={k: med([r[1][k] for r in rows]) * 1e3
+                        for k in spans}) for part, rows in by_part.items()}
+    out["final_img_ok"] = (tuple(img.shape) == (game.args.height, game.args.width, 4)
+                           and bool(torch.isfinite(img).all()))
+    log(f"game run: {out['frames']} frames flown {out['flown']}, landed "
+        f"{landed}, edit {out['edit']} ok {out['edit_ok']}")
+    log(f"game frame (step_frame + synchronize, {game.args.width}x"
+        f"{game.args.height}): median "
+        f"{out['frame_ms_median']:.3f} ms, p90 {out['frame_ms_p90']:.3f} ms, "
+        f"p99 {out['frame_ms_p99']:.3f} ms, "
+        f"max {out['frame_ms_max']:.3f} ms; K5 {out['k5_per_frame']:.2f} "
+        f"launches/frame, {out['physics_steps']} physics steps")
+    log("game frame spans, share of frame time (mean ms a frame): " + ", ".join(
+        f"{k} {out['share'][k]:.3f} ({out['ms_per_frame'][k]:.3f})"
+        for k in spans))
+    for part, d in out["parts"].items():
+        log(f"  {part}: {d['frames']} frames, median {d['frame_ms_median']:.3f}"
+            f" ms, job queue median {d['busy_jobs_median']}, span medians (ms)"
+            f" " + ", ".join(f"{k} {v:.3f}" for k, v in
+                               d["span_ms_median"].items()))
+    return out
+
+
+def check_game(game, recorder, card):
+    """K5 against its plain version on every recorded batch, K3 against the
+    plain frame on the streamed buffer, and K5's timing."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import picker, shading
+    from voxelrs_tpu_torch.ops.traversal import MAX_STEPS, step_budget
+
+    out = {}
+    with Phase("k5 vs plain"):
+        by_buffer = {}
+        for key, scale, tasks, rows in recorder.batches:
+            by_buffer.setdefault((key, scale), []).append((tasks, rows))
+        bad = 0
+        k5_err = 0.0
+        for (key, scale), items in by_buffer.items():
+            tasks = torch.cat([t for t, _ in items])
+            rows = torch.cat([r for _, r in items])
+            ref = picker.raycast_plain(recorder.buffers[key], scale, tasks)
+            bad += int((rows != ref).any(1).sum())
+            k5_err = max(k5_err, float((rows - ref).abs().max()))
+    n_tasks = sum(t.shape[0] for _, _, t, _ in recorder.batches)
+    out.update(k5_batches=len(recorder.batches), k5_tasks=n_tasks,
+               k5_buffers=len(recorder.buffers), k5_bad=bad, k5_err=k5_err,
+               k5_ok=bad == 0 and len(recorder.batches) > 0)
+    log(f"k5 vs plain: {len(recorder.batches)} batches, {n_tasks} tasks, "
+        f"{len(recorder.buffers)} buffer states; tasks differing {bad}, "
+        f"max |d| {k5_err:.3g}; ok {out['k5_ok']}")
+
+    gsvo = game.world.world_svo.graphics_svo
+    desc, scale = gsvo.device_buf, float(gsvo.octree_scale)
+    with Phase("k3 vs plain (streamed world)"):
+        world = game.world
+        kw = gsvo.frame_kwargs(
+            world.world_svo.svo_params(world.render_params(W / H)), W, H)
+        img = shading.render_frame(desc, scale, gsvo.mips, gsvo.mat_params,
+                                   gsvo.mat_tex, **kw,
+                                   tables=gsvo.kernel_tables())
+        ref = shading.render_frame_plain(desc, scale, gsvo.mips,
+                                         gsvo.mat_params, gsvo.mat_tex, **kw)
+        d = float((img - ref).abs().max())
+    out["k3_game_err"] = d
+    out["k3_game_ok"] = d <= K3_MAX_ABS
+    log(f"k3 vs plain on the streamed buffer (final pose): max |d| {d:.3g} "
+        f"(tolerance {K3_MAX_ABS:g}); ok {out['k3_game_ok']}")
+
+    with Phase("k5 timing"):
+        # the last AABB sweep of the run, on the final buffer
+        tasks = next(t for _, _, t, _ in reversed(recorder.batches)
+                     if t.shape[0] >= 32)
+        n = tasks.shape[0]
+        rows = torch.empty((n, 8), dtype=torch.float32, device=desc.device)
+        steps = torch.empty(n, dtype=torch.int32, device=desc.device)
+        budget = step_budget(MAX_STEPS)
+        _build.launch_k5(desc, scale, tasks, budget, rows, steps)
+        k5_steps = int(steps.sum())
+        k5_ms = kernel_ms(lambda: _build.launch_k5(desc, scale, tasks,
+                                                   budget, rows))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        picker.raycast_plain(desc, scale, tasks)
+        b.record()
+        b.synchronize()
+        k5_plain_ms = a.elapsed_time(b)
+        k5_host = host_us(lambda: picker.raycast(desc, scale, tasks))
+        # the physics step's picker call (the world's Svo.raycast) with the
+        # memo cleared: coordinates, upload, launch, copy back
+        from voxelrs_tpu_torch.graphics.picker import (Aabb, PickerBatch,
+                                                       PickerBatchResult)
+
+        times = []
+        for _ in range(HOST_REPS):
+            batch = PickerBatch()  # world_svo.raycast moves it to SVO space
+            batch.add_aabb(Aabb.new(game.player.position,
+                                    game.player.aabb_def.offset,
+                                    game.player.aabb_def.extents))
+            gsvo._raycast_memo = None
+            t0 = time.perf_counter()
+            game.world.world_svo.raycast(batch, PickerBatchResult())
+            times.append((time.perf_counter() - t0) * 1e6)
+        times.sort()
+        round_trip_us = times[len(times) // 2]
+    k5_bytes = n * (28 + 32) + k5_steps * BYTES_PER_STEP
+    k5_bound = bound(k5_bytes, k5_steps * OPS_PER_STEP)
+    out.update(k5_ms=k5_ms, k5_plain_ms=k5_plain_ms, k5_host_us=k5_host,
+               k5_round_trip_us=round_trip_us, k5_bound=k5_bound,
+               k5_steps=k5_steps, k5_n=n)
+    log(f"k5 alone ({n} tasks, {k5_steps} steps, {KERNEL_REPS} back-to-back "
+        f"launches): {k5_ms:.4f} ms; plain {k5_plain_ms:.1f} ms; wrapper "
+        f"host time {k5_host:.1f} us; Svo.raycast round trip (upload, "
+        f"launch, copy back) {round_trip_us:.1f} us; bound "
+        f"{k5_bound[0]:.3g} ms ({k5_bound[1]}) on {card}")
+    return out
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -406,6 +700,36 @@ def main() -> int:
         f"(median of {HOST_REPS} calls): intersect_octree {k1_host:.1f} us, "
         f"Svo.render {k3_host:.1f} us")
 
+    # ---- 8. the game loop's path: counts from 0, load + scripted run ------
+    from voxelrs_tpu_torch.gamelogic.game import Game, GameArgs
+    from voxelrs_tpu_torch.ops import picker
+
+    recorder = PickerRecorder(picker.raycast)
+    traversal.launches = shading.launches = picker.launches = 0
+    game = Game(GameArgs(render_distance=GAME_RENDER_DISTANCE))
+    try:
+        g = play_game(game, recorder)
+        torch.cuda.synchronize()
+        k5_game, k3_game = picker.launches, shading.launches
+        log(f"game path launches: k5_picker {k5_game}, k3_frame {k3_game} "
+            f"(k1_traversal {traversal.launches}: not on this path)")
+        if k5_game == 0 or k3_game == 0:
+            fail("a kernel of the game's path was not launched")
+        if not g["final_img_ok"]:
+            fail("the game's frame has the wrong shape or non-finite values")
+        if not g["landed"]:
+            fail("the player did not land")
+        if not g["edit_ok"]:
+            fail("breaking and placing a block did not change the voxel")
+        c = check_game(game, recorder, card)
+    finally:
+        game.shutdown()
+    del recorder  # the buffer copies
+    if not c["k5_ok"]:
+        fail("K5 disagrees with its plain version")
+    if not c["k3_game_ok"]:
+        fail("K3 disagrees with the plain frame on the streamed buffer")
+
     # ---- bounds: the least time the card could take for the same work -----
     tex_bytes = sum(m.numel() * 4 for m in svo.mips)
     k1_bytes = desc.numel() * 4 + tex_bytes + B * (24 + 4) + B * 41
@@ -426,13 +750,32 @@ def main() -> int:
              replaces="voxelrs_tpu/ops/shading.py:4067", launches=k3_main,
              max_abs_err=k3_max, ms=k3_ms, plain_ms=k3_plain_ms,
              bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None,
-             ok=k3_ok, mean_abs_err=k3_mean, pixels_over_1e3=k3_bad,
-             wrapper_host_us=k3_host),
+             ok=k3_ok and c["k3_game_ok"], mean_abs_err=k3_mean,
+             pixels_over_1e3=k3_bad, wrapper_host_us=k3_host,
+             launches_game=k3_game, max_abs_err_game=c["k3_game_err"]),
+        dict(name="k5_picker", route="cuda",
+             source="voxelrs_tpu_torch/csrc/kernels.cu",
+             replaces="voxelrs_tpu/graphics/svo.py:526", launches=k5_game,
+             max_abs_err=c["k5_err"], ms=c["k5_ms"],
+             plain_ms=c["k5_plain_ms"], bound_ms=c["k5_bound"][0],
+             bound_by=c["k5_bound"][1], library_ms=None, ok=c["k5_ok"],
+             tasks=c["k5_n"], steps=c["k5_steps"],
+             batches_checked=c["k5_batches"],
+             launches_per_frame=g["k5_per_frame"],
+             wrapper_host_us=c["k5_host_us"],
+             svo_raycast_round_trip_us=c["k5_round_trip_us"]),
     ]
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {BUDGET_S} s)")
     log(json.dumps({"frame_ms": med_ms, "mrays_per_s": mrays, "card": card,
-                    "build_s": _build.build_seconds, "total_s": total}))
+                    "build_s": _build.build_seconds, "total_s": total,
+                    "game": {k: g[k] for k in (
+                        "load_s", "chunks", "svo_leaves", "svo_mb", "depth",
+                        "frames", "frame_ms_median", "frame_ms_p90",
+                        "frame_ms_p99",
+                        "frame_ms_max", "share", "ms_per_frame",
+                        "k5_per_frame", "physics_steps", "parts",
+                        "run_s")}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

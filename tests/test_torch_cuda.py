@@ -1,4 +1,5 @@
-"""Kernels K1 and K3 against their plain PyTorch versions on a CUDA card.
+"""Kernels K1, K3 and K5 against their plain PyTorch versions on a CUDA
+card, and the game loop launching K5 and K3.
 
 Every test here needs the card (marker ``cuda``) and skips without one. The
 file imports neither JAX nor ``voxelrs_tpu``, so it also runs where JAX is
@@ -10,7 +11,8 @@ Tolerances: K1 equals its plain version bit for bit (the same IEEE float32
 operations in the same order; the kernel is built with -fmad=false). K3:
 max |d| <= 1e-6 over every pixel and channel — the same operations again,
 with room only for a last-bit rounding of powf/acosf against
-torch.pow/torch.acos.
+torch.pow/torch.acos. K5 equals its plain version bit for bit, every column
+of every task.
 """
 
 import numpy as np
@@ -18,8 +20,10 @@ import pytest
 import torch
 
 from voxelrs_tpu_torch.gamelogic import content
+from voxelrs_tpu_torch.gamelogic.game import Game, GameArgs
+from voxelrs_tpu_torch.graphics.picker import Aabb, PickerBatch, PickerBatchResult
 from voxelrs_tpu_torch.graphics.svo import RenderParams, Svo
-from voxelrs_tpu_torch.ops import shading, traversal
+from voxelrs_tpu_torch.ops import picker, shading, traversal
 from voxelrs_tpu_torch.world import ChunkPos, Position
 from voxelrs_tpu_torch.world.esvo import Esvo, SerializedChunk
 
@@ -114,3 +118,71 @@ def test_k3_matches_plain(svo, dev, shadows, trilinear, monkeypatch):
     assert shading.launches == n0 + 1
     assert img.shape == (H, W, 4) and bool(torch.isfinite(img).all())
     assert float((img - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 33, 5000])
+def test_k5_equals_plain(svo, dev, n):
+    """Look rays and axis-aligned sweep rays (origins on and off the voxel
+    lattice), distance limits of 10 and 30 blocks, plus padding tasks."""
+    rng = np.random.default_rng(n)
+    o = rng.uniform(-4, 68, (n, 3))
+    o[::3] = np.round(o[::3])  # on the lattice
+    d = rng.normal(size=(n, 3))
+    d[1::2] = np.eye(3)[rng.integers(0, 3, n // 2)] * rng.choice([-1, 1], (n // 2, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    md = rng.choice([10.0, 30.0], (n, 1))
+    md[-1] = 0.0  # a padding task: max_dst 0, direction +x
+    d[-1] = (1.0, 0.0, 0.0)
+    tasks = torch.tensor(np.concatenate([md, o, d], 1), dtype=torch.float32,
+                         device=dev)
+    n0 = picker.launches
+    k = picker.raycast(svo.device_buf, svo.octree_scale, tasks)
+    p = picker.raycast_plain(svo.device_buf, svo.octree_scale, tasks)
+    torch.cuda.synchronize()
+    assert picker.launches == n0 + 1
+    assert k.shape == (n, 8) and k.dtype == torch.float32
+    if n > 100:
+        assert int((k[:, 0] > 0).sum()) > n // 10
+    for col, name in ((slice(0, 1), "dst"), (slice(1, 2), "inside"),
+                      (slice(2, 5), "pos"), (slice(5, 8), "normal")):
+        assert torch.equal(k[:, col], p[:, col]), name
+
+
+@pytest.mark.cuda
+def test_svo_raycast_launches_k5(svo, dev):
+    batch, res = PickerBatch(), PickerBatchResult()
+    batch.add_ray(np.array([12.5, 20.0, 12.5], np.float32),
+                  np.array([0.0, -1.0, 0.0], np.float32), 30.0)
+    batch.add_aabb(Aabb.new([20.3, 11.0, 20.6], [-0.4, -1.7, -0.4],
+                            [0.8, 1.8, 0.8]))
+    n0 = picker.launches
+    svo.raycast(batch, res)
+    assert picker.launches == n0 + 1
+    assert res.rays[0].did_hit() and res.rays[0].normal[1] == 1.0
+    assert res.aabbs[0].neg[1] >= 0.0  # standing on the grass
+    again = PickerBatchResult()
+    svo.raycast(batch, again)  # the same batch on the same buffer: memo
+    assert picker.launches == n0 + 1
+    assert again.rays[0].dst == res.rays[0].dst
+
+
+@pytest.mark.cuda
+def test_game_loop_launches_k5_and_k3(dev):
+    g = Game(GameArgs(player_pos=(16.37, 63.21, 16.83),
+                      player_euler_rot=(-30.0, 45.0, 0.0), render_distance=2,
+                      gpu_buffer_size_mb=16, workers=2))
+    try:
+        assert g.wait_for_world(timeout=120)
+        g.player.caps.flying = False
+        n5, n3 = picker.launches, shading.launches
+        for _ in range(10):
+            img = g.step_frame(dt=1 / 60, render=True, width=160, height=120)
+        torch.cuda.synchronize()
+        assert img.is_cuda and img.shape == (120, 160, 4)
+        assert bool(torch.isfinite(img).all())
+        assert shading.launches == n3 + 10
+        assert picker.launches > n5
+        assert g.player.state.is_grounded
+    finally:
+        g.shutdown()

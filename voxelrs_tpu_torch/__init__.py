@@ -4,14 +4,18 @@ hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``).
 The package mirrors ``voxelrs_tpu``'s layout so each module's counterpart
 sits under the same path; it imports neither JAX nor ``voxelrs_tpu``:
 
-- ``world``     — chunks, octrees, ESVO serialization (numpy, host side)
-- ``gamelogic`` — block ids, procedural textures, seeded terrain generation
-- ``systems``   — chunk-distance LOD banding
+- ``world``     — chunks, the chunk map, octrees, ESVO serialization (numpy,
+                  host side)
+- ``gamelogic`` — block ids, procedural textures, seeded terrain generation,
+                  and the game loop (``gamelogic.game``, a CLI entry point)
+- ``systems``   — the job threads, chunk loading and streaming into the SVO,
+                  worldgen driving, physics
 - ``graphics``  — the renderer front-end: device SVO buffer, materials,
-                  textures, the ``Svo.render`` entry point
-- ``ops``       — the device work: ESVO traversal (kernel K1) and the fused
-                  per-pixel frame (kernel K3), each beside its plain PyTorch
-                  version
+                  textures, the ``Svo.render`` and ``Svo.raycast`` entry
+                  points, picker batches
+- ``ops``       — the device work: ESVO traversal (kernel K1), the fused
+                  per-pixel frame (kernel K3) and the picker (kernel K5),
+                  each beside its plain PyTorch version
 - ``convert``   — carry a JAX-side world buffer and texture tables across
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``

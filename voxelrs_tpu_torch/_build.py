@@ -1,4 +1,4 @@
-"""Build and bind the CUDA kernels (K1, K3): one ``nvcc`` call, a plain C
+"""Build and bind the CUDA kernels (K1, K3, K5): one ``nvcc`` call, a plain C
 interface, ``ctypes``.
 
 At first use ``library()`` compiles ``csrc/kernels.cu`` into
@@ -123,6 +123,8 @@ def library() -> ctypes.CDLL:
     lib.vx_k1_traverse.restype = I
     lib.vx_k3_frame.argtypes = [P, LL, F, P, P, P, P, P]
     lib.vx_k3_frame.restype = I
+    lib.vx_k5_picker.argtypes = [P, LL, F, P, I, I, P, P, P]
+    lib.vx_k5_picker.restype = I
     _lib = lib
     return lib
 
@@ -164,3 +166,15 @@ def launch_k3(desc, octree_scale, tables, params: FrameParams, img,
         _ptr(desc), desc.shape[0], octree_scale, ctypes.byref(tables.struct),
         ctypes.byref(params), _ptr(img), _ptr(steps), _stream(desc.device))
     _raise_on(err, "K3 (vx_k3_frame)")
+
+
+def launch_k5(desc, octree_scale, tasks, budget, out, steps=None):
+    """Launch K5 on the current stream (inputs checked by the caller):
+    ``tasks`` (n, 7) float32, ``out`` (n, 8) float32. ``steps``, a
+    diagnostic no wrapper passes, is None or a contiguous (n,) int32 tensor
+    that receives each task's traversal steps."""
+    lib = library()
+    err = lib.vx_k5_picker(
+        _ptr(desc), desc.shape[0], octree_scale, _ptr(tasks), tasks.shape[0],
+        budget, _ptr(out), _ptr(steps), _stream(desc.device))
+    _raise_on(err, "K5 (vx_k5_picker)")

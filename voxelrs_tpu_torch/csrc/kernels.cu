@@ -1,5 +1,6 @@
-// Kernels K1 (ray-batch traversal) and K3 (the fused per-pixel frame), with
-// a plain C interface for ctypes (see voxelrs_tpu_torch/_build.py).
+// Kernels K1 (ray-batch traversal), K3 (the fused per-pixel frame) and K5
+// (the picker), with a plain C interface for ctypes (see
+// voxelrs_tpu_torch/_build.py).
 //
 // K1 replaces voxelrs_tpu/ops/traversal.py::intersect_octree (:1087), the
 // translucent classic loop and its finalize: one thread per ray, the
@@ -13,6 +14,16 @@
 // composite, writing the (H, W, 4) frame once. The small-table lookups that
 // the TPU version turns into one-hot reductions (ops/smalltab.py) are plain
 // indexed loads here.
+//
+// K5 replaces voxelrs_tpu/graphics/svo.py::_raycast_fn (:526-557), the
+// picker: one thread per task of an (n, 7) [max_dst, pos.xyz, dir.xyz]
+// batch runs K1's traversal as an opaque cast (no alpha judge) and packs
+// [dst, inside, pos.xyz, normal.xyz] into one (n, 8) float32 row, so the
+// caller makes one allocation and one device-to-host copy. A batch holds
+// 8 or 32 tasks (the look ray, or one player AABB sweep) of at most 30
+// blocks each, so one block runs it: the longest task's chain of dependent
+// loads sets the kernel's time, and around it the caller's upload and copy
+// back, not bytes or operations.
 //
 // What bounds them on an H100: the traversal's dependent loads and branch
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
@@ -203,6 +214,29 @@ k3_frame_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
   if (steps_out) steps_out[i] = steps;
 }
 
+__global__ void __launch_bounds__(BLOCK)
+k5_picker_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
+                 float octree_scale, const float* __restrict__ tasks, int n,
+                 int budget, float* __restrict__ out, int* __restrict__ steps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* task = tasks + 7 * (size_t)i;
+  const TexTables no_tables = {};  // the opaque cast reads no texture
+  Hit hit;
+  traverse(desc, n_rows, octree_scale, task[1], task[2], task[3], task[4],
+           task[5], task[6], task[0], budget, 0, no_tables, hit);
+  const bool h = hit.t > 0.f;
+  const int f = clampi(hit.face, 0, 5);
+  float* o = out + 8 * (size_t)i;
+  o[0] = h ? hit.t : -1.f;
+  o[1] = (h && hit.inside) ? 1.f : 0.f;
+  for (int k = 0; k < 3; ++k) {
+    o[2 + k] = h ? hit.pos[k] : 0.f;
+    o[5 + k] = h ? FACE_N[f][k] : 0.f;
+  }
+  if (steps) steps[i] = hit.steps;
+}
+
 inline int grid_for(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
 
 }  // namespace vx
@@ -231,6 +265,16 @@ int vx_k3_frame(const uint32_t* desc, long long n_words, float octree_scale,
   vx::k3_frame_kernel<<<vx::grid_for((long long)fp->width * fp->height),
                         vx::BLOCK, 0, (cudaStream_t)stream>>>(
       desc, (uint32_t)(n_words / 12), octree_scale, *tex, *fp, img, steps);
+  return (int)cudaGetLastError();
+}
+
+int vx_k5_picker(const uint32_t* desc, long long n_words, float octree_scale,
+                 const float* tasks, int n_tasks, int budget, float* out,
+                 int* steps, void* stream) {
+  vx::k5_picker_kernel<<<vx::grid_for(n_tasks), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      desc, (uint32_t)(n_words / 12), octree_scale, tasks, n_tasks, budget,
+      out, steps);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,13 @@
 """Renderer front-end: owns the device-resident SVO buffer, material table
-and texture mips; exposes ``update`` (delta upload) and ``render`` (one
-exact frame).
+and texture mips; exposes ``update`` (delta upload), ``render`` (one exact
+frame) and ``raycast`` (picker batches).
 
 Counterpart: voxelrs_tpu/graphics/svo.py (``__init__``, ``_grow_device``
 :113, ``update`` :150, ``reload_resources``, ``_compute_translucent_blocks``
-:207, ``render`` in ``mode="fused"`` :334-366, ``get_stats``), itself after
-reference: src/graphics/svo.rs:56-255. The persistently-mapped GL buffer is
-an int32 torch tensor holding the u32 words, patched on exactly the ranges
-the serializer changed.
+:207, ``render`` in ``mode="fused"`` :334-366, ``raycast`` :559-589,
+``get_stats``), itself after reference: src/graphics/svo.rs:56-255. The
+persistently-mapped GL buffer is an int32 torch tensor holding the u32
+words, patched on exactly the ranges the serializer changed.
 """
 
 from __future__ import annotations
@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.picker import raycast
 from ..ops.shading import KernelTables, render_frame
+from .picker import PickerBatch, PickerBatchResult
 
 
 @dataclass
@@ -65,6 +67,13 @@ class Svo:
         self.depth = 0
         self.capacity_bytes = capacity * 4
         self.stats = Stats(capacity_bytes=self.capacity_bytes)
+        # picker memo: (buffer_version, {task bytes: results}). A batch
+        # cast again against the same buffer gives the same rows, so the
+        # 250 Hz physics loop, which casts the same AABB batch every step
+        # while the player stands still, replays the earlier readback
+        # instead of a launch and a device-to-host copy.
+        self._buffer_version = 0
+        self._raycast_memo = None
 
     # -- world upload ---------------------------------------------------------
 
@@ -87,6 +96,7 @@ class Svo:
         (reference: svo.rs:171-189)."""
         from ..world.esvo import PREAMBLE_LENGTH_IN_U32
 
+        prev_depth = self.depth
         self.depth = world_svo.depth()
         self.octree_scale = (np.float32(2.0 ** -self.depth) if self.depth
                              else np.float32(1.0))
@@ -101,6 +111,8 @@ class Svo:
                 continue
             words = torch.from_numpy(self.host_buf[start:end].view(np.int32))
             self.device_buf[start:end].copy_(words)
+        if ranges or self.depth != prev_depth:
+            self._buffer_version += 1  # invalidates the picker memo
         self.stats = Stats(used_bytes=world_svo.size_in_bytes(),
                            capacity_bytes=self.capacity_bytes,
                            depth=self.depth)
@@ -171,18 +183,51 @@ class Svo:
         default — is the exact per-pixel frame with in-loop alpha judging:
         kernel K3 on the card, the plain version on the CPU. The JAX
         package's default, ``"deferred"`` (host-orchestrated rounds with
-        beams and sun certificates), is a later slice (ROADMAP.md, queue 1
-        item 10).
+        beams and sun certificates), is a later slice (ROADMAP.md, queue 1,
+        item 4: the deferred pipeline).
         """
         if mode != "fused":
             raise NotImplementedError(
                 f"Svo.render mode={mode!r}: only 'fused' is ported; the "
-                "deferred pipeline is ROADMAP.md queue 1 item 10 and the "
-                "CSVO format queue 1 item 7")
+                "deferred pipeline is ROADMAP.md queue 1 item 4 and the "
+                "CSVO format queue 1 item 1")
         return render_frame(
             self.device_buf, self.octree_scale, self.mips, self.mat_params,
             self.mat_tex, **self.frame_kwargs(params, width, height, max_steps),
             tables=self.kernel_tables() if self.device.type == "cuda" else None)
+
+    # -- picking ---------------------------------------------------------------
+
+    def raycast(self, batch: PickerBatch, result: PickerBatchResult) -> None:
+        """Run the picker over the batch (reference: svo.rs:233-255 +
+        picker.glsl:30-51): K5 on the card, the plain version on the CPU.
+        The batch is padded to ``1 << max(3, bit_length(n - 1))`` tasks, as
+        the JAX package pads it; padding tasks have ``max_dst`` 0 and
+        direction +x."""
+        tasks = batch.serialize_tasks()
+        n = len(tasks)
+        if n == 0:
+            return
+        if self._raycast_memo is None or \
+                self._raycast_memo[0] != self._buffer_version:
+            self._raycast_memo = (self._buffer_version, {})
+        memo = self._raycast_memo[1]
+        key = (n, tasks.tobytes())
+        hit = memo.get(key)
+        if hit is None:
+            n_pad = 1 << max(3, (n - 1).bit_length())
+            padded = np.zeros((n_pad, 7), np.float32)
+            padded[:n] = tasks
+            padded[n:, 4] = 1.0  # a valid direction for the padding tasks
+            rows = raycast(self.device_buf, self.octree_scale,
+                           torch.from_numpy(padded).to(self.device))
+            rows = rows.cpu().numpy()[:n]
+            if len(memo) >= 16:  # bound the entries of one buffer version
+                memo.clear()
+            hit = (rows[:, 0], rows[:, 1] != 0, rows[:, 2:5], rows[:, 5:8])
+            memo[key] = hit
+        # hand out copies: result objects hold views into these arrays
+        batch.deserialize_results(*(a.copy() for a in hit), result)
 
     def get_stats(self) -> Stats:
         return self.stats

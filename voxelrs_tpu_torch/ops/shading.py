@@ -3,11 +3,11 @@ PyTorch version and the wrapper of kernel K3.
 
 Counterpart: voxelrs_tpu/ops/shading.py — ``FACE_*``/``SKY_COLOR`` :23-37,
 ``face_texture_layer`` :60, ``make_alpha_fn`` :69, ``generate_rays`` :119,
-``sky_color`` :142, ``surface_shading`` :153, ``shade_hits`` :259 and
-``render_frame`` :4067 (reference: assets/shaders/world.glsl:27-141):
-per-pixel primary ray → SVO traversal with in-loop translucency →
-texture/normal lookup → Lambert diffuse + specular → shadow ray → sky and
-composite.
+``sky_color`` :142, ``surface_shading`` :153, ``shade_hits`` :259,
+``crosshair_overlay`` :4053 and ``render_frame`` :4067 (reference:
+assets/shaders/world.glsl:27-141): per-pixel primary ray → SVO traversal
+with in-loop translucency → texture/normal lookup → Lambert diffuse +
+specular → shadow ray → sky and composite.
 
 On CUDA tensors ``render_frame`` launches K3 (``csrc/kernels.cu``), one
 thread per pixel for the whole frame; the plain version runs on the CPU and
@@ -353,6 +353,22 @@ def frame_params(*, width, height, render_shadows, cam_pos, cam_right, cam_up,
     p.ambient = float(np.float32(ambient))
     p.shadow_distance = float(np.float32(shadow_distance))
     return p
+
+
+def crosshair_overlay(image: torch.Tensor, radius_px: float = 8.0,
+                      thickness: float = 1.5) -> torch.Tensor:
+    """Composite a smooth circular crosshair at the image center
+    (reference: assets/shaders/crosshair.glsl:27-36 — smooth circle,
+    alpha-blended). Elementwise over the (H, W, 4) frame, in plain torch."""
+    H, W = image.shape[0], image.shape[1]
+    dev = image.device
+    yy = torch.arange(H, dtype=torch.float32, device=dev)[:, None] - H / 2.0
+    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, :] - W / 2.0
+    d = torch.sqrt(yy * yy + xx * xx)
+    ring = torch.clamp(1.0 - (d - radius_px).abs() / thickness, 0.0, 1.0)
+    alpha = ring[..., None] * 0.8
+    rgb = image[..., :3] * (1 - alpha) + alpha
+    return torch.cat([rgb, image[..., 3:4]], dim=-1)
 
 
 def render_frame(descriptors, octree_scale, mips, mat_params, mat_tex, *,

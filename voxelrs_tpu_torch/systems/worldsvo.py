@@ -1,0 +1,233 @@
+"""World→device-SVO mapper: background chunk serialization, chunk shifting
+for the infinite-world illusion, and world↔SVO coordinate translation.
+
+Mirrors reference: src/systems/worldsvo.rs:38-224,437-503. The SVO only
+grows in +x/+y/+z, so the camera is kept inside the center chunk of a
+(2·render_distance)³ window; crossing a chunk boundary *shifts* every leaf
+opposite to the movement — an O(loaded chunks) pointer permutation, no data
+movement, since serialized chunk blobs are indexed by absolute pointers.
+
+Counterpart: voxelrs_tpu/systems/worldsvo.py:25-355, for the ESVO format
+only. The terrain-envelope hooks there (``HeightField``, column tops, voxel
+tops, solid bases and the opaque-block table, :94-110, :126-141, :146-160)
+feed only the beam and sun-certificate passes, which are not ported; they
+come with those passes.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+import numpy as np
+
+from ..graphics.picker import PickerBatch, PickerBatchResult
+from ..world.chunk import BlockPos, ChunkPos
+from ..world.esvo import Esvo, SerializedChunk
+from ..world.octree import LeafId, Position
+from ..world.world import BorrowedChunk
+from .jobs import ChunkProcessor, JobSystem
+
+
+class SvoCoordSpace:
+    """World↔SVO coordinate conversion with radial bounds
+    (reference: worldsvo.rs:437-503)."""
+
+    def __init__(self, center: ChunkPos, dst: int):
+        self.center = center
+        self.dst = dst
+
+    def cnv_block_pos(self, pos: np.ndarray) -> np.ndarray:
+        bp = BlockPos.from_point(float(pos[0]), float(pos[1]), float(pos[2]))
+        delta = bp.chunk - self.center
+        rd = self.dst
+        bp.chunk = ChunkPos(rd + delta.x, rd + delta.y, rd + delta.z)
+        return np.array(bp.to_point(), np.float32)
+
+    def cnv_svo_pos(self, pos: np.ndarray) -> np.ndarray:
+        bp = BlockPos.from_point(float(pos[0]), float(pos[1]), float(pos[2]))
+        rd = self.dst
+        delta = bp.chunk - ChunkPos(rd, rd, rd)
+        bp.chunk = ChunkPos(
+            self.center.x + delta.x, self.center.y + delta.y, self.center.z + delta.z
+        )
+        return np.array(bp.to_point(), np.float32)
+
+    def cnv_chunk_pos(self, pos: ChunkPos) -> Optional[Position]:
+        r = float(self.dst)
+        bx, by, bz = pos.as_block_pos()
+        p = self.cnv_block_pos(np.array([bx, by, bz], np.float64)) / 32.0
+
+        dcy = p[1] - r
+        if dcy < -r or dcy > r:
+            return None
+        dcx = p[0] - r
+        dcz = p[2] - r
+        if dcx * dcx + dcz * dcz > r * r:
+            return None
+        return Position(int(p[0]), int(p[1]), int(p[2]))
+
+
+class Svo:
+    """Streams serialized chunks into the device SVO (ESVO format)."""
+
+    def __init__(self, job_system: JobSystem, graphics_svo, render_distance: int):
+        # dropped (cancelled/stale) serialize results still own their
+        # borrowed chunk; reclaim it so the borrow + pool slot return
+        self._dropped: list[BorrowedChunk] = []
+        self.processor: ChunkProcessor = ChunkProcessor(
+            job_system, on_drop=self._reclaim_dropped)
+        self.world_svo = Esvo()
+        self.graphics_svo = graphics_svo
+        self.leaf_ids: dict[ChunkPos, LeafId] = {}
+        self.has_changed = False
+        self.coord_space = SvoCoordSpace(ChunkPos(0, 0, 0), render_distance)
+
+    # -- chunk in/out -----------------------------------------------------------
+
+    def set_chunk(self, chunk: BorrowedChunk) -> None:
+        """Serialize the borrowed chunk in the background; ownership returns
+        via ``update`` (reference: worldsvo.rs:90-99)."""
+        pos, lod, voxels = chunk.pos, chunk.lod, chunk.chunk.voxels
+
+        def produce():
+            # per-chunk serialization trace, recorded only when the chunk
+            # produced data (reference: worldsvo.rs:93-98 trace_if has_data)
+            from ..gamelogic import benchmark
+
+            return benchmark.trace_if(
+                "serialize_chunk",
+                lambda: SerializedChunk.from_voxels(pos, voxels, lod,
+                                                    borrowed_chunk=chunk),
+                lambda sc: sc.has_data(),
+            )
+
+        self.processor.enqueue(pos, True, produce)
+
+    def remove_chunk(self, pos: ChunkPos) -> None:
+        self.processor.dequeue(pos)
+        leaf_id = self.leaf_ids.pop(pos, None)
+        if leaf_id is not None:
+            self.world_svo.remove_leaf(leaf_id)
+            self.has_changed = True
+
+    def has_pending_jobs(self) -> bool:
+        return self.processor.has_pending()
+
+    def get_render_distance(self) -> int:
+        return self.coord_space.dst
+
+    def set_radius(self, radius: int) -> None:
+        self.coord_space.dst = radius
+        self._on_coord_space_change()
+
+    # -- per-frame update ---------------------------------------------------------
+
+    def update(self, world_center: ChunkPos, limit: int = 400) -> list[BorrowedChunk]:
+        """Re-center (shifting chunks if needed), drain finished
+        serializations into the SVO, and upload deltas to the device
+        (reference: worldsvo.rs:133-151)."""
+        if self.coord_space.center != world_center:
+            self.coord_space.center = world_center
+            self._on_coord_space_change()
+
+        results = self.processor.get_results(limit)
+        chunks = self._process_serialized(results)
+
+        if not self.has_changed:
+            return chunks
+
+        self.has_changed = False
+        self.world_svo.serialize()
+        self.graphics_svo.update(self.world_svo)
+        return chunks
+
+    def _on_coord_space_change(self) -> None:
+        self.has_changed = True
+        self.shift_chunks(self.coord_space, self.leaf_ids, self.world_svo)
+
+    @staticmethod
+    def shift_chunks(coord_space: SvoCoordSpace, leaf_ids: dict, world_svo) -> None:
+        """Move every leaf to its new SVO position; out-of-bounds leaves drop,
+        leaves displaced by another move re-insert without re-serialization
+        (reference: worldsvo.rs:161-196)."""
+        overridden: dict[LeafId, object] = {}
+        removed: list[ChunkPos] = []
+
+        for chunk_pos, leaf_id in list(leaf_ids.items()):
+            new_svo_pos = coord_space.cnv_chunk_pos(chunk_pos)
+            if new_svo_pos is None:
+                if leaf_id not in overridden:
+                    world_svo.remove_leaf(leaf_id)
+                overridden.pop(leaf_id, None)
+                removed.append(chunk_pos)
+                continue
+
+            if leaf_id in overridden:
+                value = overridden.pop(leaf_id)
+                new_leaf_id, old_value = world_svo.set_leaf(new_svo_pos, value, False)
+            else:
+                new_leaf_id, old_value = world_svo.move_leaf(leaf_id, new_svo_pos)
+
+            leaf_ids[chunk_pos] = new_leaf_id
+            if old_value is not None:
+                overridden[new_leaf_id] = old_value
+
+        for pos in removed:
+            leaf_ids.pop(pos, None)
+
+    def _reclaim_dropped(self, sc: SerializedChunk) -> None:
+        bc = sc.take_borrowed_chunk()
+        if bc is not None:
+            self._dropped.append(bc)
+
+    def _process_serialized(self, results) -> list[BorrowedChunk]:
+        chunks: list[BorrowedChunk] = []
+        if self._dropped:
+            chunks.extend(self._dropped)
+            self._dropped.clear()
+        for result in results:
+            sc: SerializedChunk = result.value
+            borrowed = sc.take_borrowed_chunk()
+            if borrowed is not None:
+                chunks.append(borrowed)
+
+            svo_pos = self.coord_space.cnv_chunk_pos(result.pos)
+            if svo_pos is None:
+                continue
+            leaf_id, _ = self.world_svo.set_leaf(svo_pos, sc, True)
+            self.leaf_ids[result.pos] = leaf_id
+            self.has_changed = True
+        return chunks
+
+    # -- graphics passthrough with coordinate translation -------------------------
+
+    def svo_params(self, params):
+        """A copy of the render parameters ``params`` with the camera and
+        the highlighted block moved into SVO space."""
+        p = copy.copy(params)
+        p.cam_pos = self.coord_space.cnv_block_pos(np.asarray(params.cam_pos, np.float64))
+        if params.selected_voxel is not None:
+            p.selected_voxel = self.coord_space.cnv_block_pos(
+                np.asarray(params.selected_voxel, np.float64)
+            )
+        return p
+
+    def render(self, params, width: int, height: int, max_steps: int = 1000):
+        """One exact frame (``graphics.Svo.render``, mode "fused": kernel
+        K3 on the card) of the world-space ``params``."""
+        return self.graphics_svo.render(self.svo_params(params), width,
+                                        height, max_steps, mode="fused")
+
+    def raycast(self, batch: PickerBatch, result: PickerBatchResult) -> None:
+        for ray in batch.rays:
+            ray.pos = self.coord_space.cnv_block_pos(ray.pos)
+        for aabb in batch.aabbs:
+            aabb.pos = self.coord_space.cnv_block_pos(aabb.pos)
+        self.graphics_svo.raycast(batch, result)
+        for ray in result.rays:
+            if ray.did_hit():
+                ray.pos = self.coord_space.cnv_svo_pos(ray.pos)
+
+    def get_stats(self):
+        return self.graphics_svo.get_stats()
