@@ -259,6 +259,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "systems/physics.py", "systems/worldsvo.py",
                    "graphics/picker.py", "ops/picker.py",
                    "gamelogic/benchmark.py", "gamelogic/gameplay.py",
-                   "gamelogic/world.py", "gamelogic/game.py"):
+                   "gamelogic/world.py", "gamelogic/game.py",
+                   "native/__init__.py", "world/common.py", "world/csvo.py",
+                   "ops/traversal_csvo.py", "convert.py"):
         assert f"voxelrs_tpu_torch/{module}" in seen, module
     assert not bad, bad

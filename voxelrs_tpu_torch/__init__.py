@@ -4,8 +4,10 @@ hand-written CUDA kernels for an NVIDIA H100 (``sm_90a``).
 The package mirrors ``voxelrs_tpu``'s layout so each module's counterpart
 sits under the same path; it imports neither JAX nor ``voxelrs_tpu``:
 
-- ``world``     — chunks, the chunk map, octrees, ESVO serialization (numpy,
-                  host side)
+- ``world``     — chunks, the chunk map, octrees, ESVO and CSVO serialization
+                  (numpy, host side)
+- ``native``    — the C++ chunk serializers (ESVO, CSVO), built with g++ at
+                  first use and called through ctypes
 - ``gamelogic`` — block ids, procedural textures, seeded terrain generation,
                   and the game loop (``gamelogic.game``, a CLI entry point)
 - ``systems``   — the job threads, chunk loading and streaming into the SVO,
@@ -13,10 +15,12 @@ sits under the same path; it imports neither JAX nor ``voxelrs_tpu``:
 - ``graphics``  — the renderer front-end: device SVO buffer, materials,
                   textures, the ``Svo.render`` and ``Svo.raycast`` entry
                   points, picker batches
-- ``ops``       — the device work: ESVO traversal (kernel K1), the fused
-                  per-pixel frame (kernel K3) and the picker (kernel K5),
-                  each beside its plain PyTorch version
-- ``convert``   — carry a JAX-side world buffer and texture tables across
+- ``ops``       — the device work: ESVO traversal (kernel K1), CSVO
+                  traversal (kernel K4), the fused per-pixel frame (kernel
+                  K3) and the picker (kernel K5), each beside its plain
+                  PyTorch version
+- ``convert``   — carry a JAX-side world buffer (ESVO or CSVO) and texture
+                  tables across
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``device.resolve_device``); on the CPU every kernel wrapper takes its plain

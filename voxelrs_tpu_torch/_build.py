@@ -1,5 +1,5 @@
-"""Build and bind the CUDA kernels (K1, K3, K5): one ``nvcc`` call, a plain C
-interface, ``ctypes``.
+"""Build and bind the CUDA kernels (K1, K3, K4, K5): one ``nvcc`` call, a
+plain C interface, ``ctypes``.
 
 At first use ``library()`` compiles ``csrc/kernels.cu`` into
 ``_build/<sha256 of sources and flags>/libvoxelrs_kernels.so`` (a directory
@@ -10,7 +10,9 @@ pointers and the stream cross as ``ctypes.c_void_p`` integers.
 
 Each launch function checks the C entry point's return value
 (``cudaGetLastError()`` after the launch) and raises if it is not 0. None of
-them synchronises.
+them synchronises. K3 and K5 take the world as an ESVO buffer (an int32
+tensor) or a CSVO world (``(words, root_ptr, total_depth)``, as
+``ops.traversal_csvo.CsvoBuffer``) and launch that format's instantiation.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import time
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("csrc/kernels.cu", "csrc/k1_traversal.cuh")
+_SOURCES = ("csrc/kernels.cu", "csrc/k1_traversal.cuh",
+            "csrc/k4_csvo_traversal.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -125,6 +128,14 @@ def library() -> ctypes.CDLL:
     lib.vx_k3_frame.restype = I
     lib.vx_k5_picker.argtypes = [P, LL, F, P, I, I, P, P, P]
     lib.vx_k5_picker.restype = I
+    U = ctypes.c_uint
+    lib.vx_k4_traverse.argtypes = [P, LL, F, U, I, P, P, P, I, I, I, P,
+                                   P, P, P, P, P, P, P, P, P]
+    lib.vx_k4_traverse.restype = I
+    lib.vx_k3_frame_csvo.argtypes = [P, LL, F, U, I, P, P, P, P, P]
+    lib.vx_k3_frame_csvo.restype = I
+    lib.vx_k5_picker_csvo.argtypes = [P, LL, F, U, I, P, I, I, P, P, P]
+    lib.vx_k5_picker_csvo.restype = I
     _lib = lib
     return lib
 
@@ -155,26 +166,54 @@ def launch_k1(desc, octree_scale, ro, rd, max_dst, budget, alpha_mode,
     _raise_on(err, "K1 (vx_k1_traverse)")
 
 
-def launch_k3(desc, octree_scale, tables, params: FrameParams, img,
+def launch_k3(world, octree_scale, tables, params: FrameParams, img,
               steps=None):
-    """Launch K3 on the current stream (inputs checked by the caller).
-    ``steps``, a diagnostic no wrapper passes, is None or a contiguous
-    (H*W,) int32 tensor that receives each pixel's traversal steps, primary
-    plus shadow."""
+    """Launch K3 on the current stream (inputs checked by the caller), the
+    ESVO or the CSVO instantiation by ``world``. ``steps``, a diagnostic no
+    wrapper passes, is None or a contiguous (H*W,) int32 tensor that
+    receives each pixel's traversal steps, primary plus shadow."""
     lib = library()
-    err = lib.vx_k3_frame(
-        _ptr(desc), desc.shape[0], octree_scale, ctypes.byref(tables.struct),
-        ctypes.byref(params), _ptr(img), _ptr(steps), _stream(desc.device))
+    tail = (ctypes.byref(tables.struct), ctypes.byref(params), _ptr(img),
+            _ptr(steps))
+    if isinstance(world, torch.Tensor):
+        err = lib.vx_k3_frame(_ptr(world), world.shape[0], octree_scale,
+                              *tail, _stream(world.device))
+    else:
+        words, root_ptr, depth = world
+        err = lib.vx_k3_frame_csvo(_ptr(words), words.shape[0], octree_scale,
+                                   root_ptr, depth, *tail,
+                                   _stream(words.device))
     _raise_on(err, "K3 (vx_k3_frame)")
 
 
-def launch_k5(desc, octree_scale, tasks, budget, out, steps=None):
-    """Launch K5 on the current stream (inputs checked by the caller):
-    ``tasks`` (n, 7) float32, ``out`` (n, 8) float32. ``steps``, a
-    diagnostic no wrapper passes, is None or a contiguous (n,) int32 tensor
-    that receives each task's traversal steps."""
+def launch_k4(words, octree_scale, root_ptr, total_depth, ro, rd, max_dst,
+              budget, alpha_mode, tables, t, value, face, pos, uv, lod,
+              inside, steps):
+    """Launch K4 on the current stream (inputs checked by the caller)."""
     lib = library()
-    err = lib.vx_k5_picker(
-        _ptr(desc), desc.shape[0], octree_scale, _ptr(tasks), tasks.shape[0],
-        budget, _ptr(out), _ptr(steps), _stream(desc.device))
+    tex = None if tables is None else ctypes.byref(tables.struct)
+    err = lib.vx_k4_traverse(
+        _ptr(words), words.shape[0], octree_scale, root_ptr, total_depth,
+        _ptr(ro), _ptr(rd), _ptr(max_dst), ro.shape[0], budget, alpha_mode,
+        tex, _ptr(t), _ptr(value), _ptr(face), _ptr(pos), _ptr(uv), _ptr(lod),
+        _ptr(inside), _ptr(steps), _stream(words.device))
+    _raise_on(err, "K4 (vx_k4_traverse)")
+
+
+def launch_k5(world, octree_scale, tasks, budget, out, steps=None):
+    """Launch K5 on the current stream (inputs checked by the caller), the
+    ESVO or the CSVO instantiation by ``world``: ``tasks`` (n, 7) float32,
+    ``out`` (n, 8) float32. ``steps``, a diagnostic no wrapper passes, is
+    None or a contiguous (n,) int32 tensor that receives each task's
+    traversal steps."""
+    lib = library()
+    tail = (_ptr(tasks), tasks.shape[0], budget, _ptr(out), _ptr(steps))
+    if isinstance(world, torch.Tensor):
+        err = lib.vx_k5_picker(_ptr(world), world.shape[0], octree_scale,
+                               *tail, _stream(world.device))
+    else:
+        words, root_ptr, depth = world
+        err = lib.vx_k5_picker_csvo(_ptr(words), words.shape[0],
+                                    octree_scale, root_ptr, depth, *tail,
+                                    _stream(words.device))
     _raise_on(err, "K5 (vx_k5_picker)")

@@ -3,7 +3,9 @@
 ``svo_state_from_jax`` takes the JAX package's world buffer and texture and
 material tables as numpy arrays (for example ``np.asarray(svo.device_buf)``
 and ``np.asarray(m) for m in svo.mips``) and returns this package's tensors
-on ``device``. Data here plays the part weights play in a model port.
+on ``device``; ``csvo_buffer_from_jax`` carries a CSVO world (the JAX
+``Svo.device_buf`` words, ``root_ptr`` and ``depth``) across as a
+``CsvoBuffer``. Data here plays the part weights play in a model port.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .ops.traversal_csvo import CsvoBuffer, check_words
 
 
 class SvoState(NamedTuple):
@@ -45,3 +48,19 @@ def svo_state_from_jax(descriptors, octree_scale, mips, mat_params, mat_tex,
         mat_params=tensor(mat_params, np.float32),
         mat_tex=tensor(mat_tex, np.int32),
     )
+
+
+def csvo_buffer_from_jax(words, root_ptr, total_depth,
+                         device=None) -> CsvoBuffer:
+    """A ``CsvoBuffer`` from the JAX package's CSVO world: its
+    ``Svo.device_buf`` (the node stream after the 4-byte prefix as uint32
+    words), ``root_ptr`` and ``depth``. The words keep their bits."""
+    w = np.ascontiguousarray(np.asarray(words))
+    if w.dtype != np.uint32 or w.ndim != 1:
+        raise ValueError(f"words: expected a 1-d uint32 array, got "
+                         f"{w.dtype} {w.shape}")
+    buf = CsvoBuffer(torch.tensor(w.view(np.int32),
+                                  device=resolve_device(device)),
+                     int(root_ptr), int(total_depth))
+    check_words(*buf)
+    return buf

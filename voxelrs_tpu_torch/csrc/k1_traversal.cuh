@@ -1,5 +1,7 @@
 // ESVO traversal (K1) and the texel samplers (K2 and the shading sampler)
-// as __device__ functions, shared by the K1 and K3 kernels in kernels.cu.
+// as __device__ functions, shared by the kernels in kernels.cu. The
+// traversal loop (traverse_with) is a template on a node cursor: the ESVO
+// cursor here, the CSVO cursor in k4_csvo_traversal.cuh (K4).
 //
 // Replaces (JAX package): voxelrs_tpu/ops/traversal.py::intersect_octree
 // (classic loop: make_ray_consts :124, init_state :162, traversal_step :311,
@@ -7,8 +9,8 @@
 // :69 (K2) and voxelrs_tpu/ops/texture.py::sample_texture_lod :23.
 //
 // Design: one thread per ray, as in the reference GLSL
-// (assets/shaders/svo.esvo.glsl). The 12-entry (pp, t_max) stack lives in
-// local memory; each step reads one word of one 12-word block. The JAX
+// (assets/shaders/svo.esvo.glsl). The 12-entry (node, t_max) stack lives
+// in local memory; each step reads one word of one 12-word block. The JAX
 // version's TPU structure (lock-step batch, one-hot stacks, fat rows) is not
 // carried over. The arithmetic follows the JAX classic loop operation by
 // operation — separate multiplies and subtracts (build with -fmad=false),
@@ -177,15 +179,61 @@ __device__ float texel_alpha(const TexTables& tx, int mode, uint32_t value,
   return texel(tx, tx.level_off[dl] + layer * h * w + y * w + x).w;
 }
 
-// One ray through the ESVO buffer. `budget` is the step bound (max_steps
-// rounded up to a multiple of 4); `max_dst` < 0 means unlimited; alpha_mode
-// 0 = opaque cast (stop at the first leaf), else translucent pass-through
-// judged by texel_alpha.
-__device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
-                         float octree_scale, float ro_x, float ro_y, float ro_z,
-                         float rd_x, float rd_y, float rd_z, float max_dst,
-                         int budget, int alpha_mode, const TexTables& tx,
-                         Hit& out) {
+// The ESVO node cursor of one ray: the packed stack word ``node`` =
+// ptr | parent_idx << 28 and the reads of the ESVO buffer. ``traverse_with``
+// drives the traversal through it; the CSVO cursor (k4_csvo_traversal.cuh)
+// has the same four methods over the CSVO byte stream.
+struct EsvoCursor {
+  const uint32_t* __restrict__ desc;
+  uint32_t n_rows;
+  uint32_t node;
+
+  __device__ EsvoCursor(const uint32_t* __restrict__ d, uint32_t rows)
+      : desc(d), n_rows(rows), node(0u) {}
+
+  // child / leaf bits of child `oct` of the current node (the step's
+  // descriptor fetch)
+  __device__ __forceinline__ void probe(int oct, bool& is_child,
+                                        bool& is_leaf) const {
+    const uint32_t ptr = node & PTR_MASK;
+    const uint32_t pidx = node >> PTR_BITS;
+    const uint32_t bit = 1u << oct;
+    uint32_t d = block_word(desc, n_rows, ptr, pidx >> 1);
+    if (pidx & 1u) d >>= 16;
+    is_child = (d & (bit << 8)) != 0u;
+    is_leaf = (d & bit) != 0u;
+  }
+
+  __device__ __forceinline__ uint32_t child_block(uint32_t& ptr) const {
+    ptr = node & PTR_MASK;
+    const uint32_t pidx = node >> PTR_BITS;
+    return resolve_ptr(block_word(desc, n_rows, ptr, 4u + pidx), ptr, pidx);
+  }
+
+  // value of leaf child `oct` of the current node
+  __device__ __forceinline__ uint32_t leaf_value(int oct) const {
+    uint32_t ptr;
+    const uint32_t next = child_block(ptr);
+    return block_word(desc, n_rows, next, 4u + (uint32_t)oct);
+  }
+
+  // descend into child `oct`
+  __device__ __forceinline__ void push(int oct) {
+    uint32_t ptr;
+    const uint32_t next = child_block(ptr);
+    node = (next & PTR_MASK) | ((uint32_t)oct << PTR_BITS);
+  }
+};
+
+// One ray through the octree behind `cur` (the JAX classic loop).
+// `budget` is the step bound (max_steps rounded up to the JAX loop's
+// unroll); `max_dst` < 0 means unlimited; alpha_mode 0 = opaque cast (stop
+// at the first leaf), else translucent pass-through judged by texel_alpha.
+template <class Cursor>
+__device__ __forceinline__ void traverse_with(
+    Cursor cur, float octree_scale, float ro_x, float ro_y, float ro_z,
+    float rd_x, float rd_y, float rd_z, float max_dst, int budget,
+    int alpha_mode, const TexTables& tx, Hit& out) {
   // ---- ray constants (make_ray_consts) --------------------------------
   const float rox = ro_x * octree_scale + 1.f;
   const float roy = ro_y * octree_scale + 1.f;
@@ -216,12 +264,11 @@ __device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
   float posx = in_x ? 1.5f : 1.f, posy = in_y ? 1.5f : 1.f,
         posz = in_z ? 1.5f : 1.f;
   float h = t_max;
-  uint32_t pp = 0;
-  uint32_t stack_pp[STACK_HEIGHT];
+  uint32_t stack_node[STACK_HEIGHT];
   float stack_tmax[STACK_HEIGHT];
 #pragma unroll
   for (int i = 0; i < STACK_HEIGHT; ++i) {
-    stack_pp[i] = 0u;
+    stack_node[i] = 0u;
     stack_tmax[i] = 0.f;
   }
   int adj_count = 0;
@@ -240,29 +287,22 @@ __device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
     out.steps++;
     if (md >= 0.f && t_min > md) break;  // distance limit (glsl:153-156)
 
-    const uint32_t ptr = pp & PTR_MASK;
-    const uint32_t pidx = pp >> PTR_BITS;
     const float se = exp2_scale(scale);
     const float tcox = posx * tcx - tbx;
     const float tcoy = posy * tcy - tby;
     const float tcoz = posz * tcz - tbz;
     const float tc_max = fminf(fminf(tcox, tcoy), tcoz);
     const int oct = idx ^ octant_mask;
-    const uint32_t bit = 1u << oct;
 
-    uint32_t d = block_word(desc, n_rows, ptr, pidx >> 1);
-    if (pidx & 1u) d >>= 16;
-    const bool is_child = (d & (bit << 8)) != 0u;
-    const bool is_leaf = (d & bit) != 0u;
+    bool is_child, is_leaf;
+    cur.probe(oct, is_child, is_leaf);
     const bool hit_branch = is_child && t_min <= t_max;
     if (hit_branch && is_leaf && t_min == 0.f) out.inside = true;
     const bool leaf_hit = hit_branch && is_leaf && t_min > 0.f;
 
     if (leaf_hit) {
       // ---- HIT (glsl:185-265): candidate record (hit_phase) ----------
-      const uint32_t raw = block_word(desc, n_rows, ptr, 4u + pidx);
-      const uint32_t next = resolve_ptr(raw, ptr, pidx);
-      const uint32_t leaf_value = block_word(desc, n_rows, next, 4u + (uint32_t)oct);
+      const uint32_t leaf_value = cur.leaf_value(oct);
 
       const float t2x = (posx + se) * tcx - tbx;
       const float t2y = (posy + se) * tcy - tby;
@@ -326,16 +366,14 @@ __device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
     if (want_push) {
       const int slot = scale - STACK_BASE;
       if (tc_max < h && slot >= 0 && slot < STACK_HEIGHT) {
-        stack_pp[slot] = pp;
+        stack_node[slot] = cur.node;
         stack_tmax[slot] = t_max;
       }
       h = tc_max;
-      const uint32_t raw = block_word(desc, n_rows, ptr, 4u + pidx);
-      const uint32_t next = resolve_ptr(raw, ptr, pidx);
       const bool pin_x = t_min < half * tcx + tcox;
       const bool pin_y = t_min < half * tcy + tcoy;
       const bool pin_z = t_min < half * tcz + tcoz;
-      pp = (next & PTR_MASK) | ((uint32_t)oct << PTR_BITS);
+      cur.push(oct);
       scale -= 1;
       idx = (int)pin_x | ((int)pin_y << 1) | ((int)pin_z << 2);
       posx = posx + (pin_x ? half : 0.f);
@@ -371,7 +409,7 @@ __device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
     const int pop_scale = 31 - __clz(db);
     if (pop_scale >= MAX_SCALE) break;  // left the octree
     const int pslot = clampi(pop_scale - STACK_BASE, 0, STACK_HEIGHT - 1);
-    pp = stack_pp[pslot];
+    cur.node = stack_node[pslot];
     t_max = stack_tmax[pslot];
     const int sc = clampi(pop_scale, 0, MAX_SCALE);
     const uint32_t shx = __float_as_uint(ax) >> sc;
@@ -384,6 +422,16 @@ __device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
     scale = pop_scale;
     h = 0.f;
   }
+}
+
+// One ray through the ESVO buffer (K1's traversal; see traverse_with).
+__device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
+                         float octree_scale, float ro_x, float ro_y, float ro_z,
+                         float rd_x, float rd_y, float rd_z, float max_dst,
+                         int budget, int alpha_mode, const TexTables& tx,
+                         Hit& out) {
+  traverse_with(EsvoCursor(desc, n_rows), octree_scale, ro_x, ro_y, ro_z,
+                rd_x, rd_y, rd_z, max_dst, budget, alpha_mode, tx, out);
 }
 
 }  // namespace vx

@@ -1,17 +1,23 @@
-// Kernels K1 (ray-batch traversal), K3 (the fused per-pixel frame) and K5
-// (the picker), with a plain C interface for ctypes (see
-// voxelrs_tpu_torch/_build.py).
+// Kernels K1 (ESVO ray-batch traversal), K3 (the fused per-pixel frame),
+// K4 (CSVO ray-batch traversal) and K5 (the picker), with a plain C
+// interface for ctypes (see voxelrs_tpu_torch/_build.py). K3 and K5 are
+// templates on the world format: an ESVO buffer (K1's traversal) or a CSVO
+// byte stream (K4's), each instantiated once.
 //
 // K1 replaces voxelrs_tpu/ops/traversal.py::intersect_octree (:1087), the
 // translucent classic loop and its finalize: one thread per ray, the
-// traversal in k1_traversal.cuh.
+// traversal in k1_traversal.cuh. K4 replaces
+// voxelrs_tpu/ops/traversal_csvo.py::intersect_octree_csvo (:151) the same
+// way, with the CSVO cursor of k4_csvo_traversal.cuh.
 //
 // K3 replaces voxelrs_tpu/ops/shading.py::render_frame (:4067) with
 // generate_rays :119, the primary intersect_octree, surface_shading :153
 // (with texture.py::sample_texture_lod :23 and the paired-atlas branch
 // :199-214), shade_hits :259 (shadow ray) and sky_color :142: one thread per
 // pixel runs raygen, the primary trace, shading, the shadow trace and the
-// composite, writing the (H, W, 4) frame once. The small-table lookups that
+// composite, writing the (H, W, 4) frame once; its CSVO instantiation is
+// the JAX Svo.render of a CSVO buffer (graphics/svo.py:292-331), whose
+// shadow rays get the frame's step budget. The small-table lookups that
 // the TPU version turns into one-hot reductions (ops/smalltab.py) are plain
 // indexed loads here.
 //
@@ -21,7 +27,8 @@
 // [dst, inside, pos.xyz, normal.xyz] into one (n, 8) float32 row, so the
 // caller makes one allocation and one device-to-host copy. A batch holds
 // 8 or 32 tasks (the look ray, or one player AABB sweep) of at most 30
-// blocks each, so one block runs it: the longest task's chain of dependent
+// blocks each, so one block runs it (the CSVO instantiation replaces the
+// CSVO branch :535-541): the longest task's chain of dependent
 // loads sets the kernel's time, and around it the caller's upload and copy
 // back, not bytes or operations.
 //
@@ -40,6 +47,7 @@
 #include <cstdint>
 
 #include "k1_traversal.cuh"
+#include "k4_csvo_traversal.cuh"
 
 namespace vx {
 
@@ -50,7 +58,7 @@ struct FrameParams {
   int width, height;
   int render_shadows;
   int primary_budget;  // step budget of the primary rays
-  int shadow_budget;   // shadow rays always get MAX_STEPS (1000)
+  int shadow_budget;   // ESVO: MAX_STEPS (1000); CSVO: the primary budget
   int trilinear;       // 1 = LINEAR_MIPMAP_LINEAR shading (VOXELRS_TRILINEAR)
   float cam_pos[3], right[3], up[3], fwd[3];
   float aspect, tan_half, ambient, shadow_distance;
@@ -65,6 +73,38 @@ __constant__ float FACE_T[6][3] = {{0, 0, 1}, {0, 0, -1}, {1, 0, 0},
                                    {1, 0, 0}, {-1, 0, 0}, {1, 0, 0}};
 __constant__ float FACE_B[6][3] = {{0, 1, 0}, {0, 1, 0}, {0, 0, 1},
                                    {0, 0, 1}, {0, 1, 0}, {0, 1, 0}};
+
+// The world formats K3 and K5 are instantiated on: each traces one ray
+// with its own traversal.
+struct EsvoWorld {
+  const uint32_t* __restrict__ desc;
+  uint32_t n_rows;
+
+  __device__ __forceinline__ void trace(float octree_scale, float ox,
+                                        float oy, float oz, float dx,
+                                        float dy, float dz, float max_dst,
+                                        int budget, int alpha_mode,
+                                        const TexTables& tx, Hit& out) const {
+    traverse(desc, n_rows, octree_scale, ox, oy, oz, dx, dy, dz, max_dst,
+             budget, alpha_mode, tx, out);
+  }
+};
+
+struct CsvoWorld {
+  const uint32_t* __restrict__ words;
+  uint32_t n_words;
+  uint32_t root_ptr;
+  int total_depth;
+
+  __device__ __forceinline__ void trace(float octree_scale, float ox,
+                                        float oy, float oz, float dx,
+                                        float dy, float dz, float max_dst,
+                                        int budget, int alpha_mode,
+                                        const TexTables& tx, Hit& out) const {
+    traverse_csvo(words, n_words, root_ptr, total_depth, octree_scale, ox, oy,
+                  oz, dx, dy, dz, max_dst, budget, alpha_mode, tx, out);
+  }
+};
 
 __global__ void __launch_bounds__(BLOCK)
 k1_traverse_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
@@ -94,6 +134,34 @@ k1_traverse_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
   steps[i] = hit.steps;
 }
 
+__global__ void __launch_bounds__(BLOCK)
+k4_traverse_kernel(CsvoWorld world, float octree_scale,
+                   const float* __restrict__ ro, const float* __restrict__ rd,
+                   const float* __restrict__ max_dst, int n, int budget,
+                   int alpha_mode, TexTables tx, float* __restrict__ t,
+                   uint32_t* __restrict__ value, int* __restrict__ face,
+                   float* __restrict__ pos, float* __restrict__ uv,
+                   float* __restrict__ lod, uint8_t* __restrict__ inside,
+                   int* __restrict__ steps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Hit hit;
+  world.trace(octree_scale, ro[3 * i], ro[3 * i + 1], ro[3 * i + 2], rd[3 * i],
+              rd[3 * i + 1], rd[3 * i + 2], max_dst[i], budget, alpha_mode, tx,
+              hit);
+  t[i] = hit.t;
+  value[i] = hit.value;
+  face[i] = hit.face;
+  pos[3 * i] = hit.pos[0];
+  pos[3 * i + 1] = hit.pos[1];
+  pos[3 * i + 2] = hit.pos[2];
+  uv[2 * i] = hit.u;
+  uv[2 * i + 1] = hit.v;
+  lod[i] = hit.lod;
+  inside[i] = hit.inside ? 1 : 0;
+  steps[i] = hit.steps;
+}
+
 __device__ void sky_color(const FrameParams& fp, float rdx, float rdz,
                           float* rgb) {
   const float horiz = sqrtf(rdx * rdx + rdz * rdz);
@@ -105,9 +173,9 @@ __device__ void sky_color(const FrameParams& fp, float rdx, float rdz,
     rgb[k] = fp.horizon[k] * (1.f - grad) + fp.sky[k] * grad;
 }
 
+template <class World>
 __global__ void __launch_bounds__(BLOCK)
-k3_frame_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
-                float octree_scale, TexTables tx, FrameParams fp,
+k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
                 float* __restrict__ img, int* __restrict__ steps_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= fp.width * fp.height) return;
@@ -127,9 +195,8 @@ k3_frame_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
 
   // ---- primary trace ---------------------------------------------------
   Hit p;
-  traverse(desc, n_rows, octree_scale, fp.cam_pos[0], fp.cam_pos[1],
-           fp.cam_pos[2], rd[0], rd[1], rd[2], -1.f, fp.primary_budget, 1, tx,
-           p);
+  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
+              rd[1], rd[2], -1.f, fp.primary_budget, 1, tx, p);
   int steps = p.steps;
   if (p.t == -1.f) {
     float rgb[3];
@@ -199,10 +266,10 @@ k3_frame_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
   float shadow = 1.f;
   if (fp.render_shadows && p.t < fp.shadow_distance) {
     Hit s;
-    traverse(desc, n_rows, octree_scale, p.pos[0] + n[0] * 0.001f,
-             p.pos[1] + n[1] * 0.001f, p.pos[2] + n[2] * 0.001f,
-             -fp.light_dir[0], -fp.light_dir[1], -fp.light_dir[2], -1.f,
-             fp.shadow_budget, 1, tx, s);
+    world.trace(octree_scale, p.pos[0] + n[0] * 0.001f,
+                p.pos[1] + n[1] * 0.001f, p.pos[2] + n[2] * 0.001f,
+                -fp.light_dir[0], -fp.light_dir[1], -fp.light_dir[2], -1.f,
+                fp.shadow_budget, 1, tx, s);
     steps += s.steps;
     shadow = s.t < 0.f ? 1.f : 0.f;
   }
@@ -214,17 +281,18 @@ k3_frame_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
   if (steps_out) steps_out[i] = steps;
 }
 
+template <class World>
 __global__ void __launch_bounds__(BLOCK)
-k5_picker_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
-                 float octree_scale, const float* __restrict__ tasks, int n,
-                 int budget, float* __restrict__ out, int* __restrict__ steps) {
+k5_picker_kernel(World world, float octree_scale,
+                 const float* __restrict__ tasks, int n, int budget,
+                 float* __restrict__ out, int* __restrict__ steps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float* task = tasks + 7 * (size_t)i;
   const TexTables no_tables = {};  // the opaque cast reads no texture
   Hit hit;
-  traverse(desc, n_rows, octree_scale, task[1], task[2], task[3], task[4],
-           task[5], task[6], task[0], budget, 0, no_tables, hit);
+  world.trace(octree_scale, task[1], task[2], task[3], task[4], task[5],
+              task[6], task[0], budget, 0, no_tables, hit);
   const bool h = hit.t > 0.f;
   const int f = clampi(hit.face, 0, 5);
   float* o = out + 8 * (size_t)i;
@@ -262,19 +330,63 @@ int vx_k1_traverse(const uint32_t* desc, long long n_words, float octree_scale,
 int vx_k3_frame(const uint32_t* desc, long long n_words, float octree_scale,
                 const vx::TexTables* tex, const vx::FrameParams* fp, float* img,
                 int* steps, void* stream) {
+  const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
   vx::k3_frame_kernel<<<vx::grid_for((long long)fp->width * fp->height),
                         vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      desc, (uint32_t)(n_words / 12), octree_scale, *tex, *fp, img, steps);
+      world, octree_scale, *tex, *fp, img, steps);
   return (int)cudaGetLastError();
 }
 
 int vx_k5_picker(const uint32_t* desc, long long n_words, float octree_scale,
                  const float* tasks, int n_tasks, int budget, float* out,
                  int* steps, void* stream) {
+  const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
   vx::k5_picker_kernel<<<vx::grid_for(n_tasks), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(
-      desc, (uint32_t)(n_words / 12), octree_scale, tasks, n_tasks, budget,
-      out, steps);
+                         (cudaStream_t)stream>>>(world, octree_scale, tasks,
+                                                 n_tasks, budget, out, steps);
+  return (int)cudaGetLastError();
+}
+
+// words: the CSVO node stream after its 4-byte prefix, n_words >= 1.
+int vx_k4_traverse(const uint32_t* words, long long n_words,
+                   float octree_scale, unsigned root_ptr, int total_depth,
+                   const float* ro, const float* rd, const float* max_dst,
+                   int n_rays, int budget, int alpha_mode,
+                   const vx::TexTables* tex, float* t, uint32_t* value,
+                   int* face, float* pos, float* uv, float* lod,
+                   uint8_t* inside, int* steps, void* stream) {
+  vx::TexTables tx = {};
+  if (tex) tx = *tex;
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  vx::k4_traverse_kernel<<<vx::grid_for(n_rays), vx::BLOCK, 0,
+                           (cudaStream_t)stream>>>(
+      world, octree_scale, ro, rd, max_dst, n_rays, budget, alpha_mode, tx, t,
+      value, face, pos, uv, lod, inside, steps);
+  return (int)cudaGetLastError();
+}
+
+int vx_k3_frame_csvo(const uint32_t* words, long long n_words,
+                     float octree_scale, unsigned root_ptr, int total_depth,
+                     const vx::TexTables* tex, const vx::FrameParams* fp,
+                     float* img, int* steps, void* stream) {
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  vx::k3_frame_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+                        vx::BLOCK, 0, (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, img, steps);
+  return (int)cudaGetLastError();
+}
+
+int vx_k5_picker_csvo(const uint32_t* words, long long n_words,
+                      float octree_scale, unsigned root_ptr, int total_depth,
+                      const float* tasks, int n_tasks, int budget, float* out,
+                      int* steps, void* stream) {
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  vx::k5_picker_kernel<<<vx::grid_for(n_tasks), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(world, octree_scale, tasks,
+                                                 n_tasks, budget, out, steps);
   return (int)cudaGetLastError();
 }
 

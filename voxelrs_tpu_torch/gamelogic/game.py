@@ -17,9 +17,10 @@ and, when asked, renders (kernel K3). The physics catch-up is capped at
 the reference clamps the accumulator at 1 s (250 steps, game.rs:130).
 
 ``GameArgs.device`` (None = the card) places the renderer; the tests pass
-"cpu", which runs the plain versions of the kernels. The Minecraft world
-import (``--mc-world``) and the CSVO format (``--svo-format csvo``) are not
-ported: they raise.
+"cpu", which runs the plain versions of the kernels. ``--svo-format csvo``
+streams the world as CSVO (the reference's default format), rendered by K3
+and picked by K5 in their CSVO instantiations over kernel K4's traversal.
+The Minecraft world import (``--mc-world``) is not ported: it raises.
 """
 
 from __future__ import annotations
@@ -60,8 +61,8 @@ class GameArgs:
     height: int = 1080
     benchmark_mode: bool = False
     texture_dir: Optional[str] = None
-    # SVO serialization format (reference: the use-esvo/use-csvo cargo
-    # features); only "esvo" is ported
+    # SVO serialization format: "esvo" | "csvo" (reference: the
+    # use-esvo/use-csvo cargo features)
     svo_format: str = "esvo"
     workers: int = max(1, (os.cpu_count() or 2) - 1)
     # catch-up bound of the fixed-step accumulator (see the module
@@ -76,9 +77,6 @@ class Game:
         if args.mc_world is not None:
             raise NotImplementedError(
                 "--mc-world: the Minecraft world import is not ported yet")
-        if args.svo_format != "esvo":
-            raise NotImplementedError(
-                f"--svo-format {args.svo_format}: only esvo is ported yet")
         self.args = args
         self.job_system = JobSystem(args.workers)
         try:
@@ -91,6 +89,7 @@ class Game:
                 gpu_size_mb=args.gpu_buffer_size_mb,
                 benchmark_mode=args.benchmark_mode,
                 texture_dir=args.texture_dir,
+                svo_format=args.svo_format,
                 device=args.device,
             )
         except BaseException:
@@ -240,8 +239,7 @@ def parse_args(argv=None) -> GameArgs:
     p.add_argument("--benchmark", action="store_true")
     p.add_argument("--svo-format", choices=["esvo", "csvo"], default="esvo",
                    help="SVO serialization format (the reference's "
-                        "use-esvo/use-csvo cargo features; csvo is not "
-                        "ported yet)")
+                        "use-esvo/use-csvo cargo features)")
     p.add_argument("--frames", type=int, default=0, help="run N frames then exit")
     a = p.parse_args(argv)
     args = GameArgs(

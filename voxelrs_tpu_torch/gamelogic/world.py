@@ -47,6 +47,7 @@ class World:
         gpu_size_mb: float = 64.0,
         benchmark_mode: bool = False,
         texture_dir: Optional[str] = None,
+        svo_format: str = "esvo",
         device=None,
     ):
         self.job_system = job_system
@@ -63,10 +64,13 @@ class World:
             job_system, worldgen.Generator(1, self.world_generator_cfg), self.slot_pool
         )
 
+        buffer_dtype = np.uint32 if svo_format == "esvo" else np.uint8
         graphics_svo = graphics.Svo(
-            content.new_registry(texture_dir), gpu_size_mb, device=device
+            content.new_registry(texture_dir), gpu_size_mb, buffer_dtype,
+            device=device
         )
-        self.world_svo = worldsvo.Svo(job_system, graphics_svo, loading_radius)
+        self.world_svo = worldsvo.Svo(job_system, graphics_svo, loading_radius,
+                                      svo_format)
 
         self.physics = Physics()
         self.camera = Camera(fov_y_deg, 1.0, 0.01, 1024.0)

@@ -2,12 +2,18 @@
 and texture mips; exposes ``update`` (delta upload), ``render`` (one exact
 frame) and ``raycast`` (picker batches).
 
-Counterpart: voxelrs_tpu/graphics/svo.py (``__init__``, ``_grow_device``
-:113, ``update`` :150, ``reload_resources``, ``_compute_translucent_blocks``
-:207, ``render`` in ``mode="fused"`` :334-366, ``raycast`` :559-589,
+Counterpart: voxelrs_tpu/graphics/svo.py (``__init__`` :63-111,
+``_grow_device`` :113, ``update`` :150-197, ``reload_resources``,
+``_compute_translucent_blocks`` :207, ``render`` in ``mode="fused"`` and,
+for a CSVO buffer, ``mode="csvo"`` :292-366, ``raycast`` :559-589,
 ``get_stats``), itself after reference: src/graphics/svo.rs:56-255. The
-persistently-mapped GL buffer is an int32 torch tensor holding the u32
-words, patched on exactly the ranges the serializer changed.
+persistently-mapped GL buffer is an int32 torch tensor holding u32 words,
+patched on exactly the ranges the serializer changed.
+
+Two formats, by ``buffer_dtype``: ``np.uint32`` (ESVO: a u32 host mirror,
+uploaded word for word) and ``np.uint8`` (CSVO: a byte host mirror
+``[root_ptr u32][node bytes...]``; the device holds the node bytes after
+the 4-byte prefix as words, and ``root_ptr`` rides beside it).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from ..device import resolve_device
 from ..ops.picker import raycast
 from ..ops.shading import KernelTables, render_frame
+from ..ops.traversal_csvo import MAX_STREAM_BYTES, CsvoBuffer
 from .picker import PickerBatch, PickerBatchResult
 
 
@@ -50,22 +57,30 @@ class Stats:
 
 
 class Svo:
-    """Device-side SVO renderer (ESVO u32 buffers)."""
+    """Device-side SVO renderer (ESVO u32 or CSVO byte buffers)."""
 
-    def __init__(self, registry, capacity_mb: float = 64.0, device=None):
+    def __init__(self, registry, capacity_mb: float = 64.0,
+                 buffer_dtype=np.uint32, device=None):
         self.device = resolve_device(device)
         self.mips, self.mat_params, self.mat_tex = registry.build(self.device)
         self._compute_translucent_blocks()
         self._tables = None
+        self.buffer_dtype = np.dtype(buffer_dtype)
         # the host mirror holds the full capacity; the device buffer is
         # sized to the live world and grows on demand
-        capacity = int(capacity_mb * 1_000_000) // 4
-        capacity -= capacity % 12
-        self.host_buf = np.zeros(capacity, np.uint32)
+        if self.buffer_dtype == np.uint32:
+            capacity = int(capacity_mb * 1_000_000) // 4
+            capacity -= capacity % 12
+            self.capacity_bytes = capacity * 4
+        else:
+            capacity = int(capacity_mb * 1_000_000)
+            capacity -= capacity % 4
+            self.capacity_bytes = capacity
+        self.host_buf = np.zeros(capacity, self.buffer_dtype)
         self.device_buf = torch.zeros(12, dtype=torch.int32, device=self.device)
+        self.root_ptr = 0
         self.octree_scale = np.float32(1.0)
         self.depth = 0
-        self.capacity_bytes = capacity * 4
         self.stats = Stats(capacity_bytes=self.capacity_bytes)
         # picker memo: (buffer_version, {task bytes: results}). A batch
         # cast again against the same buffer gives the same rows, so the
@@ -94,24 +109,43 @@ class Svo:
     def update(self, world_svo) -> None:
         """Apply the serializer's changed ranges to the device buffer
         (reference: svo.rs:171-189)."""
-        from ..world.esvo import PREAMBLE_LENGTH_IN_U32
-
-        prev_depth = self.depth
+        prev_state = (self.depth, self.root_ptr)
         self.depth = world_svo.depth()
         self.octree_scale = (np.float32(2.0 ** -self.depth) if self.depth
                              else np.float32(1.0))
         ranges = world_svo.write_changes_to(self.host_buf, reset=True)
-        needed = world_svo.size_in_u32() + PREAMBLE_LENGTH_IN_U32
-        if self._grow_device(needed):
-            ranges = [(0, needed)]  # fresh buffer: full upload
-        n = min(self.device_buf.shape[0], len(self.host_buf))
+        if self.buffer_dtype == np.uint32:
+            from ..world.esvo import PREAMBLE_LENGTH_IN_U32
+
+            needed = world_svo.size_in_u32() + PREAMBLE_LENGTH_IN_U32
+            if self._grow_device(needed):
+                ranges = [(0, needed)]  # fresh buffer: full upload
+            words = self.host_buf
+        else:
+            if world_svo.size_in_bytes() >= MAX_STREAM_BYTES:
+                raise ValueError(
+                    f"CSVO stream of {world_svo.size_in_bytes()} bytes: the "
+                    "traversal's ptr | depth << 27 packing holds < 128 MiB")
+            self.root_ptr = int.from_bytes(bytes(self.host_buf[:4]), "little")
+            # byte ranges -> word ranges of the post-prefix stream, with one
+            # word of slack; a range ending inside a word takes the word
+            needed = (world_svo.size_in_bytes() + 3) // 4 + 1
+            if self._grow_device(needed):
+                ranges = [(4, needed * 4)]
+            word_ranges = []
+            for start, length in ranges:
+                ws = max(0, (start - 4) // 4)
+                word_ranges.append((ws, (start - 4 + length + 3) // 4 + 1 - ws))
+            ranges = word_ranges
+            words = self.host_buf[4:].view(np.uint32)
+        n = min(self.device_buf.shape[0], len(words))
         for start, length in ranges:
             end = min(start + length, n)
             if end <= start:
                 continue
-            words = torch.from_numpy(self.host_buf[start:end].view(np.int32))
-            self.device_buf[start:end].copy_(words)
-        if ranges or self.depth != prev_depth:
+            chunk = torch.from_numpy(words[start:end].view(np.int32))
+            self.device_buf[start:end].copy_(chunk)
+        if ranges or (self.depth, self.root_ptr) != prev_state:
             self._buffer_version += 1  # invalidates the picker memo
         self.stats = Stats(used_bytes=world_svo.size_in_bytes(),
                            capacity_bytes=self.capacity_bytes,
@@ -174,6 +208,13 @@ class Svo:
             shadow_distance=params.shadow_distance, highlight_pos=highlight,
             max_steps=max_steps)
 
+    def world(self):
+        """The device world as the kernels take it: the ESVO buffer, or a
+        ``CsvoBuffer`` of the CSVO words, root pointer and depth."""
+        if self.buffer_dtype == np.uint32:
+            return self.device_buf
+        return CsvoBuffer(self.device_buf, self.root_ptr, self.depth)
+
     def render(self, params: RenderParams, width: int, height: int,
                max_steps: int = 1000, mode: str = "fused") -> torch.Tensor:
         """Render one frame; returns an (H, W, 4) float32 tensor on the
@@ -181,18 +222,19 @@ class Svo:
 
         ``mode="fused"`` — the only mode of this package so far, and its
         default — is the exact per-pixel frame with in-loop alpha judging:
-        kernel K3 on the card, the plain version on the CPU. The JAX
-        package's default, ``"deferred"`` (host-orchestrated rounds with
+        kernel K3 on the card (its CSVO instantiation for a CSVO buffer, the
+        JAX package's ``mode="csvo"``), the plain version on the CPU. The
+        JAX package's default, ``"deferred"`` (host-orchestrated rounds with
         beams and sun certificates), is a later slice (ROADMAP.md, queue 1,
-        item 4: the deferred pipeline).
+        item 3: the deferred pipeline).
         """
         if mode != "fused":
             raise NotImplementedError(
-                f"Svo.render mode={mode!r}: only 'fused' is ported; the "
-                "deferred pipeline is ROADMAP.md queue 1 item 4 and the "
-                "CSVO format queue 1 item 1")
+                f"Svo.render mode={mode!r}: only 'fused' is ported (for a "
+                "CSVO buffer it is the JAX mode 'csvo'); the deferred "
+                "pipeline is ROADMAP.md queue 1 item 3")
         return render_frame(
-            self.device_buf, self.octree_scale, self.mips, self.mat_params,
+            self.world(), self.octree_scale, self.mips, self.mat_params,
             self.mat_tex, **self.frame_kwargs(params, width, height, max_steps),
             tables=self.kernel_tables() if self.device.type == "cuda" else None)
 
@@ -219,7 +261,7 @@ class Svo:
             padded = np.zeros((n_pad, 7), np.float32)
             padded[:n] = tasks
             padded[n:, 4] = 1.0  # a valid direction for the padding tasks
-            rows = raycast(self.device_buf, self.octree_scale,
+            rows = raycast(self.world(), self.octree_scale,
                            torch.from_numpy(padded).to(self.device))
             rows = rows.cpu().numpy()[:n]
             if len(memo) >= 16:  # bound the entries of one buffer version

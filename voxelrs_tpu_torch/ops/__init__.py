@@ -1,2 +1,3 @@
-"""Device work of the renderer: ESVO traversal (K1), the fused frame (K3),
-texture sampling and float bit primitives."""
+"""Device work of the renderer: ESVO traversal (K1), CSVO traversal (K4),
+the fused frame (K3), the picker (K5), texture sampling and float bit
+primitives."""

@@ -9,9 +9,16 @@ assets/shaders/world.glsl:27-141): per-pixel primary ray → SVO traversal
 with in-loop translucency → texture/normal lookup → Lambert diffuse +
 specular → shadow ray → sky and composite.
 
-On CUDA tensors ``render_frame`` launches K3 (``csrc/kernels.cu``), one
-thread per pixel for the whole frame; the plain version runs on the CPU and
-serves the comparisons on the card.
+The world is an ESVO buffer (an int32 tensor of u32 words) or a CSVO world
+(``ops.traversal_csvo.CsvoBuffer``), whose rays trace through
+``intersect_octree_csvo`` — the JAX ``render_frame``'s ``traverse=`` hook
+(:4080-4081, the shadow ray's :276) as the JAX ``Svo.render`` sets it for a
+CSVO buffer (graphics/svo.py:292-331): there the shadow rays get the
+frame's step budget, in the ESVO frame the reference MAX_STEPS.
+
+On CUDA tensors ``render_frame`` launches K3 (``csrc/kernels.cu``; its CSVO
+instantiation for a CSVO world), one thread per pixel for the whole frame;
+the plain version runs on the CPU and serves the comparisons on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from .. import _build
 from .bits import fdiv, u32_to_i32
 from .texture import level_meta, sample_texture_lod
 from .traversal import MAX_STEPS, intersect_octree_plain, step_budget
+from .traversal_csvo import CsvoBuffer, check_words, intersect_octree_csvo_plain
+from .traversal_csvo import step_budget as csvo_step_budget
 
 # Pre-calculated per-face frames, order [x-, x+, y-, y+, z-, z+]
 # (reference: assets/shaders/svo.glsl:1-29).
@@ -42,6 +51,7 @@ SKY_COLOR = torch.tensor([135.0, 206.0, 235.0], dtype=torch.float32) / 255.0
 HORIZON_COLOR = torch.ones(3, dtype=torch.float32) * 0.7 + SKY_COLOR * 0.3
 
 launches = 0  # K3 launches by render_frame (the wrapper below)
+launches_csvo = 0  # of those, launches of the CSVO instantiation
 
 
 def mip_mode_from_env() -> str:
@@ -273,10 +283,11 @@ def surface_shading(res, mips, mat_params, mat_tex, cam_pos, light_dir,
 
 def shade_hits(res, ro, rd, mips, mat_params, mat_tex, *, cam_pos, ambient,
                light_dir, render_shadows, shadow_distance, highlight_pos,
-               descriptors, octree_scale, alpha_fn, mip_mode: str):
-    """Shading of traversal results (reference: world.glsl:27-90). The
-    shadow ray always gets the reference MAX_STEPS (the JAX version calls
-    intersect_octree without max_steps)."""
+               descriptors, octree_scale, alpha_fn, mip_mode: str,
+               shadow_steps: int = MAX_STEPS):
+    """Shading of traversal results (reference: world.glsl:27-90).
+    ``shadow_steps``: the shadow ray's step budget (the JAX ESVO frame
+    calls intersect_octree without max_steps, the reference MAX_STEPS)."""
     hit = res.t != -1.0
     B = res.t.shape[0]
 
@@ -290,8 +301,8 @@ def shade_hits(res, ro, rd, mips, mat_params, mat_tex, *, cam_pos, ambient,
         srd = (-light_dir)[None, :].expand(B, 3).contiguous()
         # retire unneeded lanes instantly
         smax = torch.where(need, -1.0, 1e-35).to(torch.float32)
-        sres = intersect_octree_plain(descriptors, octree_scale, sro, srd,
-                                      smax, True, alpha_fn, MAX_STEPS)
+        sres = trace_plain(descriptors, octree_scale, sro, srd, smax, True,
+                           alpha_fn, shadow_steps)
         shadow = torch.where(need, torch.where(sres.t < 0, 1.0, 0.0), 1.0)
     else:
         shadow = torch.ones(B, dtype=torch.float32, device=res.t.device)
@@ -300,6 +311,24 @@ def shade_hits(res, ro, rd, mips, mat_params, mat_tex, *, cam_pos, ambient,
     rgb = color[:, :3] * light[:, None]
     shaded = torch.cat([rgb, color[:, 3:4]], dim=-1)
     return torch.where(hit[:, None], shaded, sky_color(rd))
+
+
+def world_tensor(world) -> torch.Tensor:
+    """The device tensor of a world: the ESVO buffer, or a CSVO world's
+    words."""
+    return world.words if isinstance(world, CsvoBuffer) else world
+
+
+def trace_plain(world, octree_scale, ro, rd, max_dst, cast_translucent,
+                alpha_fn=None, max_steps: int = MAX_STEPS):
+    """The plain traversal of either format (``world``: an ESVO buffer or a
+    ``CsvoBuffer``)."""
+    if isinstance(world, CsvoBuffer):
+        return intersect_octree_csvo_plain(
+            world.words, octree_scale, world.root_ptr, world.total_depth, ro,
+            rd, max_dst, cast_translucent, alpha_fn, max_steps)
+    return intersect_octree_plain(world, octree_scale, ro, rd, max_dst,
+                                  cast_translucent, alpha_fn, max_steps)
 
 
 def _vec3(x, device):
@@ -312,7 +341,8 @@ def render_frame_plain(descriptors, octree_scale, mips, mat_params, mat_tex,
                        ambient, light_dir, shadow_distance, highlight_pos,
                        max_steps: int = 1000, mip_mode: str | None = None):
     """The plain PyTorch frame: every step in torch ops, on any device."""
-    dev = descriptors.device
+    csvo = isinstance(descriptors, CsvoBuffer)
+    dev = world_tensor(descriptors).device
     mip_mode = mip_mode or mip_mode_from_env()
     cam_pos, light_dir = _vec3(cam_pos, dev), _vec3(light_dir, dev)
     ro, rd = generate_rays(width, height, cam_pos, _vec3(cam_right, dev),
@@ -320,28 +350,33 @@ def render_frame_plain(descriptors, octree_scale, mips, mat_params, mat_tex,
                            tan_half_fov(fov_y_rad),
                            float(np.float32(aspect)))
     alpha_fn = make_alpha_fn(mips, mat_tex)
-    res = intersect_octree_plain(descriptors, octree_scale, ro, rd, -1.0,
-                                 True, alpha_fn, max_steps)
+    res = trace_plain(descriptors, octree_scale, ro, rd, -1.0, True,
+                      alpha_fn, max_steps)
     img = shade_hits(
         res, ro, rd, mips, mat_params, mat_tex, cam_pos=cam_pos,
         ambient=float(np.float32(ambient)), light_dir=light_dir,
         render_shadows=render_shadows,
         shadow_distance=float(np.float32(shadow_distance)),
         highlight_pos=_vec3(highlight_pos, dev), descriptors=descriptors,
-        octree_scale=octree_scale, alpha_fn=alpha_fn, mip_mode=mip_mode)
+        octree_scale=octree_scale, alpha_fn=alpha_fn, mip_mode=mip_mode,
+        shadow_steps=max_steps if csvo else MAX_STEPS)
     return img.reshape(height, width, 4)
 
 
 def frame_params(*, width, height, render_shadows, cam_pos, cam_right, cam_up,
                  cam_fwd, fov_y_rad, aspect, ambient, light_dir,
                  shadow_distance, highlight_pos, max_steps,
-                 mip_mode) -> _build.FrameParams:
-    """K3's per-frame inputs as the C struct."""
+                 mip_mode, csvo: bool = False) -> _build.FrameParams:
+    """K3's per-frame inputs as the C struct (``csvo``: the step budgets
+    of the CSVO frame)."""
     p = _build.FrameParams()
     p.width, p.height = int(width), int(height)
     p.render_shadows = int(bool(render_shadows))
-    p.primary_budget = step_budget(max_steps)
-    p.shadow_budget = step_budget(MAX_STEPS)
+    if csvo:
+        p.primary_budget = p.shadow_budget = csvo_step_budget(max_steps)
+    else:
+        p.primary_budget = step_budget(max_steps)
+        p.shadow_budget = step_budget(MAX_STEPS)
     p.trilinear = int(mip_mode == "linear")
     for name, v in (("cam_pos", cam_pos), ("right", cam_right),
                     ("up", cam_up), ("fwd", cam_fwd), ("light_dir", light_dir),
@@ -365,7 +400,8 @@ def crosshair_overlay(image: torch.Tensor, radius_px: float = 8.0,
     yy = torch.arange(H, dtype=torch.float32, device=dev)[:, None] - H / 2.0
     xx = torch.arange(W, dtype=torch.float32, device=dev)[None, :] - W / 2.0
     d = torch.sqrt(yy * yy + xx * xx)
-    ring = torch.clamp(1.0 - (d - radius_px).abs() / thickness, 0.0, 1.0)
+    ring = torch.clamp(1.0 - fdiv((d - radius_px).abs(), thickness), 0.0,
+                       1.0)
     alpha = ring[..., None] * 0.8
     rgb = image[..., :3] * (1 - alpha) + alpha
     return torch.cat([rgb, image[..., 3:4]], dim=-1)
@@ -378,9 +414,11 @@ def render_frame(descriptors, octree_scale, mips, mat_params, mat_tex, *,
                  max_steps: int = 1000, tables: KernelTables | None = None):
     """One full frame. Returns (H, W, 4) float32 on the buffer's device.
 
-    Camera vectors, light and highlight are (3,) array-likes (highlight NaN
-    = none). On the CPU this is the plain version; on a CUDA buffer it
-    launches K3 once. ``tables`` (``KernelTables`` of the same mips and
+    ``descriptors`` is the world: an ESVO buffer ((N,) int32 holding u32
+    words) or a ``CsvoBuffer``. Camera vectors, light and highlight are (3,)
+    array-likes (highlight NaN = none). On the CPU this is the plain
+    version; on a CUDA buffer it launches K3 once, the instantiation of the
+    world's format. ``tables`` (``KernelTables`` of the same mips and
     materials) lets a caller reuse the kernel tables across frames."""
     kw = dict(width=width, height=height, render_shadows=render_shadows,
               cam_pos=cam_pos, cam_right=cam_right, cam_up=cam_up,
@@ -389,13 +427,17 @@ def render_frame(descriptors, octree_scale, mips, mat_params, mat_tex, *,
               shadow_distance=shadow_distance, highlight_pos=highlight_pos,
               max_steps=max_steps)
     mip_mode = mip_mode_from_env()
-    if not descriptors.is_cuda:
+    buf = world_tensor(descriptors)
+    if not buf.is_cuda:
         return render_frame_plain(descriptors, octree_scale, mips, mat_params,
                                   mat_tex, mip_mode=mip_mode, **kw)
-    global launches
-    dev = descriptors.device
-    if descriptors.dtype != torch.int32 or descriptors.dim() != 1 \
-            or descriptors.shape[0] < 12 or not descriptors.is_contiguous():
+    global launches, launches_csvo
+    dev = buf.device
+    csvo = isinstance(descriptors, CsvoBuffer)
+    if csvo:
+        check_words(*descriptors)
+    elif buf.dtype != torch.int32 or buf.dim() != 1 \
+            or buf.shape[0] < 12 or not buf.is_contiguous():
         raise ValueError("descriptors: expected a contiguous 1-d int32 buffer "
                          "of >= 12 words")
     for name, t in (("mat_params", mat_params), ("mat_tex", mat_tex),
@@ -405,8 +447,9 @@ def render_frame(descriptors, octree_scale, mips, mat_params, mat_tex, *,
     if tables is None:
         tables = KernelTables(mips, mat_tex, mat_params)
     img = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
-    params = frame_params(mip_mode=mip_mode, **kw)
+    params = frame_params(mip_mode=mip_mode, csvo=csvo, **kw)
     if width * height:
         _build.launch_k3(descriptors, float(octree_scale), tables, params, img)
         launches += 1
+        launches_csvo += int(csvo)
     return img

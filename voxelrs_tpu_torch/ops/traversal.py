@@ -90,7 +90,7 @@ class State(NamedTuple):
     active: torch.Tensor
     hit: torch.Tensor
     inside: torch.Tensor
-    pp: torch.Tensor  # ptr | parent_idx << 28
+    node: tuple  # the format's node cursor; node[0] is the stack word
     idx: torch.Tensor
     scale: torch.Tensor
     posx: torch.Tensor
@@ -101,7 +101,7 @@ class State(NamedTuple):
     h: torch.Tensor
     adj_count: torch.Tensor  # adjacent same-value translucent leaves passed
     last_value: torch.Tensor  # 24-bit value of the last leaf passed
-    stack_pp: torch.Tensor  # (H, B)
+    stack_node: torch.Tensor  # (H, B) stack words
     stack_tmax: torch.Tensor  # (H, B)
     steps: torch.Tensor
 
@@ -146,9 +146,9 @@ def make_ray_consts(octree_scale: float, ro, rd, max_dst) -> RayConsts:
                      float(octree_scale))
 
 
-def init_state(c: RayConsts) -> State:
+def init_state(c: RayConsts, root: tuple) -> State:
     """Entry/exit distances of the [1;2) cube and the initial octant
-    (reference: svo.esvo.glsl:126-149)."""
+    (reference: svo.esvo.glsl:126-149), at the node cursor ``root``."""
     B = c.rox.shape[0]
     dev = c.rox.device
     t_min = torch.maximum(torch.maximum(2.0 * c.tcx - c.tbx,
@@ -166,7 +166,7 @@ def init_state(c: RayConsts) -> State:
         active=torch.ones(B, dtype=torch.bool, device=dev),
         hit=torch.zeros(B, dtype=torch.bool, device=dev),
         inside=torch.zeros(B, dtype=torch.bool, device=dev),
-        pp=torch.zeros(B, dtype=i64, device=dev),
+        node=root,
         idx=idx,
         scale=torch.full((B,), MAX_SCALE - 1, dtype=i64, device=dev),
         posx=half(in_x), posy=half(in_y), posz=half(in_z),
@@ -175,7 +175,7 @@ def init_state(c: RayConsts) -> State:
         h=t_max,
         adj_count=torch.zeros(B, dtype=i64, device=dev),
         last_value=torch.full((B,), _NO_VALUE, dtype=i64, device=dev),
-        stack_pp=torch.zeros((STACK_HEIGHT, B), dtype=i64, device=dev),
+        stack_node=torch.zeros((STACK_HEIGHT, B), dtype=i64, device=dev),
         stack_tmax=torch.zeros((STACK_HEIGHT, B), dtype=f32, device=dev),
         steps=torch.zeros(B, dtype=torch.int32, device=dev),
     )
@@ -195,18 +195,43 @@ def _resolve_ptr(raw, ptr, pidx):
     return torch.where((raw & RELATIVE_BIT) != 0, rel, raw)
 
 
-def hit_phase(words, c: RayConsts, pp, idx, scale, posx, posy, posz, t_min):
-    """Candidate leaf-hit data, recomputable from (frozen) state.
-    Returns (leaf_value, face_id, ux, uy, dst, tex_lod, upos).
-    Reference: svo.esvo.glsl:185-237."""
-    ptr = pp & PTR_MASK
-    pidx = pp >> PTR_BITS
-    octant_idx = idx ^ c.octant_mask
-    raw = _word(words, ptr, 4 + pidx)
-    next_ptr = _resolve_ptr(raw, ptr, pidx)
-    leaf_value = _word(words, next_ptr, 4 + octant_idx)
-    return (leaf_value,) + _hit_geometry(c, octant_idx, scale, posx, posy,
-                                         posz, t_min)
+class EsvoReader:
+    """The plain traversal's reads of an ESVO buffer. A node cursor is
+    ``(pp,)``, pp = ptr | parent_idx << 28 (the stack word). The CSVO
+    reader (``ops/traversal_csvo.py``) has the same four methods; the loop
+    (``traversal_step``) is the same for both, as in the kernels."""
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+
+    def root(self, B: int, device) -> tuple:
+        return (torch.zeros(B, dtype=i64, device=device),)
+
+    def probe(self, node, octant_idx, active):
+        """(is_child, is_leaf, node, carry) of child ``octant_idx`` of the
+        current node: the step's descriptor fetch."""
+        pp, = node
+        pidx = pp >> PTR_BITS
+        descriptor = _word(self.words, pp & PTR_MASK, pidx // 2)
+        descriptor = torch.where(pidx % 2 != 0, descriptor >> 16, descriptor)
+        bit = 1 << octant_idx
+        return ((descriptor & (bit << 8)) != 0, (descriptor & bit) != 0,
+                node, None)
+
+    def _child(self, pp):
+        ptr, pidx = pp & PTR_MASK, pp >> PTR_BITS
+        return _resolve_ptr(_word(self.words, ptr, 4 + pidx), ptr, pidx)
+
+    def leaf_value(self, node, octant_idx):
+        """Value of leaf child ``octant_idx`` (svo.esvo.glsl:185-237)."""
+        return _word(self.words, self._child(node[0]), 4 + octant_idx)
+
+    def push(self, node, octant_idx, carry, want_push) -> tuple:
+        """The cursor after descending into child ``octant_idx`` where
+        ``want_push``."""
+        pp, = node
+        pushed = (self._child(pp) & PTR_MASK) | (octant_idx << PTR_BITS)
+        return (torch.where(want_push, pushed, pp),)
 
 
 def _hit_geometry(c: RayConsts, octant_idx, scale, posx, posy, posz, t_min):
@@ -249,15 +274,13 @@ def _hit_geometry(c: RayConsts, octant_idx, scale, posx, posy, posz, t_min):
     return face_id, ux, uy, dst, tex_lod, (upx, upy, upz)
 
 
-def traversal_step(words, c: RayConsts, s: State,
+def traversal_step(reader, c: RayConsts, s: State,
                    alpha_fn: Optional[Callable]) -> State:
     """One lock-step traversal step over all lanes
-    (reference: svo.esvo.glsl:152-392). ``alpha_fn`` None = opaque cast
-    (stop at the first leaf)."""
+    (reference: svo.esvo.glsl:152-392) through ``reader``'s format.
+    ``alpha_fn`` None = opaque cast (stop at the first leaf)."""
     stack_base = MAX_SCALE - STACK_HEIGHT
 
-    ptr = s.pp & PTR_MASK
-    pidx = s.pp >> PTR_BITS
     scale_exp2 = _exp2_scale(s.scale)
     steps = s.steps + s.active.to(torch.int32)
 
@@ -270,12 +293,7 @@ def traversal_step(words, c: RayConsts, s: State,
     tc_max = torch.minimum(torch.minimum(tcox, tcoy), tcoz)
 
     octant_idx = s.idx ^ c.octant_mask
-    bit = 1 << octant_idx
-
-    descriptor = _word(words, ptr, pidx // 2)  # the step's block fetch
-    descriptor = torch.where(pidx % 2 != 0, descriptor >> 16, descriptor)
-    is_child = (descriptor & (bit << 8)) != 0
-    is_leaf = (descriptor & bit) != 0
+    is_child, is_leaf, node, carry = reader.probe(s.node, octant_idx, active)
 
     hit_branch = is_child & (s.t_min <= s.t_max)
     inside = s.inside | (active & hit_branch & is_leaf & (s.t_min == 0))
@@ -284,8 +302,9 @@ def traversal_step(words, c: RayConsts, s: State,
     leaf_hit = hit_branch & is_leaf & (s.t_min > 0)
     adj_count, last_value = s.adj_count, s.last_value
     if alpha_fn is not None:
-        leaf_value, face_id, ux, uy, _, tex_lod, _ = hit_phase(
-            words, c, s.pp, s.idx, s.scale, s.posx, s.posy, s.posz, s.t_min)
+        leaf_value = reader.leaf_value(node, octant_idx)
+        face_id, ux, uy, _, tex_lod, _ = _hit_geometry(
+            c, octant_idx, s.scale, s.posx, s.posy, s.posz, s.t_min)
         alpha = alpha_fn(leaf_value, face_id, torch.stack([ux, uy], -1),
                          tex_lod)
         first_of_kind = (adj_count == 0) | ((leaf_value & _NO_VALUE)
@@ -320,12 +339,11 @@ def traversal_step(words, c: RayConsts, s: State,
     slot = s.scale - stack_base
     lv = torch.arange(STACK_HEIGHT, device=slot.device)[:, None] == slot[None]
     do_store = (want_push & (tc_max < s.h))[None, :] & lv
-    stack_pp = torch.where(do_store, s.pp[None, :], s.stack_pp)
+    stack_node = torch.where(do_store, node[0][None, :], s.stack_node)
     stack_tmax = torch.where(do_store, s.t_max[None, :], s.stack_tmax)
     h_new = torch.where(want_push, tc_max, s.h)
 
-    next_ptr = _resolve_ptr(_word(words, ptr, 4 + pidx), ptr, pidx)
-    push_pp = (next_ptr & PTR_MASK) | (octant_idx << PTR_BITS)
+    node = reader.push(node, octant_idx, carry, want_push)
     push_scale = s.scale - 1
 
     pin_x = s.t_min < t_center_x
@@ -351,7 +369,7 @@ def traversal_step(words, c: RayConsts, s: State,
     # ---- POP (glsl:335-391) ----------------------------------------------
     need_pop = advance & ((adv_idx & step_mask) != 0)
 
-    zero = torch.zeros_like(s.pp)
+    zero = torch.zeros_like(s.idx)
     db = torch.where(step_x, f32_bits(adv_posx) ^ f32_bits(adv_posx + scale_exp2), zero)
     db = db | torch.where(step_y, f32_bits(adv_posy) ^ f32_bits(adv_posy + scale_exp2), zero)
     db = db | torch.where(step_z, f32_bits(adv_posz) ^ f32_bits(adv_posz + scale_exp2), zero)
@@ -362,7 +380,7 @@ def traversal_step(words, c: RayConsts, s: State,
     do_pop = need_pop & ~exited
 
     pop_slot = torch.clamp(pop_scale - stack_base, 0, STACK_HEIGHT - 1)
-    pop_pp = stack_pp.gather(0, pop_slot[None])[0]
+    pop_node = stack_node.gather(0, pop_slot[None])[0]
     pop_t_max = stack_tmax.gather(0, pop_slot[None])[0]
 
     sc = torch.clamp(pop_scale, 0, MAX_SCALE)
@@ -383,7 +401,7 @@ def traversal_step(words, c: RayConsts, s: State,
         active=active,
         hit=hit,
         inside=inside,
-        pp=sel(push_pp, pop_pp, s.pp, s.pp),
+        node=(torch.where(do_pop, pop_node, node[0]),) + node[1:],
         idx=sel(push_idx, pop_idx, adv_idx, s.idx),
         scale=sel(push_scale, pop_scale, s.scale, s.scale),
         posx=sel(push_posx, pop_posx, adv_posx, s.posx),
@@ -394,7 +412,7 @@ def traversal_step(words, c: RayConsts, s: State,
         h=torch.where(do_pop, 0.0, h_new),
         adj_count=adj_count,
         last_value=last_value,
-        stack_pp=stack_pp,
+        stack_node=stack_node,
         stack_tmax=stack_tmax,
         steps=steps,
     )
@@ -406,23 +424,25 @@ def step_budget(max_steps: int) -> int:
     return -(-max_steps // UNROLL) * UNROLL
 
 
-def run_loop(words, c: RayConsts, state: State, max_steps: int,
+def run_loop(reader, c: RayConsts, state: State, budget: int,
              alpha_fn) -> State:
-    """Step until every ray retires or the step budget is spent. A retired
-    ray's state is frozen, so testing for live rays only every
+    """Step until every ray retires or the ``budget`` steps are spent. A
+    retired ray's state is frozen, so testing for live rays only every
     ``_LIVE_CHECK`` steps changes nothing but the count of host syncs."""
-    for it in range(step_budget(max_steps)):
+    for it in range(budget):
         if it % _LIVE_CHECK == 0 and not bool(state.active.any()):
             break
-        state = traversal_step(words, c, state, alpha_fn)
+        state = traversal_step(reader, c, state, alpha_fn)
     return state
 
 
-def finalize(words, c: RayConsts, state: State) -> TraversalResult:
+def finalize(reader, c: RayConsts, state: State) -> TraversalResult:
     """Recompute the full hit record from frozen per-ray state (one pass)."""
-    leaf_value, face_id, ux, uy, dst, tex_lod, (upx, upy, upz) = hit_phase(
-        words, c, state.pp, state.idx, state.scale, state.posx, state.posy,
-        state.posz, state.t_min)
+    octant_idx = state.idx ^ c.octant_mask
+    leaf_value = reader.leaf_value(state.node, octant_idx)
+    face_id, ux, uy, dst, tex_lod, (upx, upy, upz) = _hit_geometry(
+        c, octant_idx, state.scale, state.posx, state.posy, state.posz,
+        state.t_min)
     scale_exp2 = _exp2_scale(state.scale)
     hit = state.hit
 
@@ -446,16 +466,23 @@ def finalize(words, c: RayConsts, state: State) -> TraversalResult:
     )
 
 
+def trace(reader, octree_scale, ro, rd, max_dst, alpha_fn, budget: int):
+    """The plain traversal through ``reader``'s format: ray constants,
+    the loop, the hit record."""
+    c = make_ray_consts(octree_scale, ro, rd, max_dst)
+    state = init_state(c, reader.root(ro.shape[0], ro.device))
+    return finalize(reader, c, run_loop(reader, c, state, budget, alpha_fn))
+
+
 def intersect_octree_plain(descriptors, octree_scale, ro, rd, max_dst,
                            cast_translucent: bool,
                            alpha_fn: Optional[Callable] = None,
                            max_steps: int = MAX_STEPS) -> TraversalResult:
     """The plain PyTorch traversal (the JAX classic loop, lane-masked)."""
-    words = descriptors.to(i64) & U32_MASK
-    c = make_ray_consts(octree_scale, ro, rd, max_dst)
-    judge = alpha_fn if cast_translucent else None
-    state = run_loop(words, c, init_state(c), max_steps, judge)
-    return finalize(words, c, state)
+    reader = EsvoReader(descriptors.to(i64) & U32_MASK)
+    return trace(reader, octree_scale, ro, rd, max_dst,
+                 alpha_fn if cast_translucent else None,
+                 step_budget(max_steps))
 
 
 # ---------------------------------------------------------------------------

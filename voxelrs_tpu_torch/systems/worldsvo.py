@@ -7,8 +7,9 @@ grows in +x/+y/+z, so the camera is kept inside the center chunk of a
 opposite to the movement — an O(loaded chunks) pointer permutation, no data
 movement, since serialized chunk blobs are indexed by absolute pointers.
 
-Counterpart: voxelrs_tpu/systems/worldsvo.py:25-355, for the ESVO format
-only. The terrain-envelope hooks there (``HeightField``, column tops, voxel
+Counterpart: voxelrs_tpu/systems/worldsvo.py:25-355, both formats (the
+``svo_format`` argument and its chunk factory, :71-89). The terrain-envelope
+hooks there (``HeightField``, column tops, voxel
 tops, solid bases and the opaque-block table, :94-110, :126-141, :146-160)
 feed only the beam and sun-certificate passes, which are not ported; they
 come with those passes.
@@ -23,6 +24,7 @@ import numpy as np
 
 from ..graphics.picker import PickerBatch, PickerBatchResult
 from ..world.chunk import BlockPos, ChunkPos
+from ..world.csvo import Csvo, CsvoSerializedChunk
 from ..world.esvo import Esvo, SerializedChunk
 from ..world.octree import LeafId, Position
 from ..world.world import BorrowedChunk
@@ -69,15 +71,29 @@ class SvoCoordSpace:
 
 
 class Svo:
-    """Streams serialized chunks into the device SVO (ESVO format)."""
+    """Streams serialized chunks into the device SVO.
 
-    def __init__(self, job_system: JobSystem, graphics_svo, render_distance: int):
+    ``svo_format`` selects the serialization format — "esvo" (default) or
+    "csvo" — mirroring the reference's use-esvo/use-csvo cargo features
+    (reference: worldsvo.rs:17-36); the graphics SVO must hold the same
+    format (``buffer_dtype`` np.uint32 or np.uint8)."""
+
+    def __init__(self, job_system: JobSystem, graphics_svo, render_distance: int,
+                 svo_format: str = "esvo"):
         # dropped (cancelled/stale) serialize results still own their
         # borrowed chunk; reclaim it so the borrow + pool slot return
         self._dropped: list[BorrowedChunk] = []
         self.processor: ChunkProcessor = ChunkProcessor(
             job_system, on_drop=self._reclaim_dropped)
-        self.world_svo = Esvo()
+        self.svo_format = svo_format
+        if svo_format == "esvo":
+            self.world_svo = Esvo()
+            self._chunk_factory = SerializedChunk.from_voxels
+        elif svo_format == "csvo":
+            self.world_svo = Csvo()
+            self._chunk_factory = CsvoSerializedChunk.from_voxels
+        else:
+            raise ValueError(f"unknown svo format {svo_format!r}")
         self.graphics_svo = graphics_svo
         self.leaf_ids: dict[ChunkPos, LeafId] = {}
         self.has_changed = False
@@ -89,6 +105,7 @@ class Svo:
         """Serialize the borrowed chunk in the background; ownership returns
         via ``update`` (reference: worldsvo.rs:90-99)."""
         pos, lod, voxels = chunk.pos, chunk.lod, chunk.chunk.voxels
+        factory = self._chunk_factory
 
         def produce():
             # per-chunk serialization trace, recorded only when the chunk
@@ -97,8 +114,7 @@ class Svo:
 
             return benchmark.trace_if(
                 "serialize_chunk",
-                lambda: SerializedChunk.from_voxels(pos, voxels, lod,
-                                                    borrowed_chunk=chunk),
+                lambda: factory(pos, voxels, lod, borrowed_chunk=chunk),
                 lambda sc: sc.has_data(),
             )
 

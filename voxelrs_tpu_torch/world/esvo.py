@@ -209,11 +209,19 @@ class SerializedChunk:
 
     @staticmethod
     def from_voxels(pos, voxels: np.ndarray, lod: int, borrowed_chunk=None) -> "SerializedChunk":
-        """Serialize a dense chunk with the vectorized numpy serializer; this
-        package carries no native (C++) serializer."""
-        from .esvo_dense import serialize_dense_chunk
+        """Serialize a dense chunk with the native (C++) serializer, or,
+        where it is unavailable, the vectorized numpy one (the same
+        bytes)."""
+        from ..native import serialize_chunk_native
 
-        buf, result = serialize_dense_chunk(voxels, lod)
+        native = serialize_chunk_native(voxels, lod)
+        if native is not None:
+            buf, (cm, lm, depth) = native
+            result = SerializationResult(cm, lm, depth)
+        else:
+            from .esvo_dense import serialize_dense_chunk
+
+            buf, result = serialize_dense_chunk(voxels, lod)
         return SerializedChunk(pos, buf, result, lod, borrowed_chunk)
 
     def unique_id(self) -> int:
