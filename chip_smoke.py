@@ -22,6 +22,19 @@ falling to the ground, breaking and placing a block — then holds K5
 against its plain version on every picker batch of that run, K3 against
 the plain frame on the streamed buffer, and times the world load (with the
 job threads' ``serialize_chunk`` time a chunk), the frame loop and K5.
+The renderer and the game render the JAX package's default mode, the
+deferred frame, with the scene's terrain envelope: per format a deferred
+phase drives it on the bench scene (counts from 0; K7's tile floors, the
+four stages — primary, shade, shadow, finish — each counted, K6's
+compactions, K8's sun certificates), holds it against the plain deferred
+frame (the stages' plain version, on the same tensors and beam context)
+and against K3's fused frame on all 5 poses with the beams and the sun map,
+with the beams only and without a heightfield, holds K6, K7 and K8 against
+their plain versions on pose 0's own inputs and K1 / K4 from the pixel
+floors against their unfloored runs, and times the kernels and stages
+alone and the frame from call to done. The game phases count the frames
+that had a sun map and hold the deferred frame of the streamed buffer
+against K3's and against the plain deferred frame.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -29,7 +42,11 @@ ray equal (torch.equal); K4 against K1 on the same scene — value, face_id
 and inside equal, t within 1e-3 (tests/test_torch_csvo.py); K5 — every
 column of every task equal; K3 against the plain frame — max |d| <= 1e-6
 over all pixels and channels; the golden frame and the CSVO frame against
-the ESVO one — mean |d| < 0.015, the repository's image budget. Both kernels run the same IEEE float32 operations as their
+the ESVO one — mean |d| < 0.015, the repository's image budget; K6, K7
+and K8 against their plain versions — equal (torch.equal); K1 / K4 from
+the floors against their unfloored runs — value, face_id, inside_voxel
+and t equal; the deferred frame against K3's and against the plain
+deferred frame — max |d| <= 1e-6. Both kernels run the same IEEE float32 operations as their
 plain versions in the same order (built with -fmad=false); H100 runs
 measured no difference at all, and the 1e-6 leaves room only for a last-bit
 rounding of powf/acosf, not for a wrong pixel.
@@ -63,6 +80,7 @@ K3_MAX_ABS = 1e-6
 IMAGE_BUDGET = 0.015  # mean |d| of two renders of one scene
 K4_T_TOL = 1e-3  # K4 against K1: t (tests/test_torch_csvo.py)
 BUDGET_S = 600  # this script's own wall-clock budget on one H100
+SUN_WAIT_S = 60  # at most, for the game's sun map to attach after the run
 # the game phase: GameArgs() defaults; its scripted run (frames at 1/60 s)
 GAME_RENDER_DISTANCE = 20
 FLY_FRAMES = 84  # forward at 60 blocks/s: three chunk boundaries
@@ -83,6 +101,17 @@ CSVO_BYTES_PER_STEP = 8
 # float operations of K3 per pixel outside the traversal (raygen, sampling,
 # normal mapping, lighting, sky), counted from csrc/kernels.cu
 OPS_PER_PIXEL = 150
+# float operations of K7 and K8, counted from csrc/k7_beams.cuh and
+# k8_sun.cuh: a tile's set-up (5 directions, the occupied box, 25 near
+# boxes), a shadow ray's set-up, one march iteration (steps from this run's
+# plain march), one ray's 25 window tests and band tests
+OPS_TILE_SETUP = 1000
+OPS_SHADOW_SETUP = 60
+OPS_MARCH_STEP = 25
+OPS_SUN_RAY = 800
+# the deferred frame's stages (csrc/kernels.cu: kd_<stage>_kernel), each
+# counted by ops.shading.launches_<stage>
+STAGES = ("primary", "shade", "shadow", "finish")
 
 
 def log(msg: str) -> None:
@@ -111,41 +140,6 @@ class Phase:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def build_world(radius: int = 4):
-    """bench.py::build_world with this package's own worldgen, serialized
-    as ESVO and as CSVO: (esvo world, csvo world, chunks)."""
-    from voxelrs_tpu_torch.gamelogic.worldgen import Generator, default_config
-    from voxelrs_tpu_torch.systems.chunkloader import ChunkLoader
-    from voxelrs_tpu_torch.world.chunk import Chunk, ChunkPos
-    from voxelrs_tpu_torch.world.csvo import Csvo, CsvoSerializedChunk
-    from voxelrs_tpu_torch.world.esvo import Esvo, SerializedChunk
-    from voxelrs_tpu_torch.world.octree import Position
-
-    gen = Generator(1, default_config())
-    svo, csvo = Esvo(), Csvo()
-    center = ChunkPos(radius, 2, radius)
-    count = 0
-    for cx in range(radius * 2):
-        for cz in range(radius * 2):
-            col = gen.get_column(cx, cz)
-            lod = ChunkLoader.calculate_lod(center, ChunkPos(cx, 0, cz))
-            for cy in range(0, 8):
-                if not col.contains_chunk(cy):
-                    continue
-                chunk = Chunk(ChunkPos(cx, cy, cz))
-                gen.generate_chunk(chunk)
-                sc = SerializedChunk.from_voxels(chunk.pos, chunk.voxels, lod)
-                if not sc.has_data():
-                    continue
-                svo.set_leaf(Position(cx, cy, cz), sc, True)
-                csvo.set_leaf(Position(cx, cy, cz), CsvoSerializedChunk
-                              .from_voxels(chunk.pos, chunk.voxels, lod), True)
-                count += 1
-    svo.serialize()
-    csvo.serialize()
-    return svo, csvo, count
 
 
 def bench_poses():
@@ -264,7 +258,7 @@ def golden_check(repo: str) -> float:
                      cam_fwd=fwd, aspect_ratio=128 / 96,
                      fov_y_rad=np.radians(70.0), render_shadows=True,
                      shadow_distance=100.0, ambient_intensity=0.3)
-    img = svo.render(p, 128, 96, max_steps=300).cpu().numpy()
+    img = svo.render(p, 128, 96, max_steps=300, mode="fused").cpu().numpy()
     golden = np.load(os.path.join(repo, "tests", "goldens", "render_basic.npy"))
     return float(np.abs(img.astype(np.float64) - golden).mean())
 
@@ -352,6 +346,8 @@ def play_game(game, recorder):
         return run
 
     by_part = {}  # part of the run -> [(frame s, {span: s}, busy jobs)]
+    gsvo = world.world_svo.graphics_svo
+    modes = {"deferred": 0, "sun": 0, "beams": 0}
 
     def frame(part):
         """One frame, timed from the call to the finished frame, then paced
@@ -364,6 +360,9 @@ def play_game(game, recorder):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         frame_s.append(t1 - t0)
+        for k in modes:  # what the frame ran: its mode, beams, sun map
+            modes[k] += bool(gsvo.last_frame.get(k)) if k != "deferred" \
+                else gsvo.last_frame.get("mode") == "deferred"
         by_part.setdefault(part, []).append(
             (t1 - t0, {k: sum(v[n0[k]:]) for k, v in spans.items()}, busy))
         time.sleep(max(0.0, 1 / 60 - (t1 - t0)))
@@ -418,6 +417,8 @@ def play_game(game, recorder):
         svo_mod.raycast = recorder.raycast
     out["run_s"] = ph.seconds
     out["frames"] = len(frame_s)
+    out.update(deferred_frames=modes["deferred"], beam_frames=modes["beams"],
+               sun_frames=modes["sun"])
     out["k5_per_frame"] = (picker.launches - k5_0) / len(frame_s)
     out["landed"] = landed
     out["edit"] = dict(cell=cell, before=int(before), broken=int(broken),
@@ -449,7 +450,9 @@ def play_game(game, recorder):
     out["final_img_ok"] = (tuple(img.shape) == (game.args.height, game.args.width, 4)
                            and bool(torch.isfinite(img).all()))
     log(f"game run ({fmt}): {out['frames']} frames flown {out['flown']}, "
-        f"landed {landed}, edit {out['edit']} ok {out['edit_ok']}")
+        f"landed {landed}, edit {out['edit']} ok {out['edit_ok']}; "
+        f"{out['deferred_frames']} frames deferred, {out['beam_frames']} with "
+        f"beams, {out['sun_frames']} with a sun map")
     log(f"game frame ({fmt}; step_frame + synchronize, {game.args.width}x"
         f"{game.args.height}): median "
         f"{out['frame_ms_median']:.3f} ms, p90 {out['frame_ms_p90']:.3f} ms, "
@@ -515,6 +518,42 @@ def check_game(game, recorder, card):
     out["k3_game_ok"] = d <= K3_MAX_ABS
     log(f"k3 vs plain on the streamed {fmt} buffer (final pose): max |d| {d:.3g} "
         f"(tolerance {K3_MAX_ABS:g}); ok {out['k3_game_ok']}")
+    with Phase(f"sun map (streamed world, {fmt})"):
+        # the streaming engine builds the sun map on a thread once the world
+        # is quiet: keep rendering (paced to 60 Hz) until it attaches
+        hf = world.world_svo.heightfield
+        t0 = time.perf_counter()
+        waited = 0
+        while not gsvo.last_frame.get("sun") and \
+                time.perf_counter() - t0 < SUN_WAIT_S:
+            game.step_frame(dt=1 / 60, render=True)
+            torch.cuda.synchronize()
+            waited += 1
+            time.sleep(1 / 60)
+        out.update(sun_wait_frames=waited,
+                   sun_wait_s=time.perf_counter() - t0,
+                   sun_attached=bool(gsvo.last_frame.get("sun")),
+                   sun_build_s=[round(x, 3) for x in hf.sun_build_seconds],
+                   sun_mb=(hf._sun[3].numel() * 2 / 1e6 if hf._sun else 0.0),
+                   sun_shape=(tuple(hf._sun[3].shape) if hf._sun else None))
+    log(f"sun map ({fmt}): attached {out['sun_attached']} after "
+        f"{waited} more frames ({out['sun_wait_s']:.1f} s); builds "
+        f"{out['sun_build_s']} s on its thread; table {out['sun_shape']}, "
+        f"{out['sun_mb']:.1f} MB on the card")
+    with Phase(f"deferred vs k3 and vs plain (streamed world, {fmt})"):
+        p = world.world_svo.svo_params(world.render_params(W / H))
+        fused = gsvo.render(p, W, H, mode="fused")
+        ctx = gsvo.beam_context(p, W, H)
+        deferred = gsvo.render(p, W, H, beams=ctx)
+        info = dict(gsvo.last_frame)
+        d = max_abs(deferred, fused)
+        dp = max_abs(deferred, plain_deferred(gsvo, p, ctx))
+    out["deferred_game_err"], out["deferred_game_plain_err"] = d, dp
+    out["deferred_game_ok"] = d <= K3_MAX_ABS and dp <= K3_MAX_ABS
+    log(f"deferred vs k3 on the streamed {fmt} buffer (final pose, "
+        f"{json.dumps(info)}): max |d| {d:.3g}; vs the plain deferred frame "
+        f"max |d| {dp:.3g} (tolerance {K3_MAX_ABS:g}); ok "
+        f"{out['deferred_game_ok']}")
 
     with Phase(f"k5 timing ({fmt})"):
         # the last AABB sweep of the run, on the final buffer
@@ -605,10 +644,14 @@ def main() -> int:
     if not all(libs.values()):
         fail("the native chunk serializers did not load")
 
-    # ---- 2. world, in both formats ------------------------------------------
+    # ---- 2. world, in both formats, and its envelope ------------------------
     with Phase("world"):
-        world, cworld, chunks = build_world()
+        from voxelrs_tpu_torch.bench import build_world
+        from voxelrs_tpu_torch.world.heightfield import opaque_lut_from_mask
+
         svo = Svo(new_registry(), capacity_mb=64, device="cuda")
+        world, cworld, chunks, hf = build_world(
+            opaque_lut=opaque_lut_from_mask(svo.translucent_block_mask))
         svo.update(world)
         csvo = Svo(new_registry(), capacity_mb=64, buffer_dtype=np.uint8,
                    device="cuda")
@@ -645,7 +688,11 @@ def main() -> int:
     if not vs_frame < IMAGE_BUDGET:
         fail("the CSVO frame disagrees with the ESVO frame")
 
-    # ---- 8. the game loop's path, ESVO then CSVO: counts from 0 -----------
+    # ---- 8. the deferred frame per format: K6, K7, K8 --------------------
+    de = deferred_phase(svo, hf, poses, card)
+    dc = deferred_phase(csvo, hf, poses, card)
+
+    # ---- 9. the game loop's path, ESVO then CSVO: counts from 0 -----------
     ge, ce = game_phase("esvo", card)
     gc, cc = game_phase("csvo", card)
 
@@ -692,7 +739,10 @@ def main() -> int:
              bound_ms_csvo=k3c_bound[0], bound_by_csvo=k3c_bound[1],
              max_abs_err_csvo=c["k3_err"],
              max_abs_err_csvo_game=cc["k3_game_err"],
-             mean_abs_csvo_vs_esvo=vs_frame, frame_ms_csvo=c["frame_ms"]),
+             mean_abs_csvo_vs_esvo=vs_frame, frame_ms_csvo=c["frame_ms"],
+             deferred_vs_k3=de["vs_k3"], deferred_vs_k3_csvo=dc["vs_k3"],
+             deferred_vs_k3_game=ce["deferred_game_err"],
+             deferred_vs_k3_game_csvo=cc["deferred_game_err"]),
         dict(name="k4_csvo_traversal", route="cuda",
              source="voxelrs_tpu_torch/csrc/k4_csvo_traversal.cuh",
              replaces="voxelrs_tpu/ops/traversal_csvo.py:151",
@@ -722,7 +772,80 @@ def main() -> int:
              batches_checked_csvo=cc["k5_batches"],
              launches_per_frame_csvo=gc["k5_per_frame"],
              svo_raycast_round_trip_us_csvo=cc["k5_round_trip_us"]),
+        dict(name="k6_compact", route="cuda",
+             source="voxelrs_tpu_torch/csrc/k6_compact.cuh",
+             replaces="voxelrs_tpu/ops/shading.py:313",
+             launches=de["launches"]["k6"], max_abs_err=de["k6_err"],
+             ms=de["k6_ms"], plain_ms=de["k6_plain_ms"],
+             bound_ms=de["k6_bound"][0], bound_by=de["k6_bound"][1],
+             library_ms=de["k6_library_ms"], ok=de["k6_ok"] and dc["k6_ok"],
+             masks=de["k6"], launches_csvo=dc["launches"]["k6"],
+             max_abs_err_csvo=dc["k6_err"], ms_csvo=dc["k6_ms"],
+             launches_game=ge["launches"]["k6"],
+             launches_game_csvo=gc["launches"]["k6"]),
+        dict(name="k7_beams", route="cuda",
+             source="voxelrs_tpu_torch/csrc/k7_beams.cuh",
+             replaces="voxelrs_tpu/ops/beams.py:137",
+             launches=de["launches"]["k7"],
+             max_abs_err=max(de["k7_tile_err"], de["k7_shadow_err"]),
+             ms=de["k7_tile_ms"], plain_ms=de["k7_tile_plain_ms"],
+             bound_ms=de["k7_tile_bound"][0], bound_by=de["k7_tile_bound"][1],
+             library_ms=None,
+             ok=all(d[k] for d in (de, dc) for k in ("k7_tile_ok",
+                                                     "k7_shadow_ok")),
+             tiles_march_steps=de["k7_tile_steps"],
+             tile_inf_share=de["tile_inf_share"],
+             shadow_replaces="voxelrs_tpu/ops/beams.py:309",
+             ms_shadow=de["k7_shadow_ms"],
+             plain_ms_shadow=de["k7_shadow_plain_ms"],
+             bound_ms_shadow=de["k7_shadow_bound"][0],
+             bound_by_shadow=de["k7_shadow_bound"][1],
+             shadow_rays=de["k7_shadow_rays"],
+             shadow_march_steps=de["k7_shadow_steps"],
+             shadow_inf_share=de["shadow_inf_share"],
+             launches_tile=de["launches"]["k7_tile"],
+             launches_csvo=dc["launches"]["k7"],
+             ms_csvo=dc["k7_tile_ms"], ms_shadow_csvo=dc["k7_shadow_ms"],
+             launches_game=ge["launches"]["k7"],
+             launches_game_csvo=gc["launches"]["k7"]),
+        dict(name="k8_sun", route="cuda",
+             source="voxelrs_tpu_torch/csrc/k8_sun.cuh",
+             replaces="voxelrs_tpu/ops/beams.py:379",
+             launches=de["launches"]["k8"], max_abs_err=de["k8_err"],
+             ms=de["k8_ms"], plain_ms=de["k8_plain_ms"],
+             bound_ms=de["k8_bound"][0], bound_by=de["k8_bound"][1],
+             library_ms=None, ok=de["k8_ok"] and dc["k8_ok"],
+             rays=de["k8_rays"], certified_share=de["k8_certified_share"],
+             ms_lit_floors=de["k8_lit_floors_ms"],
+             lit_floors_replaces="voxelrs_tpu/ops/beams.py:473",
+             launches_csvo=dc["launches"]["k8"], ms_csvo=dc["k8_ms"],
+             max_abs_err_csvo=dc["k8_err"],
+             launches_game=ge["launches"]["k8"],
+             launches_game_csvo=gc["launches"]["k8"]),
     ]
+    # the deferred frame's stages: held, together, to the plain deferred
+    # frame (their plain version) on every pose, variant and game buffer
+    for st in STAGES:
+        kernels.append(dict(
+            name=f"kd_{st}", route="cuda",
+            source="voxelrs_tpu_torch/csrc/kernels.cu",
+            replaces="voxelrs_tpu/ops/shading.py:3722",
+            launches=de["launches"][f"kd_{st}"],
+            max_abs_err=max(*de["vs_plain"].values(),
+                            ce["deferred_game_plain_err"]),
+            ms=de["stages"]["ms"][st], plain_ms=de["plain_ms"],
+            bound_ms=de["stages"]["bound"][st][0],
+            bound_by=de["stages"]["bound"][st][1], library_ms=None,
+            plain_is="the whole plain deferred frame (pose 0, beams and sun)",
+            ok=all(d["vs_plain_ok"] for d in (de, dc))
+            and ce["deferred_game_ok"] and cc["deferred_game_ok"],
+            launches_csvo=dc["launches"][f"kd_{st}"],
+            max_abs_err_csvo=max(*dc["vs_plain"].values(),
+                                 cc["deferred_game_plain_err"]),
+            ms_csvo=dc["stages"]["ms"][st], plain_ms_csvo=dc["plain_ms"],
+            bound_ms_csvo=dc["stages"]["bound"][st][0],
+            launches_game=ge["launches"][f"kd_{st}"],
+            launches_game_csvo=gc["launches"][f"kd_{st}"]))
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {BUDGET_S} s)")
     game_keys = ("load_s", "serialize_chunk_ms_mean",
@@ -730,14 +853,26 @@ def main() -> int:
                  "svo_leaves", "svo_mb", "depth", "frames", "frame_ms_median",
                  "frame_ms_p90", "frame_ms_p99", "frame_ms_max", "share",
                  "ms_per_frame", "k5_per_frame", "physics_steps", "parts",
-                 "run_s", "launches")
+                 "run_s", "launches", "deferred_frames", "beam_frames",
+                 "sun_frames")
+    sun_keys = ("sun_wait_frames", "sun_wait_s", "sun_attached",
+                "sun_build_s", "sun_mb", "sun_shape", "deferred_game_err",
+                "deferred_game_plain_err")
     log(json.dumps({"frame_ms": e["frame_ms"], "mrays_per_s": e["mrays"],
                     "frame_ms_csvo": c["frame_ms"],
                     "mrays_per_s_csvo": c["mrays"],
+                    "deferred_frame_ms": de["frame_ms"],
+                    "deferred_mrays_per_s": de["mrays"],
+                    "deferred_frame_ms_csvo": dc["frame_ms"],
+                    "deferred_mrays_per_s_csvo": dc["mrays"],
+                    "deferred_host_us": de["host_us"],
+                    "floored": de["floored"], "floored_csvo": dc["floored"],
                     "card": card, "build_s": _build.build_seconds,
                     "native_build_s": native.build_seconds, "total_s": total,
-                    "game": {k: ge[k] for k in game_keys},
-                    "game_csvo": {k: gc[k] for k in game_keys}}))
+                    "game": {**{k: ge[k] for k in game_keys},
+                             **{k: ce[k] for k in sun_keys}},
+                    "game_csvo": {**{k: gc[k] for k in game_keys},
+                                  **{k: cc[k] for k in sun_keys}}}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -786,7 +921,7 @@ def renderer_phase(svo, poses, card) -> dict:
         for p in poses:
             ro, rd = primary_rays(svo, p)
             hits = query(ro, rd)
-            frames.append(svo.render(p, W, H))
+            frames.append(svo.render(p, W, H, mode="fused"))
         torch.cuda.synchronize()
         out.update(trav_launches=trav.launches, k3_launches=shading.launches)
         k3_csvo = shading.launches_csvo
@@ -838,7 +973,7 @@ def renderer_phase(svo, poses, card) -> dict:
 
     with Phase(f"k3 vs plain ({fmt})"):
         p = poses[0]
-        img = svo.render(p, W, H, max_steps=1000)
+        img = svo.render(p, W, H, max_steps=1000, mode="fused")
         kw = svo.frame_kwargs(p, W, H, max_steps=1000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -861,9 +996,9 @@ def renderer_phase(svo, poses, card) -> dict:
 
     with Phase(f"timing ({fmt})"):
         for p in poses:  # warm-up
-            svo.render(p, W, H)
-        frame_ms = sorted(cuda_ms(lambda: svo.render(p, W, H), REPS)
-                          for p in poses)
+            svo.render(p, W, H, mode="fused")
+        frame_ms = sorted(cuda_ms(lambda: svo.render(p, W, H, mode="fused"),
+                                  REPS) for p in poses)
         out["frame_ms"] = frame_ms[len(frame_ms) // 2]
         out["mrays"] = W * H * 2 / (out["frame_ms"] / 1e3) / 1e6
         # the kernels alone, on pose 0, from inputs prepared beforehand
@@ -887,7 +1022,8 @@ def renderer_phase(svo, poses, card) -> dict:
         out["k3_steps"] = int(steps3.sum())
         # the wrappers' host time around those launches
         out["trav_host_us"] = host_us(lambda: query(ro, rd))
-        out["k3_host_us"] = host_us(lambda: svo.render(poses[0], W, H))
+        out["k3_host_us"] = host_us(lambda: svo.render(poses[0], W, H,
+                                                       mode="fused"))
     log(f"frame {W}x{H} ({fmt}; Svo.render, fused, K3; events from call to "
         f"finished frame): median {out['frame_ms']:.3f} ms/frame over "
         f"{len(poses)} poses x {REPS} runs, per-pose medians "
@@ -897,6 +1033,431 @@ def renderer_phase(svo, poses, card) -> dict:
         f"launches): {kname} {out['trav_ms']:.4f} ms, k3 {out['k3_ms']:.4f} "
         f"ms; wrapper host time (median of {HOST_REPS} calls): query "
         f"{out['trav_host_us']:.1f} us, Svo.render {out['k3_host_us']:.1f} us")
+    return out
+
+
+class Spy:
+    """Stands in for a module function: calls it and keeps copies of the
+    tensors of each call's arguments (for the comparisons after a run)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        def run(*args, **kw):
+            keep = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+            self.calls.append(([keep(a) for a in args],
+                               {k: keep(v) for k, v in kw.items()}))
+            return self.fn(*args, **kw)
+
+        setattr(self.module, self.name, run)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def deferred_counts():
+    """Launch counts of the deferred frame's kernels."""
+    from voxelrs_tpu_torch.ops import beams, compact, shading
+
+    return dict(k6=compact.launches,
+                k7=beams.launches_tile + beams.launches_shadow,
+                k7_tile=beams.launches_tile,
+                k7_shadow=beams.launches_shadow,
+                k8=beams.launches_sun + beams.launches_sun_floors,
+                k8_verdicts=beams.launches_sun,
+                k8_lit_floors=beams.launches_sun_floors,
+                **{f"kd_{s}": getattr(shading, f"launches_{s}")
+                   for s in STAGES})
+
+
+def zero_deferred_counts():
+    from voxelrs_tpu_torch.ops import beams, compact, shading
+
+    compact.launches = 0
+    for s in STAGES:
+        setattr(shading, f"launches_{s}", 0)
+    beams.launches_tile = beams.launches_shadow = 0
+    beams.launches_sun = beams.launches_sun_floors = 0
+
+
+def event_ms(fn) -> float:
+    """Milliseconds of one call of ``fn`` between two CUDA events."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def max_abs(a, b) -> float:
+    """max |a - b| with equal infinities counting 0 (floors, masks)."""
+    import torch
+
+    a, b = a.float(), b.float()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def plain_deferred(svo, p, beams):
+    """The plain deferred frame of pose ``p`` on ``svo``'s own tensors, with
+    the inputs ``Svo.render`` gives the stages."""
+    from voxelrs_tpu_torch.ops import shading
+
+    return shading.render_frame_deferred_plain(
+        svo.world(), svo.octree_scale, svo.mips, svo.mat_params, svo.mat_tex,
+        **svo.frame_kwargs(p, W, H), opaque=svo.is_opaque(), beams=beams)
+
+
+def deferred_phase(svo, hf, poses, card) -> dict:
+    """The deferred frame (``Svo.render``'s default mode) on ``svo``'s
+    format with the scene's envelope: counts from 0 over one frame per pose;
+    the frame against K3's fused frame with beams and the sun map, beams
+    only and no heightfield on every pose; K6, K7 and K8 against their plain
+    versions on pose 0's own inputs; K1 / K4 from the floors against their
+    unfloored runs; the kernels alone and the frame, timed."""
+    import numpy as np
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import (beams, compact, shading, traversal,
+                                       traversal_csvo)
+
+    csvo = svo.buffer_dtype == np.uint8
+    fmt = "csvo" if csvo else "esvo"
+    dev = svo.device_buf.device
+    svo.set_heightfield(hf)
+    out = {}
+    with Phase(f"deferred main path ({fmt})"):
+        zero_deferred_counts()
+        frames = [svo.render(p, W, H) for p in poses]
+        torch.cuda.synchronize()
+        n = out["launches"] = deferred_counts()
+        info = dict(svo.last_frame)
+    log(f"deferred main path launches ({fmt}): {json.dumps(n)}; last frame "
+        f"{json.dumps(info)}; sun map build {hf.sun_build_seconds} s host")
+    if not (n["k6"] and n["k7"] and n["k8"]
+            and all(n[f"kd_{s}"] for s in STAGES)):
+        fail(f"a kernel of the {fmt} deferred path was not launched")
+    if not (info.get("opaque") and info.get("beams") and info.get("sun")):
+        fail(f"the {fmt} bench frame did not take the opaque branch with "
+             "beams and the sun map")
+    for img in frames:
+        if tuple(img.shape) != (H, W, 4) or not bool(torch.isfinite(img).all()):
+            fail(f"{fmt} deferred frame has the wrong shape or non-finite "
+                 "values")
+
+    with Phase(f"deferred vs k3 and vs plain ({fmt})"):
+        # every pose, in three variants: the stages against their plain
+        # version (the plain deferred frame, same inputs and beam context)
+        # and the frame against K3's fused frame
+        variants = ("beams_sun", "beams", "no_heightfield")
+        errs = dict.fromkeys(variants, 0.0)
+        plain_errs = dict.fromkeys(variants, 0.0)
+        for i, p in enumerate(poses):
+            fused = svo.render(p, W, H, mode="fused")
+            ctx = svo.beam_context(p, W, H)
+            for name, b in zip(variants, (ctx, ctx.without_sun(), None)):
+                img = svo.render(p, W, H, beams=b)
+                ref = []
+                ms = event_ms(lambda: ref.append(plain_deferred(svo, p, b)))
+                if i == 0 and name == "beams_sun":
+                    out["plain_ms"] = ms
+                errs[name] = max(errs[name], max_abs(img, fused))
+                plain_errs[name] = max(plain_errs[name], max_abs(img, ref[0]))
+    out["vs_k3"], out["vs_plain"] = errs, plain_errs
+    out["vs_k3_ok"] = all(v <= K3_MAX_ABS for v in errs.values())
+    out["vs_plain_ok"] = all(v <= K3_MAX_ABS for v in plain_errs.values())
+    log(f"deferred vs k3 ({fmt}, {len(poses)} poses): max |d| "
+        f"{json.dumps(errs)} (tolerance {K3_MAX_ABS:g}); ok {out['vs_k3_ok']}")
+    log(f"deferred stages vs the plain deferred frame ({fmt}, "
+        f"{len(poses)} poses): max |d| {json.dumps(plain_errs)} (tolerance "
+        f"{K3_MAX_ABS:g}); ok {out['vs_plain_ok']}; plain frame (pose 0, "
+        f"beams and sun map) {out['plain_ms']:.1f} ms")
+    if not out["vs_k3_ok"]:
+        fail(f"the {fmt} deferred frame disagrees with K3's fused frame")
+    if not out["vs_plain_ok"]:
+        fail(f"the {fmt} deferred stages disagree with their plain version")
+
+    with Phase(f"k6 k7 k8 vs plain ({fmt})"):
+        p0 = poses[0]
+        ctx = svo.beam_context(p0, W, H)
+        with Spy(compact, "compact_indices") as k6s, \
+                Spy(beams, "sun_verdict_masks") as k8s:
+            svo.render(p0, W, H, beams=ctx)
+        with Spy(beams, "shadow_ray_floors") as k7s:
+            svo.render(p0, W, H, beams=ctx.without_sun())
+        torch.cuda.synchronize()
+        if len(k6s.calls) != 3 or len(k8s.calls) != 1 or len(k7s.calls) != 1:
+            fail(f"the {fmt} deferred frame's stages ran another way: "
+                 f"{len(k6s.calls)} compactions, {len(k8s.calls)} K8, "
+                 f"{len(k7s.calls)} K7 shadow calls")
+        # K6 on the frame's own masks: hits, shadow candidates, uncertified
+        k6 = []
+        for (mask, size), _kw in k6s.calls:
+            idx, count = compact.compact_indices(mask, size)
+            pidx, pcount = compact.compact_indices_plain(mask, size)
+            k6.append(dict(lanes=int(mask.shape[0]), set=int(pcount),
+                           equal=bool(torch.equal(idx, pidx)
+                                      and torch.equal(count, pcount)),
+                           err=max(max_abs(idx, pidx),
+                                   max_abs(count, pcount))))
+        mask0, size0 = k6s.calls[0][0]
+        out0 = torch.zeros(size0, dtype=torch.int32, device=dev)
+        cnt0 = torch.empty(1, dtype=torch.int32, device=dev)
+        scr0 = torch.empty(_build.k6_blocks(mask0.shape[0]),
+                           dtype=torch.int32, device=dev)
+        k6_ms = kernel_ms(lambda: _build.launch_k6(mask0, size0, out0, cnt0,
+                                                   scr0))
+        k6_plain_ms = event_ms(lambda: compact.compact_indices_plain(
+            mask0, size0))
+
+        def library():
+            nz = torch.nonzero(mask0).flatten()[:size0].to(torch.int32)
+            return torch.nn.functional.pad(nz, (0, size0 - nz.shape[0]))
+
+        library()
+        k6_library_ms = event_ms(library)
+        k6_bound = bound(mask0.shape[0] + size0 * 4 + 4, 0)
+
+        # K7 tile floors on pose 0
+        kw = svo.frame_kwargs(p0, W, H)
+        levels, offsets, nn, hmax, bounds, levels_e = ctx._dev
+        ccx = int(np.floor(kw["cam_pos"][0] / beams.CELL)) - 2
+        ccz = int(np.floor(kw["cam_pos"][2] / beams.CELL)) - 2
+        near = hf.near_window(ccx + 2, ccz + 2).astype(np.float32)
+        base = np.array([ccx, ccz], np.float32)
+        targs = (offsets, nn, hmax, near, base, kw["cam_pos"],
+                 kw["cam_right"], kw["cam_up"], kw["cam_fwd"],
+                 shading.tan_half_fov(p0.fov_y_rad), p0.aspect_ratio, -1.0)
+        tf_plain_ms = event_ms(lambda: beams.tile_floors_plain(
+            levels, offsets, nn, hmax, bounds, *targs[3:], width=W,
+            height=H))
+        tile_steps = beams.last_march_steps
+        tf_plain = beams.tile_floors_plain(levels, offsets, nn, hmax, bounds,
+                                           *targs[3:], width=W, height=H)
+        tf_err = max_abs(ctx.tile_floors, tf_plain)
+        tf_ok = bool(torch.equal(ctx.tile_floors, tf_plain))
+        tparams = beams.tile_params(*targs, W, H)
+        tf_out = torch.empty_like(ctx.tile_floors)
+        tf_ms = kernel_ms(lambda: _build.launch_k7_tiles(levels, bounds,
+                                                         tparams, tf_out))
+        ntiles = tf_out.numel()
+        tf_bound = bound(levels.numel() * 4 + 16 + ntiles * 4,
+                         ntiles * OPS_TILE_SETUP + tile_steps * OPS_MARCH_STEP)
+        floors = ctx.t_floor
+
+        # K7 shadow floors on the frame's candidates (beams only)
+        sargs, skw = k7s.calls[0]
+        # shadow_ray_floors(levels_e, h3d0, offsets, n, hmax, bounds, ro,
+        # light_to, max_dst, idx=, count=)
+        sro, light_to, smd = sargs[6], sargs[7], sargs[8]
+        sidx, scount = skw["idx"], skw["count"]
+        kf = beams.shadow_ray_floors(levels_e, levels[: nn * nn], offsets,
+                                     nn, hmax, bounds, sro, light_to, smd,
+                                     idx=sidx, count=scount)
+        sh_plain_ms = event_ms(lambda: beams.shadow_ray_floors_plain(
+            levels_e, levels[: nn * nn], offsets, nn, hmax, bounds, sro,
+            light_to, smd, idx=sidx, count=scount))
+        sh_steps = beams.last_march_steps
+        pf = beams.shadow_ray_floors_plain(
+            levels_e, levels[: nn * nn], offsets, nn, hmax, bounds, sro,
+            light_to, smd, idx=sidx, count=scount)
+        sh_ok, sh_err = bool(torch.equal(kf, pf)), max_abs(kf, pf)
+        sparams = beams.shadow_params(offsets, nn, hmax, light_to)
+        sh_out = torch.empty_like(kf)
+        sh_ms = kernel_ms(lambda: _build.launch_k7_shadow(
+            levels_e, levels[: nn * nn], bounds, sparams, sro, smd, sidx,
+            scount, sh_out))
+        k_cand = int(scount)
+        sh_bound = bound(levels_e.numel() * 4 + nn * nn * 4 + 16
+                         + k_cand * (4 + 12 + 4) + sidx.shape[0] * 4,
+                         k_cand * OPS_SHADOW_SETUP + sh_steps * OPS_MARCH_STEP)
+
+        # K8 verdicts and lit floors on the frame's candidates (sun map)
+        vargs, vkw = k8s.calls[0]
+        # sun_verdict_masks(sb, n1, ro, max_dst, ..., idx=, count=, todo=)
+        vro, vmd = vargs[2], vargs[3]
+        vidx, vcount = vkw["idx"], vkw["count"]
+        g = dict(idx=vidx, count=vcount, margin=vkw["margin"])
+        sb, n1, d_len, dvec, origin = ctx._sun
+        kl, kb = beams.sun_verdict_masks(sb, n1, vro, vmd, d_len, dvec, origin,
+                                         **g)
+        v_plain_ms = event_ms(lambda: beams.sun_verdict_masks_plain(
+            sb, n1, vro, vmd, d_len, dvec, origin, **g))
+        pl, pb = beams.sun_verdict_masks_plain(sb, n1, vro, vmd, d_len, dvec,
+                                               origin, **g)
+        v_ok = bool(torch.equal(kl, pl) and torch.equal(kb, pb))
+        v_err = max(max_abs(kl, pl), max_abs(kb, pb))
+        kfl = beams.sun_lit_floors(sb, n1, vro, vmd, d_len, dvec, origin, **g)
+        pfl = beams.sun_lit_floors_plain(sb, n1, vro, vmd, d_len, dvec,
+                                         origin, **g)
+        lf_ok, lf_err = bool(torch.equal(kfl, pfl)), max_abs(kfl, pfl)
+        vparams = beams.sun_params(sb, n1, d_len, dvec, origin, g["margin"])
+        lit_o = torch.empty_like(kl)
+        blk_o = torch.empty_like(kb)
+        k8_lanes = vidx.shape[0]
+        v_ms = kernel_ms(lambda: _build.launch_k8(
+            sb, vparams, vro, vmd, vidx, vcount, k8_lanes, lit_o, blk_o, None,
+            None))
+        lf_o = torch.empty_like(kfl)
+        lf_ms = kernel_ms(lambda: _build.launch_k8(
+            sb, vparams, vro, vmd, vidx, vcount, k8_lanes, None, None, None,
+            lf_o))
+        v_cand = int(vcount)
+        v_bound = bound(v_cand * (4 + 12 + 2 * sb.shape[1]) + k8_lanes * 2,
+                        v_cand * OPS_SUN_RAY)
+        certified = float((kl | kb).sum()) / max(v_cand, 1)
+    out.update(
+        k6=k6, k6_ok=all(c["equal"] for c in k6),
+        k6_err=max(c["err"] for c in k6), k6_ms=k6_ms,
+        k6_plain_ms=k6_plain_ms, k6_library_ms=k6_library_ms,
+        k6_bound=k6_bound, k7_tile_ok=tf_ok, k7_tile_err=tf_err,
+        k7_tile_ms=tf_ms, k7_tile_plain_ms=tf_plain_ms, k7_tile_bound=tf_bound,
+        k7_tile_steps=tile_steps, k7_shadow_ok=sh_ok, k7_shadow_err=sh_err,
+        k7_shadow_ms=sh_ms, k7_shadow_plain_ms=sh_plain_ms,
+        k7_shadow_bound=sh_bound, k7_shadow_steps=sh_steps,
+        k7_shadow_rays=k_cand, k8_ok=v_ok and lf_ok, k8_err=max(v_err, lf_err),
+        k8_ms=v_ms, k8_plain_ms=v_plain_ms, k8_bound=v_bound,
+        k8_lit_floors_ms=lf_ms, k8_rays=v_cand, k8_certified_share=certified,
+        shadow_inf_share=float(torch.isinf(kf[:k_cand]).float().mean()),
+        tile_inf_share=float(torch.isinf(ctx.tile_floors).float().mean()))
+    log(f"k6 vs plain ({fmt}, pose 0's masks: hits, shadow candidates, "
+        f"uncertified): {json.dumps(k6)}; alone on the {mask0.shape[0]}-lane "
+        f"hit mask {k6_ms:.4f} ms, plain {k6_plain_ms:.3f} ms, torch.nonzero "
+        f"+ pad {k6_library_ms:.4f} ms, bound {k6_bound[0]:.4g} ms "
+        f"({k6_bound[1]}) on {card}")
+    log(f"k7 tile floors vs plain ({fmt}): equal {tf_ok} (max |d| {tf_err:.3g})"
+        f"; {ntiles} tiles, {tile_steps} march steps, +inf share "
+        f"{out['tile_inf_share']:.4f}; alone {tf_ms:.4f} ms, plain "
+        f"{tf_plain_ms:.2f} ms, bound {tf_bound[0]:.4g} ms ({tf_bound[1]})")
+    log(f"k7 shadow floors vs plain ({fmt}, {k_cand} candidates): equal "
+        f"{sh_ok} (max |d| {sh_err:.3g}); {sh_steps} march steps, +inf share "
+        f"{out['shadow_inf_share']:.4f}; alone {sh_ms:.4f} ms, plain "
+        f"{sh_plain_ms:.2f} ms, bound {sh_bound[0]:.4g} ms ({sh_bound[1]})")
+    log(f"k8 vs plain ({fmt}, {v_cand} candidates, table "
+        f"{tuple(sb.shape)} = {sb.numel() * 2 / 1e6:.2f} MB): verdicts "
+        f"equal {v_ok}, lit floors equal {lf_ok}; certified share "
+        f"{certified:.4f}; alone {v_ms:.4f} ms (lit floors {lf_ms:.4f} ms), "
+        f"plain {v_plain_ms:.2f} ms, bound {v_bound[0]:.4g} ms ({v_bound[1]})")
+    if not (out["k6_ok"] and tf_ok and sh_ok and out["k8_ok"]):
+        fail(f"K6, K7 or K8 disagrees with its plain version ({fmt})")
+
+    with Phase(f"floored {'k4' if csvo else 'k1'} vs unfloored ({fmt})"):
+        ro, rd = primary_rays(svo, poses[0])
+        alpha = shading.make_alpha_fn(svo.mips, svo.mat_tex)
+        w = svo.world()
+        if csvo:
+            q = lambda **k: traversal_csvo.intersect_octree_csvo(  # noqa: E731
+                w.words, float(svo.octree_scale), w.root_ptr, w.total_depth,
+                ro, rd, -1.0, True, alpha, **k)
+        else:
+            q = lambda **k: traversal.intersect_octree(  # noqa: E731
+                w, float(svo.octree_scale), ro, rd, -1.0, True, alpha, **k)
+        a, b = q(t_floor=floors), q()
+        torch.cuda.synchronize()
+        diff = {f: int((getattr(a, f) != getattr(b, f)).sum())
+                for f in ("value", "face_id", "inside_voxel", "t")}
+    out["floored"] = dict(rays=int(ro.shape[0]), differing=diff,
+                          steps_floored=int(a.steps.sum()),
+                          steps_unfloored=int(b.steps.sum()))
+    out["floored_ok"] = not any(diff.values())
+    log(f"floored vs unfloored ({fmt}, pose 0, {ro.shape[0]} primary rays): "
+        f"differing {json.dumps(diff)}; steps {out['floored']['steps_floored']}"
+        f" vs {out['floored']['steps_unfloored']} "
+        f"({out['floored']['steps_floored'] / ro.shape[0]:.2f} vs "
+        f"{out['floored']['steps_unfloored'] / ro.shape[0]:.2f} a ray)")
+    if not out["floored_ok"]:
+        fail(f"floored {fmt} traversal disagrees with the unfloored one")
+
+    with Phase(f"deferred stages alone ({fmt})"):
+        # each stage's launch on its own inputs from pose 0's frame (beams
+        # and sun map), kept by spies on the launch wrappers
+        spies = [Spy(_build, f"launch_kd_{s}") for s in STAGES]
+        for sp in spies:
+            sp.__enter__()
+        try:
+            svo.render(poses[0], W, H)
+        finally:
+            for sp in spies:
+                sp.__exit__()
+        torch.cuda.synchronize()
+        if any(len(sp.calls) != 1 for sp in spies):
+            fail(f"the {fmt} deferred frame launched its stages another way")
+        stage_ms = {s: kernel_ms(lambda sp=sp: sp.fn(*sp.calls[0][0],
+                                                     **sp.calls[0][1]))
+                    for s, sp in zip(STAGES, spies)}
+        # the shadow stage's traced rays (the uncertified candidates) and
+        # their traversal steps, from a traversal launch on the same rays
+        ws = svo._workspace
+        sidx = ws.sidx[: int(ws.scount)].to(torch.int64)
+        tlanes = ws.tidx[: int(ws.tcount)].to(torch.int64)
+        sro = ws.sro[sidx[tlanes]].contiguous()
+        kw0 = svo.frame_kwargs(poses[0], W, H)
+        srd = (-torch.as_tensor(np.asarray(kw0["light_dir"], np.float32),
+                                device=dev)).expand(sro.shape).contiguous()
+        w = svo.world()
+        if csvo:
+            sres = traversal_csvo.intersect_octree_csvo(
+                w.words, float(svo.octree_scale), w.root_ptr, w.total_depth,
+                sro, srd, -1.0, False)
+        else:
+            sres = traversal.intersect_octree(w, float(svo.octree_scale), sro,
+                                              srd, -1.0, False)
+        shadow_steps = int(sres.steps.sum())
+    B = W * H
+    hits, cand, traced = int(ws.hcount), int(ws.scount), int(ws.tcount)
+    world_bytes = svo.device_buf.numel() * 4
+    ntiles = -(-W // 8) * -(-H // 8)
+    out["stages"] = dict(
+        ms=stage_ms, hits=hits, candidates=cand, traced=traced,
+        shadow_steps=shadow_steps,
+        bound=dict(
+            # tile floors in; hit records, hit mask and sky pixels out
+            # (steps: K1 / K4 from the same floors, the phase above)
+            primary=bound(world_bytes + ntiles * 4 + B * 36 + B
+                          + (B - hits) * 16,
+                          out["floored"]["steps_floored"] * OPS_PER_STEP),
+            # hit lanes and records in; colour, light, need, origin, pixel
+            shade=bound(hits * (4 + 36 + 16 + 4 + 1 + 12 + 16),
+                        hits * OPS_PER_PIXEL),
+            # the traced lanes' indices and origins in, their verdicts out
+            shadow=bound(world_bytes + traced * (4 + 4 + 12 + 1),
+                         shadow_steps * OPS_PER_STEP),
+            # candidates' indices, verdicts, colour and light in, pixels out
+            finish=bound(cand * (4 + 4 + 3 + 16 + 4 + 16), cand * 10)))
+    log(f"deferred stages alone ({fmt}, pose 0; {hits} hits, {cand} shadow "
+        f"candidates, {traced} traced, {shadow_steps} shadow steps): "
+        + ", ".join(f"{s} {stage_ms[s]:.4f} ms (bound "
+                    f"{out['stages']['bound'][s][0]:.4g} ms, "
+                    f"{out['stages']['bound'][s][1]})" for s in STAGES)
+        + f" on {card}")
+
+    with Phase(f"deferred timing ({fmt})"):
+        for p in poses:  # warm-up
+            svo.render(p, W, H)
+        frame_ms = sorted(cuda_ms(lambda: svo.render(p, W, H), REPS)
+                          for p in poses)
+        out["frame_ms"] = frame_ms[len(frame_ms) // 2]
+        out["frame_ms_poses"] = frame_ms
+        out["mrays"] = W * H * 2 / (out["frame_ms"] / 1e3) / 1e6
+        out["host_us"] = host_us(lambda: svo.render(poses[0], W, H))
+    log(f"deferred frame {W}x{H} ({fmt}; Svo.render default mode, beams and "
+        f"sun map; events from call to finished frame): median "
+        f"{out['frame_ms']:.3f} ms/frame, per-pose medians "
+        f"{[round(x, 3) for x in frame_ms]}; {out['mrays']:.2f} Mrays/s; "
+        f"host time of the call {out['host_us']:.1f} us, on {card}")
     return out
 
 
@@ -913,6 +1474,7 @@ def game_phase(fmt: str, card):
     traversal.launches = traversal_csvo.launches = 0
     shading.launches = shading.launches_csvo = 0
     picker.launches = picker.launches_csvo = 0
+    zero_deferred_counts()
     game = Game(GameArgs(render_distance=GAME_RENDER_DISTANCE,
                          svo_format=fmt))
     try:
@@ -921,10 +1483,12 @@ def game_phase(fmt: str, card):
         n = g["launches"] = dict(
             k5=picker.launches, k3=shading.launches,
             k5_csvo=picker.launches_csvo, k3_csvo=shading.launches_csvo,
-            k1=traversal.launches, k4=traversal_csvo.launches)
+            k1=traversal.launches, k4=traversal_csvo.launches,
+            **deferred_counts())
         log(f"game path launches ({fmt}): {json.dumps(n)} (k1 and k4 run "
-            f"inside k3 and k5 here)")
-        if n["k5"] == 0 or n["k3"] == 0:
+            f"inside the deferred stages and k5 here)")
+        if not (n["k5"] and n["k6"] and n["k7"]
+                and all(n[f"kd_{s}"] for s in STAGES)):
             fail(f"a kernel of the {fmt} game's path was not launched")
         csvo = fmt == "csvo"
         if (n["k5_csvo"], n["k3_csvo"]) != ((n["k5"], n["k3"]) if csvo
@@ -946,6 +1510,9 @@ def game_phase(fmt: str, card):
         fail(f"K5 disagrees with its plain version ({fmt})")
     if not c["k3_game_ok"]:
         fail(f"K3 disagrees with the plain frame on the streamed {fmt} buffer")
+    if not c["deferred_game_ok"]:
+        fail(f"the deferred frame disagrees with K3's or with its plain "
+             f"version on the streamed {fmt} buffer")
     return g, c
 
 

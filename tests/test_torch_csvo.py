@@ -535,7 +535,8 @@ def test_csvo_frame_matches_jax(frame_pair, max_steps):
     jsvo, tsvo = frame_pair
     jimg = np.asarray(jsvo.render(_params(JRenderParams), W, H,
                                   max_steps=max_steps, mode="fused"))
-    timg = tsvo.render(_params(RenderParams), W, H, max_steps=max_steps)
+    timg = tsvo.render(_params(RenderParams), W, H, max_steps=max_steps,
+                       mode="fused")
     assert timg.shape == (H, W, 4) and bool(torch.isfinite(timg).all())
     assert_frames_close(timg.numpy(), jimg)
     if max_steps == 40:
@@ -545,8 +546,10 @@ def test_csvo_frame_matches_jax(frame_pair, max_steps):
             tsvo.world(), tsvo.octree_scale, tsvo.mips, tsvo.mat_params,
             tsvo.mat_tex, **{**kw, "max_steps": 1000})
         assert np.abs(full.numpy() - timg.numpy()).max() > 0.05
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsvo.render(_params(RenderParams), W, H, mode="deferred")
+    # the deferred frame (the default mode) over the CSVO buffer: its
+    # judged branch, here the fused frame bit for bit at every budget
+    dimg = tsvo.render(_params(RenderParams), W, H, max_steps=max_steps)
+    np.testing.assert_array_equal(dimg.numpy(), timg.numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Kernels K1, K3, K4 and K5 against their plain PyTorch versions on a CUDA
-card (K3 and K5 in both their ESVO and CSVO instantiations), the game loop
-launching K5 and K3 in both formats, and the crosshair overlay on the card
-against the CPU.
+"""Kernels K1, K3, K4, K5, K6, K7 and K8 against their plain PyTorch
+versions on a CUDA card (K3 and K5 in both their ESVO and CSVO
+instantiations), K1 and K4 from the beam floors against their unfloored
+runs, the deferred frame against K3's fused frame in both formats, the game
+loop launching K5 and the deferred frame's kernels in both formats, and the
+crosshair overlay on the card against the CPU.
 
 Every test here needs the card (marker ``cuda``) and skips without one. The
 file imports neither JAX nor ``voxelrs_tpu``, so it also runs where JAX is
@@ -15,7 +17,11 @@ max |d| <= 1e-6 over every pixel and channel — the same operations again,
 with room only for a last-bit rounding of powf/acosf against
 torch.pow/torch.acos. K4 equals its plain version bit for bit, field by
 field, as K1. K5 equals its plain version bit for bit, every column of
-every task. The crosshair equals the CPU's result bit for bit.
+every task. K6, K7 and K8 equal their plain versions bit for bit (torch.
+equal). Floored K1 and K4 equal their unfloored runs on value, face_id,
+inside_voxel and t. The deferred frame is within max |d| 1e-6 of K3's
+frame (its stages are K3's device functions; measured 0). The crosshair
+equals the CPU's result bit for bit.
 """
 
 import numpy as np
@@ -26,10 +32,15 @@ from voxelrs_tpu_torch.gamelogic import content
 from voxelrs_tpu_torch.gamelogic.game import Game, GameArgs
 from voxelrs_tpu_torch.graphics.picker import Aabb, PickerBatch, PickerBatchResult
 from voxelrs_tpu_torch.graphics.svo import RenderParams, Svo
-from voxelrs_tpu_torch.ops import picker, shading, traversal, traversal_csvo
+from voxelrs_tpu_torch.ops import (beams, compact, picker, shading, traversal,
+                                   traversal_csvo)
 from voxelrs_tpu_torch.world import ChunkPos, Position
 from voxelrs_tpu_torch.world.csvo import Csvo, CsvoSerializedChunk
 from voxelrs_tpu_torch.world.esvo import Esvo, SerializedChunk
+from voxelrs_tpu_torch.world.heightfield import (HeightField, chunk_column_tops,
+                                                 chunk_solid_bases,
+                                                 chunk_voxel_tops,
+                                                 opaque_lut_from_mask)
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +158,7 @@ def _check_k3(svo, shadows, trilinear, max_steps, monkeypatch):
                      shadow_distance=100.0,
                      selected_voxel=np.array([12.0, 11.0, 10.0], np.float32))
     n0 = shading.launches
-    img = svo.render(p, W, H, max_steps=max_steps)
+    img = svo.render(p, W, H, max_steps=max_steps, mode="fused")
     ref = shading.render_frame_plain(
         svo.world(), svo.octree_scale, svo.mips, svo.mat_params,
         svo.mat_tex, **svo.frame_kwargs(p, W, H, max_steps=max_steps))
@@ -227,25 +238,56 @@ def test_csvo_game_loop_launches_the_csvo_instantiations(dev):
 
 
 def _check_game_loop(fmt):
+    """Ten frames of the game: K5 (the picker) and the deferred frame with
+    the world's heightfield (K6, K7; K8 once a sun map is attached, which
+    the streaming engine builds on a thread once the world is quiet); then
+    one fused frame of the streamed buffer (K3 in its format's
+    instantiation) equal to the deferred one."""
     g = Game(GameArgs(player_pos=(16.37, 63.21, 16.83),
                       player_euler_rot=(-30.0, 45.0, 0.0), render_distance=2,
                       gpu_buffer_size_mb=16, workers=2, svo_format=fmt))
     try:
         assert g.wait_for_world(timeout=120)
         g.player.caps.flying = False
-        n5, n3 = picker.launches, shading.launches
-        c5, c3 = picker.launches_csvo, shading.launches_csvo
+        n5, c5 = picker.launches, picker.launches_csvo
+        stages = ("launches_primary", "launches_shade", "launches_shadow",
+                  "launches_finish")
+        nd = [getattr(shading, s) for s in stages]
+        n6 = compact.launches
+        n7 = beams.launches_tile + beams.launches_shadow
+        n8 = beams.launches_sun + beams.launches_sun_floors
+        gsvo = g.world.world_svo.graphics_svo
+        sun = 0
         for _ in range(10):
             img = g.step_frame(dt=1 / 60, render=True, width=160, height=120)
+            sun += bool(gsvo.last_frame.get("sun"))
+        for _ in range(200):  # until the sun map attaches
+            if sun:
+                break
+            import time
+
+            time.sleep(0.05)
+            img = g.step_frame(dt=1 / 60, render=True, width=160, height=120)
+            sun += bool(gsvo.last_frame.get("sun"))
         torch.cuda.synchronize()
         assert img.is_cuda and img.shape == (120, 160, 4)
         assert bool(torch.isfinite(img).all())
-        assert shading.launches == n3 + 10
+        assert gsvo.last_frame["mode"] == "deferred" and gsvo.last_frame["beams"]
+        assert all(getattr(shading, s) - n >= 10 for s, n in zip(stages, nd))
+        assert compact.launches > n6
+        assert beams.launches_tile + beams.launches_shadow > n7
+        assert sun and beams.launches_sun + beams.launches_sun_floors > n8
         assert picker.launches > n5
         csvo = fmt == "csvo"
-        assert shading.launches_csvo - c3 == (10 if csvo else 0)
         assert picker.launches_csvo - c5 == (picker.launches - n5 if csvo else 0)
         assert g.player.state.is_grounded
+        n3, c3 = shading.launches, shading.launches_csvo
+        p = g.world.render_params(160 / 120)
+        fused = g.world.world_svo.render(p, 160, 120, mode="fused")
+        deferred = g.world.world_svo.render(p, 160, 120)
+        assert shading.launches == n3 + 1
+        assert shading.launches_csvo == c3 + int(csvo)
+        assert float((fused - deferred).abs().max()) <= K3_MAX_ABS
     finally:
         g.shutdown()
 
@@ -290,3 +332,228 @@ def test_crosshair_on_the_card_equals_the_cpu(dev):
     cpu = shading.crosshair_overlay(img)
     card = shading.crosshair_overlay(img.to(dev)).cpu()
     assert torch.equal(card, cpu)
+
+
+# ---------------------------------------------------------------------------
+# K6, K7, K8, the floored traversals and the deferred frame
+# ---------------------------------------------------------------------------
+
+K3_MAX_ABS = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,density,size", [
+    (1, 1.0, 1), (1000, 0.0, 1000), (4097, 1.0, 4097), (5000, 0.5, 700),
+    (1024 * 37 + 5, 0.3, 1024 * 37 + 5), (2_073_600, 0.6, 2_073_600),
+    (2_073_600, 0.001, 4096)])
+def test_k6_equals_plain(dev, n, density, size):
+    rng = np.random.default_rng(n + size)
+    mask = torch.tensor(rng.random(n) < density, device=dev)
+    n0 = compact.launches
+    idx, count = compact.compact_indices(mask, size)
+    pidx, pcount = compact.compact_indices_plain(mask, size)
+    torch.cuda.synchronize()
+    assert compact.launches == n0 + 1
+    assert torch.equal(idx, pidx) and torch.equal(count, pcount)
+    # the library call that computes the same function
+    want = torch.nonzero(mask).flatten()[:size].to(torch.int32)
+    assert torch.equal(idx[: want.shape[0]], want)
+
+
+def _terrain_chunk(cx, cz, glass_tower=False):
+    """tests/test_beams.py's terrain chunk."""
+    vox = np.zeros((32, 32, 32), np.uint32)
+    x = np.arange(32) + cx * 32
+    z = np.arange(32) + cz * 32
+    hh = (10 + 6 * np.sin(x[:, None] * 0.11)
+          + 5 * np.cos(z[None, :] * 0.17)).astype(np.int32)
+    for ix in range(32):
+        for iz in range(32):
+            h = max(1, hh[ix, iz])
+            vox[ix, : h - 1, iz] = content.STONE
+            vox[ix, h - 1, iz] = content.GRASS
+    if glass_tower:
+        vox[12:15, 14:26, 12:15] = content.GLASS
+    return vox
+
+
+def _terrain(dev, fmt, glass):
+    world, chunk, dtype = ((Esvo(), SerializedChunk, np.uint32) if fmt == "esvo"
+                           else (Csvo(), CsvoSerializedChunk, np.uint8))
+    s = Svo(content.new_registry(), capacity_mb=8, buffer_dtype=dtype,
+            device=dev)
+    lut = opaque_lut_from_mask(s.translucent_block_mask)
+    hf = HeightField()
+    for cx in range(3):
+        for cz in range(3):
+            vox = _terrain_chunk(cx, cz, glass_tower=glass and cx == cz == 1)
+            world.set_leaf(Position(cx, 0, cz),
+                           chunk.from_voxels(ChunkPos(cx, 0, cz), vox, 5), True)
+            hf.set_chunk((cx, 0, cz), chunk_column_tops(vox, 5),
+                         vtops=chunk_voxel_tops(vox, 5),
+                         sbase=chunk_solid_bases(vox, 5, lut))
+    world.serialize()
+    s.update(world)
+    s.set_heightfield(hf)
+    assert s.is_opaque() == (not glass)
+    return s
+
+
+TW, TH = 640, 360
+TCAMS = {
+    "horizon": ([48.0, 30.0, -20.0], [0.0, -0.12, 1.0]),
+    "down": ([48.0, 70.0, 48.0], [0.01, -1.0, 0.01]),
+    "on-ground": ([40.0, 13.0, 40.0], [0.7, 0.05, 0.7]),
+    "underground": ([49.0, 4.0, 49.0], [0.8, 0.1, 0.5]),
+}
+
+
+def _tparams(name):
+    pos, fwd = TCAMS[name]
+    fwd = np.asarray(fwd, np.float32)
+    return RenderParams(cam_pos=np.asarray(pos, np.float32),
+                        cam_fwd=fwd / np.linalg.norm(fwd),
+                        aspect_ratio=TW / TH, fov_y_rad=np.radians(70.0),
+                        render_shadows=True, shadow_distance=100.0)
+
+
+@pytest.fixture(scope="module")
+def terrains(dev):
+    return {(fmt, glass): _terrain(dev, fmt, glass)
+            for fmt, glass in (("esvo", False), ("esvo", True),
+                               ("csvo", False), ("csvo", True))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cam", sorted(TCAMS))
+def test_k7_k8_equal_plain(terrains, dev, cam):
+    """K7's tile and shadow floors and K8's verdicts and floors against
+    their plain versions, on the frame's own shadow origins (gathered and
+    counted as the deferred frame feeds them)."""
+    s = terrains[("esvo", False)]
+    p = _tparams(cam)
+    n7 = beams.launches_tile
+    ctx = s.beam_context(p, TW, TH)
+    assert beams.launches_tile == n7 + 1 and ctx.has_sun()
+    kw = s.frame_kwargs(p, TW, TH)
+    levels, offsets, n, hmax, bounds, levels_e = ctx._dev
+    ccx = int(np.floor(kw["cam_pos"][0] / 8)) - 2
+    ccz = int(np.floor(kw["cam_pos"][2] / 8)) - 2
+    near = s.heightfield.near_window(ccx + 2, ccz + 2).astype(np.float32)
+    plain = beams.tile_floors_plain(
+        levels, offsets, n, hmax, bounds, near,
+        np.array([ccx, ccz], np.float32), kw["cam_pos"], kw["cam_right"],
+        kw["cam_up"], kw["cam_fwd"], shading.tan_half_fov(p.fov_y_rad),
+        p.aspect_ratio, -1.0, width=TW, height=TH)
+    assert torch.equal(ctx.tile_floors, plain)
+
+    ro, rd = shading.generate_rays(
+        TW, TH, *(torch.tensor(kw[k], device=dev) for k in
+                  ("cam_pos", "cam_right", "cam_up", "cam_fwd")),
+        shading.tan_half_fov(p.fov_y_rad), float(np.float32(p.aspect_ratio)))
+    res = traversal.intersect_octree(s.device_buf, s.octree_scale, ro, rd,
+                                     -1.0, False)
+    hit = res.t >= 0
+    normal = shading.FACE_NORMALS.to(dev)[res.face_id.long().clamp(0, 5)]
+    sro = (res.pos + normal * 0.001).contiguous()
+    light = -np.asarray(p.light_dir, np.float32)
+    idx, count = compact.compact_indices(hit, hit.shape[0])
+    md = torch.full((hit.shape[0],), -1.0, device=dev)
+    sb, n1, d_len, d, origin = ctx._sun
+    for gather in ((None, None, 0.0), (idx, count, ctx.sun_margin)):
+        g = dict(idx=gather[0], count=gather[1])
+        m = dict(margin=gather[2])
+        k = beams.shadow_ray_floors(levels_e, levels[: n * n], offsets, n,
+                                    hmax, bounds, sro, light, md, **g)
+        pl = beams.shadow_ray_floors_plain(levels_e, levels[: n * n],
+                                           offsets, n, hmax, bounds, sro,
+                                           light, md, **g)
+        assert torch.equal(k, pl)
+        todo = torch.empty(md.shape[0], dtype=torch.bool, device=dev)
+        kl, kb = beams.sun_verdict_masks(sb, n1, sro, md, d_len, d, origin,
+                                         todo=todo, **g, **m)
+        pl_, pb = beams.sun_verdict_masks_plain(sb, n1, sro, md, d_len, d,
+                                                origin, **g, **m)
+        assert torch.equal(kl, pl_) and torch.equal(kb, pb)
+        assert torch.equal(todo, torch.arange(md.shape[0], device=dev)
+                           .lt(int(count) if gather[1] is not None
+                               else md.shape[0]) & ~pl_ & ~pb)
+        kf = beams.sun_lit_floors(sb, n1, sro, md, d_len, d, origin, **g,
+                                  **m)
+        pf = beams.sun_lit_floors_plain(sb, n1, sro, md, d_len, d, origin,
+                                        **g, **m)
+        assert torch.equal(kf, pf)
+    assert int(kl.sum()) > 0 or cam == "underground"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("cam", sorted(TCAMS))
+def test_floored_traversal_equals_unfloored(terrains, dev, fmt, cam):
+    """K1 / K4 from the pixel floors against their unfloored runs, and
+    against their plain versions."""
+    s = terrains[(fmt, True)]
+    p = _tparams(cam)
+    kw = s.frame_kwargs(p, TW, TH)
+    ro, rd = shading.generate_rays(
+        TW, TH, *(torch.tensor(kw[k], device=dev) for k in
+                  ("cam_pos", "cam_right", "cam_up", "cam_fwd")),
+        shading.tan_half_fov(p.fov_y_rad), float(np.float32(p.aspect_ratio)))
+    tfl = s.beam_context(p, TW, TH).t_floor
+    alpha = shading.make_alpha_fn(s.mips, s.mat_tex)
+    if fmt == "esvo":
+        head, fn, plain = ((s.device_buf, s.octree_scale),
+                           traversal.intersect_octree,
+                           traversal.intersect_octree_plain)
+    else:
+        w = s.world()
+        head, fn, plain = ((w.words, s.octree_scale, w.root_ptr,
+                            w.total_depth),
+                           traversal_csvo.intersect_octree_csvo,
+                           traversal_csvo.intersect_octree_csvo_plain)
+    floored = fn(*head, ro, rd, -1.0, True, alpha, t_floor=tfl)
+    free = fn(*head, ro, rd, -1.0, True, alpha)
+    ref = plain(*head, ro, rd, -1.0, True, alpha, t_floor=tfl)
+    torch.cuda.synchronize()
+    for f in ("t", "value", "face_id", "inside_voxel"):
+        assert torch.equal(getattr(floored, f), getattr(free, f)), f
+    for f in floored._fields:
+        assert torch.equal(getattr(floored, f), getattr(ref, f)), f
+    if cam in ("horizon", "down"):
+        assert int(floored.steps.sum()) < int(free.steps.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("glass", [False, True])
+@pytest.mark.parametrize("cam", sorted(TCAMS))
+def test_deferred_frame_equals_k3(terrains, dev, fmt, glass, cam):
+    """The deferred frame (with beams and the sun map, with beams only,
+    without a heightfield) against K3's fused frame and against the plain
+    deferred frame (the stages' plain version); each stage launches once a
+    frame, and the frame launches K6, K7 and, on the opaque branch with the
+    sun map, K8."""
+    s = terrains[(fmt, glass)]
+    p = _tparams(cam)
+    fused = s.render(p, TW, TH, mode="fused")
+    ctx = s.beam_context(p, TW, TH)
+    n6, n8 = compact.launches, beams.launches_sun
+    n7 = beams.launches_shadow
+    stages = ("launches_primary", "launches_shade", "launches_shadow",
+              "launches_finish")
+    nd = [getattr(shading, st) for st in stages]
+    for b in (ctx, ctx.without_sun(), None):
+        img = s.render(p, TW, TH, beams=b)
+        ref = shading.render_frame_deferred_plain(
+            s.world(), s.octree_scale, s.mips, s.mat_params, s.mat_tex,
+            **s.frame_kwargs(p, TW, TH), opaque=s.is_opaque(), beams=b)
+        torch.cuda.synchronize()
+        assert float((img - fused).abs().max()) <= K3_MAX_ABS, b
+        assert float((img - ref).abs().max()) <= K3_MAX_ABS, b
+    assert [getattr(shading, st) - n for st, n in zip(stages, nd)] == [3] * 4
+    assert compact.launches >= n6 + 2 * 3
+    if not glass:
+        assert beams.launches_sun == n8 + 1  # only with the sun map
+        assert beams.launches_shadow == n7 + 1  # beams only: K7 floors
+    else:
+        assert beams.launches_sun_floors > 0 or not ctx.has_sun()

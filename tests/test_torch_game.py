@@ -86,6 +86,9 @@ def test_frame_and_look_ray_match_jax(games):
     n5, n3 = picker.launches, shading.launches
     img = tg.step_frame(dt=1 / 60, render=True, width=W, height=H)
     assert (picker.launches, shading.launches) == (n5, n3)  # no card here
+    # the game renders the JAX package's default mode, with its heightfield
+    frame = tg.world.world_svo.graphics_svo.last_frame
+    assert frame["mode"] == "deferred" and frame["beams"], frame
     assert isinstance(img, torch.Tensor) and img.shape == (H, W, 4)
     img = img.numpy().astype(np.float64)
     assert np.isfinite(img).all()

@@ -2,7 +2,8 @@
 ``render_frame`` against the JAX ``render_frame``, ``Svo.render`` against
 the JAX ``Svo.render(mode="fused")`` with and without shadows and with a
 highlighted block, both mip modes, a radius-1 procedural world, the golden
-frame tests/goldens/render_basic.npy, and the texture sampler.
+frame tests/goldens/render_basic.npy, the texture sampler, and the
+default (deferred) mode against the fused frame.
 
 Tolerances. Frames: mean |d| <= 1e-3 over all channels and at most 1% of
 the pixels off by more than 1e-3. The JAX CPU build contracts multiply-adds
@@ -128,7 +129,8 @@ def test_svo_render_fused_matches_jax(translucent_pair, shadows, highlight):
                                          selected_voxel=hl),
                                   W, H, max_steps=300, mode="fused"))
     timg = tsvo.render(params(RenderParams, render_shadows=shadows,
-                              selected_voxel=hl), W, H, max_steps=300)
+                              selected_voxel=hl), W, H, max_steps=300,
+                       mode="fused")
     assert timg.shape == (H, W, 4) and timg.dtype == torch.float32
     assert_frames_close(timg.numpy(), jimg)
 
@@ -168,11 +170,13 @@ def test_svo_update_uploads_like_jax():
 
 def test_highlight_and_shadows_change_the_frame(translucent_pair):
     _, tsvo = translucent_pair
-    base = tsvo.render(params(RenderParams), W, H, max_steps=300).numpy()
+    base = tsvo.render(params(RenderParams), W, H, max_steps=300,
+                       mode="fused").numpy()
     lit = tsvo.render(params(RenderParams, render_shadows=False), W, H,
-                      max_steps=300).numpy()
+                      max_steps=300, mode="fused").numpy()
     hi = tsvo.render(params(RenderParams, selected_voxel=np.array(
-        [12.0, 11.0, 10.0], np.float32)), W, H, max_steps=300).numpy()
+        [12.0, 11.0, 10.0], np.float32)), W, H, max_steps=300,
+        mode="fused").numpy()
     assert (lit[..., :3] - base[..., :3]).max() > 0.05  # the tower's shadow
     changed = np.abs(hi - base).max(-1) > 0.05
     assert 0 < changed.sum() < 0.2 * W * H  # outline only
@@ -216,11 +220,12 @@ def test_trilinear_mode_matches_jax(translucent_pair, monkeypatch):
              cam_fwd=np.array([0.6, -0.4, 0.7], np.float32))
     jimg = np.asarray(jsvo.render(params(JRenderParams, **p), W, H,
                                   max_steps=300, mode="fused"))
-    timg = tsvo.render(params(RenderParams, **p), W, H, max_steps=300).numpy()
+    timg = tsvo.render(params(RenderParams, **p), W, H, max_steps=300,
+                       mode="fused").numpy()
     assert_frames_close(timg, jimg)
     monkeypatch.setenv("VOXELRS_TRILINEAR", "0")
     nearest = tsvo.render(params(RenderParams, **p), W, H,
-                          max_steps=300).numpy()
+                          max_steps=300, mode="fused").numpy()
     assert np.abs(nearest - timg).max() > 1e-3  # the knob is read
 
 
@@ -244,7 +249,7 @@ def test_procedural_world_matches_jax():
              shadow_distance=300.0, fov_y_rad=np.radians(80.0))
     jimg = np.asarray(jsvo.render(params(JRenderParams, **p), W, H,
                                   mode="fused"))
-    timg = tsvo.render(params(RenderParams, **p), W, H).numpy()
+    timg = tsvo.render(params(RenderParams, **p), W, H, mode="fused").numpy()
     assert_frames_close(timg, jimg)
     assert 0.05 < (timg[..., 2] > 0.7).mean() < 0.95  # terrain and sky
 
@@ -252,18 +257,30 @@ def test_procedural_world_matches_jax():
 def test_golden_image(basic_pair):
     _, tsvo = basic_pair
     img = tsvo.render(params(RenderParams, w=128, h=96), 128, 96,
-                      max_steps=300).numpy()
+                      max_steps=300, mode="fused").numpy()
     assert img.shape == (96, 128, 4) and not np.isnan(img).any()
     assert img.min() >= 0.0 and img.max() <= 1.0 + 1e-5
     golden = np.load(GOLDEN)
     assert np.abs(img.astype(np.float64) - golden).mean() < 0.015
 
 
-def test_other_modes_are_a_later_slice(basic_pair):
-    _, tsvo = basic_pair
-    for mode in ("deferred", "csvo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsvo.render(params(RenderParams), W, H, mode=mode)
+def test_deferred_is_the_default_mode(basic_pair, translucent_pair):
+    """The JAX package's default mode renders here too, by default: on the
+    opaque basic scene (the opaque branch) and on the glass tower (the
+    judged branch) it is the fused frame bit for bit; "csvo" (the JAX name
+    of the fused mode for a CSVO buffer) is the fused frame; other modes
+    raise."""
+    for _, tsvo in (basic_pair, translucent_pair):
+        p = params(RenderParams)
+        fused = tsvo.render(p, W, H, max_steps=300, mode="fused").numpy()
+        img = tsvo.render(p, W, H, max_steps=300).numpy()
+        assert tsvo.last_frame["mode"] == "deferred"
+        np.testing.assert_array_equal(img, fused)
+        np.testing.assert_array_equal(
+            tsvo.render(p, W, H, max_steps=300, mode="csvo").numpy(), fused)
+    assert basic_pair[1].is_opaque() and not translucent_pair[1].is_opaque()
+    with pytest.raises(ValueError, match="mode"):
+        basic_pair[1].render(params(RenderParams), W, H, mode="adaptive")
 
 
 @pytest.mark.parametrize("mode", ["nearest", "linear"])

@@ -1,5 +1,6 @@
-"""Build and bind the CUDA kernels (K1, K3, K4, K5): one ``nvcc`` call, a
-plain C interface, ``ctypes``.
+"""Build and bind the CUDA kernels (K1, K3, K4, K5, K6, K7, K8 and the
+deferred frame's stages): one ``nvcc`` call, a plain C interface,
+``ctypes``.
 
 At first use ``library()`` compiles ``csrc/kernels.cu`` into
 ``_build/<sha256 of sources and flags>/libvoxelrs_kernels.so`` (a directory
@@ -8,11 +9,17 @@ writes to a temporary name and renames, so an interrupted build leaves no
 partial library and no lock behind. Nothing here includes PyTorch's headers:
 pointers and the stream cross as ``ctypes.c_void_p`` integers.
 
-Each launch function checks the C entry point's return value
+The library is loaded as a ``ctypes.PyDLL``: its entry points only
+enqueue work, so they run holding the interpreter lock instead of giving
+it up and waiting for it again behind the job threads. Each launch
+function checks the C entry point's return value
 (``cudaGetLastError()`` after the launch) and raises if it is not 0. None of
 them synchronises. K3 and K5 take the world as an ESVO buffer (an int32
 tensor) or a CSVO world (``(words, root_ptr, total_depth)``, as
-``ops.traversal_csvo.CsvoBuffer``) and launch that format's instantiation.
+``ops.traversal_csvo.CsvoBuffer``) and launch that format's instantiation;
+so do the deferred stages that trace (``launch_kd_primary``,
+``launch_kd_shadow``). Optional pointers (a floor, an index list, a
+count) cross as None for "absent".
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("csrc/kernels.cu", "csrc/k1_traversal.cuh",
-            "csrc/k4_csvo_traversal.cuh")
+            "csrc/k4_csvo_traversal.cuh", "csrc/k6_compact.cuh",
+            "csrc/k7_beams.cuh", "csrc/k8_sun.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -40,6 +48,9 @@ build_log = ""  # nvcc's output (with the -Xptxas -v register/spill lines)
 build_seconds = 0.0  # 0.0 when a finished library was reused
 
 MAX_LEVELS = 8
+MAX_BEAM_LEVELS = 16  # envelope pyramid levels (csrc/k7_beams.cuh)
+K6_BLOCK = 1024  # mask lanes per K6 block (csrc/k6_compact.cuh)
+HIT_WORDS = 9  # words of a deferred hit record (kernels.cu HitRec)
 
 
 class TexTables(ctypes.Structure):
@@ -81,6 +92,31 @@ class FrameParams(ctypes.Structure):
     ]
 
 
+class BeamParams(ctypes.Structure):
+    """Mirror of ``vx::BeamParams`` (csrc/k7_beams.cuh)."""
+
+    _fields_ = [
+        ("offsets", ctypes.c_int * MAX_BEAM_LEVELS),
+        ("n_levels", ctypes.c_int), ("n", ctypes.c_int),
+        ("hmax", ctypes.c_float), ("max_iters", ctypes.c_int),
+        ("width", ctypes.c_int), ("height", ctypes.c_int),
+        ("cam_pos", _F3), ("right", _F3), ("up", _F3), ("fwd", _F3),
+        ("tan_half", ctypes.c_float), ("aspect", ctypes.c_float),
+        ("max_dst", ctypes.c_float),
+        ("near_h", ctypes.c_float * 25), ("near_base", ctypes.c_float * 2),
+    ]
+
+
+class SunParams(ctypes.Structure):
+    """Mirror of ``vx::SunParams`` (csrc/k8_sun.cuh)."""
+
+    _fields_ = [
+        ("n1", ctypes.c_int), ("width", ctypes.c_int),
+        ("d_len", ctypes.c_float), ("margin", ctypes.c_float), ("d", _F3),
+        ("origin", ctypes.c_float * 2),
+    ]
+
+
 def _nvcc() -> str:
     cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                           "bin", "nvcc"), shutil.which("nvcc")]
@@ -119,10 +155,19 @@ def library() -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
         os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    # PyDLL: a launch is a microseconds-long enqueue, so the calls keep the
+    # interpreter lock; a CDLL call releases it, and under the game's busy
+    # job threads each re-acquisition can wait a switch interval (5 ms)
+    _lib = bind(ctypes.PyDLL(lib_path))
+    return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and return types of every entry point of ``lib``
+    (a library built from csrc/kernels.cu) and return it."""
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.vx_k1_traverse.argtypes = [P, LL, F, P, P, P, I, I, I, P,
-                                   P, P, P, P, P, P, P, P, P]
+                                   P, P, P, P, P, P, P, P, P, P]
     lib.vx_k1_traverse.restype = I
     lib.vx_k3_frame.argtypes = [P, LL, F, P, P, P, P, P]
     lib.vx_k3_frame.restype = I
@@ -130,13 +175,28 @@ def library() -> ctypes.CDLL:
     lib.vx_k5_picker.restype = I
     U = ctypes.c_uint
     lib.vx_k4_traverse.argtypes = [P, LL, F, U, I, P, P, P, I, I, I, P,
-                                   P, P, P, P, P, P, P, P, P]
+                                   P, P, P, P, P, P, P, P, P, P]
     lib.vx_k4_traverse.restype = I
     lib.vx_k3_frame_csvo.argtypes = [P, LL, F, U, I, P, P, P, P, P]
     lib.vx_k3_frame_csvo.restype = I
     lib.vx_k5_picker_csvo.argtypes = [P, LL, F, U, I, P, I, I, P, P, P]
     lib.vx_k5_picker_csvo.restype = I
-    _lib = lib
+    for name, args in (
+            ("vx_k6_compact", [P, I, I, P, P, P, P]),
+            ("vx_k7_tiles", [P, P, P, P, P]),
+            ("vx_k7_shadow", [P, P, P, P, P, P, P, P, I, P, P]),
+            ("vx_k8_sun", [P, P, P, P, P, P, I, P, P, P, P, P]),
+            ("vx_kd_primary", [P, LL, F, P, P, I, P, I, P, P, P, P]),
+            ("vx_kd_primary_csvo", [P, LL, F, U, I, P, P, I, P, I, P, P, P,
+                                    P]),
+            ("vx_kd_shade", [P, P, P, P, I, P, P, P, P, P, P, P]),
+            ("vx_kd_shadow", [P, LL, F, P, P, I, P, P, P, P, P, P, I, P, P]),
+            ("vx_kd_shadow_csvo", [P, LL, F, U, I, P, P, I, P, P, P, P, P, P,
+                                   I, P, P]),
+            ("vx_kd_finish", [P, P, P, P, I, P, P, P, P, P, P, P])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = I
     return lib
 
 
@@ -154,15 +214,17 @@ def _raise_on(err: int, name: str):
 
 
 def launch_k1(desc, octree_scale, ro, rd, max_dst, budget, alpha_mode,
-              tables, t, value, face, pos, uv, lod, inside, steps):
-    """Launch K1 on the current stream (inputs checked by the caller)."""
+              tables, t, value, face, pos, uv, lod, inside, steps,
+              t_floor=None):
+    """Launch K1 on the current stream (inputs checked by the caller);
+    ``t_floor`` None or the (B,) float32 entry floors."""
     lib = library()
     tex = None if tables is None else ctypes.byref(tables.struct)
     err = lib.vx_k1_traverse(
         _ptr(desc), desc.shape[0], octree_scale, _ptr(ro), _ptr(rd),
         _ptr(max_dst), ro.shape[0], budget, alpha_mode, tex, _ptr(t),
         _ptr(value), _ptr(face), _ptr(pos), _ptr(uv), _ptr(lod), _ptr(inside),
-        _ptr(steps), _stream(desc.device))
+        _ptr(steps), _ptr(t_floor), _stream(desc.device))
     _raise_on(err, "K1 (vx_k1_traverse)")
 
 
@@ -188,15 +250,16 @@ def launch_k3(world, octree_scale, tables, params: FrameParams, img,
 
 def launch_k4(words, octree_scale, root_ptr, total_depth, ro, rd, max_dst,
               budget, alpha_mode, tables, t, value, face, pos, uv, lod,
-              inside, steps):
-    """Launch K4 on the current stream (inputs checked by the caller)."""
+              inside, steps, t_floor=None):
+    """Launch K4 on the current stream (inputs checked by the caller);
+    ``t_floor`` None or the (B,) float32 entry floors."""
     lib = library()
     tex = None if tables is None else ctypes.byref(tables.struct)
     err = lib.vx_k4_traverse(
         _ptr(words), words.shape[0], octree_scale, root_ptr, total_depth,
         _ptr(ro), _ptr(rd), _ptr(max_dst), ro.shape[0], budget, alpha_mode,
         tex, _ptr(t), _ptr(value), _ptr(face), _ptr(pos), _ptr(uv), _ptr(lod),
-        _ptr(inside), _ptr(steps), _stream(words.device))
+        _ptr(inside), _ptr(steps), _ptr(t_floor), _stream(words.device))
     _raise_on(err, "K4 (vx_k4_traverse)")
 
 
@@ -217,3 +280,112 @@ def launch_k5(world, octree_scale, tasks, budget, out, steps=None):
                                     octree_scale, root_ptr, depth, *tail,
                                     _stream(words.device))
     _raise_on(err, "K5 (vx_k5_picker)")
+
+
+def k6_blocks(n: int) -> int:
+    """K6's scratch length: one count per 1024-lane block."""
+    return -(-n // K6_BLOCK)
+
+
+def launch_k6(mask, size, out, count, scratch):
+    """Launch K6 (three kernels) on the current stream: ``mask`` (n,) bool,
+    ``out`` (size,) int32, ``count`` (1,) int32, ``scratch``
+    (>= k6_blocks(n),) int32."""
+    err = library().vx_k6_compact(_ptr(mask), mask.shape[0], size, _ptr(out),
+                                  _ptr(count), _ptr(scratch),
+                                  _stream(mask.device))
+    _raise_on(err, "K6 (vx_k6_compact)")
+
+
+def launch_k7_tiles(levels, bounds, params: BeamParams, out):
+    """Launch K7's tile kernel: ``out`` (nty, ntx) float32."""
+    err = library().vx_k7_tiles(_ptr(levels), _ptr(bounds),
+                                ctypes.byref(params), _ptr(out),
+                                _stream(levels.device))
+    _raise_on(err, "K7 (vx_k7_tiles)")
+
+
+def launch_k7_shadow(levels_e, h3d0, bounds, params: BeamParams, ro, max_dst,
+                     idx, count, out):
+    """Launch K7's shadow kernel: ``out`` (k,) float32 (its lanes);
+    ``max_dst`` None = all unbounded."""
+    err = library().vx_k7_shadow(
+        _ptr(levels_e), _ptr(h3d0), _ptr(bounds), ctypes.byref(params),
+        _ptr(ro), _ptr(max_dst), _ptr(idx), _ptr(count), out.shape[0],
+        _ptr(out), _stream(ro.device))
+    _raise_on(err, "K7 (vx_k7_shadow)")
+
+
+def launch_k8(sb_words, params: SunParams, ro, max_dst, idx, count, k, lit,
+              blk, todo, floors):
+    """Launch K8 over ``k`` lanes: each of ``lit``/``blk``/``todo`` ((k,)
+    bool) and ``floors`` ((k,) float32) is None or receives its output;
+    ``max_dst`` None = all unbounded."""
+    err = library().vx_k8_sun(
+        _ptr(sb_words), ctypes.byref(params), _ptr(ro), _ptr(max_dst),
+        _ptr(idx), _ptr(count), k, _ptr(lit), _ptr(blk), _ptr(todo),
+        _ptr(floors), _stream(ro.device))
+    _raise_on(err, "K8 (vx_k8_sun)")
+
+
+def launch_kd_primary(world, octree_scale, tables, params: FrameParams,
+                      alpha_mode, tf, rec, hit, img):
+    """The deferred frame's primary stage: ``tf`` None or the (nty, ntx)
+    tile floors, ``rec`` (H*W, 9) int32 hit records, ``hit`` (H*W,) bool,
+    ``img`` (H, W, 4) float32 (its sky pixels)."""
+    lib = library()
+    ntx = 0 if tf is None else tf.shape[1]
+    tail = (ctypes.byref(tables.struct), ctypes.byref(params), alpha_mode,
+            _ptr(tf), ntx, _ptr(rec), _ptr(hit), _ptr(img))
+    if isinstance(world, torch.Tensor):
+        err = lib.vx_kd_primary(_ptr(world), world.shape[0], octree_scale,
+                                *tail, _stream(world.device))
+    else:
+        words, root_ptr, depth = world
+        err = lib.vx_kd_primary_csvo(_ptr(words), words.shape[0],
+                                     octree_scale, root_ptr, depth, *tail,
+                                     _stream(words.device))
+    _raise_on(err, "deferred primary (vx_kd_primary)")
+
+
+def launch_kd_shade(tables, params: FrameParams, hidx, hcount, rec, color, ds,
+                    need, sro, img):
+    """The deferred frame's shading stage over the compacted hit lanes."""
+    err = library().vx_kd_shade(
+        ctypes.byref(tables.struct), ctypes.byref(params), _ptr(hidx),
+        _ptr(hcount), hidx.shape[0], _ptr(rec), _ptr(color), _ptr(ds),
+        _ptr(need), _ptr(sro), _ptr(img), _stream(img.device))
+    _raise_on(err, "deferred shade (vx_kd_shade)")
+
+
+def launch_kd_shadow(world, octree_scale, tables, params: FrameParams,
+                     alpha_mode, sro, sidx, scount, tidx, tcount, floors,
+                     traced):
+    """The deferred frame's shadow trace over the candidates (or, with
+    ``tidx``, their uncertified sub-list); ``floors`` None or per
+    candidate."""
+    lib = library()
+    tail = (ctypes.byref(tables.struct), ctypes.byref(params), alpha_mode,
+            _ptr(sro), _ptr(sidx), _ptr(scount), _ptr(tidx), _ptr(tcount),
+            _ptr(floors), sidx.shape[0], _ptr(traced))
+    if isinstance(world, torch.Tensor):
+        err = lib.vx_kd_shadow(_ptr(world), world.shape[0], octree_scale,
+                               *tail, _stream(world.device))
+    else:
+        words, root_ptr, depth = world
+        err = lib.vx_kd_shadow_csvo(_ptr(words), words.shape[0],
+                                    octree_scale, root_ptr, depth, *tail,
+                                    _stream(words.device))
+    _raise_on(err, "deferred shadow (vx_kd_shadow)")
+
+
+def launch_kd_finish(params: FrameParams, hidx, sidx, scount, color, ds, blk,
+                     todo, traced, img):
+    """The deferred frame's last stage: the blocked candidates' colour
+    (``blk``/``todo``: K8's certificates and the lanes left to trace, or
+    None when every candidate was traced)."""
+    err = library().vx_kd_finish(
+        ctypes.byref(params), _ptr(hidx), _ptr(sidx), _ptr(scount),
+        sidx.shape[0], _ptr(color), _ptr(ds), _ptr(blk), _ptr(todo),
+        _ptr(traced), _ptr(img), _stream(img.device))
+    _raise_on(err, "deferred finish (vx_kd_finish)")

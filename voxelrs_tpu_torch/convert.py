@@ -5,7 +5,10 @@ material tables as numpy arrays (for example ``np.asarray(svo.device_buf)``
 and ``np.asarray(m) for m in svo.mips``) and returns this package's tensors
 on ``device``; ``csvo_buffer_from_jax`` carries a CSVO world (the JAX
 ``Svo.device_buf`` words, ``root_ptr`` and ``depth``) across as a
-``CsvoBuffer``. Data here plays the part weights play in a model port.
+``CsvoBuffer``; ``beam_state_from_jax`` carries the JAX
+``HeightField.device()`` tuple and ``sun_map`` tuple across, so the beam
+and sun-certificate functions of both packages run on identical tables.
+Data here plays the part weights play in a model port.
 """
 
 from __future__ import annotations
@@ -64,3 +67,31 @@ def csvo_buffer_from_jax(words, root_ptr, total_depth,
                      int(root_ptr), int(total_depth))
     check_words(*buf)
     return buf
+
+
+def beam_state_from_jax(dev, sun=None, device=None):
+    """(envelope tuple, sun tuple or None) of this package from the JAX
+    package's ``HeightField.device()`` tuple ``(levels, offsets, n, hmax,
+    bounds, levels_exact)`` and ``sun_map`` tuple ``(table, n1, d_len, d,
+    origin)``, arrays as numpy arrays: the pyramids as int32 tensors, the
+    bounds as a float32 tensor, the u16 table as an int16 tensor of the
+    same bits, ``d_len``, ``d`` and ``origin`` as host float32 values — the
+    layout of ``world.heightfield.HeightField`` here."""
+    d = resolve_device(device)
+    lv_d, offsets, n, hmax, bounds, lv_e = dev
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32).reshape(-1), device=d)
+
+    env = (i32(lv_d), tuple(int(o) for o in offsets), int(n), int(hmax),
+           torch.tensor(np.asarray(bounds, np.float32), device=d), i32(lv_e))
+    if sun is None:
+        return env, None
+    table, n1, d_len, dvec, origin = sun
+    table = np.ascontiguousarray(np.asarray(table))
+    if table.dtype != np.uint16 or table.ndim != 2:
+        raise ValueError(f"sun table: expected a 2-d uint16 array, got "
+                         f"{table.dtype} {table.shape}")
+    return env, (torch.tensor(table.view(np.int16), device=d), int(n1),
+                 np.float32(d_len), np.asarray(dvec, np.float32),
+                 np.asarray(origin, np.float32))

@@ -229,11 +229,18 @@ struct EsvoCursor {
 // `budget` is the step bound (max_steps rounded up to the JAX loop's
 // unroll); `max_dst` < 0 means unlimited; alpha_mode 0 = opaque cast (stop
 // at the first leaf), else translucent pass-through judged by texel_alpha.
+// `floored`: start at max(t_min, t_floor) in caller ray units, the JAX
+// engines' start_floored (voxelrs_tpu/ops/shading.py:1255-1273,
+// restart_state_push voxelrs_tpu/ops/traversal.py:700-727): the root octant
+// is recomputed from the new t_min at the 1.5 thresholds, and a ray whose
+// floor lies past the cube's exit (+inf) misses with 0 steps. Unfloored
+// calls run exactly the arithmetic they ran before.
 template <class Cursor>
 __device__ __forceinline__ void traverse_with(
     Cursor cur, float octree_scale, float ro_x, float ro_y, float ro_z,
     float rd_x, float rd_y, float rd_z, float max_dst, int budget,
-    int alpha_mode, const TexTables& tx, Hit& out) {
+    int alpha_mode, const TexTables& tx, Hit& out, bool floored = false,
+    float t_floor = 0.f) {
   // ---- ray constants (make_ray_consts) --------------------------------
   const float rox = ro_x * octree_scale + 1.f;
   const float roy = ro_y * octree_scale + 1.f;
@@ -256,6 +263,7 @@ __device__ __forceinline__ void traverse_with(
   float t_min = fmaxf(fmaxf(2.f * tcx - tbx, 2.f * tcy - tby), 2.f * tcz - tbz);
   t_min = fmaxf(t_min, 0.f);
   float t_max = fminf(fminf(tcx - tbx, tcy - tby), tcz - tbz);
+  if (floored) t_min = fmaxf(t_min, t_floor * octree_scale);
   const bool in_x = t_min < 1.5f * tcx - tbx;
   const bool in_y = t_min < 1.5f * tcy - tby;
   const bool in_z = t_min < 1.5f * tcz - tbz;
@@ -282,6 +290,7 @@ __device__ __forceinline__ void traverse_with(
   out.lod = 0.f;
   out.inside = false;
   out.steps = 0;
+  if (floored && !(t_min <= t_max)) return;  // starts past the exit
 
   for (int it = 0; it < budget; ++it) {
     out.steps++;
@@ -429,9 +438,10 @@ __device__ void traverse(const uint32_t* __restrict__ desc, uint32_t n_rows,
                          float octree_scale, float ro_x, float ro_y, float ro_z,
                          float rd_x, float rd_y, float rd_z, float max_dst,
                          int budget, int alpha_mode, const TexTables& tx,
-                         Hit& out) {
+                         Hit& out, bool floored = false, float t_floor = 0.f) {
   traverse_with(EsvoCursor(desc, n_rows), octree_scale, ro_x, ro_y, ro_z,
-                rd_x, rd_y, rd_z, max_dst, budget, alpha_mode, tx, out);
+                rd_x, rd_y, rd_z, max_dst, budget, alpha_mode, tx, out,
+                floored, t_floor);
 }
 
 }  // namespace vx

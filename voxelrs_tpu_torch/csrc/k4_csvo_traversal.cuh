@@ -145,10 +145,11 @@ __device__ void traverse_csvo(const uint32_t* __restrict__ words,
                               int total_depth, float octree_scale, float ro_x,
                               float ro_y, float ro_z, float rd_x, float rd_y,
                               float rd_z, float max_dst, int budget,
-                              int alpha_mode, const TexTables& tx, Hit& out) {
+                              int alpha_mode, const TexTables& tx, Hit& out,
+                              bool floored = false, float t_floor = 0.f) {
   traverse_with(CsvoCursor(words, n_words, root_ptr, total_depth),
                 octree_scale, ro_x, ro_y, ro_z, rd_x, rd_y, rd_z, max_dst,
-                budget, alpha_mode, tx, out);
+                budget, alpha_mode, tx, out, floored, t_floor);
 }
 
 }  // namespace vx

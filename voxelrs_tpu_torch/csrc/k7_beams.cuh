@@ -1,0 +1,273 @@
+// K7: conservative ray-entry floors from the terrain envelope — one thread
+// per 8x8 pixel tile for the primary rays, one thread per ray for the
+// shadow rays, both marching the max-pyramid of the column-top envelope.
+//
+// Replaces voxelrs_tpu/ops/beams.py::tile_floors (:137) with its
+// _envelope_march (:52) and _dir_for, and ::shadow_ray_floors (:309);
+// ::pixel_floors (:289) is not materialized: the deferred primary kernel
+// reads tf[py / 8][px / 8] in its place. The TPU version runs the march as
+// a lock-step while_loop over all lanes with one-hot level-offset lookups
+// (ops/smalltab.py); here each thread runs its own loop and exits when its
+// beam stops, and the level offsets are an indexed load from the by-value
+// parameter struct.
+//
+// The float operations, their order and their rounding are those of the
+// plain PyTorch version (voxelrs_tpu_torch/ops/beams.py), so the two agree
+// bit for bit (build with -fmad=false).
+//
+// What bounds it on an H100: neither bytes nor operations. 32,400 tile
+// threads at 1080p (a quarter of one wave of the card's 132 SMs) run up to
+// 96 dependent iterations, each one load from the ~100 KB pyramid (L2- and
+// L1-resident) and ~30 float operations; the kernel's time is the longest
+// beam's chain of dependent loads. The shadow kernel has one thread per
+// candidate ray (up to 48 iterations) and is the same shape at larger
+// width.
+
+#pragma once
+#include <cstdint>
+
+namespace vx {
+
+constexpr int MAX_BEAM_LEVELS = 16;
+constexpr float BEAM_CELL = 8.f;  // envelope column footprint in voxels
+constexpr float EPS_DIR = 0x1p-23f;
+
+// Per-call inputs of K7 (mirrored by _build.BeamParams). The tile kernel
+// reads the camera fields; the shadow kernel reads `fwd` as the direction
+// toward the light.
+struct BeamParams {
+  int offsets[MAX_BEAM_LEVELS];  // level start offsets into the pyramid
+  int n_levels;
+  int n;  // level-0 columns per axis
+  float hmax;
+  int max_iters;
+  int width, height;
+  float cam_pos[3], right[3], up[3], fwd[3];
+  float tan_half, aspect, max_dst;
+  float near_h[25];    // (5, 5) exact envelope window around the camera
+  float near_base[2];  // column coords (x, z) of near_h[0][0]
+};
+
+__device__ __forceinline__ float eps_dir(float d) {
+  return fabsf(d) < EPS_DIR ? (d < 0.f ? -EPS_DIR : EPS_DIR) : d;
+}
+
+__device__ __forceinline__ float floor_finish(float beam) {
+  return isfinite(beam) ? fmaxf(beam * (1.f - 0x1p-18f) - 0.01f, 0.f) : beam;
+}
+
+__device__ __forceinline__ void slab_box(float txa, float txb, float tya,
+                                         float tyb, float tza, float tzb,
+                                         float& t_in, float& t_out) {
+  t_in = fmaxf(fmaxf(fminf(txa, txb), fminf(tya, tyb)), fminf(tza, tzb));
+  t_out = fminf(fminf(fmaxf(txa, txb), fmaxf(tya, tyb)), fmaxf(tza, tzb));
+}
+
+// The max-pyramid 2D march (JAX _envelope_march): y_lo(t) = roy +
+// t*(dy - sin_t) - m0 against the pyramid's cell maxima, descending near
+// threats. +inf = no threat up to t_hard; the march's t when its
+// iterations ran out.
+__device__ float envelope_march(const int* __restrict__ levels,
+                                const BeamParams& bp, float rox, float roy,
+                                float roz, float dx, float dy, float dz,
+                                float inv_x, float inv_z, float sin_t,
+                                float m0, float t_start, float t_hard) {
+  const int max_lvl = bp.n_levels - 1;
+  const float slope = dy - sin_t;
+  float t = t_start;
+  int lvl = max_lvl;
+  float stop_t = INFINITY;
+  bool done = (t >= t_hard) || ((slope > 0.f) && (roy + t * slope - m0 > bp.hmax));
+  for (int it = 0; it < bp.max_iters && !done; ++it) {
+    const float s = (float)(8 << lvl);  // cell size in voxels
+    const float px = rox + t * dx;
+    const float pz = roz + t * dz;
+    const float cx = floorf(px / s);
+    const float cz = floorf(pz / s);
+    const int nl = bp.n >> lvl;
+    const float top = (float)(nl - 1);
+    const int cxi = (int)fminf(fmaxf(cx, 0.f), top);
+    const int czi = (int)fminf(fmaxf(cz, 0.f), top);
+    const float hv = (float)__ldg(levels + bp.offsets[lvl] + cxi * nl + czi);
+    // exit of the (virtual, unclamped) cell in xz
+    const float bx = (cx + (dx > 0.f ? 1.f : 0.f)) * s;
+    const float bz = (cz + (dz > 0.f ? 1.f : 0.f)) * s;
+    float t_exit = fminf((bx - rox) * inv_x, (bz - roz) * inv_z);
+    t_exit = fminf(fmaxf(t_exit, t), t_hard);
+    const float y_lo = roy + (slope >= 0.f ? t : t_exit) * slope - m0;
+    if (y_lo <= hv) {
+      if (lvl == 0) {  // stop; the threat starts where y_lo crosses hv
+        const float t_y = (roy - m0 - hv) / fmaxf(-slope, EPS_DIR);
+        stop_t = slope >= 0.f ? t : fmaxf(t, t_y);
+        done = true;
+      } else {
+        lvl -= 1;
+      }
+    } else {  // advance past the cell
+      t = t_exit * (1.f + 0x1p-21f) + 0x1p-16f;
+      lvl = lvl + 1 < max_lvl ? lvl + 1 : max_lvl;
+      const bool rising = (slope > 0.f) && (roy + t * slope - m0 > bp.hmax);
+      if (t >= t_hard || rising) done = true;
+    }
+  }
+  if (isfinite(stop_t)) return stop_t;
+  return done ? INFINITY : t;
+}
+
+// Pixel-grid direction as generate_rays maps pixel coordinates.
+__device__ void beam_dir(const BeamParams& bp, float px, float py, float* d) {
+  const float u = (px / (float)bp.width * 2.f - 1.f) * bp.aspect * bp.tan_half;
+  const float v =
+      (((float)bp.height - 1.f - py) / (float)bp.height * 2.f - 1.f) * bp.tan_half;
+  for (int k = 0; k < 3; ++k) d[k] = u * bp.right[k] + v * bp.up[k] + bp.fwd[k];
+  const float n = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  for (int k = 0; k < 3; ++k) d[k] = d[k] / n;
+}
+
+__device__ __forceinline__ float corner_dist(const float* ro, float x, float y,
+                                             float z) {
+  const float a = x - ro[0], b = y - ro[1], c = z - ro[2];
+  return sqrtf(a * a + b * b + c * c);
+}
+
+// One thread per tile: the (nty, ntx) floors, +inf = the tile misses.
+__global__ void __launch_bounds__(128)
+k7_tile_kernel(const int* __restrict__ levels,
+               const float* __restrict__ bounds, BeamParams bp,
+               float* __restrict__ out) {
+  const int ntx = (bp.width + 7) / 8, nty = (bp.height + 7) / 8;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ntx * nty) return;
+  const float x0 = (float)(i % ntx) * 8.f;
+  const float x1 = fminf(x0 + 7.f, (float)(bp.width - 1));
+  const float y0 = (float)(i / ntx) * 8.f;
+  const float y1 = fminf(y0 + 7.f, (float)(bp.height - 1));
+  float dc[3];
+  beam_dir(bp, (x0 + x1) * 0.5f, (y0 + y1) * 0.5f, dc);
+  // cone half-angle: min cosine against the 4 corner pixel rays
+  float cos_t = 1.f;
+  const float xs[2] = {x0, x1}, ys[2] = {y0, y1};
+  for (int a = 0; a < 2; ++a)
+    for (int b = 0; b < 2; ++b) {
+      float dq[3];
+      beam_dir(bp, xs[a], ys[b], dq);
+      cos_t = fminf(cos_t, dq[0] * dc[0] + dq[1] * dc[1] + dq[2] * dc[2]);
+    }
+  const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f)) + 1e-4f;
+  const float dx = eps_dir(dc[0]), dy = dc[1], dz = eps_dir(dc[2]);
+  const float inv_x = 1.f / dx, inv_z = 1.f / dz;
+  const float* ro = bp.cam_pos;
+  const float b0 = bounds[0], b1 = bounds[1], b2 = bounds[2], b3 = bounds[3];
+
+  // hard stop: exit of the deviation-padded occupied box
+  float far = 0.f;
+  const float bxs[2] = {b0, b1}, bys[2] = {0.f, bp.hmax + 1.f},
+              bzs[2] = {b2, b3};
+  for (int a = 0; a < 2; ++a)
+    for (int b = 0; b < 2; ++b)
+      for (int c = 0; c < 2; ++c)
+        far = fmaxf(far, corner_dist(ro, bxs[a], bys[b], bzs[c]));
+  const float dy_safe = fabsf(dy) < EPS_DIR ? EPS_DIR : dy;
+  const float pad_box = sin_t * far + 2.f;
+  float t_entry, t_exit;
+  slab_box((b0 - pad_box - ro[0]) * inv_x, (b1 + pad_box - ro[0]) * inv_x,
+           (-pad_box - ro[1]) / dy_safe, (bp.hmax + pad_box - ro[1]) / dy_safe,
+           (b2 - pad_box - ro[2]) * inv_z, (b3 + pad_box - ro[2]) * inv_z,
+           t_entry, t_exit);
+  float t_hard = t_exit >= fmaxf(t_entry, 0.f) ? fmaxf(t_exit, 0.f) : 0.f;
+  if (bp.max_dst >= 0.f) t_hard = fminf(t_hard, bp.max_dst);
+
+  // near field: 5x5 exact column boxes, slab-tested per tile
+  const float ccx = bp.near_base[0], ccz = bp.near_base[1];
+  const float nbx0 = ccx * BEAM_CELL, nbz0 = ccz * BEAM_CELL;
+  float h_top = bp.near_h[0];
+  for (int q = 1; q < 25; ++q) h_top = fmaxf(h_top, bp.near_h[q]);
+  h_top = h_top + 1.f;
+  float d_far = 0.f;
+  const float nxs[2] = {nbx0, nbx0 + 5.f * BEAM_CELL}, nys[2] = {0.f, h_top},
+              nzs[2] = {nbz0, nbz0 + 5.f * BEAM_CELL};
+  for (int a = 0; a < 2; ++a)
+    for (int b = 0; b < 2; ++b)
+      for (int c = 0; c < 2; ++c)
+        d_far = fmaxf(d_far, corner_dist(ro, nxs[a], nys[b], nzs[c]));
+  const float pad = sin_t * d_far + 1.f;
+  float t_near = INFINITY;
+  for (int ix = 0; ix < 5; ++ix)
+    for (int iz = 0; iz < 5; ++iz) {
+      const float h = bp.near_h[ix * 5 + iz];
+      if (!(h > 0.f)) continue;
+      const float bx0 = (ccx + (float)ix) * BEAM_CELL;
+      const float bz0 = (ccz + (float)iz) * BEAM_CELL;
+      float t_in, t_out;
+      slab_box((bx0 - pad - ro[0]) * inv_x,
+               (bx0 + BEAM_CELL + pad - ro[0]) * inv_x,
+               (-pad - ro[1]) / dy_safe, (h + pad - ro[1]) / dy_safe,
+               (bz0 - pad - ro[2]) * inv_z,
+               (bz0 + BEAM_CELL + pad - ro[2]) * inv_z, t_in, t_out);
+      const float lo = fmaxf(t_in, 0.f);
+      if (t_out >= lo) t_near = fminf(t_near, lo);
+    }
+
+  // DDA start: the near box's exit, backed up by the deviation
+  const float tx_far = ((dx > 0.f ? nbx0 + 5.f * BEAM_CELL : nbx0) - ro[0]) * inv_x;
+  const float tz_far = ((dz > 0.f ? nbz0 + 5.f * BEAM_CELL : nbz0) - ro[2]) * inv_z;
+  const float t_box = fmaxf(fminf(tx_far, tz_far), 0.f);
+  const float d_xz = sqrtf(dx * dx + dz * dz);
+  const float backup = (sin_t * t_box + 2.f) / fmaxf(d_xz, EPS_DIR);
+  const float t_start = fmaxf(t_box - backup, 0.f);
+
+  float beam = envelope_march(levels, bp, ro[0], ro[1], ro[2], dx, dy, dz,
+                              inv_x, inv_z, sin_t, 0.75f, t_start, t_hard);
+  // the 1-column dilation covers t*sin(theta) <= CELL - slack
+  const float t8 = (BEAM_CELL - 1.f) / sin_t;
+  if (!(isinf(beam) && t_hard <= t8)) beam = fminf(beam, t8);
+  out[i] = floor_finish(fminf(beam, t_near));
+}
+
+// One thread per shadow ray: +inf = certainly reaches the light, 0 = no
+// claim. Output lane i reads ray idx[i] (or i); lanes at or past *count
+// are pads (0).
+__global__ void __launch_bounds__(128)
+k7_shadow_kernel(const int* __restrict__ levels_e,
+                 const int* __restrict__ h3d0,
+                 const float* __restrict__ bounds, BeamParams bp,
+                 const float* __restrict__ ro, const float* __restrict__ max_dst,
+                 const int* __restrict__ idx, const int* __restrict__ count,
+                 int k, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k) return;
+  if (count && i >= *count) {
+    out[i] = 0.f;
+    return;
+  }
+  const size_t r = idx ? (size_t)idx[i] : (size_t)i;
+  const float rox = ro[3 * r], roy = ro[3 * r + 1], roz = ro[3 * r + 2];
+  const float dx = eps_dir(bp.fwd[0]), dy = bp.fwd[1], dz = eps_dir(bp.fwd[2]);
+  const float inv_x = 1.f / dx, inv_z = 1.f / dz;
+  const float top = (float)(bp.n - 1);
+  const int ccx = (int)fminf(fmaxf(floorf(rox / BEAM_CELL), 0.f), top);
+  const int ccz = (int)fminf(fmaxf(floorf(roz / BEAM_CELL), 0.f), top);
+  const float near = (float)__ldg(h3d0 + ccx * bp.n + ccz);
+  // 1e-4 < the 1e-3 surface offset: a top-face origin reads exactly its
+  // column top after rounding, and nothing can be hit within the offset
+  const bool gate = (dy >= 0.2f) && (roy >= near - 1e-4f);
+  const float d_xz = sqrtf(dx * dx + dz * dz);
+  const float t_ring = BEAM_CELL / fmaxf(d_xz, EPS_DIR);
+
+  // hard stop: exit of the (lightly padded) occupied box
+  const float dy_safe = fabsf(dy) < EPS_DIR ? EPS_DIR : dy;
+  float t_entry, t_exit;
+  slab_box((bounds[0] - 1.f - rox) * inv_x, (bounds[1] + 1.f - rox) * inv_x,
+           (-1.f - roy) / dy_safe, (bp.hmax + 1.f - roy) / dy_safe,
+           (bounds[2] - 1.f - roz) * inv_z, (bounds[3] + 1.f - roz) * inv_z,
+           t_entry, t_exit);
+  float t_hard = t_exit >= fmaxf(t_entry, 0.f) ? fmaxf(t_exit, 0.f) : 0.f;
+  const float md = max_dst ? max_dst[i] : -1.f;  // null: unbounded
+  if (md >= 0.f) t_hard = fminf(t_hard, md + 1.f);
+
+  const float beam = envelope_march(levels_e, bp, rox, roy, roz, dx, dy, dz,
+                                    inv_x, inv_z, 0.f, 0.05f, t_ring, t_hard);
+  out[i] = gate ? floor_finish(beam) : 0.f;
+}
+
+}  // namespace vx

@@ -1,8 +1,11 @@
 // Kernels K1 (ESVO ray-batch traversal), K3 (the fused per-pixel frame),
-// K4 (CSVO ray-batch traversal) and K5 (the picker), with a plain C
-// interface for ctypes (see voxelrs_tpu_torch/_build.py). K3 and K5 are
-// templates on the world format: an ESVO buffer (K1's traversal) or a CSVO
-// byte stream (K4's), each instantiated once.
+// K4 (CSVO ray-batch traversal), K5 (the picker), K6 (compaction,
+// k6_compact.cuh), K7 (beam floors, k7_beams.cuh), K8 (sun certificates,
+// k8_sun.cuh) and the stages of the deferred frame, with a plain C
+// interface for ctypes (see voxelrs_tpu_torch/_build.py). K3, K5 and the
+// deferred stages that trace are templates on the world format: an ESVO
+// buffer (K1's traversal) or a CSVO byte stream (K4's), each instantiated
+// once.
 //
 // K1 replaces voxelrs_tpu/ops/traversal.py::intersect_octree (:1087), the
 // translucent classic loop and its finalize: one thread per ray, the
@@ -32,6 +35,19 @@
 // loads sets the kernel's time, and around it the caller's upload and copy
 // back, not bytes or operations.
 //
+// The deferred frame replaces voxelrs_tpu/ops/shading.py::
+// render_frame_deferred (:3058) in its non-adaptive configuration: the
+// opaque branch (_render_frame_opaque :3495 -> _opaque_frame_body :3722)
+// and the judged one (:3122-3176). Its stages are kernels built from K3's
+// own device functions (gen_ray, shade_surface, composite, sky) and the
+// one traversal: kd_primary (raygen, the trace from the tile floor of K7,
+// the hit record, the sky), kd_shade (one thread per compacted hit lane:
+// surface shading, the lit colour, the shadow candidate flag and origin),
+// kd_shadow (one thread per compacted candidate: the shadow trace, floored
+// by K7/K8 where the branch floors) and kd_finish (the shadowed colour of
+// the blocked candidates). Between them K6 compacts on the card, and each
+// stage reads the count K6 left in device memory.
+//
 // What bounds them on an H100: the traversal's dependent loads and branch
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
 // in, hit records or the frame out) are a small share. Speed is later work:
@@ -48,6 +64,9 @@
 
 #include "k1_traversal.cuh"
 #include "k4_csvo_traversal.cuh"
+#include "k6_compact.cuh"
+#include "k7_beams.cuh"
+#include "k8_sun.cuh"
 
 namespace vx {
 
@@ -58,7 +77,8 @@ struct FrameParams {
   int width, height;
   int render_shadows;
   int primary_budget;  // step budget of the primary rays
-  int shadow_budget;   // ESVO: MAX_STEPS (1000); CSVO: the primary budget
+  int shadow_budget;   // K3 ESVO: MAX_STEPS (1000); CSVO and the deferred
+                       // frame: the primary budget
   int trilinear;       // 1 = LINEAR_MIPMAP_LINEAR shading (VOXELRS_TRILINEAR)
   float cam_pos[3], right[3], up[3], fwd[3];
   float aspect, tan_half, ambient, shadow_distance;
@@ -84,9 +104,11 @@ struct EsvoWorld {
                                         float oy, float oz, float dx,
                                         float dy, float dz, float max_dst,
                                         int budget, int alpha_mode,
-                                        const TexTables& tx, Hit& out) const {
+                                        const TexTables& tx, Hit& out,
+                                        bool floored = false,
+                                        float t_floor = 0.f) const {
     traverse(desc, n_rows, octree_scale, ox, oy, oz, dx, dy, dz, max_dst,
-             budget, alpha_mode, tx, out);
+             budget, alpha_mode, tx, out, floored, t_floor);
   }
 };
 
@@ -100,9 +122,12 @@ struct CsvoWorld {
                                         float oy, float oz, float dx,
                                         float dy, float dz, float max_dst,
                                         int budget, int alpha_mode,
-                                        const TexTables& tx, Hit& out) const {
+                                        const TexTables& tx, Hit& out,
+                                        bool floored = false,
+                                        float t_floor = 0.f) const {
     traverse_csvo(words, n_words, root_ptr, total_depth, octree_scale, ox, oy,
-                  oz, dx, dy, dz, max_dst, budget, alpha_mode, tx, out);
+                  oz, dx, dy, dz, max_dst, budget, alpha_mode, tx, out,
+                  floored, t_floor);
   }
 };
 
@@ -114,13 +139,15 @@ k1_traverse_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
                    float* __restrict__ t, uint32_t* __restrict__ value,
                    int* __restrict__ face, float* __restrict__ pos,
                    float* __restrict__ uv, float* __restrict__ lod,
-                   uint8_t* __restrict__ inside, int* __restrict__ steps) {
+                   uint8_t* __restrict__ inside, int* __restrict__ steps,
+                   const float* __restrict__ t_floor) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Hit hit;
   traverse(desc, n_rows, octree_scale, ro[3 * i], ro[3 * i + 1], ro[3 * i + 2],
            rd[3 * i], rd[3 * i + 1], rd[3 * i + 2], max_dst[i], budget,
-           alpha_mode, tx, hit);
+           alpha_mode, tx, hit, t_floor != nullptr,
+           t_floor ? t_floor[i] : 0.f);
   t[i] = hit.t;
   value[i] = hit.value;
   face[i] = hit.face;
@@ -142,13 +169,13 @@ k4_traverse_kernel(CsvoWorld world, float octree_scale,
                    uint32_t* __restrict__ value, int* __restrict__ face,
                    float* __restrict__ pos, float* __restrict__ uv,
                    float* __restrict__ lod, uint8_t* __restrict__ inside,
-                   int* __restrict__ steps) {
+                   int* __restrict__ steps, const float* __restrict__ t_floor) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Hit hit;
   world.trace(octree_scale, ro[3 * i], ro[3 * i + 1], ro[3 * i + 2], rd[3 * i],
               rd[3 * i + 1], rd[3 * i + 2], max_dst[i], budget, alpha_mode, tx,
-              hit);
+              hit, t_floor != nullptr, t_floor ? t_floor[i] : 0.f);
   t[i] = hit.t;
   value[i] = hit.value;
   face[i] = hit.face;
@@ -173,43 +200,35 @@ __device__ void sky_color(const FrameParams& fp, float rdx, float rdz,
     rgb[k] = fp.horizon[k] * (1.f - grad) + fp.sky[k] * grad;
 }
 
-template <class World>
-__global__ void __launch_bounds__(BLOCK)
-k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
-                float* __restrict__ img, int* __restrict__ steps_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= fp.width * fp.height) return;
-  float* out = img + 4 * (size_t)i;
+__device__ __forceinline__ void write_sky(const FrameParams& fp,
+                                          const float* rd, float* out) {
+  float rgb[3];
+  sky_color(fp, rd[0], rd[2], rgb);
+  out[0] = rgb[0];
+  out[1] = rgb[1];
+  out[2] = rgb[2];
+  out[3] = 1.f;
+}
 
-  // ---- generate_rays (row 0 = top of the image) -----------------------
+// generate_rays: the direction of pixel i (row 0 = top of the image).
+__device__ __forceinline__ void gen_ray(const FrameParams& fp, int i,
+                                        float* rd) {
   const float px = (float)(i % fp.width);
   const float py = (float)(i / fp.width);
   float u = px / (float)fp.width * 2.f - 1.f;
   float v = ((float)(fp.height - 1) - py) / (float)fp.height * 2.f - 1.f;
   u = u * fp.aspect * fp.tan_half;
   v = v * fp.tan_half;
-  float rd[3];
   for (int k = 0; k < 3; ++k) rd[k] = u * fp.right[k] + v * fp.up[k] + fp.fwd[k];
   const float rn = sqrtf(rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2]);
   for (int k = 0; k < 3; ++k) rd[k] = rd[k] / rn;
+}
 
-  // ---- primary trace ---------------------------------------------------
-  Hit p;
-  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
-              rd[1], rd[2], -1.f, fp.primary_budget, 1, tx, p);
-  int steps = p.steps;
-  if (p.t == -1.f) {
-    float rgb[3];
-    sky_color(fp, rd[0], rd[2], rgb);
-    out[0] = rgb[0];
-    out[1] = rgb[1];
-    out[2] = rgb[2];
-    out[3] = 1.f;
-    if (steps_out) steps_out[i] = steps;
-    return;
-  }
-
-  // ---- surface_shading -------------------------------------------------
+// surface_shading of a hit: its colour, mapped normal n and the light
+// terms ds = diffuse + specular.
+__device__ void shade_surface(const TexTables& tx, const FrameParams& fp,
+                              const Hit& p, float4& color, float* n,
+                              float& ds) {
   const int vi = clampi((int)p.value, 0, tx.mat_rows - 1);
   const int slot = p.face == 3 ? 0 : (p.face == 2 ? 2 : 1);
   const int* mrow = tx.mat_tex + vi * tx.mat_cols;
@@ -217,7 +236,7 @@ k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
   const float spec_strength = tx.mat_params[2 * vi + 1];
   const int nlayer = mrow[3 + slot];
   const bool linear = fp.trilinear != 0;
-  float4 color, ntex;
+  float4 ntex;
   if (tx.mat_cols >= 9) {  // paired colour+normal atlas
     const int pid = clampi(mrow[6 + slot], 0, tx.pair_cap - 1);
     color = sample_lod(tx, tx.pair_color[pid], p.u, p.v, p.lod, linear);
@@ -236,7 +255,6 @@ k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
 
   // normal mapping (.xzy swizzle: blue = up)
   const int f = clampi(p.face, 0, 5);
-  float n[3];
   if (nlayer != -1) {
     float s0 = ntex.x * 2.f - 1.f, s1 = ntex.z * 2.f - 1.f, s2 = ntex.y * 2.f - 1.f;
     const float sn = sqrtf(s0 * s0 + s1 * s1 + s2 * s2);
@@ -261,6 +279,41 @@ k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
   const float spec_dot =
       fmaxf(vd[0] * refl[0] + vd[1] * refl[1] + vd[2] * refl[2], 0.f);
   const float specular = powf(spec_dot, spec_pow) * spec_strength;
+  ds = diffuse + specular;
+}
+
+// The shaded pixel: colour times the clamped light.
+__device__ __forceinline__ void composite(const FrameParams& fp, float4 color,
+                                          float ds, float shadow, float* out) {
+  const float light = clampf(fp.ambient + ds * shadow, 0.f, 1.f);
+  out[0] = color.x * light;
+  out[1] = color.y * light;
+  out[2] = color.z * light;
+  out[3] = color.w;
+}
+
+template <class World>
+__global__ void __launch_bounds__(BLOCK)
+k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
+                float* __restrict__ img, int* __restrict__ steps_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= fp.width * fp.height) return;
+  float* out = img + 4 * (size_t)i;
+  float rd[3];
+  gen_ray(fp, i, rd);
+
+  Hit p;
+  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
+              rd[1], rd[2], -1.f, fp.primary_budget, 1, tx, p);
+  int steps = p.steps;
+  if (p.t == -1.f) {
+    write_sky(fp, rd, out);
+    if (steps_out) steps_out[i] = steps;
+    return;
+  }
+  float4 color;
+  float n[3], ds;
+  shade_surface(tx, fp, p, color, n, ds);
 
   // ---- shade_hits: shadow ray -----------------------------------------
   float shadow = 1.f;
@@ -273,12 +326,136 @@ k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
     steps += s.steps;
     shadow = s.t < 0.f ? 1.f : 0.f;
   }
-  const float light = clampf(fp.ambient + (diffuse + specular) * shadow, 0.f, 1.f);
-  out[0] = color.x * light;
-  out[1] = color.y * light;
-  out[2] = color.z * light;
-  out[3] = color.w;
+  composite(fp, color, ds, shadow, out);
   if (steps_out) steps_out[i] = steps;
+}
+
+// ---- the deferred frame's stages ---------------------------------------
+
+// A primary hit as kd_primary stores it (9 words a pixel).
+struct HitRec {
+  float t;  // -1 = miss
+  uint32_t value;
+  int face;
+  float pos[3];
+  float u, v, lod;
+};
+
+__device__ __forceinline__ int count_of(const int* __restrict__ count,
+                                        int size) {
+  const int c = *count;
+  return c < size ? c : size;
+}
+
+// Raygen, the primary trace from the pixel's tile floor (tf[py/8][px/8] of
+// K7; tf null = unfloored), the hit record and flag, the sky of a miss.
+template <class World>
+__global__ void __launch_bounds__(BLOCK)
+kd_primary_kernel(World world, float octree_scale, TexTables tx,
+                  FrameParams fp, int alpha_mode, const float* __restrict__ tf,
+                  int ntx, HitRec* __restrict__ rec, uint8_t* __restrict__ hit,
+                  float* __restrict__ img) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= fp.width * fp.height) return;
+  float rd[3];
+  gen_ray(fp, i, rd);
+  const float t_floor =
+      tf ? tf[((i / fp.width) >> 3) * ntx + ((i % fp.width) >> 3)] : 0.f;
+  Hit p;
+  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
+              rd[1], rd[2], -1.f, fp.primary_budget, alpha_mode, tx, p,
+              tf != nullptr, t_floor);
+  HitRec r;
+  r.t = p.t;
+  r.value = p.value;
+  r.face = p.face;
+  for (int k = 0; k < 3; ++k) r.pos[k] = p.pos[k];
+  r.u = p.u;
+  r.v = p.v;
+  r.lod = p.lod;
+  rec[i] = r;
+  hit[i] = p.t != -1.f ? 1 : 0;
+  if (p.t == -1.f) write_sky(fp, rd, img + 4 * (size_t)i);
+}
+
+// One thread per compacted hit lane j < *hcount (pixel hidx[j]): surface
+// shading; the pixel gets its lit colour (shadow 1), and the lane its
+// colour, light terms, shadow-candidate flag (lanes past the count: 0) and
+// shadow origin.
+__global__ void __launch_bounds__(BLOCK)
+kd_shade_kernel(TexTables tx, FrameParams fp, const int* __restrict__ hidx,
+                const int* __restrict__ hcount, int size,
+                const HitRec* __restrict__ rec, float4* __restrict__ color,
+                float* __restrict__ ds_out, uint8_t* __restrict__ need,
+                float* __restrict__ sro, float* __restrict__ img) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= size) return;
+  if (j >= count_of(hcount, size)) {
+    need[j] = 0;
+    return;
+  }
+  const int px = hidx[j];
+  const HitRec r = rec[px];
+  Hit p;
+  p.t = r.t;
+  p.value = r.value;
+  p.face = r.face;
+  for (int k = 0; k < 3; ++k) p.pos[k] = r.pos[k];
+  p.u = r.u;
+  p.v = r.v;
+  p.lod = r.lod;
+  float4 c;
+  float n[3], ds;
+  shade_surface(tx, fp, p, c, n, ds);
+  color[j] = c;
+  ds_out[j] = ds;
+  // a shadow only matters where it can darken something
+  need[j] = (fp.render_shadows && p.t < fp.shadow_distance && ds > 0.f) ? 1 : 0;
+  for (int k = 0; k < 3; ++k) sro[3 * j + k] = p.pos[k] + n[k] * 0.001f;
+  composite(fp, c, ds, 1.f, img + 4 * (size_t)px);
+}
+
+// One thread per shadow ray to trace: slot m < count of the candidate
+// list (sidx, *scount) or, with tidx, of its uncertified sub-list (tidx,
+// *tcount); floors (per candidate) null = unfloored. traced[c] = the
+// candidate's ray hit something.
+template <class World>
+__global__ void __launch_bounds__(BLOCK)
+kd_shadow_kernel(World world, float octree_scale, TexTables tx,
+                 FrameParams fp, int alpha_mode, const float* __restrict__ sro,
+                 const int* __restrict__ sidx, const int* __restrict__ scount,
+                 const int* __restrict__ tidx, const int* __restrict__ tcount,
+                 const float* __restrict__ floors, int size,
+                 uint8_t* __restrict__ traced) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= size || m >= count_of(tidx ? tcount : scount, size)) return;
+  const int c = tidx ? tidx[m] : m;
+  const size_t j = (size_t)sidx[c];
+  Hit s;
+  world.trace(octree_scale, sro[3 * j], sro[3 * j + 1], sro[3 * j + 2],
+              -fp.light_dir[0], -fp.light_dir[1], -fp.light_dir[2], -1.f,
+              fp.shadow_budget, alpha_mode, tx, s, floors != nullptr,
+              floors ? floors[c] : 0.f);
+  traced[c] = s.t < 0.f ? 0 : 1;
+}
+
+// One thread per candidate c < *scount: a blocked one gets its shadowed
+// colour. Without certificates (blk null) every candidate was traced; with
+// them, a candidate is blocked when K8 certified it so or it was left to
+// trace (todo) and its trace hit.
+__global__ void __launch_bounds__(BLOCK)
+kd_finish_kernel(FrameParams fp, const int* __restrict__ hidx,
+                 const int* __restrict__ sidx, const int* __restrict__ scount,
+                 int size, const float4* __restrict__ color,
+                 const float* __restrict__ ds, const uint8_t* __restrict__ blk,
+                 const uint8_t* __restrict__ todo,
+                 const uint8_t* __restrict__ traced, float* __restrict__ img) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= size || c >= count_of(scount, size)) return;
+  const bool blocked = blk ? (blk[c] || (todo[c] && traced[c])) : traced[c];
+  if (!blocked) return;
+  const int j = sidx[c];
+  composite(fp, color[j], ds[j], 0.f, img + 4 * (size_t)hidx[j]);
 }
 
 template <class World>
@@ -317,13 +494,15 @@ int vx_k1_traverse(const uint32_t* desc, long long n_words, float octree_scale,
                    int n_rays, int budget, int alpha_mode,
                    const vx::TexTables* tex, float* t, uint32_t* value,
                    int* face, float* pos, float* uv, float* lod,
-                   uint8_t* inside, int* steps, void* stream) {
+                   uint8_t* inside, int* steps, const float* t_floor,
+                   void* stream) {
   vx::TexTables tx = {};
   if (tex) tx = *tex;
   vx::k1_traverse_kernel<<<vx::grid_for(n_rays), vx::BLOCK, 0,
                            (cudaStream_t)stream>>>(
       desc, (uint32_t)(n_words / 12), octree_scale, ro, rd, max_dst, n_rays,
-      budget, alpha_mode, tx, t, value, face, pos, uv, lod, inside, steps);
+      budget, alpha_mode, tx, t, value, face, pos, uv, lod, inside, steps,
+      t_floor);
   return (int)cudaGetLastError();
 }
 
@@ -354,7 +533,8 @@ int vx_k4_traverse(const uint32_t* words, long long n_words,
                    int n_rays, int budget, int alpha_mode,
                    const vx::TexTables* tex, float* t, uint32_t* value,
                    int* face, float* pos, float* uv, float* lod,
-                   uint8_t* inside, int* steps, void* stream) {
+                   uint8_t* inside, int* steps, const float* t_floor,
+                   void* stream) {
   vx::TexTables tx = {};
   if (tex) tx = *tex;
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
@@ -362,7 +542,7 @@ int vx_k4_traverse(const uint32_t* words, long long n_words,
   vx::k4_traverse_kernel<<<vx::grid_for(n_rays), vx::BLOCK, 0,
                            (cudaStream_t)stream>>>(
       world, octree_scale, ro, rd, max_dst, n_rays, budget, alpha_mode, tx, t,
-      value, face, pos, uv, lod, inside, steps);
+      value, face, pos, uv, lod, inside, steps, t_floor);
   return (int)cudaGetLastError();
 }
 
@@ -387,6 +567,133 @@ int vx_k5_picker_csvo(const uint32_t* words, long long n_words,
   vx::k5_picker_kernel<<<vx::grid_for(n_tasks), vx::BLOCK, 0,
                          (cudaStream_t)stream>>>(world, octree_scale, tasks,
                                                  n_tasks, budget, out, steps);
+  return (int)cudaGetLastError();
+}
+
+// ---- K6, K7, K8 -----------------------------------------------------------
+
+// mask: n >= 0 bytes; out: size ints; block_counts: max(1, ceil(n /
+// 1024)) ints of scratch.
+int vx_k6_compact(const uint8_t* mask, int n, int size, int* out, int* count,
+                  int* block_counts, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0) {
+    cudaMemsetAsync(count, 0, sizeof(int), st);
+    if (size > 0) cudaMemsetAsync(out, 0, sizeof(int) * (size_t)size, st);
+    return (int)cudaGetLastError();
+  }
+  const int nb = (n + vx::K6_BLOCK - 1) / vx::K6_BLOCK;
+  const int nw = ((n > size ? n : size) + vx::K6_BLOCK - 1) / vx::K6_BLOCK;
+  vx::k6_count_kernel<<<nb, vx::K6_BLOCK, 0, st>>>(mask, n, block_counts);
+  vx::k6_scan_kernel<<<1, vx::K6_BLOCK, 0, st>>>(block_counts, nb, count);
+  vx::k6_write_kernel<<<nw, vx::K6_BLOCK, 0, st>>>(mask, n, block_counts, size,
+                                                   count, out);
+  return (int)cudaGetLastError();
+}
+
+int vx_k7_tiles(const int* levels, const float* bounds,
+                const vx::BeamParams* bp, float* out, void* stream) {
+  const long long n = (long long)((bp->width + 7) / 8) * ((bp->height + 7) / 8);
+  vx::k7_tile_kernel<<<vx::grid_for(n), 128, 0, (cudaStream_t)stream>>>(
+      levels, bounds, *bp, out);
+  return (int)cudaGetLastError();
+}
+
+int vx_k7_shadow(const int* levels_e, const int* h3d0, const float* bounds,
+                 const vx::BeamParams* bp, const float* ro,
+                 const float* max_dst, const int* idx, const int* count, int k,
+                 float* out, void* stream) {
+  vx::k7_shadow_kernel<<<vx::grid_for(k), 128, 0, (cudaStream_t)stream>>>(
+      levels_e, h3d0, bounds, *bp, ro, max_dst, idx, count, k, out);
+  return (int)cudaGetLastError();
+}
+
+int vx_k8_sun(const uint16_t* sb, const vx::SunParams* sp, const float* ro,
+              const float* max_dst, const int* idx, const int* count, int k,
+              uint8_t* lit, uint8_t* blk, uint8_t* todo, float* floors,
+              void* stream) {
+  vx::k8_sun_kernel<<<vx::grid_for(k), 128, 0, (cudaStream_t)stream>>>(
+      sb, *sp, ro, max_dst, idx, count, k, lit, blk, todo, floors);
+  return (int)cudaGetLastError();
+}
+
+// ---- the deferred frame's stages ------------------------------------------
+
+int vx_kd_primary(const uint32_t* desc, long long n_words, float octree_scale,
+                  const vx::TexTables* tex, const vx::FrameParams* fp,
+                  int alpha_mode, const float* tf, int ntx, void* rec,
+                  uint8_t* hit, float* img, void* stream) {
+  const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
+  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+                          vx::BLOCK, 0, (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, alpha_mode, tf, ntx, (vx::HitRec*)rec,
+      hit, img);
+  return (int)cudaGetLastError();
+}
+
+int vx_kd_primary_csvo(const uint32_t* words, long long n_words,
+                       float octree_scale, unsigned root_ptr, int total_depth,
+                       const vx::TexTables* tex, const vx::FrameParams* fp,
+                       int alpha_mode, const float* tf, int ntx, void* rec,
+                       uint8_t* hit, float* img, void* stream) {
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+                          vx::BLOCK, 0, (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, alpha_mode, tf, ntx, (vx::HitRec*)rec,
+      hit, img);
+  return (int)cudaGetLastError();
+}
+
+int vx_kd_shade(const vx::TexTables* tex, const vx::FrameParams* fp,
+                const int* hidx, const int* hcount, int size, const void* rec,
+                float* color, float* ds, uint8_t* need, float* sro, float* img,
+                void* stream) {
+  vx::kd_shade_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                        (cudaStream_t)stream>>>(
+      *tex, *fp, hidx, hcount, size, (const vx::HitRec*)rec, (float4*)color,
+      ds, need, sro, img);
+  return (int)cudaGetLastError();
+}
+
+int vx_kd_shadow(const uint32_t* desc, long long n_words, float octree_scale,
+                 const vx::TexTables* tex, const vx::FrameParams* fp,
+                 int alpha_mode, const float* sro, const int* sidx,
+                 const int* scount, const int* tidx, const int* tcount,
+                 const float* floors, int size, uint8_t* traced,
+                 void* stream) {
+  const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
+  vx::kd_shadow_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, alpha_mode, sro, sidx, scount, tidx,
+      tcount, floors, size, traced);
+  return (int)cudaGetLastError();
+}
+
+int vx_kd_shadow_csvo(const uint32_t* words, long long n_words,
+                      float octree_scale, unsigned root_ptr, int total_depth,
+                      const vx::TexTables* tex, const vx::FrameParams* fp,
+                      int alpha_mode, const float* sro, const int* sidx,
+                      const int* scount, const int* tidx, const int* tcount,
+                      const float* floors, int size, uint8_t* traced,
+                      void* stream) {
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  vx::kd_shadow_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, alpha_mode, sro, sidx, scount, tidx,
+      tcount, floors, size, traced);
+  return (int)cudaGetLastError();
+}
+
+int vx_kd_finish(const vx::FrameParams* fp, const int* hidx, const int* sidx,
+                 const int* scount, int size, const float* color,
+                 const float* ds, const uint8_t* blk, const uint8_t* todo,
+                 const uint8_t* traced, float* img, void* stream) {
+  vx::kd_finish_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      *fp, hidx, sidx, scount, size, (const float4*)color, ds, blk, todo,
+      traced, img);
   return (int)cudaGetLastError();
 }
 

@@ -12,14 +12,16 @@ defaults:
 Each frame streams chunks (loader events, worldgen and serialization on the
 job threads, delta uploads), casts the look ray (kernel K5 on the card),
 runs the fixed-step physics (one K5 cast per step while the player moves)
-and, when asked, renders (kernel K3). The physics catch-up is capped at
+and, when asked, renders the deferred frame (the JAX package's default
+mode, with the world's heightfield: K6, K7 and K8 around the traversal on
+the card). The physics catch-up is capped at
 ``max_physics_steps_per_frame`` = 8 steps a frame, as in the JAX package;
 the reference clamps the accumulator at 1 s (250 steps, game.rs:130).
 
 ``GameArgs.device`` (None = the card) places the renderer; the tests pass
 "cpu", which runs the plain versions of the kernels. ``--svo-format csvo``
-streams the world as CSVO (the reference's default format), rendered by K3
-and picked by K5 in their CSVO instantiations over kernel K4's traversal.
+streams the world as CSVO (the reference's default format), rendered and
+picked over kernel K4's traversal (K5 in its CSVO instantiation).
 The Minecraft world import (``--mc-world``) is not ported: it raises.
 """
 

@@ -9,8 +9,9 @@ until all chunks are loaded (then serializes the whole world in one wave).
 
 Counterpart: voxelrs_tpu/gamelogic/world.py:33-268. Chunks always come from
 the procedural generator (``NopStorage``): the Minecraft Anvil import is not
-ported. ``render`` draws the exact frame, kernel K3 on the card, and
-``update_fixed`` runs one physics step, whose AABB sweep is one picker
+ported. ``render`` draws the deferred frame (the JAX package's default
+mode, with the world's heightfield: kernels K6, K7 and K8 around the
+traversal on the card), and ``update_fixed`` runs one physics step, whose AABB sweep is one picker
 cast (kernel K5 on the card).
 """
 

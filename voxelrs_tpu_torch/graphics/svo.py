@@ -3,10 +3,12 @@ and texture mips; exposes ``update`` (delta upload), ``render`` (one exact
 frame) and ``raycast`` (picker batches).
 
 Counterpart: voxelrs_tpu/graphics/svo.py (``__init__`` :63-111,
-``_grow_device`` :113, ``update`` :150-197, ``reload_resources``,
-``_compute_translucent_blocks`` :207, ``render`` in ``mode="fused"`` and,
-for a CSVO buffer, ``mode="csvo"`` :292-366, ``raycast`` :559-589,
-``get_stats``), itself after reference: src/graphics/svo.rs:56-255. The
+``_grow_device`` :113, ``update`` :150-197 with ``world_value_mask`` :191,
+``reload_resources``, ``_compute_translucent_blocks`` :207, ``render`` :224
+— its default ``mode="deferred"`` :245-290 for both formats, ``"fused"``
+and, for a CSVO buffer, ``"csvo"`` :292-366 — ``set_heightfield`` :413,
+``_beam_floors`` :479-521, ``raycast`` :559-589, ``get_stats``), itself
+after reference: src/graphics/svo.rs:56-255. The
 persistently-mapped GL buffer is an int32 torch tensor holding u32 words,
 patched on exactly the ranges the serializer changed.
 
@@ -26,7 +28,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.picker import raycast
-from ..ops.shading import KernelTables, render_frame
+from ..ops.shading import (DeferredWorkspace, KernelTables, render_frame,
+                           render_frame_deferred)
 from ..ops.traversal_csvo import MAX_STREAM_BYTES, CsvoBuffer
 from .picker import PickerBatch, PickerBatchResult
 
@@ -64,6 +67,7 @@ class Svo:
         self.device = resolve_device(device)
         self.mips, self.mat_params, self.mat_tex = registry.build(self.device)
         self._compute_translucent_blocks()
+        self.world_value_mask = ~0  # until update() reports the world's set
         self._tables = None
         self.buffer_dtype = np.dtype(buffer_dtype)
         # the host mirror holds the full capacity; the device buffer is
@@ -89,6 +93,12 @@ class Svo:
         # instead of a launch and a device-to-host copy.
         self._buffer_version = 0
         self._raycast_memo = None
+        # terrain envelope for the beam pre-pass (set_heightfield; None = no
+        # pre-pass), and what the last frame ran: its mode, whether the
+        # world was proved opaque, whether beams and a sun map fed it
+        self.heightfield = None
+        self.last_frame = {}
+        self._workspace = None  # the deferred frame's scratch on the card
 
     # -- world upload ---------------------------------------------------------
 
@@ -147,6 +157,7 @@ class Svo:
             self.device_buf[start:end].copy_(chunk)
         if ranges or (self.depth, self.root_ptr) != prev_state:
             self._buffer_version += 1  # invalidates the picker memo
+        self.world_value_mask = getattr(world_svo, "value_mask", ~0)
         self.stats = Stats(used_bytes=world_svo.size_in_bytes(),
                            capacity_bytes=self.capacity_bytes,
                            depth=self.depth)
@@ -162,8 +173,10 @@ class Svo:
 
     def _compute_translucent_blocks(self) -> None:
         """Bitmask of block values whose face textures contain any texel
-        with alpha < 1 (bit 63 = unknown/overflow values). The JAX package
-        uses it to pick its opaque pipeline; kept for that later slice."""
+        with alpha < 1 (bit 63 = unknown/overflow values). When the world
+        provably holds none of them (``is_opaque``), translucent casting
+        degenerates to first-hit casting and the deferred frame takes its
+        opaque branch."""
         alpha0 = self.mips[0][..., 3].cpu().numpy()
         layer_translucent = (alpha0 < 1.0).any(axis=(1, 2))
         mat_tex = self.mat_tex.cpu().numpy()
@@ -215,28 +228,97 @@ class Svo:
             return self.device_buf
         return CsvoBuffer(self.device_buf, self.root_ptr, self.depth)
 
+    def is_opaque(self) -> bool:
+        """The world holds no block with a texel of alpha < 1 (JAX :287)."""
+        return (self.world_value_mask & self.translucent_block_mask) == 0
+
+    def set_heightfield(self, hf) -> None:
+        """Attach a ``world.heightfield.HeightField``: enables the beam
+        pre-pass of the deferred frame (conservative per-tile entry floors
+        and, with shadows, the sun map; the frame stays bit for bit the
+        same). ``None`` disables it."""
+        self.heightfield = hf
+
+    def beam_context(self, params: RenderParams, width: int, height: int,
+                     shared_sun=None):
+        """``ops.beams.BeamContext`` for this frame (JAX ``_beam_floors``
+        :479-521): the tile floors of K7 plus the envelope, and, where
+        shadows are on, the heightfield's sun map (or ``shared_sun``, a map
+        already built, whose certificates are exact wherever its window
+        covers). None without a heightfield, below 16x16 pixels or before
+        the field holds a chunk; ``BeamContext.without_sun`` gives the
+        beams alone."""
+        from ..ops.beams import CELL, BeamContext, sun_margin, tile_floors
+        from ..ops.shading import tan_half_fov
+
+        if self.heightfield is None or width < 16 or height < 16:
+            return None
+        dev = self.heightfield.device(self.device)
+        if dev is None:
+            return None
+        levels, offsets, n, hmax, bounds = dev[:5]
+        kw = self.frame_kwargs(params, width, height)
+        pos = kw["cam_pos"]
+        ccx = int(np.floor(pos[0] / CELL)) - 2
+        ccz = int(np.floor(pos[2] / CELL)) - 2
+        near = self.heightfield.near_window(ccx + 2, ccz + 2).astype(
+            np.float32)
+        tf = tile_floors(levels, offsets, n, hmax, bounds, near,
+                         np.array([ccx, ccz], np.float32), pos,
+                         kw["cam_right"], kw["cam_up"], kw["cam_fwd"],
+                         tan_half_fov(params.fov_y_rad), params.aspect_ratio,
+                         -1.0, width=width, height=height)
+        sun_map = shared_sun
+        if sun_map is None and params.render_shadows:
+            sun_map = self.heightfield.sun_map(params.light_dir,
+                                               center=params.cam_pos,
+                                               device=self.device)
+        return BeamContext(tf, dev, width, height, sun=sun_map,
+                           sun_margin=sun_margin(self.octree_scale))
+
     def render(self, params: RenderParams, width: int, height: int,
-               max_steps: int = 1000, mode: str = "fused") -> torch.Tensor:
+               max_steps: int = 1000, mode: str = "deferred",
+               beams="auto") -> torch.Tensor:
         """Render one frame; returns an (H, W, 4) float32 tensor on the
         renderer's device (row 0 = top).
 
-        ``mode="fused"`` — the only mode of this package so far, and its
-        default — is the exact per-pixel frame with in-loop alpha judging:
-        kernel K3 on the card (its CSVO instantiation for a CSVO buffer, the
-        JAX package's ``mode="csvo"``), the plain version on the CPU. The
-        JAX package's default, ``"deferred"`` (host-orchestrated rounds with
-        beams and sun certificates), is a later slice (ROADMAP.md, queue 1,
-        item 3: the deferred pipeline).
-        """
-        if mode != "fused":
-            raise NotImplementedError(
-                f"Svo.render mode={mode!r}: only 'fused' is ported (for a "
-                "CSVO buffer it is the JAX mode 'csvo'); the deferred "
-                "pipeline is ROADMAP.md queue 1 item 3")
-        return render_frame(
+        ``mode="deferred"`` (the default, as in the JAX package) runs
+        ``ops.shading.render_frame_deferred`` for either buffer format: its
+        opaque branch where ``is_opaque``, else the judged one; ``beams``
+        "auto" takes ``beam_context`` (the pre-pass, where a heightfield is
+        attached), None runs without it, or pass a ``BeamContext``.
+        ``mode="fused"`` (the JAX ``"csvo"`` for a CSVO buffer) is the
+        exact per-pixel frame with in-loop alpha judging, kernel K3 (its
+        CSVO instantiation for a CSVO buffer). On the card the kernels
+        run; on the CPU their plain versions."""
+        if mode not in ("deferred", "fused", "csvo"):
+            raise ValueError(f"Svo.render: unknown mode {mode!r}")
+        kw = self.frame_kwargs(params, width, height, max_steps)
+        tables = self.kernel_tables() if self.device.type == "cuda" else None
+        if mode != "deferred":
+            self.last_frame = dict(mode="fused")
+            return render_frame(self.world(), self.octree_scale, self.mips,
+                                self.mat_params, self.mat_tex, **kw,
+                                tables=tables)
+        if isinstance(beams, str):
+            if beams != "auto":
+                raise ValueError(f"Svo.render: beams={beams!r}")
+            beams = self.beam_context(params, width, height)
+        opaque = self.is_opaque()
+        self.last_frame = dict(mode="deferred", opaque=opaque,
+                               beams=beams is not None,
+                               sun=beams is not None and beams.has_sun())
+        ws = None
+        if self.device.type == "cuda":
+            key = (width * height, self.device_buf.device)
+            if self._workspace is None or self._workspace.key != key:
+                self._workspace = None  # free the old scratch first
+                self._workspace = DeferredWorkspace(*key)
+            ws = self._workspace
+        return render_frame_deferred(
             self.world(), self.octree_scale, self.mips, self.mat_params,
-            self.mat_tex, **self.frame_kwargs(params, width, height, max_steps),
-            tables=self.kernel_tables() if self.device.type == "cuda" else None)
+            self.mat_tex, **kw, opaque=opaque, beams=beams, tables=tables,
+            workspace=ws)
 
     # -- picking ---------------------------------------------------------------
 

@@ -146,9 +146,18 @@ def make_ray_consts(octree_scale: float, ro, rd, max_dst) -> RayConsts:
                      float(octree_scale))
 
 
-def init_state(c: RayConsts, root: tuple) -> State:
+def init_state(c: RayConsts, root: tuple,
+               t_floor: Optional[torch.Tensor] = None) -> State:
     """Entry/exit distances of the [1;2) cube and the initial octant
-    (reference: svo.esvo.glsl:126-149), at the node cursor ``root``."""
+    (reference: svo.esvo.glsl:126-149), at the node cursor ``root``.
+
+    ``t_floor`` (B,) float32, in caller ray units, starts each ray at
+    ``max(t_min, t_floor)`` as the JAX engines' ``start_floored`` does
+    (voxelrs_tpu/ops/shading.py:1255-1273 and ``restart_state_push``
+    voxelrs_tpu/ops/traversal.py:700-727): the root octant is recomputed
+    at the 1.5 thresholds from the new ``t_min``, and a ray whose floor
+    lies past the cube's exit (a +inf floor) starts inactive and misses.
+    A floor at or below the entry leaves every number as without it."""
     B = c.rox.shape[0]
     dev = c.rox.device
     t_min = torch.maximum(torch.maximum(2.0 * c.tcx - c.tbx,
@@ -157,13 +166,17 @@ def init_state(c: RayConsts, root: tuple) -> State:
     t_min = torch.clamp(t_min, min=0.0)
     t_max = torch.minimum(torch.minimum(c.tcx - c.tbx, c.tcy - c.tby),
                           c.tcz - c.tbz)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    if t_floor is not None:
+        t_min = torch.maximum(t_min, t_floor.to(f32) * c.octree_scale)
+        active = t_min <= t_max
     in_x = t_min < 1.5 * c.tcx - c.tbx
     in_y = t_min < 1.5 * c.tcy - c.tby
     in_z = t_min < 1.5 * c.tcz - c.tbz
     idx = in_x.to(i64) | (in_y.to(i64) << 1) | (in_z.to(i64) << 2)
     half = lambda m: torch.where(m, 1.5, 1.0).to(f32)  # noqa: E731
     return State(
-        active=torch.ones(B, dtype=torch.bool, device=dev),
+        active=active,
         hit=torch.zeros(B, dtype=torch.bool, device=dev),
         inside=torch.zeros(B, dtype=torch.bool, device=dev),
         node=root,
@@ -466,23 +479,26 @@ def finalize(reader, c: RayConsts, state: State) -> TraversalResult:
     )
 
 
-def trace(reader, octree_scale, ro, rd, max_dst, alpha_fn, budget: int):
+def trace(reader, octree_scale, ro, rd, max_dst, alpha_fn, budget: int,
+          t_floor: Optional[torch.Tensor] = None):
     """The plain traversal through ``reader``'s format: ray constants,
-    the loop, the hit record."""
+    the (optionally floored) start, the loop, the hit record."""
     c = make_ray_consts(octree_scale, ro, rd, max_dst)
-    state = init_state(c, reader.root(ro.shape[0], ro.device))
+    state = init_state(c, reader.root(ro.shape[0], ro.device), t_floor)
     return finalize(reader, c, run_loop(reader, c, state, budget, alpha_fn))
 
 
 def intersect_octree_plain(descriptors, octree_scale, ro, rd, max_dst,
                            cast_translucent: bool,
                            alpha_fn: Optional[Callable] = None,
-                           max_steps: int = MAX_STEPS) -> TraversalResult:
+                           max_steps: int = MAX_STEPS,
+                           t_floor: Optional[torch.Tensor] = None
+                           ) -> TraversalResult:
     """The plain PyTorch traversal (the JAX classic loop, lane-masked)."""
     reader = EsvoReader(descriptors.to(i64) & U32_MASK)
     return trace(reader, octree_scale, ro, rd, max_dst,
                  alpha_fn if cast_translucent else None,
-                 step_budget(max_steps))
+                 step_budget(max_steps), t_floor)
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +523,9 @@ def _check(name, t, dtype, shape=None, device=None):
 def intersect_octree(descriptors: torch.Tensor, octree_scale, ro, rd,
                      max_dst, cast_translucent: bool,
                      alpha_fn: Optional[Callable] = None,
-                     max_steps: int = MAX_STEPS) -> TraversalResult:
+                     max_steps: int = MAX_STEPS,
+                     t_floor: Optional[torch.Tensor] = None
+                     ) -> TraversalResult:
     """Trace a batch of rays through the serialized SVO.
 
     Args:
@@ -523,6 +541,8 @@ def intersect_octree(descriptors: torch.Tensor, octree_scale, ro, rd,
         ``ops.shading.make_alpha_fn`` (the kernel inlines that sampler, K2).
       max_steps: step bound (reference MAX_STEPS = 1000), rounded up to a
         multiple of 4 as the JAX loop does.
+      t_floor: None, or (B,) float32 per-ray entry floors in world units
+        (``init_state``); None leaves every result as it was.
 
     On the CPU this is the plain version; on CUDA tensors it launches K1.
     The JAX opaque cast runs the push engine, which this package does not
@@ -532,7 +552,7 @@ def intersect_octree(descriptors: torch.Tensor, octree_scale, ro, rd,
     if not descriptors.is_cuda:
         return intersect_octree_plain(descriptors, octree_scale, ro, rd,
                                       max_dst, cast_translucent, alpha_fn,
-                                      max_steps)
+                                      max_steps, t_floor)
     from .shading import AlphaFn
 
     global launches
@@ -544,6 +564,8 @@ def intersect_octree(descriptors: torch.Tensor, octree_scale, ro, rd,
     _check("ro", ro, f32, (B, 3), dev)
     _check("rd", rd, f32, (B, 3), dev)
     md = torch.as_tensor(max_dst, dtype=f32, device=dev).expand(B).contiguous()
+    if t_floor is not None:
+        _check("t_floor", t_floor, f32, (B,), dev)
     judge = alpha_fn if cast_translucent else None
     if judge is not None and not isinstance(judge, AlphaFn):
         raise TypeError("K1 judges texel alpha with make_alpha_fn's sampler "
@@ -565,7 +587,8 @@ def intersect_octree(descriptors: torch.Tensor, octree_scale, ro, rd,
     if B:
         _build.launch_k1(descriptors, float(octree_scale), ro, rd, md,
                          step_budget(max_steps), alpha_mode, tables,
-                         t, value, face, pos, uv, lod, inside, steps)
+                         t, value, face, pos, uv, lod, inside, steps,
+                         t_floor)
         launches += 1
     return TraversalResult(t, value.to(i64) & U32_MASK, face, pos, uv, lod,
                            inside, steps)

@@ -204,13 +204,15 @@ class CsvoReader:
 def intersect_octree_csvo_plain(words, octree_scale, root_ptr, total_depth,
                                 ro, rd, max_dst, cast_translucent: bool,
                                 alpha_fn: Optional[Callable] = None,
-                                max_steps: int = MAX_STEPS) -> TraversalResult:
+                                max_steps: int = MAX_STEPS,
+                                t_floor: Optional[torch.Tensor] = None
+                                ) -> TraversalResult:
     """The plain PyTorch CSVO traversal (the JAX classic loop,
-    lane-masked)."""
+    lane-masked), floored as ``ops.traversal.init_state`` floors it."""
     reader = CsvoReader(words.to(i64) & U32_MASK, root_ptr, total_depth)
     return trace(reader, octree_scale, ro, rd, max_dst,
                  alpha_fn if cast_translucent else None,
-                 step_budget(max_steps))
+                 step_budget(max_steps), t_floor)
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +238,9 @@ def intersect_octree_csvo(words: torch.Tensor, octree_scale, root_ptr,
                           total_depth, ro, rd, max_dst,
                           cast_translucent: bool,
                           alpha_fn: Optional[Callable] = None,
-                          max_steps: int = MAX_STEPS) -> TraversalResult:
+                          max_steps: int = MAX_STEPS,
+                          t_floor: Optional[torch.Tensor] = None
+                          ) -> TraversalResult:
     """Trace a batch of rays through the CSVO byte stream.
 
     Args:
@@ -246,7 +250,8 @@ def intersect_octree_csvo(words: torch.Tensor, octree_scale, root_ptr,
       root_ptr: byte offset of the root node inside the stream.
       total_depth: world depth (root levels + chunk lod).
       Everything else as ``ops.traversal.intersect_octree``; ``max_steps``
-      is rounded up to a multiple of 2 as the JAX loop rounds it.
+      is rounded up to a multiple of 2 as the JAX loop rounds it;
+      ``t_floor`` the per-ray entry floors (``ops.traversal.init_state``).
 
     On the CPU this is the plain version; on CUDA tensors it launches K4.
     """
@@ -254,7 +259,7 @@ def intersect_octree_csvo(words: torch.Tensor, octree_scale, root_ptr,
         return intersect_octree_csvo_plain(words, octree_scale, root_ptr,
                                            total_depth, ro, rd, max_dst,
                                            cast_translucent, alpha_fn,
-                                           max_steps)
+                                           max_steps, t_floor)
     from .shading import AlphaFn
 
     global launches
@@ -264,6 +269,8 @@ def intersect_octree_csvo(words: torch.Tensor, octree_scale, root_ptr,
     _check("ro", ro, f32, (B, 3), dev)
     _check("rd", rd, f32, (B, 3), dev)
     md = torch.as_tensor(max_dst, dtype=f32, device=dev).expand(B).contiguous()
+    if t_floor is not None:
+        _check("t_floor", t_floor, f32, (B,), dev)
     judge = alpha_fn if cast_translucent else None
     if judge is not None and not isinstance(judge, AlphaFn):
         raise TypeError("K4 judges texel alpha with make_alpha_fn's sampler "
@@ -286,7 +293,7 @@ def intersect_octree_csvo(words: torch.Tensor, octree_scale, root_ptr,
         _build.launch_k4(words, float(octree_scale), int(root_ptr),
                          int(total_depth), ro, rd, md, step_budget(max_steps),
                          alpha_mode, tables, t, value, face, pos, uv, lod,
-                         inside, steps)
+                         inside, steps, t_floor)
         launches += 1
     return TraversalResult(t, value.to(i64) & U32_MASK, face, pos, uv, lod,
                            inside, steps)

@@ -8,11 +8,14 @@ opposite to the movement — an O(loaded chunks) pointer permutation, no data
 movement, since serialized chunk blobs are indexed by absolute pointers.
 
 Counterpart: voxelrs_tpu/systems/worldsvo.py:25-355, both formats (the
-``svo_format`` argument and its chunk factory, :71-89). The terrain-envelope
-hooks there (``HeightField``, column tops, voxel
-tops, solid bases and the opaque-block table, :94-110, :126-141, :146-160)
-feed only the beam and sun-certificate passes, which are not ported; they
-come with those passes.
+``svo_format`` argument and its chunk factory, :71-89), with the
+terrain-envelope hooks that feed the deferred frame's beam and
+sun-certificate passes: the ``HeightField`` and its reservation
+(:94-111), the column tops, voxel tops and solid bases computed beside
+each chunk's serialization on the job threads (:115-145) from the
+renderer's opaque-block table (:146-160), their removal (:162-177), the
+rebuild on a coordinate-space shift (:224-253) and the insertion of each
+result (:296-306).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from ..graphics.picker import PickerBatch, PickerBatchResult
 from ..world.chunk import BlockPos, ChunkPos
 from ..world.csvo import Csvo, CsvoSerializedChunk
 from ..world.esvo import Esvo, SerializedChunk
+from ..world.heightfield import (HeightField, chunk_solid_bases,
+                                 chunk_voxel_tops, opaque_lut_from_mask)
 from ..world.octree import LeafId, Position
 from ..world.world import BorrowedChunk
 from .jobs import ChunkProcessor, JobSystem
@@ -98,6 +103,20 @@ class Svo:
         self.leaf_ids: dict[ChunkPos, LeafId] = {}
         self.has_changed = False
         self.coord_space = SvoCoordSpace(ChunkPos(0, 0, 0), render_distance)
+        # terrain envelope for the renderer's beam pre-pass: per-chunk
+        # column tops (computed in the serializer threads) assembled into a
+        # world heightfield (world/heightfield.py)
+        self.heightfield = HeightField()
+        # sun-map builds are seconds of host work on big worlds: never
+        # stall a frame for them in the streaming engine
+        self.heightfield.sun_async = True
+        # the shifted window's chunk span is bounded by the render
+        # distance: reserving it upfront keeps the pyramid's shape
+        self.heightfield.reserve(2 * render_distance + 2)
+        self._col_tops: dict[ChunkPos, np.ndarray] = {}
+        self._vox_tops: dict[ChunkPos, np.ndarray] = {}
+        self._sol_bases: dict[ChunkPos, np.ndarray] = {}
+        graphics_svo.set_heightfield(self.heightfield)
 
     # -- chunk in/out -----------------------------------------------------------
 
@@ -106,19 +125,43 @@ class Svo:
         via ``update`` (reference: worldsvo.rs:90-99)."""
         pos, lod, voxels = chunk.pos, chunk.lod, chunk.chunk.voxels
         factory = self._chunk_factory
+        opaque_lut = self._opaque_lut()
 
         def produce():
             # per-chunk serialization trace, recorded only when the chunk
             # produced data (reference: worldsvo.rs:93-98 trace_if has_data)
             from ..gamelogic import benchmark
 
-            return benchmark.trace_if(
+            sc = benchmark.trace_if(
                 "serialize_chunk",
                 lambda: factory(pos, voxels, lod, borrowed_chunk=chunk),
                 lambda sc: sc.has_data(),
             )
+            vox = np.asarray(voxels)
+            vt = chunk_voxel_tops(vox, lod)
+            # the (4,4) column tops are exactly the 8x8 max-pool of the
+            # voxel tops — one full-array reduction instead of two
+            sc.column_tops = vt.reshape(4, 8, 4, 8).max(axis=(1, 3))
+            sc.voxel_tops = vt
+            if opaque_lut is not None:
+                sc.solid_bases = chunk_solid_bases(vox, lod, opaque_lut)
+            return sc
 
         self.processor.enqueue(pos, True, produce)
+
+    def _opaque_lut(self):
+        """(256,) bool table of renderer-opaque block values for the solid
+        -base maps (certainly-blocked sun certificates), from the graphics
+        Svo's texture-alpha analysis."""
+        mask = getattr(self.graphics_svo, "translucent_block_mask", None)
+        if mask is None:
+            return None
+        cached = getattr(self, "_opaque_lut_cache", None)
+        if cached is not None and cached[0] == mask:
+            return cached[1]
+        lut = opaque_lut_from_mask(mask)
+        self._opaque_lut_cache = (mask, lut)
+        return lut
 
     def remove_chunk(self, pos: ChunkPos) -> None:
         self.processor.dequeue(pos)
@@ -126,6 +169,14 @@ class Svo:
         if leaf_id is not None:
             self.world_svo.remove_leaf(leaf_id)
             self.has_changed = True
+        tops = self._col_tops.pop(pos, None)
+        self._vox_tops.pop(pos, None)
+        self._sol_bases.pop(pos, None)
+        if tops is not None:
+            svo_pos = self.coord_space.cnv_chunk_pos(pos)
+            if svo_pos is not None:
+                self.heightfield.remove_chunk(
+                    (svo_pos.x, svo_pos.y, svo_pos.z), expect=tops)
 
     def has_pending_jobs(self) -> bool:
         return self.processor.has_pending()
@@ -161,6 +212,36 @@ class Svo:
     def _on_coord_space_change(self) -> None:
         self.has_changed = True
         self.shift_chunks(self.coord_space, self.leaf_ids, self.world_svo)
+        # every chunk's SVO position moved: rebuild the envelope wholesale
+        self._col_tops = {
+            p: t for p, t in self._col_tops.items() if p in self.leaf_ids
+        }
+        self._vox_tops = {
+            p: t for p, t in self._vox_tops.items() if p in self.leaf_ids
+        }
+        self._sol_bases = {
+            p: t for p, t in self._sol_bases.items() if p in self.leaf_ids
+        }
+        rebuilt = {}
+        vrebuilt = {}
+        srebuilt = {}
+        complete = True
+        for p, tops in self._col_tops.items():
+            svo_pos = self.coord_space.cnv_chunk_pos(p)
+            if svo_pos is None:
+                continue
+            key = (svo_pos.x, svo_pos.y, svo_pos.z)
+            rebuilt[key] = tops
+            vt = self._vox_tops.get(p)
+            if vt is None:
+                complete = False
+            else:
+                vrebuilt[key] = vt
+            sb = self._sol_bases.get(p)
+            if sb is not None:
+                srebuilt[key] = sb
+        self.heightfield.rebuild(rebuilt, vrebuilt if complete else None,
+                                 srebuilt)
 
     @staticmethod
     def shift_chunks(coord_space: SvoCoordSpace, leaf_ids: dict, world_svo) -> None:
@@ -214,6 +295,18 @@ class Svo:
             leaf_id, _ = self.world_svo.set_leaf(svo_pos, sc, True)
             self.leaf_ids[result.pos] = leaf_id
             self.has_changed = True
+            tops = getattr(sc, "column_tops", None)
+            if tops is not None:
+                self._col_tops[result.pos] = tops
+                vt = getattr(sc, "voxel_tops", None)
+                if vt is not None:
+                    self._vox_tops[result.pos] = vt
+                sb = getattr(sc, "solid_bases", None)
+                if sb is not None:
+                    self._sol_bases[result.pos] = sb
+                self.heightfield.set_chunk(
+                    (svo_pos.x, svo_pos.y, svo_pos.z), tops, vtops=vt,
+                    sbase=sb)
         return chunks
 
     # -- graphics passthrough with coordinate translation -------------------------
@@ -229,11 +322,12 @@ class Svo:
             )
         return p
 
-    def render(self, params, width: int, height: int, max_steps: int = 1000):
-        """One exact frame (``graphics.Svo.render``, mode "fused": kernel
-        K3 on the card) of the world-space ``params``."""
+    def render(self, params, width: int, height: int, max_steps: int = 1000,
+               mode: str = "deferred"):
+        """One frame of the world-space ``params`` (``graphics.Svo.render``,
+        by default the deferred frame with this world's heightfield)."""
         return self.graphics_svo.render(self.svo_params(params), width,
-                                        height, max_steps, mode="fused")
+                                        height, max_steps, mode=mode)
 
     def raycast(self, batch: PickerBatch, result: PickerBatchResult) -> None:
         for ray in batch.rays:

@@ -201,6 +201,9 @@ class SerializedChunk:
         self.buffer = buffer if (buffer is not None and result.depth > 0) else None
         self.result = result
         self.borrowed_chunk = borrowed_chunk
+        # bitmask over block values present (bit 63 = "unknown/overflow");
+        # lets the renderer prove a world contains no translucent blocks
+        self.value_mask = ~0
 
     @staticmethod
     def from_octree(pos, octree: Octree, lod: int, borrowed_chunk=None) -> "SerializedChunk":
@@ -222,7 +225,12 @@ class SerializedChunk:
             from .esvo_dense import serialize_dense_chunk
 
             buf, result = serialize_dense_chunk(voxels, lod)
-        return SerializedChunk(pos, buf, result, lod, borrowed_chunk)
+        sc = SerializedChunk(pos, buf, result, lod, borrowed_chunk)
+        mask = 0
+        for v in np.unique(voxels):
+            mask |= 1 << min(int(v), 63)
+        sc.value_mask = mask
+        return sc
 
     def unique_id(self) -> int:
         return _hash_pos(self.pos.x, self.pos.y, self.pos.z)
@@ -262,6 +270,8 @@ class Esvo:
         self.buffer = RangeBuffer(capacity, dtype=np.uint32)
         self.leaf_info: dict[int, LeafInfo] = {}
         self.root_info: Optional[LeafInfo] = None
+        # monotone OR of inserted leaves' value masks (reset only on clear)
+        self.value_mask = 0
 
     # -- octree-facing ops (WorldSvo trait, src/world/hds/common.rs:3-15) ----
 
@@ -271,9 +281,11 @@ class Esvo:
         self.buffer.clear()
         self.leaf_info.clear()
         self.root_info = None
+        self.value_mask = 0
 
     def set_leaf(self, pos: Position, leaf: SerializedChunk, serialize: bool) -> tuple[LeafId, object]:
         uid = leaf.unique_id()
+        self.value_mask |= getattr(leaf, "value_mask", ~0)
         leaf_id, prev = self.octree.set_leaf(pos, leaf)
         if serialize or uid not in self.leaf_info:
             self.change_set[("add", uid, leaf_id)] = True
