@@ -32,9 +32,22 @@ and against K3's fused frame on all 5 poses with the beams and the sun map,
 with the beams only and without a heightfield, holds K6, K7 and K8 against
 their plain versions on pose 0's own inputs and K1 / K4 from the pixel
 floors against their unfloored runs, and times the kernels and stages
-alone and the frame from call to done. The game phases count the frames
+alone and the frame from call to done; these phases pin the exact deferred
+frame (``adaptive=False``). At 1080p the default is the JAX package's
+adaptive thick-ray frame (K9): per format an adaptive phase drives it
+(counts from 0 over the 5 bench poses and one pitched up until under 16%
+of the pixels hit, which takes the single-pass shadow branch; K9's four
+kernels and the stages around them), holds it against its plain version
+(``render_frame_adaptive_plain``) on every pose with beams + sun map,
+beams only and no heightfield and against K3's frame within the JAX
+thick-ray budget, holds K9's kernels against their plain versions on pose
+0's own inputs and its coarse trace against K1 / K4 on the same rays, and
+times the kernels alone and the adaptive, exact deferred and fused frames
+in the same run. The game phases count the frames
 that had a sun map and hold the deferred frame of the streamed buffer
-against K3's and against the plain deferred frame.
+against K3's and against the plain deferred frame, and the adaptive frame
+(the game's own at 1080p) against its plain version, timing the three
+paths once each on that buffer.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -46,7 +59,13 @@ the ESVO one — mean |d| < 0.015, the repository's image budget; K6, K7
 and K8 against their plain versions — equal (torch.equal); K1 / K4 from
 the floors against their unfloored runs — value, face_id, inside_voxel
 and t equal; the deferred frame against K3's and against the plain
-deferred frame — max |d| <= 1e-6. Both kernels run the same IEEE float32 operations as their
+deferred frame — max |d| <= 1e-6; K9's kernels against their plain
+versions — equal (the finalize's sky within 1e-6), K9's coarse trace
+against K1 / K4 — every field equal; the adaptive frame against its plain
+version — max |d| <= 1e-6, against K3's — the thick-ray budget of
+tests/test_render.py:162-182 (coarse-sample pixels equal to the exact
+deferred frame's, mean |d| < 0.002, under 2% of the pixels off by more
+than 1e-3). Both kernels run the same IEEE float32 operations as their
 plain versions in the same order (built with -fmad=false); H100 runs
 measured no difference at all, and the 1e-6 leaves room only for a last-bit
 rounding of powf/acosf, not for a wrong pixel.
@@ -112,6 +131,22 @@ OPS_SUN_RAY = 800
 # the deferred frame's stages (csrc/kernels.cu: kd_<stage>_kernel), each
 # counted by ops.shading.launches_<stage>
 STAGES = ("primary", "shade", "shadow", "finish")
+# K9's kernels (csrc/k9_adaptive.cuh: k9_<name>_kernel), each counted by
+# ops.adaptive.launches_<name>, and the JAX functions they replace
+K9 = {"trace": "voxelrs_tpu/ops/shading.py:1677",
+      "merge": "voxelrs_tpu/ops/shading.py:1966",
+      "finalize": "voxelrs_tpu/ops/shading.py:1894",
+      "shadow_cells": "voxelrs_tpu/ops/shading.py:2172"}
+# float operations of K9 outside the traversal, counted from
+# csrc/k9_adaptive.cuh: a pixel ray (gen_ray and the ray constants), one
+# fill test (plane, quantization, entry face; counted for every lane whose
+# four corners hit, a superset of those that reach it), one hit's finalize
+OPS_K9_RAY = 40
+OPS_K9_FILL = 60
+OPS_K9_FINALIZE = 60
+# the pitched-up pose of the adaptive phase: under this share of the
+# pixels hit, below JAX's dense threshold (349,356 of 2,073,600 at 1080p)
+SKY_HIT_SHARE = 0.16
 
 
 def log(msg: str) -> None:
@@ -347,7 +382,7 @@ def play_game(game, recorder):
 
     by_part = {}  # part of the run -> [(frame s, {span: s}, busy jobs)]
     gsvo = world.world_svo.graphics_svo
-    modes = {"deferred": 0, "sun": 0, "beams": 0}
+    modes = {"deferred": 0, "sun": 0, "beams": 0, "adaptive": 0}
 
     def frame(part):
         """One frame, timed from the call to the finished frame, then paced
@@ -418,7 +453,7 @@ def play_game(game, recorder):
     out["run_s"] = ph.seconds
     out["frames"] = len(frame_s)
     out.update(deferred_frames=modes["deferred"], beam_frames=modes["beams"],
-               sun_frames=modes["sun"])
+               sun_frames=modes["sun"], adaptive_frames=modes["adaptive"])
     out["k5_per_frame"] = (picker.launches - k5_0) / len(frame_s)
     out["landed"] = landed
     out["edit"] = dict(cell=cell, before=int(before), broken=int(broken),
@@ -451,8 +486,9 @@ def play_game(game, recorder):
                            and bool(torch.isfinite(img).all()))
     log(f"game run ({fmt}): {out['frames']} frames flown {out['flown']}, "
         f"landed {landed}, edit {out['edit']} ok {out['edit_ok']}; "
-        f"{out['deferred_frames']} frames deferred, {out['beam_frames']} with "
-        f"beams, {out['sun_frames']} with a sun map")
+        f"{out['deferred_frames']} frames deferred, {out['adaptive_frames']} "
+        f"of them adaptive, {out['beam_frames']} with beams, "
+        f"{out['sun_frames']} with a sun map")
     log(f"game frame ({fmt}; step_frame + synchronize, {game.args.width}x"
         f"{game.args.height}): median "
         f"{out['frame_ms_median']:.3f} ms, p90 {out['frame_ms_p90']:.3f} ms, "
@@ -544,7 +580,7 @@ def check_game(game, recorder, card):
         p = world.world_svo.svo_params(world.render_params(W / H))
         fused = gsvo.render(p, W, H, mode="fused")
         ctx = gsvo.beam_context(p, W, H)
-        deferred = gsvo.render(p, W, H, beams=ctx)
+        deferred = gsvo.render(p, W, H, beams=ctx, adaptive=False)
         info = dict(gsvo.last_frame)
         d = max_abs(deferred, fused)
         dp = max_abs(deferred, plain_deferred(gsvo, p, ctx))
@@ -554,6 +590,24 @@ def check_game(game, recorder, card):
         f"{json.dumps(info)}): max |d| {d:.3g}; vs the plain deferred frame "
         f"max |d| {dp:.3g} (tolerance {K3_MAX_ABS:g}); ok "
         f"{out['deferred_game_ok']}")
+
+    with Phase(f"adaptive vs plain, three paths timed (streamed world, "
+               f"{fmt})"):
+        adaptive_img = gsvo.render(p, W, H, beams=ctx)
+        info = dict(gsvo.last_frame)
+        da = max_abs(adaptive_img, plain_adaptive(gsvo, p, ctx))
+        paths = {}
+        for path, kw in (("adaptive", {}), ("exact", dict(adaptive=False)),
+                         ("fused", dict(mode="fused"))):
+            gsvo.render(p, W, H, beams=ctx, **kw)  # warm-up
+            paths[path] = event_ms(lambda: gsvo.render(p, W, H, beams=ctx,
+                                                       **kw))
+    out["adaptive_game_err"], out["paths_ms"] = da, paths
+    out["adaptive_game_ok"] = da <= K3_MAX_ABS and bool(info.get("adaptive"))
+    log(f"adaptive vs its plain version on the streamed {fmt} buffer (final "
+        f"pose, {json.dumps(info)}): max |d| {da:.3g} (tolerance "
+        f"{K3_MAX_ABS:g}); ok {out['adaptive_game_ok']}; one frame each, "
+        f"call to done, same buffer: {json.dumps(paths)} ms on {card}")
 
     with Phase(f"k5 timing ({fmt})"):
         # the last AABB sweep of the run, on the final buffer
@@ -692,7 +746,11 @@ def main() -> int:
     de = deferred_phase(svo, hf, poses, card)
     dc = deferred_phase(csvo, hf, poses, card)
 
-    # ---- 9. the game loop's path, ESVO then CSVO: counts from 0 -----------
+    # ---- 9. the adaptive frame per format: K9 ------------------------------
+    ae = adaptive_phase(svo, hf, poses, card)
+    ac = adaptive_phase(csvo, hf, poses, card)
+
+    # ---- 10. the game loop's path, ESVO then CSVO: counts from 0 ----------
     ge, ce = game_phase("esvo", card)
     gc, cc = game_phase("csvo", card)
 
@@ -846,6 +904,35 @@ def main() -> int:
             bound_ms_csvo=dc["stages"]["bound"][st][0],
             launches_game=ge["launches"][f"kd_{st}"],
             launches_game_csvo=gc["launches"][f"kd_{st}"]))
+    # K9: held to its plain versions on pose 0's own inputs, the adaptive
+    # frame to its plain version on every pose, variant and game buffer;
+    # "ms" sums the kernel's launches in one frame (pose 0), alone
+    for k, rep in K9.items():
+        kernels.append(dict(
+            name=f"k9_{k}", route="cuda",
+            source="voxelrs_tpu_torch/csrc/k9_adaptive.cuh", replaces=rep,
+            launches=ae["launches"][f"k9_{k}"],
+            max_abs_err=max(ae["k9"][k]["err"], ac["k9"][k]["err"]),
+            ms=ae["k9"][k]["ms"], plain_ms=ae["k9"][k]["plain_ms"],
+            bound_ms=ae[f"{k}_bound"][0], bound_by=ae[f"{k}_bound"][1],
+            library_ms=None,
+            ok=ae["k9"][k]["equal"] and ac["k9"][k]["equal"],
+            launches_per_frame=len(ae["k9"][k]["calls"]),
+            ms_per_launch=[c["ms"] for c in ae["k9"][k]["calls"]],
+            launches_csvo=ac["launches"][f"k9_{k}"], ms_csvo=ac["k9"][k]["ms"],
+            plain_ms_csvo=ac["k9"][k]["plain_ms"],
+            bound_ms_csvo=ac[f"{k}_bound"][0],
+            launches_game=ge["launches"][f"k9_{k}"],
+            launches_game_csvo=gc["launches"][f"k9_{k}"],
+            frame_vs_plain=max(*ae["vs_plain"].values(),
+                               *ac["vs_plain"].values(),
+                               ce["adaptive_game_err"],
+                               cc["adaptive_game_err"])))
+    for kd in kernels:
+        if kd["name"].startswith("kd_"):
+            st = kd["name"][3:]
+            kd["launches_adaptive"] = ae["launches"][f"kd_{st}"]
+            kd["launches_adaptive_csvo"] = ac["launches"][f"kd_{st}"]
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {BUDGET_S} s)")
     game_keys = ("load_s", "serialize_chunk_ms_mean",
@@ -854,10 +941,10 @@ def main() -> int:
                  "frame_ms_p90", "frame_ms_p99", "frame_ms_max", "share",
                  "ms_per_frame", "k5_per_frame", "physics_steps", "parts",
                  "run_s", "launches", "deferred_frames", "beam_frames",
-                 "sun_frames")
+                 "sun_frames", "adaptive_frames")
     sun_keys = ("sun_wait_frames", "sun_wait_s", "sun_attached",
                 "sun_build_s", "sun_mb", "sun_shape", "deferred_game_err",
-                "deferred_game_plain_err")
+                "deferred_game_plain_err", "adaptive_game_err", "paths_ms")
     log(json.dumps({"frame_ms": e["frame_ms"], "mrays_per_s": e["mrays"],
                     "frame_ms_csvo": c["frame_ms"],
                     "mrays_per_s_csvo": c["mrays"],
@@ -866,6 +953,17 @@ def main() -> int:
                     "deferred_frame_ms_csvo": dc["frame_ms"],
                     "deferred_mrays_per_s_csvo": dc["mrays"],
                     "deferred_host_us": de["host_us"],
+                    "adaptive_frame_ms": ae["frame_ms"],
+                    "adaptive_mrays_per_s": ae["mrays"],
+                    "adaptive_frame_ms_csvo": ac["frame_ms"],
+                    "adaptive_mrays_per_s_csvo": ac["mrays"],
+                    "adaptive_times": ae["times"],
+                    "adaptive_times_csvo": ac["times"],
+                    "adaptive_host_us": ae["host_us"],
+                    "adaptive_host_us_csvo": ac["host_us"],
+                    "adaptive_branches": ae["branches"],
+                    "adaptive_shares": ae["shares_pose0"],
+                    "adaptive_shares_csvo": ac["shares_pose0"],
                     "floored": de["floored"], "floored_csvo": dc["floored"],
                     "card": card, "build_s": _build.build_seconds,
                     "native_build_s": native.build_seconds, "total_s": total,
@@ -1063,10 +1161,11 @@ class Spy:
 
 
 def deferred_counts():
-    """Launch counts of the deferred frame's kernels."""
-    from voxelrs_tpu_torch.ops import beams, compact, shading
+    """Launch counts of the deferred frame's kernels (K9's too)."""
+    from voxelrs_tpu_torch.ops import adaptive, beams, compact, shading
 
-    return dict(k6=compact.launches,
+    return dict(**{f"k9_{k}": getattr(adaptive, f"launches_{k}") for k in K9},
+                k6=compact.launches,
                 k7=beams.launches_tile + beams.launches_shadow,
                 k7_tile=beams.launches_tile,
                 k7_shadow=beams.launches_shadow,
@@ -1078,8 +1177,10 @@ def deferred_counts():
 
 
 def zero_deferred_counts():
-    from voxelrs_tpu_torch.ops import beams, compact, shading
+    from voxelrs_tpu_torch.ops import adaptive, beams, compact, shading
 
+    for k in K9:
+        setattr(adaptive, f"launches_{k}", 0)
     compact.launches = 0
     for s in STAGES:
         setattr(shading, f"launches_{s}", 0)
@@ -1100,6 +1201,17 @@ def event_ms(fn) -> float:
     return a.elapsed_time(b)
 
 
+def bits_equal(a, b) -> bool:
+    """Equal bit for bit (float tensors compared as their words, so the
+    uninitialized tails of workspace buffers compare equal to their
+    copies even where they hold NaNs)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
 def max_abs(a, b) -> float:
     """max |a - b| with equal infinities counting 0 (floors, masks)."""
     import torch
@@ -1118,6 +1230,397 @@ def plain_deferred(svo, p, beams):
     return shading.render_frame_deferred_plain(
         svo.world(), svo.octree_scale, svo.mips, svo.mat_params, svo.mat_tex,
         **svo.frame_kwargs(p, W, H), opaque=svo.is_opaque(), beams=beams)
+
+
+def plain_adaptive(svo, p, beams):
+    """The plain adaptive frame of pose ``p`` on ``svo``'s own tensors, with
+    the grids ``Svo.render`` takes."""
+    from voxelrs_tpu_torch.ops import adaptive
+
+    return adaptive.render_frame_adaptive_plain(
+        svo.world(), svo.octree_scale, svo.mips, svo.mat_params, svo.mat_tex,
+        **svo.frame_kwargs(p, W, H), beams=beams,
+        levels=adaptive.adaptive_levels(W, H))
+
+
+def thick_ray(img, fused, exact, levels: int) -> dict:
+    """The adaptive frame against the exact frame (tests/test_render.py:
+    162-182): the traced samples — the pixels of the coarsest grid, with
+    the half grid (``levels`` 1) the even coordinates and the last row and
+    column — equal the exact deferred frame's and are within 1e-6 of K3's;
+    mean |d| and the share of pixels off by more than 1e-3 against K3's;
+    and how many half-grid sample pixels differ from the exact frame (with
+    the quarter grid some are fills, wrong at a feature smaller than a
+    cell, in the JAX frame too)."""
+    import torch
+
+    from voxelrs_tpu_torch.ops import adaptive
+
+    dev = img.device
+    ids = adaptive.grid_pixel_ids(W, H, levels, dev)
+    half = adaptive.grid_pixel_ids(W, H, 1, dev)
+    flat = lambda a, i: a.reshape(-1, 4)[i]  # noqa: E731
+    d = (img.double() - fused.double()).abs()
+    return dict(samples_equal=bool(torch.equal(flat(img, ids),
+                                               flat(exact, ids))),
+                samples_vs_k3=max_abs(flat(img, ids), flat(fused, ids)),
+                mean=float(d.mean()),
+                off=float((d.amax(-1) > 1e-3).double().mean()),
+                half_grid_samples_off=int((flat(img, half) != flat(exact, half))
+                                          .any(-1).sum()))
+
+
+def thick_ray_ok(st: dict) -> bool:
+    return (st["samples_equal"] and st["samples_vs_k3"] <= K3_MAX_ABS
+            and st["mean"] < 0.002 and st["off"] < 0.02)
+
+
+def sky_pose(svo, p0):
+    """Pose ``p0`` pitched up 10 degrees at a time until under
+    SKY_HIT_SHARE of the pixels hit (the adaptive frame's hit count)."""
+    import numpy as np
+
+    from voxelrs_tpu_torch.graphics.svo import RenderParams
+
+    f = np.asarray(p0.cam_fwd, np.float64)
+    flat = np.array([f[0], 0.0, f[2]]) / np.hypot(f[0], f[2])
+    pitch = np.arcsin(f[1])
+    for deg in range(10, 90, 10):
+        a = pitch + np.radians(deg)
+        p = RenderParams(**{**p0.__dict__})
+        p.cam_fwd = (np.cos(a) * flat + np.array([0.0, np.sin(a), 0.0])
+                     ).astype(np.float32)
+        svo.render(p, W, H)
+        hits = int(svo._workspace.hcount)
+        if hits < SKY_HIT_SHARE * W * H:
+            return p, deg, hits
+    fail("no pitched-up pose with few enough hits")
+
+
+def adaptive_phase(svo, hf, poses, card) -> dict:
+    """The adaptive thick-ray frame (``Svo.render``'s default at 1080p on
+    an opaque world) on ``svo``'s format with the scene's envelope: counts
+    from 0 over the 5 bench poses and a pitched-up one (the single-pass
+    shadow branch); the frame against its plain version and the thick-ray
+    budget of K3's frame on every pose in three variants; K9's kernels
+    against their plain versions on pose 0's own inputs and its trace
+    against K1 / K4; the kernels alone, the frame against the exact
+    deferred and the fused frames, and the grids' shares."""
+    import numpy as np
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import (adaptive, beams, traversal,
+                                       traversal_csvo)
+
+    csvo = svo.buffer_dtype == np.uint8
+    fmt = "csvo" if csvo else "esvo"
+    dev = svo.device_buf.device
+    B = W * H
+    svo.set_heightfield(hf)
+    levels = adaptive.adaptive_levels(W, H)
+    out = {"levels": levels}
+    with Phase(f"adaptive pitched-up pose ({fmt})"):
+        sky, deg, sky_hits = sky_pose(svo, poses[0])
+    poses6 = list(poses) + [sky]
+    log(f"adaptive ({fmt}): pose 5 = pose 0 pitched up {deg} degrees, "
+        f"{sky_hits} hit pixels ({sky_hits / B:.4f})")
+
+    with Phase(f"adaptive main path ({fmt})"):
+        zero_deferred_counts()
+        frames, infos, marks = [], [], []
+        for p in poses6:
+            frames.append(svo.render(p, W, H))
+            infos.append(dict(svo.last_frame))
+            ab = svo._workspace.adaptive(W, H, levels)
+            marks.append((svo._workspace.hcount.clone(), ab.dense.clone()))
+        torch.cuda.synchronize()
+        n = out["launches"] = deferred_counts()
+    branches = [dict(hits=int(h), dense=bool(int(d)),
+                     dense_rule=adaptive.dense_frame(int(h), B))
+                for h, d in marks]
+    out["branches"] = branches
+    log(f"adaptive main path launches ({fmt}, {len(poses6)} poses): "
+        f"{json.dumps(n)}; last frame {json.dumps(infos[-1])}")
+    log(f"adaptive shadow branch per pose ({fmt}): " + ", ".join(
+        f"pose {i}: {b['hits']} hits, "
+        f"{'two-pass cells' if b['dense'] else 'single pass'}"
+        for i, b in enumerate(branches)))
+    if not all(n[f"k9_{k}"] for k in K9) or not (
+            n["k6"] and n["k7"] and n["k8"] and n["kd_shade"]
+            and n["kd_shadow"] and n["kd_finish"]) or n["kd_primary"]:
+        fail(f"the {fmt} adaptive path launched another set of kernels")
+    if not all(i.get("adaptive") and i.get("hierarchy") == levels - 1
+               and i.get("opaque") and i.get("beams") and i.get("sun")
+               for i in infos):
+        fail(f"the {fmt} bench frame did not take the adaptive opaque "
+             "branch with beams and the sun map")
+    if any(b["dense"] != b["dense_rule"] for b in branches) \
+            or branches[-1]["dense"]:
+        fail(f"the {fmt} adaptive frame took the wrong shadow branch")
+    for img in frames:
+        if tuple(img.shape) != (H, W, 4) or not bool(torch.isfinite(img).all()):
+            fail(f"{fmt} adaptive frame has the wrong shape or non-finite "
+                 "values")
+
+    with Phase(f"adaptive vs plain and vs k3 ({fmt})"):
+        variants = ("beams_sun", "beams", "no_heightfield")
+        errs = dict.fromkeys(variants, 0.0)
+        stats, flat_stats = [], []
+        for i, p in enumerate(poses6):
+            fused = svo.render(p, W, H, mode="fused")
+            exact = svo.render(p, W, H, adaptive=False)
+            ctx = svo.beam_context(p, W, H)
+            for name, b in zip(variants, (ctx, ctx.without_sun(), None)):
+                img = svo.render(p, W, H, beams=b)
+                ref = []
+                ms = event_ms(lambda: ref.append(plain_adaptive(svo, p, b)))
+                if i == 0 and name == "beams_sun":
+                    out["plain_ms"] = ms
+                errs[name] = max(errs[name], max_abs(img, ref[0]))
+                if name == "beams_sun":
+                    stats.append(thick_ray(img, fused, exact, levels))
+            # the flat path (the half grid traced, VOXELRS_HIERARCHY=0)
+            os.environ["VOXELRS_HIERARCHY"] = "0"
+            try:
+                flat = svo.render(p, W, H, beams=ctx)
+            finally:
+                del os.environ["VOXELRS_HIERARCHY"]
+            flat_stats.append(thick_ray(flat, fused, exact, 1))
+    out["vs_plain"], out["vs_exact"] = errs, stats
+    out["vs_exact_flat"] = flat_stats
+    out["vs_plain_ok"] = all(v <= K3_MAX_ABS for v in errs.values())
+    out["vs_exact_ok"] = all(thick_ray_ok(st) for st in stats + flat_stats)
+    log(f"adaptive vs its plain version ({fmt}, {len(poses6)} poses): max |d| "
+        f"{json.dumps(errs)} (tolerance {K3_MAX_ABS:g}); ok "
+        f"{out['vs_plain_ok']}; plain frame (pose 0, beams and sun map) "
+        f"{out['plain_ms']:.1f} ms")
+    log(f"adaptive vs the exact frame ({fmt}; the traced grid's pixels "
+        f"equal to the exact deferred frame and within {K3_MAX_ABS:g} of "
+        f"K3's, mean |d| < 0.002, under 2% of pixels off by 1e-3): "
+        f"quarter grid (default) {json.dumps(stats)}; half grid "
+        f"(VOXELRS_HIERARCHY=0) {json.dumps(flat_stats)}; ok "
+        f"{out['vs_exact_ok']}")
+    if not out["vs_plain_ok"]:
+        fail(f"the {fmt} adaptive frame disagrees with its plain version")
+    if not out["vs_exact_ok"]:
+        fail(f"the {fmt} adaptive frame is outside the thick-ray budget")
+
+    with Phase(f"k9 vs plain, alone ({fmt})"):
+        p0 = poses[0]
+        ctx = svo.beam_context(p0, W, H)
+        spies = {k: Spy(adaptive, f"k9_{k}") for k in K9}
+        for sp in spies.values():
+            sp.__enter__()
+        try:
+            svo.render(p0, W, H, beams=ctx)
+        finally:
+            for sp in spies.values():
+                sp.__exit__()
+        torch.cuda.synchronize()
+        ncalls = {k: len(sp.calls) for k, sp in spies.items()}
+        if ncalls != dict(trace=levels + 1, merge=levels, finalize=1,
+                          shadow_cells=2):
+            fail(f"the {fmt} adaptive frame ran K9 another way: {ncalls}")
+        res = {k: dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0, calls=[])
+               for k in K9}
+
+        def note(k, equal, err, ms, plain_ms, **info):
+            r = res[k]
+            r["equal"] &= bool(equal)
+            r["err"] = max(r["err"], err)
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["calls"].append(dict(equal=bool(equal), ms=ms, **info))
+
+        # trace: every call (the coarsest grid, then each refine list), and
+        # each against K1 / K4 on the same pixel rays from the same floors.
+        # The bound reads the world once a frame, not once a launch: the
+        # rays of a frame visit few of its nodes, and the world stays in L2
+        # across the frame's trace launches.
+        vs_k1 = dict.fromkeys(("t", "value", "face_id", "pos", "uv", "lod"),
+                              0)
+        trace_steps = trace_lanes = 0
+        trace_bytes = svo.device_buf.numel() * 4
+        for args, kw in spies["trace"].calls:
+            world, scale, fp, tf, level, rec0 = args
+            idx, cnt = kw.get("idx"), kw.get("count")
+            outs = [rec0.clone() for _ in range(3)]
+            adaptive.k9_trace(world, scale, fp, tf, level, outs[0], idx, cnt)
+            pms = event_ms(lambda: adaptive.k9_trace_plain(
+                world, scale, fp, tf, level, outs[1], idx, cnt))
+            kms = kernel_ms(lambda: _build.launch_k9_trace(
+                world, scale, fp, tf, level, outs[2], idx, cnt))
+            lanes = (torch.arange(rec0.shape[0], device=dev) if idx is None
+                     else idx[: int(cnt)].long())
+            ids = adaptive.grid_pixel_ids(W, H, level, dev)[lanes]
+            ro, rd = adaptive._frame_rays(fp, ids)
+            fl = beams.pixel_floors_at(tf, ids, W)
+            if csvo:
+                k1 = traversal_csvo.intersect_octree_csvo(
+                    world.words, scale, world.root_ptr, world.total_depth,
+                    ro, rd, -1.0, False, t_floor=fl)
+            else:
+                k1 = traversal.intersect_octree(world, scale, ro, rd, -1.0,
+                                                False, t_floor=fl)
+            t_min, sc, px, py, pz, value, flags = adaptive._unpack(
+                outs[0][lanes])
+            c = traversal.make_ray_consts(scale, ro, rd, -1.0)
+            fields = traversal.finalize_fields(
+                c, sc, px, py, pz, t_min, (flags & 1) != 0, value)
+            for f, a, b in zip(vs_k1, fields, (k1.t, k1.value, k1.face_id,
+                                               k1.pos, k1.uv, k1.lod)):
+                neq = a != b
+                vs_k1[f] += int((neq.any(-1) if neq.dim() > 1 else neq).sum())
+            steps = int(k1.steps.sum())
+            trace_steps += steps
+            trace_lanes += lanes.shape[0]
+            trace_bytes += (lanes.shape[0] * 32 + tf.numel() * 4
+                            + (0 if idx is None else lanes.shape[0] * 4 + 4))
+            note("trace", torch.equal(outs[0], outs[1]),
+                 max_abs(outs[0], outs[1]), kms, pms, level=level,
+                 lanes=lanes.shape[0], steps=steps)
+        out["trace_vs_k1"] = dict(lanes=trace_lanes, differing=vs_k1,
+                                  steps=trace_steps)
+        out["trace_bound"] = bound(trace_bytes, trace_steps * OPS_PER_STEP
+                                   + trace_lanes * OPS_K9_RAY)
+        # merge: each level
+        shares = {}
+        merge_bytes = merge_ops = 0
+        for args, _kw in spies["merge"].calls:
+            scale, fp, level, lo, hi0, ref0 = args
+            ko, kr = hi0.clone(), ref0.clone()
+            adaptive.k9_merge(scale, fp, level, lo, ko, kr)
+            po, pr = hi0.clone(), ref0.clone()
+            pms = event_ms(lambda: adaptive.k9_merge_plain(
+                scale, fp, level, lo, po, pr))
+            to, tr = hi0.clone(), ref0.clone()
+            kms = kernel_ms(lambda: _build.launch_k9_merge(
+                scale, fp, level, lo, to, tr))
+            wl, hl = adaptive.grid_dims(W, H, level)[level]
+            g = adaptive.coarse_grid(wl, hl, dev)
+            sample = g.sample_masks()[0]
+            hit = (ko[:, 6] & 1) != 0
+            h4 = g.up4((lo[:, 6] & 1) != 0)
+            all4 = h4[0] & h4[1] & h4[2] & h4[3] & ~sample
+            nl = ko.shape[0]
+            shares[level] = dict(
+                lanes=nl, samples=float(sample.double().mean()),
+                filled=int((hit & ~sample & ~kr).sum()) / nl,
+                refined=int(kr.sum()) / nl)
+            merge_bytes += lo.shape[0] * 32 + nl * 33
+            merge_ops += int(all4.sum()) * (OPS_K9_RAY + OPS_K9_FILL)
+            note("merge", torch.equal(ko, po) and torch.equal(kr, pr),
+                 max(max_abs(ko, po), max_abs(kr, pr)), kms, pms,
+                 level=level)
+        out["merge_bound"] = bound(merge_bytes, merge_ops)
+        shares[levels] = dict(lanes=spies["trace"].calls[0][0][5].shape[0],
+                              samples=1.0, filled=0.0, refined=0.0)
+        out["shares_pose0"] = shares
+        # finalize
+        (scale, fp, frec, rec0, hit0, img0, np0, bp0), _kw = \
+            spies["finalize"].calls[0]
+        ko = [t.clone() for t in (rec0, hit0, img0, np0, bp0)]
+        adaptive.k9_finalize(scale, fp, frec, *ko)
+        po = [t.clone() for t in (rec0, hit0, img0, np0, bp0)]
+        pms = event_ms(lambda: adaptive.k9_finalize_plain(scale, fp, frec,
+                                                          *po))
+        to = [t.clone() for t in (rec0, hit0, img0, np0, bp0)]
+        kms = kernel_ms(lambda: _build.launch_k9_finalize(scale, fp, frec,
+                                                          *to))
+        hits = int(ko[1].sum())
+        img_err = max_abs(ko[2], po[2])
+        note("finalize", all(bits_equal(a, b) for i, (a, b) in
+                             enumerate(zip(ko, po)) if i != 2)
+             and img_err <= K3_MAX_ABS, img_err, kms, pms, hits=hits)
+        out["finalize_bound"] = bound(
+            B * 32 + B * 36 + B + (B - hits) * 16 + 2 * B,
+            B * OPS_K9_RAY + hits * OPS_K9_FINALIZE)
+        # shadow cells: both steps
+        sc_bytes = 0
+        for args, _kw in spies["shadow_cells"].calls:
+            step, fp, rest = args[0], args[1], args[2:]
+            ko = [t.clone() for t in rest]
+            adaptive.k9_shadow_cells(step, fp, *ko)
+            po = [t.clone() for t in rest]
+            pms = event_ms(lambda: adaptive.k9_shadow_cells_plain(step, fp,
+                                                                  *po))
+            to = [t.clone() for t in rest]
+            kms = kernel_ms(lambda: _build.launch_k9_shadow_cells(step, fp,
+                                                                  *to))
+            nh = int(rest[1])
+            sc_bytes += nh * (4 + 1 + 1 + 1) + (nh * 8 if step == 2 else 4)
+            if step == 2:
+                # the interior candidates and the share whose verdict the
+                # cells reused (the rest are the pass-2 mask)
+                pix = rest[0][:nh].long()
+                y, x = pix // W, pix % W
+                interior = rest[2][:nh] & ~(((y % 2 == 0) | (y == H - 1))
+                                            & ((x % 2 == 0) | (x == W - 1)))
+                n_int = int(interior.sum())
+                out["cells"] = dict(interior=n_int,
+                                    pass2=int(ko[5][:nh].sum()),
+                                    reused_share=1 - int(ko[5][:nh].sum())
+                                    / max(n_int, 1))
+            note("shadow_cells", all(bits_equal(a, b) for a, b in zip(ko, po)),
+                 max(max_abs(a, b) for a, b in zip(ko, po)), kms, pms,
+                 step=step, hits=nh)
+        out["shadow_cells_bound"] = bound(sc_bytes, 0)
+    out["k9"] = res
+    out["k9_ok"] = all(r["equal"] for r in res.values()) and not any(
+        out["trace_vs_k1"]["differing"].values())
+    log(f"k9 trace vs {'k4' if csvo else 'k1'} ({fmt}, pose 0's {levels + 1} "
+        f"traces: the coarsest grid, then each refine list; "
+        f"{out['trace_vs_k1']['lanes']} lanes from the tile floors): rays "
+        f"differing {json.dumps(out['trace_vs_k1']['differing'])}; "
+        f"{out['trace_vs_k1']['steps']} steps")
+    for k in K9:
+        r = res[k]
+        bd = out[f"{k}_bound"]
+        log(f"k9_{k} vs plain ({fmt}, pose 0's own inputs, {len(r['calls'])} "
+            f"launches a frame): equal {r['equal']} (max |d| {r['err']:.3g});"
+            f" alone {r['ms']:.4f} ms a frame "
+            f"({json.dumps([round(c['ms'], 4) for c in r['calls']])}), plain "
+            f"{r['plain_ms']:.2f} ms, bound {bd[0]:.4g} ms ({bd[1]}) on {card}")
+    log(f"adaptive grids ({fmt}, pose 0; per level: lanes, sample share, "
+        f"filled share, refined = re-traced share): {json.dumps(shares)}; "
+        f"shadow cells: {json.dumps(out.get('cells'))}")
+    if not out["k9_ok"]:
+        fail(f"a K9 kernel disagrees with its plain version or K1 ({fmt})")
+
+    with Phase(f"adaptive timing ({fmt})"):
+        for p in poses6:  # warm-up
+            svo.render(p, W, H)
+            svo.render(p, W, H, adaptive=False)
+            svo.render(p, W, H, mode="fused")
+        times = {}
+        for path, kw in (("adaptive", {}), ("exact", dict(adaptive=False)),
+                         ("fused", dict(mode="fused"))):
+            ms = sorted(cuda_ms(lambda: svo.render(p, W, H, **kw), REPS)
+                        for p in poses)
+            times[path] = dict(median=ms[len(ms) // 2], poses=ms)
+        out["host_us"] = host_us(lambda: svo.render(poses[0], W, H))
+        torch.cuda.synchronize()
+        rc = svo._workspace.adaptive(W, H, levels).rcounts.tolist()
+    out["times"] = times
+    out["frame_ms"] = times["adaptive"]["median"]
+    out["mrays"] = B * 2 / (out["frame_ms"] / 1e3) / 1e6
+    dims = adaptive.grid_dims(W, H, levels)
+    out["refined_after_window"] = {
+        k: dict(lanes=dims[k][0] * dims[k][1], refined=rc[k],
+                share=rc[k] / (dims[k][0] * dims[k][1]))
+        for k in range(levels)}
+    log(f"adaptive frame {W}x{H} ({fmt}; Svo.render default, beams and sun "
+        f"map; events from call to finished frame, median over the 5 bench "
+        f"poses): adaptive {times['adaptive']['median']:.3f} ms, exact "
+        f"deferred {times['exact']['median']:.3f} ms, fused (K3) "
+        f"{times['fused']['median']:.3f} ms in the same run; per-pose "
+        + json.dumps({k: [round(x, 3) for x in v['poses']]
+                      for k, v in times.items()})
+        + f"; host time of the adaptive call {out['host_us']:.1f} us; "
+        f"refined lanes of the last timed frame (pose 0) "
+        f"{json.dumps(out['refined_after_window'])}; on {card}")
+    return out
 
 
 def deferred_phase(svo, hf, poses, card) -> dict:
@@ -1141,7 +1644,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
     out = {}
     with Phase(f"deferred main path ({fmt})"):
         zero_deferred_counts()
-        frames = [svo.render(p, W, H) for p in poses]
+        frames = [svo.render(p, W, H, adaptive=False) for p in poses]
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
         info = dict(svo.last_frame)
@@ -1169,7 +1672,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
             fused = svo.render(p, W, H, mode="fused")
             ctx = svo.beam_context(p, W, H)
             for name, b in zip(variants, (ctx, ctx.without_sun(), None)):
-                img = svo.render(p, W, H, beams=b)
+                img = svo.render(p, W, H, beams=b, adaptive=False)
                 ref = []
                 ms = event_ms(lambda: ref.append(plain_deferred(svo, p, b)))
                 if i == 0 and name == "beams_sun":
@@ -1195,9 +1698,10 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         ctx = svo.beam_context(p0, W, H)
         with Spy(compact, "compact_indices") as k6s, \
                 Spy(beams, "sun_verdict_masks") as k8s:
-            svo.render(p0, W, H, beams=ctx)
+            svo.render(p0, W, H, beams=ctx, adaptive=False)
         with Spy(beams, "shadow_ray_floors") as k7s:
-            svo.render(p0, W, H, beams=ctx.without_sun())
+            svo.render(p0, W, H, beams=ctx.without_sun(),
+                       adaptive=False)
         torch.cuda.synchronize()
         if len(k6s.calls) != 3 or len(k8s.calls) != 1 or len(k7s.calls) != 1:
             fail(f"the {fmt} deferred frame's stages ran another way: "
@@ -1388,7 +1892,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         for sp in spies:
             sp.__enter__()
         try:
-            svo.render(poses[0], W, H)
+            svo.render(poses[0], W, H, adaptive=False)
         finally:
             for sp in spies:
                 sp.__exit__()
@@ -1446,13 +1950,15 @@ def deferred_phase(svo, hf, poses, card) -> dict:
 
     with Phase(f"deferred timing ({fmt})"):
         for p in poses:  # warm-up
-            svo.render(p, W, H)
-        frame_ms = sorted(cuda_ms(lambda: svo.render(p, W, H), REPS)
+            svo.render(p, W, H, adaptive=False)
+        frame_ms = sorted(cuda_ms(lambda: svo.render(p, W, H, adaptive=False),
+                                   REPS)
                           for p in poses)
         out["frame_ms"] = frame_ms[len(frame_ms) // 2]
         out["frame_ms_poses"] = frame_ms
         out["mrays"] = W * H * 2 / (out["frame_ms"] / 1e3) / 1e6
-        out["host_us"] = host_us(lambda: svo.render(poses[0], W, H))
+        out["host_us"] = host_us(lambda: svo.render(poses[0], W, H,
+                                                      adaptive=False))
     log(f"deferred frame {W}x{H} ({fmt}; Svo.render default mode, beams and "
         f"sun map; events from call to finished frame): median "
         f"{out['frame_ms']:.3f} ms/frame, per-pose medians "
@@ -1487,9 +1993,14 @@ def game_phase(fmt: str, card):
             **deferred_counts())
         log(f"game path launches ({fmt}): {json.dumps(n)} (k1 and k4 run "
             f"inside the deferred stages and k5 here)")
+        # the game renders 1080p: the adaptive frame (K9 in place of the
+        # primary stage)
         if not (n["k5"] and n["k6"] and n["k7"]
-                and all(n[f"kd_{s}"] for s in STAGES)):
+                and all(n[f"kd_{s}"] for s in STAGES[1:])
+                and all(n[f"k9_{k}"] for k in K9)):
             fail(f"a kernel of the {fmt} game's path was not launched")
+        if g["adaptive_frames"] != g["frames"]:
+            fail(f"the {fmt} game rendered frames other than adaptive ones")
         csvo = fmt == "csvo"
         if (n["k5_csvo"], n["k3_csvo"]) != ((n["k5"], n["k3"]) if csvo
                                             else (0, 0)):
@@ -1513,6 +2024,9 @@ def game_phase(fmt: str, card):
     if not c["deferred_game_ok"]:
         fail(f"the deferred frame disagrees with K3's or with its plain "
              f"version on the streamed {fmt} buffer")
+    if not c["adaptive_game_ok"]:
+        fail(f"the adaptive frame disagrees with its plain version on the "
+             f"streamed {fmt} buffer")
     return g, c
 
 

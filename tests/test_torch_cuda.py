@@ -1,9 +1,10 @@
-"""Kernels K1, K3, K4, K5, K6, K7 and K8 against their plain PyTorch
-versions on a CUDA card (K3 and K5 in both their ESVO and CSVO
+"""Kernels K1, K3, K4, K5, K6, K7, K8 and K9 against their plain PyTorch
+versions on a CUDA card (K3, K5 and K9's trace in both their ESVO and CSVO
 instantiations), K1 and K4 from the beam floors against their unfloored
-runs, the deferred frame against K3's fused frame in both formats, the game
-loop launching K5 and the deferred frame's kernels in both formats, and the
-crosshair overlay on the card against the CPU.
+runs, the deferred frame against K3's fused frame in both formats, the
+adaptive frame against its plain version, the game loop launching K5 and
+the deferred frame's kernels in both formats, and the crosshair overlay on
+the card against the CPU.
 
 Every test here needs the card (marker ``cuda``) and skips without one. The
 file imports neither JAX nor ``voxelrs_tpu``, so it also runs where JAX is
@@ -20,7 +21,12 @@ field, as K1. K5 equals its plain version bit for bit, every column of
 every task. K6, K7 and K8 equal their plain versions bit for bit (torch.
 equal). Floored K1 and K4 equal their unfloored runs on value, face_id,
 inside_voxel and t. The deferred frame is within max |d| 1e-6 of K3's
-frame (its stages are K3's device functions; measured 0). The crosshair
+frame (its stages are K3's device functions; measured 0). K9's kernels
+equal their plain versions bit for bit (the finalize's sky within 1e-6:
+acosf); the adaptive frame is within max |d| 1e-6 of its plain version and
+within the thick-ray budget of K3's frame (mean |d| <
+0.002, under 2% of the pixels off by more than 1e-3, the traced grid's
+pixels equal). The crosshair
 equals the CPU's result bit for bit.
 """
 
@@ -32,8 +38,8 @@ from voxelrs_tpu_torch.gamelogic import content
 from voxelrs_tpu_torch.gamelogic.game import Game, GameArgs
 from voxelrs_tpu_torch.graphics.picker import Aabb, PickerBatch, PickerBatchResult
 from voxelrs_tpu_torch.graphics.svo import RenderParams, Svo
-from voxelrs_tpu_torch.ops import (beams, compact, picker, shading, traversal,
-                                   traversal_csvo)
+from voxelrs_tpu_torch.ops import (adaptive, beams, compact, picker, shading,
+                                   traversal, traversal_csvo)
 from voxelrs_tpu_torch.world import ChunkPos, Position
 from voxelrs_tpu_torch.world.csvo import Csvo, CsvoSerializedChunk
 from voxelrs_tpu_torch.world.esvo import Esvo, SerializedChunk
@@ -557,3 +563,126 @@ def test_deferred_frame_equals_k3(terrains, dev, fmt, glass, cam):
         assert beams.launches_shadow == n7 + 1  # beams only: K7 floors
     else:
         assert beams.launches_sun_floors > 0 or not ctx.has_sun()
+
+
+def _k9_inputs(s, p, dev):
+    """(world, scale, FrameParams, tile floors) of a 640x360 frame."""
+    kw = s.frame_kwargs(p, TW, TH)
+    fp = shading.frame_params(mip_mode=shading.mip_mode_from_env(),
+                              csvo=s.buffer_dtype == np.uint8, deferred=True,
+                              **kw)
+    return s.world(), float(s.octree_scale), fp, s.beam_context(
+        p, TW, TH).tile_floors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("cam", sorted(TCAMS))
+def test_k9_trace_merge_finalize_equal_plain(terrains, dev, fmt, levels, cam):
+    """K9's trace (a grid level, then each refine list), merge and
+    finalize against their plain versions on the same inputs, level by
+    level down to the pixels (torch.equal on every output)."""
+    s = terrains[(fmt, False)]
+    world, scale, fp, tf = _k9_inputs(s, _tparams(cam), dev)
+    dims = adaptive.grid_dims(TW, TH, levels)
+    recs = [torch.zeros((w * h, 8), dtype=torch.int32, device=dev)
+            for w, h in dims]
+    n0 = (adaptive.launches_trace, adaptive.launches_merge,
+          adaptive.launches_finalize)
+    adaptive.k9_trace(world, scale, fp, tf, levels, recs[levels])
+    ref = adaptive.k9_trace_plain(world, scale, fp, tf, levels,
+                                  torch.zeros_like(recs[levels]))
+    assert torch.equal(recs[levels], ref)
+    for k in range(levels - 1, -1, -1):
+        n = recs[k].shape[0]
+        refine = torch.empty(n, dtype=torch.bool, device=dev)
+        adaptive.k9_merge(scale, fp, k, recs[k + 1], recs[k], refine)
+        hi_p = torch.empty_like(recs[k])
+        ref_p = torch.empty_like(refine)
+        adaptive.k9_merge_plain(scale, fp, k, recs[k + 1], hi_p, ref_p)
+        assert torch.equal(recs[k], hi_p) and torch.equal(refine, ref_p)
+        ridx, rcount = compact.compact_indices(refine, n)
+        before = recs[k].clone()
+        adaptive.k9_trace(world, scale, fp, tf, k, recs[k], ridx, rcount)
+        adaptive.k9_trace_plain(world, scale, fp, tf, k, before, ridx, rcount)
+        assert torch.equal(recs[k], before)
+        assert int(rcount) > 0
+    B = TW * TH
+    outs = [(torch.empty((B, 9), dtype=torch.int32, device=dev),
+             torch.empty(B, dtype=torch.bool, device=dev),
+             torch.zeros((TH, TW, 4), device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev)) for _ in range(2)]
+    adaptive.k9_finalize(scale, fp, recs[0], *outs[0])
+    adaptive.k9_finalize_plain(scale, fp, recs[0], *outs[1])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert float((a.float() - b.float()).abs().max()) <= K3_MAX_ABS
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1]) and not outs[0][3].any()
+    assert (adaptive.launches_trace - n0[0], adaptive.launches_merge - n0[1],
+            adaptive.launches_finalize - n0[2]) == (levels + 1, levels, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("cam", sorted(TCAMS))
+def test_adaptive_frame_equals_plain(terrains, dev, fmt, cam, monkeypatch):
+    """The adaptive frame (with beams and the sun map, with beams only,
+    without a heightfield) against ``render_frame_adaptive_plain`` (max |d|
+    1e-6) and within the thick-ray budget of K3's fused frame; each K9
+    kernel launches; K9's shadow cells, both steps, against their plain
+    version on the frame's own inputs."""
+    monkeypatch.delenv("VOXELRS_HIERARCHY", raising=False)
+    s = terrains[(fmt, False)]
+    p = _tparams(cam)
+    fused = s.render(p, TW, TH, mode="fused")
+    ctx = s.beam_context(p, TW, TH)
+    counts = ("launches_trace", "launches_merge", "launches_finalize",
+              "launches_shadow_cells")
+    n0 = [getattr(adaptive, c) for c in counts]
+    for b in (ctx, ctx.without_sun(), None):
+        img = s.render(p, TW, TH, beams=b, adaptive=True)
+        assert s.last_frame["adaptive"] and s.last_frame["hierarchy"] == 1
+        ref = adaptive.render_frame_adaptive_plain(
+            s.world(), s.octree_scale, s.mips, s.mat_params, s.mat_tex,
+            **s.frame_kwargs(p, TW, TH), beams=b, levels=2)
+        torch.cuda.synchronize()
+        assert float((img - ref).abs().max()) <= K3_MAX_ABS, b
+        # the traced (quarter) grid's pixels are K3's
+        a, e = img.cpu().numpy(), fused.cpu().numpy()
+        ids = adaptive.grid_pixel_ids(TW, TH, 2).numpy()
+        assert float(np.abs(a.reshape(-1, 4)[ids]
+                            - e.reshape(-1, 4)[ids]).max()) <= K3_MAX_ABS
+        d = np.abs(a.astype(np.float64) - e)
+        assert d.mean() < 0.002 and (d.max(-1) > 1e-3).mean() < 0.02
+    assert [getattr(adaptive, c) - n for c, n in zip(counts, n0)] == \
+        [3 * 3, 3 * 2, 3, 3 * 2]
+    # the shadow cells on this frame's own inputs (the last frame: no
+    # heightfield)
+    ws = s._workspace
+    ab = ws.adaptive(TW, TH, 2)
+    fp = _k9_inputs(s, p, dev)[2]
+    for step in (1, 2):
+        args = [t.clone() for t in (ws.hidx, ws.hcount, ws.need, ab.needp,
+                                    ab.blkp, ab.mask, ab.dense, ws.color,
+                                    ws.ds, img)]
+        plain = [t.clone() for t in args]
+        adaptive.k9_shadow_cells(step, fp, *args)
+        adaptive.k9_shadow_cells_plain(step, fp, *plain)
+        torch.cuda.synchronize()
+        for a, b in zip(args, plain):
+            # floats as their words: the buffers' unwritten tails (past the
+            # hit count) may hold NaNs, equal in both copies
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), step
+    # the flat path (the half grid traced): its pixels are K3's
+    monkeypatch.setenv("VOXELRS_HIERARCHY", "0")
+    flat = s.render(p, TW, TH, beams=ctx, adaptive=True).cpu().numpy()
+    assert s.last_frame["hierarchy"] == 0
+    ids = adaptive.grid_pixel_ids(TW, TH, 1).numpy()
+    e = fused.cpu().numpy().reshape(-1, 4)
+    assert float(np.abs(flat.reshape(-1, 4)[ids] - e[ids]).max()) \
+        <= K3_MAX_ABS

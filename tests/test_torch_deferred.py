@@ -175,7 +175,7 @@ def test_deferred_matches_jax(scene, cam):
             frames[on] = tsvo.render(tp, W, H).numpy()
             assert tsvo.last_frame == dict(
                 mode="deferred", opaque=scene == "opaque", beams=on,
-                sun=on), tsvo.last_frame
+                sun=on, adaptive=False, hierarchy=None), tsvo.last_frame
         finally:
             tsvo.set_heightfield(None)
         assert frames[on].shape == (H, W, 4) and np.isfinite(frames[on]).all()

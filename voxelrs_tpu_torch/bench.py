@@ -7,8 +7,12 @@ The procedural scene of the JAX package's ``bench.py`` (:59-138):
 engine's distance-banded LOD, 72 chunks, depth 8 (6.51 MB of ESVO), its
 terrain envelope (``world.heightfield.HeightField``) attached, and the 5
 camera poses flying over the terrain. Each pose renders at 1920x1080 with
-shadows in the default (deferred) mode: the beam pre-pass (K7), the sun
-certificates (K8) and the compactions (K6) around the traversal.
+shadows in the default (deferred) mode, which at this size is the JAX
+package's adaptive thick-ray frame (K9: a quarter-resolution trace filled
+and refined onto the pixels): the beam pre-pass (K7), the sun
+certificates (K8) and the compactions (K6) around the traversal. The
+exact deferred frame (``adaptive=False``) is timed beside it in the same
+run.
 
 Measured with CUDA events: the sequential frame (one frame at a time, from
 the call to the finished frame) and the pipelined frame (two frames in
@@ -16,8 +20,10 @@ flight: the next frame is issued before the previous one is waited for;
 the frame has no host round trip inside). Prints one JSON line with
 ``Mrays_per_sec_1080p_shadows`` = W*H*2 / frame time (a primary and a
 shadow ray a pixel; the better of the two modes), ``seq_frame_ms``,
-``piped_frame_ms``, ``batched_frame_ms`` (null: rendering the poses as one
-batch is a later slice), the card's name and power limit. The JAX bench's
+``piped_frame_ms``, the path that ran (``mode`` "adaptive" or "deferred",
+``hierarchy``), the exact deferred frame's ``exact_seq_frame_ms`` and
+``exact_piped_frame_ms``, ``batched_frame_ms`` (null: rendering the poses
+as one batch is a later slice), the card's name and power limit. The JAX bench's
 Minecraft-world scene is not carried over: it needs the reference's
 bundled world, which the repository does not hold.
 
@@ -175,16 +181,22 @@ def main(argv=None) -> int:
           f"{svo.stats.used_bytes / 1e6:.2f} MB {args.svo_format.upper()}",
           file=sys.stderr)
     seq, piped = measure(lambda p: svo.render(p, W, H), frames)
+    ran = dict(svo.last_frame)
+    exact_seq, exact_piped = measure(
+        lambda p: svo.render(p, W, H, adaptive=False), frames)
     best = min(seq, piped)
     card = card_line()
     name, _, limit = card.partition(",")
     print(json.dumps({
         "metric": "Mrays_per_sec_1080p_shadows",
         "Mrays_per_sec_1080p_shadows": W * H * 2 / (best / 1e3) / 1e6,
-        "unit": "Mrays/s", "scene": "procedural", "mode": "deferred",
+        "unit": "Mrays/s", "scene": "procedural",
+        "mode": "adaptive" if ran.get("adaptive") else "deferred",
+        "hierarchy": ran.get("hierarchy"),
         "svo_format": args.svo_format, "seq_frame_ms": seq,
-        "piped_frame_ms": piped, "batched_frame_ms": None,
-        "sun_map": bool(svo.last_frame.get("sun")),
+        "piped_frame_ms": piped, "exact_seq_frame_ms": exact_seq,
+        "exact_piped_frame_ms": exact_piped, "batched_frame_ms": None,
+        "sun_map": bool(ran.get("sun")),
         "card": name.strip(), "power_limit": limit.strip()}))
     return 0
 

@@ -65,6 +65,12 @@ struct Hit {
   float lod;
   bool inside;
   int steps;
+  // the frozen state at an accepted hit (K9's record): t_min in octree
+  // units, the leaf's child slot and scale, its base in the mirrored
+  // [1, 2) space
+  float t_oct;
+  int idx, scale;
+  float leaf[3];
 };
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -179,6 +185,112 @@ __device__ float texel_alpha(const TexTables& tx, int mode, uint32_t value,
   return texel(tx, tx.level_off[dl] + layer * h * w + y * w + x).w;
 }
 
+// Ray constants of one ray (make_ray_consts): the origin moved into the
+// [1, 2) cube, the epsilon-substituted direction, the plane coefficients
+// and the mirroring.
+struct RayConsts {
+  float rox, roy, roz, rdx, rdy, rdz, tcx, tcy, tcz, tbx, tby, tbz;
+  bool mx, my, mz;
+  int octant_mask;
+};
+
+__device__ __forceinline__ RayConsts ray_consts(float octree_scale,
+                                                float ro_x, float ro_y,
+                                                float ro_z, float rd_x,
+                                                float rd_y, float rd_z) {
+  RayConsts c;
+  c.rox = ro_x * octree_scale + 1.f;
+  c.roy = ro_y * octree_scale + 1.f;
+  c.roz = ro_z * octree_scale + 1.f;
+  c.rdx = copysign_epsilon(rd_x);
+  c.rdy = copysign_epsilon(rd_y);
+  c.rdz = copysign_epsilon(rd_z);
+  c.tcx = 1.f / -fabsf(c.rdx);
+  c.tcy = 1.f / -fabsf(c.rdy);
+  c.tcz = 1.f / -fabsf(c.rdz);
+  c.tbx = c.tcx * c.rox;
+  c.tby = c.tcy * c.roy;
+  c.tbz = c.tcz * c.roz;
+  c.mx = c.rdx > 0.f;
+  c.my = c.rdy > 0.f;
+  c.mz = c.rdz > 0.f;
+  c.octant_mask = (int)c.mx | ((int)c.my << 1) | ((int)c.mz << 2);
+  if (c.mx) c.tbx = 3.f * c.tcx - c.tbx;
+  if (c.my) c.tby = 3.f * c.tcy - c.tby;
+  if (c.mz) c.tbz = 3.f * c.tcz - c.tbz;
+  return c;
+}
+
+// Face, uv, distance and texture lod of a candidate hit at the leaf of
+// `scale` based at `pos` (mirrored space) entered at `t_min` (_hit_geometry).
+struct HitGeom {
+  int face;
+  float u, v, dst, lod;
+  float se, upx, upy, upz;
+};
+
+__device__ __forceinline__ HitGeom hit_geometry(const RayConsts& c,
+                                                float octree_scale, int scale,
+                                                float posx, float posy,
+                                                float posz, float t_min) {
+  HitGeom g;
+  const float se = exp2_scale(scale);
+  const float t2x = (posx + se) * c.tcx - c.tbx;
+  const float t2y = (posy + se) * c.tcy - c.tby;
+  const float t2z = (posz + se) * c.tcz - c.tbz;
+  const float tc_min = fmaxf(fmaxf(t2x, t2y), t2z);
+  g.se = se;
+  g.upx = c.mx ? (3.f - se) - posx : posx;
+  g.upy = c.my ? (3.f - se) - posy : posy;
+  g.upz = c.mz ? (3.f - se) - posz : posz;
+  const bool on_x = tc_min == t2x;
+  const bool on_y = !on_x && tc_min == t2y;
+  const int sgx = (int)(__float_as_uint(c.rdx) >> 31);
+  const int sgy = (int)(__float_as_uint(c.rdy) >> 31);
+  const int sgz = (int)(__float_as_uint(c.rdz) >> 31);
+  g.face = on_x ? sgx : (on_y ? (2 | sgy) : (4 | sgz));
+  float ux = on_x ? (c.roz + c.rdz * t2x) - g.upz
+                  : (on_y ? (c.rox + c.rdx * t2y) - g.upx
+                          : (c.rox + c.rdx * t2z) - g.upx);
+  float uy = on_x ? (c.roy + c.rdy * t2x) - g.upy
+                  : (on_y ? (c.roz + c.rdz * t2y) - g.upz
+                          : (c.roy + c.rdy * t2z) - g.upy);
+  ux = ux / se;
+  uy = uy / se;
+  if (on_x && c.mx) ux = 1.f - ux;
+  if (on_y && c.my) uy = 1.f - uy;
+  if (!on_x && !on_y && !c.mz) ux = 1.f - ux;
+  g.u = ux;
+  g.v = uy;
+  g.dst = t_min / octree_scale;
+  g.lod = smoothstep(15.f, 25.f, g.dst) * (g.dst - 15.f) * 0.05f;
+  return g;
+}
+
+// The hit record of an accepted leaf (the JAX classic loop's finalize):
+// the traversal's loop calls it at its hit, K9's finalize on a frozen
+// record, so a traced lane finalizes to the bits K1 returns.
+__device__ __forceinline__ void finalize_hit(const RayConsts& c,
+                                             float octree_scale,
+                                             const HitGeom& g, float t_min,
+                                             uint32_t value, Hit& out) {
+  const float hx = clampf(c.rox + t_min * c.rdx, g.upx + EPSILON,
+                          (g.upx + g.se) - EPSILON);
+  const float hy = clampf(c.roy + t_min * c.rdy, g.upy + EPSILON,
+                          (g.upy + g.se) - EPSILON);
+  const float hz = clampf(c.roz + t_min * c.rdz, g.upz + EPSILON,
+                          (g.upz + g.se) - EPSILON);
+  out.t = g.dst;
+  out.value = value;
+  out.face = g.face;
+  out.pos[0] = (hx - 1.f) / octree_scale;
+  out.pos[1] = (hy - 1.f) / octree_scale;
+  out.pos[2] = (hz - 1.f) / octree_scale;
+  out.u = g.u;
+  out.v = g.v;
+  out.lod = g.lod;
+}
+
 // The ESVO node cursor of one ray: the packed stack word ``node`` =
 // ptr | parent_idx << 28 and the reads of the ESVO buffer. ``traverse_with``
 // drives the traversal through it; the CSVO cursor (k4_csvo_traversal.cuh)
@@ -242,21 +354,11 @@ __device__ __forceinline__ void traverse_with(
     int alpha_mode, const TexTables& tx, Hit& out, bool floored = false,
     float t_floor = 0.f) {
   // ---- ray constants (make_ray_consts) --------------------------------
-  const float rox = ro_x * octree_scale + 1.f;
-  const float roy = ro_y * octree_scale + 1.f;
-  const float roz = ro_z * octree_scale + 1.f;
-  const float rdx = copysign_epsilon(rd_x);
-  const float rdy = copysign_epsilon(rd_y);
-  const float rdz = copysign_epsilon(rd_z);
-  const float tcx = 1.f / -fabsf(rdx);
-  const float tcy = 1.f / -fabsf(rdy);
-  const float tcz = 1.f / -fabsf(rdz);
-  float tbx = tcx * rox, tby = tcy * roy, tbz = tcz * roz;
-  const bool mx = rdx > 0.f, my = rdy > 0.f, mz = rdz > 0.f;
-  const int octant_mask = (int)mx | ((int)my << 1) | ((int)mz << 2);
-  if (mx) tbx = 3.f * tcx - tbx;
-  if (my) tby = 3.f * tcy - tby;
-  if (mz) tbz = 3.f * tcz - tbz;
+  const RayConsts c = ray_consts(octree_scale, ro_x, ro_y, ro_z, rd_x, rd_y,
+                                 rd_z);
+  const float tcx = c.tcx, tcy = c.tcy, tcz = c.tcz;
+  const float tbx = c.tbx, tby = c.tby, tbz = c.tbz;
+  const int octant_mask = c.octant_mask;
   const float md = max_dst * octree_scale;
 
   // ---- initial state (init_state) -------------------------------------
@@ -290,6 +392,9 @@ __device__ __forceinline__ void traverse_with(
   out.lod = 0.f;
   out.inside = false;
   out.steps = 0;
+  out.t_oct = 0.f;
+  out.idx = out.scale = 0;
+  out.leaf[0] = out.leaf[1] = out.leaf[2] = 0.f;
   if (floored && !(t_min <= t_max)) return;  // starts past the exit
 
   for (int it = 0; it < budget; ++it) {
@@ -312,35 +417,13 @@ __device__ __forceinline__ void traverse_with(
     if (leaf_hit) {
       // ---- HIT (glsl:185-265): candidate record (hit_phase) ----------
       const uint32_t leaf_value = cur.leaf_value(oct);
-
-      const float t2x = (posx + se) * tcx - tbx;
-      const float t2y = (posy + se) * tcy - tby;
-      const float t2z = (posz + se) * tcz - tbz;
-      const float tc_min = fmaxf(fmaxf(t2x, t2y), t2z);
-      const float upx = mx ? (3.f - se) - posx : posx;
-      const float upy = my ? (3.f - se) - posy : posy;
-      const float upz = mz ? (3.f - se) - posz : posz;
-      const bool on_x = tc_min == t2x;
-      const bool on_y = !on_x && tc_min == t2y;
-      const int sgx = (int)(__float_as_uint(rdx) >> 31);
-      const int sgy = (int)(__float_as_uint(rdy) >> 31);
-      const int sgz = (int)(__float_as_uint(rdz) >> 31);
-      const int face = on_x ? sgx : (on_y ? (2 | sgy) : (4 | sgz));
-      float ux = on_x ? (roz + rdz * t2x) - upz
-                      : (on_y ? (rox + rdx * t2y) - upx : (rox + rdx * t2z) - upx);
-      float uy = on_x ? (roy + rdy * t2x) - upy
-                      : (on_y ? (roz + rdz * t2y) - upz : (roy + rdy * t2z) - upy);
-      ux = ux / se;
-      uy = uy / se;
-      if (on_x && mx) ux = 1.f - ux;
-      if (on_y && my) uy = 1.f - uy;
-      if (!on_x && !on_y && !mz) ux = 1.f - ux;
-      const float dst = t_min / octree_scale;
-      const float lod = smoothstep(15.f, 25.f, dst) * (dst - 15.f) * 0.05f;
+      const HitGeom g =
+          hit_geometry(c, octree_scale, scale, posx, posy, posz, t_min);
 
       bool accept = true;
       if (alpha_mode != 0) {
-        const float a = texel_alpha(tx, alpha_mode, leaf_value, face, ux, uy, lod);
+        const float a =
+            texel_alpha(tx, alpha_mode, leaf_value, g.face, g.u, g.v, g.lod);
         const bool first = adj_count == 0 || (leaf_value & NO_VALUE) != last_value;
         accept = a > 0.f && first;
         if (!accept) {
@@ -349,18 +432,13 @@ __device__ __forceinline__ void traverse_with(
         }
       }
       if (accept) {  // finalize
-        const float hx = clampf(rox + t_min * rdx, upx + EPSILON, (upx + se) - EPSILON);
-        const float hy = clampf(roy + t_min * rdy, upy + EPSILON, (upy + se) - EPSILON);
-        const float hz = clampf(roz + t_min * rdz, upz + EPSILON, (upz + se) - EPSILON);
-        out.t = dst;
-        out.value = leaf_value;
-        out.face = face;
-        out.pos[0] = (hx - 1.f) / octree_scale;
-        out.pos[1] = (hy - 1.f) / octree_scale;
-        out.pos[2] = (hz - 1.f) / octree_scale;
-        out.u = ux;
-        out.v = uy;
-        out.lod = lod;
+        finalize_hit(c, octree_scale, g, t_min, leaf_value, out);
+        out.t_oct = t_min;
+        out.idx = idx;
+        out.scale = scale;
+        out.leaf[0] = posx;
+        out.leaf[1] = posy;
+        out.leaf[2] = posz;
         return;
       }
     } else if (!hit_branch) {

@@ -1,7 +1,8 @@
 // Kernels K1 (ESVO ray-batch traversal), K3 (the fused per-pixel frame),
 // K4 (CSVO ray-batch traversal), K5 (the picker), K6 (compaction,
 // k6_compact.cuh), K7 (beam floors, k7_beams.cuh), K8 (sun certificates,
-// k8_sun.cuh) and the stages of the deferred frame, with a plain C
+// k8_sun.cuh), the stages of the deferred frame and K9 (the adaptive
+// thick-ray opaque frame, k9_adaptive.cuh), with a plain C
 // interface for ctypes (see voxelrs_tpu_torch/_build.py). K3, K5 and the
 // deferred stages that trace are templates on the world format: an ESVO
 // buffer (K1's traversal) or a CSVO byte stream (K4's), each instantiated
@@ -46,7 +47,9 @@
 // kd_shadow (one thread per compacted candidate: the shadow trace, floored
 // by K7/K8 where the branch floors) and kd_finish (the shadowed colour of
 // the blocked candidates). Between them K6 compacts on the card, and each
-// stage reads the count K6 left in device memory.
+// stage reads the count K6 left in device memory. The adaptive frame
+// (k9_adaptive.cuh) replaces kd_primary with K9's grid traces, merges and
+// finalize, and runs the shadow stages twice around K9's shadow cells.
 //
 // What bounds them on an H100: the traversal's dependent loads and branch
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
@@ -442,19 +445,22 @@ kd_shadow_kernel(World world, float octree_scale, TexTables tx,
 // One thread per candidate c < *scount: a blocked one gets its shadowed
 // colour. Without certificates (blk null) every candidate was traced; with
 // them, a candidate is blocked when K8 certified it so or it was left to
-// trace (todo) and its trace hit.
+// trace (todo) and its trace hit. blkp (K9's first shadow pass) null, or
+// the pixel-space verdicts, written at each candidate's pixel.
 __global__ void __launch_bounds__(BLOCK)
 kd_finish_kernel(FrameParams fp, const int* __restrict__ hidx,
                  const int* __restrict__ sidx, const int* __restrict__ scount,
                  int size, const float4* __restrict__ color,
                  const float* __restrict__ ds, const uint8_t* __restrict__ blk,
                  const uint8_t* __restrict__ todo,
-                 const uint8_t* __restrict__ traced, float* __restrict__ img) {
+                 const uint8_t* __restrict__ traced, float* __restrict__ img,
+                 uint8_t* __restrict__ blkp) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= size || c >= count_of(scount, size)) return;
   const bool blocked = blk ? (blk[c] || (todo[c] && traced[c])) : traced[c];
-  if (!blocked) return;
   const int j = sidx[c];
+  if (blkp) blkp[hidx[j]] = blocked ? 1 : 0;
+  if (!blocked) return;
   composite(fp, color[j], ds[j], 0.f, img + 4 * (size_t)hidx[j]);
 }
 
@@ -485,6 +491,8 @@ k5_picker_kernel(World world, float octree_scale,
 inline int grid_for(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
 
 }  // namespace vx
+
+#include "k9_adaptive.cuh"
 
 extern "C" {
 
@@ -689,11 +697,76 @@ int vx_kd_shadow_csvo(const uint32_t* words, long long n_words,
 int vx_kd_finish(const vx::FrameParams* fp, const int* hidx, const int* sidx,
                  const int* scount, int size, const float* color,
                  const float* ds, const uint8_t* blk, const uint8_t* todo,
-                 const uint8_t* traced, float* img, void* stream) {
+                 const uint8_t* traced, float* img, uint8_t* blkp,
+                 void* stream) {
   vx::kd_finish_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
                          (cudaStream_t)stream>>>(
       *fp, hidx, sidx, scount, size, (const float4*)color, ds, blk, todo,
-      traced, img);
+      traced, img, blkp);
+  return (int)cudaGetLastError();
+}
+
+// ---- K9: the adaptive frame ------------------------------------------------
+
+// out: the records of grid level `level` (its lane count when idx is null,
+// else at least the largest index); idx/count: a refine list of `size`
+// entries and its count on the card, or null.
+int vx_k9_trace(const uint32_t* desc, long long n_words, float octree_scale,
+                const vx::FrameParams* fp, const float* tf, int ntx,
+                int level, const int* idx, const int* count, int size,
+                void* out, void* stream) {
+  const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
+  vx::k9_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                        (cudaStream_t)stream>>>(
+      world, octree_scale, *fp, tf, ntx, level, idx, count, size,
+      (vx::K9Rec*)out);
+  return (int)cudaGetLastError();
+}
+
+int vx_k9_trace_csvo(const uint32_t* words, long long n_words,
+                     float octree_scale, unsigned root_ptr, int total_depth,
+                     const vx::FrameParams* fp, const float* tf, int ntx,
+                     int level, const int* idx, const int* count, int size,
+                     void* out, void* stream) {
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  vx::k9_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                        (cudaStream_t)stream>>>(
+      world, octree_scale, *fp, tf, ntx, level, idx, count, size,
+      (vx::K9Rec*)out);
+  return (int)cudaGetLastError();
+}
+
+// lo: the records of level + 1; hi, refine: the n lanes of level `level`.
+int vx_k9_merge(float octree_scale, const vx::FrameParams* fp, int level,
+                const void* lo, void* hi, uint8_t* refine, int n,
+                void* stream) {
+  vx::k9_merge_kernel<<<vx::grid_for(n), vx::BLOCK, 0,
+                        (cudaStream_t)stream>>>(
+      octree_scale, *fp, level, (const vx::K9Rec*)lo, (vx::K9Rec*)hi,
+      refine);
+  return (int)cudaGetLastError();
+}
+
+int vx_k9_finalize(float octree_scale, const vx::FrameParams* fp,
+                   const void* frec, void* rec, uint8_t* hit, float* img,
+                   uint8_t* needp, uint8_t* blkp, void* stream) {
+  vx::k9_finalize_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+                           vx::BLOCK, 0, (cudaStream_t)stream>>>(
+      octree_scale, *fp, (const vx::K9Rec*)frec, (vx::HitRec*)rec, hit, img,
+      needp, blkp);
+  return (int)cudaGetLastError();
+}
+
+int vx_k9_shadow_cells(int step, const vx::FrameParams* fp, const int* hidx,
+                       const int* hcount, int size, const uint8_t* need,
+                       uint8_t* needp, const uint8_t* blkp, uint8_t* mask,
+                       int* dense, const float* color, const float* ds,
+                       float* img, void* stream) {
+  vx::k9_shadow_cells_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                               (cudaStream_t)stream>>>(
+      step, *fp, hidx, hcount, size, need, needp, blkp, mask, dense,
+      (const float4*)color, ds, img);
   return (int)cudaGetLastError();
 }
 

@@ -27,9 +27,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.adaptive import frame_levels
 from ..ops.picker import raycast
 from ..ops.shading import (DeferredWorkspace, KernelTables, render_frame,
-                           render_frame_deferred)
+                           render_frame_deferred_at)
 from ..ops.traversal_csvo import MAX_STREAM_BYTES, CsvoBuffer
 from .picker import PickerBatch, PickerBatchResult
 
@@ -278,7 +279,7 @@ class Svo:
 
     def render(self, params: RenderParams, width: int, height: int,
                max_steps: int = 1000, mode: str = "deferred",
-               beams="auto") -> torch.Tensor:
+               beams="auto", adaptive: bool | None = None) -> torch.Tensor:
         """Render one frame; returns an (H, W, 4) float32 tensor on the
         renderer's device (row 0 = top).
 
@@ -290,7 +291,14 @@ class Svo:
         ``mode="fused"`` (the JAX ``"csvo"`` for a CSVO buffer) is the
         exact per-pixel frame with in-loop alpha judging, kernel K3 (its
         CSVO instantiation for a CSVO buffer). On the card the kernels
-        run; on the CPU their plain versions."""
+        run; on the CPU their plain versions.
+
+        The opaque branch is the adaptive thick-ray frame (K9) by the JAX
+        rule (``ops.adaptive.adaptive_levels``: from 2^18 pixels, or as
+        ``VOXELRS_ADAPTIVE``/``VOXELRS_HIERARCHY`` say); ``adaptive`` True
+        / False pins it. ``last_frame`` records ``adaptive`` and the
+        ``hierarchy`` (0 the half grid, 1 the quarter grid, 2 the eighth
+        grid; None for the exact frame)."""
         if mode not in ("deferred", "fused", "csvo"):
             raise ValueError(f"Svo.render: unknown mode {mode!r}")
         kw = self.frame_kwargs(params, width, height, max_steps)
@@ -305,9 +313,12 @@ class Svo:
                 raise ValueError(f"Svo.render: beams={beams!r}")
             beams = self.beam_context(params, width, height)
         opaque = self.is_opaque()
+        levels = frame_levels(width, height, opaque, adaptive)
         self.last_frame = dict(mode="deferred", opaque=opaque,
                                beams=beams is not None,
-                               sun=beams is not None and beams.has_sun())
+                               sun=beams is not None and beams.has_sun(),
+                               adaptive=levels > 0,
+                               hierarchy=levels - 1 if levels else None)
         ws = None
         if self.device.type == "cuda":
             key = (width * height, self.device_buf.device)
@@ -315,10 +326,10 @@ class Svo:
                 self._workspace = None  # free the old scratch first
                 self._workspace = DeferredWorkspace(*key)
             ws = self._workspace
-        return render_frame_deferred(
-            self.world(), self.octree_scale, self.mips, self.mat_params,
-            self.mat_tex, **kw, opaque=opaque, beams=beams, tables=tables,
-            workspace=ws)
+        return render_frame_deferred_at(
+            levels, self.world(), self.octree_scale, self.mips,
+            self.mat_params, self.mat_tex, **kw, opaque=opaque, beams=beams,
+            tables=tables, workspace=ws)
 
     # -- picking ---------------------------------------------------------------
 

@@ -312,6 +312,15 @@ def pixel_floors(tf, *, width: int, height: int):
     return up[:height, :width].reshape(-1).contiguous()
 
 
+def pixel_floors_at(tf, ids, width: int):
+    """The floors of the pixels ``ids`` (flat, row-major), read in place
+    from the (nty, ntx) tile floors as the kernels read them,
+    ``tf[py // 8, px // 8]``: ``pixel_floors(tf)[ids]`` (JAX
+    ``_floor_gather`` of the adaptive passes, shading.py:3178-3181)."""
+    ids = ids.to(i64)
+    return tf[(ids // width) // TILE, (ids % width) // TILE]
+
+
 def _lanes(ro, idx) -> int:
     """Output lanes of a shadow-ray function: one per index, else per ray."""
     return idx.shape[0] if idx is not None else ro.shape[0]

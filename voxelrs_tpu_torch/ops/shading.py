@@ -21,10 +21,12 @@ instantiation for a CSVO world), one thread per pixel for the whole frame;
 the plain version runs on the CPU and serves the comparisons on the card.
 
 ``render_frame_deferred`` is the JAX package's default mode
-(``render_frame_deferred`` :3058, non-adaptive): the same pixels through
-stages — the primary trace from the beam floors (K7), shading, the shadow
-trace of the compacted candidates (K6) with sun certificates (K8) or
-floors — built on the card from K3's device functions.
+(``render_frame_deferred`` :3058): the same pixels through stages — the
+primary trace from the beam floors (K7), shading, the shadow trace of the
+compacted candidates (K6) with sun certificates (K8) or floors — built on
+the card from K3's device functions. On an opaque world it takes the JAX
+rule's adaptive thick-ray frame (K9, ``ops/adaptive.py``) from 2^18
+pixels, as the JAX opaque branch does.
 """
 
 from __future__ import annotations
@@ -501,6 +503,51 @@ class DeferredWorkspace:
         self.hcount, self.scount, self.tcount = (e(1, i32), e(1, i32),
                                                  e(1, i32))
         self.scratch = e(max(1, _build.k6_blocks(B)), i32)
+        self._adaptive = None
+
+    def adaptive(self, width: int, height: int, levels: int):
+        """The adaptive frame's buffers (``ops.adaptive.AdaptiveBuffers``)
+        for this frame size and depth of grids, made the first time a
+        frame needs them and kept."""
+        from .adaptive import AdaptiveBuffers
+
+        if self._adaptive is None \
+                or self._adaptive.key != (width, height, levels):
+            self._adaptive = None  # free the old scratch first
+            self._adaptive = AdaptiveBuffers(width, height, levels,
+                                             self.key[1])
+        return self._adaptive
+
+
+def shadow_blocked_plain(world, octree_scale, sro, light_dir, beams, opaque,
+                         alpha_fn, max_steps):
+    """The plain deferred frame's shadow verdicts: (k,) bool, the rays from
+    the origins ``sro`` toward the light blocked. Opaque with a sun map:
+    certify what it can (K8's plain version), trace the rest unfloored;
+    otherwise trace, from the floors of ``beams`` where given."""
+    dev = sro.device
+    if sro.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    md = torch.full((sro.shape[0],), -1.0, dtype=torch.float32, device=dev)
+    neg_light = -light_dir
+    srd = neg_light[None, :].expand(sro.shape).contiguous()
+    if opaque and beams is not None and beams.has_sun():
+        sb, n1, d_len, d, origin = beams._sun
+        lit, blk = sun_verdict_masks_plain(sb, n1, sro, md, d_len, d, origin,
+                                           margin=beams.sun_margin)
+        tidx, tcount = compact.compact_indices_plain(~lit & ~blk,
+                                                     sro.shape[0])
+        todo = tidx[: int(tcount)].to(torch.int64)
+        sres = trace_plain(world, octree_scale, sro[todo], srd[todo], -1.0,
+                           False, None, max_steps)
+        cblk = blk.clone()
+        cblk[todo] = sres.t >= 0
+        return cblk
+    floors = (None if beams is None else beams.shadow_ray_floors_plain(
+        sro, md, neg_light.cpu().numpy()))
+    sres = trace_plain(world, octree_scale, sro, srd, -1.0, not opaque,
+                       alpha_fn, max_steps, floors)
+    return ~(sres.t < 0)
 
 
 def render_frame_deferred_plain(world, octree_scale, mips, mat_params,
@@ -542,32 +589,9 @@ def render_frame_deferred_plain(world, octree_scale, mips, mat_params,
         k = lane.shape[0]
         sidx, scount = compact.compact_indices_plain(need, k)
         cand = sidx[: int(scount)].to(torch.int64)
-        sro = res_k.pos[cand] + normal[cand] * 0.001
-        md = torch.full((cand.shape[0],), -1.0, dtype=torch.float32,
-                        device=dev)
-        neg_light = -light_dir
-        srd = neg_light[None, :].expand(sro.shape).contiguous()
-        if opaque and beams is not None and beams.has_sun():
-            # certify what the sun map can; trace the rest unfloored
-            sb, n1, d_len, d, origin = beams._sun
-            lit, blk = sun_verdict_masks_plain(sb, n1, sro, md, d_len, d,
-                                               origin,
-                                               margin=beams.sun_margin)
-            tidx, tcount = compact.compact_indices_plain(~lit & ~blk,
-                                                         cand.shape[0])
-            todo = tidx[: int(tcount)].to(torch.int64)
-            sres = trace_plain(world, octree_scale, sro[todo], srd[todo],
-                               -1.0, False, None, max_steps)
-            cblk = blk.clone()
-            cblk[todo] = sres.t >= 0
-        else:
-            floors = (None if beams is None
-                      else beams.shadow_ray_floors_plain(
-                          sro, md, neg_light.cpu().numpy()))
-            sres = trace_plain(world, octree_scale, sro, srd, -1.0,
-                               not opaque, alpha_fn, max_steps, floors)
-            cblk = ~(sres.t < 0)
-        blocked[cand] = cblk
+        blocked[cand] = shadow_blocked_plain(
+            world, octree_scale, res_k.pos[cand] + normal[cand] * 0.001,
+            light_dir, beams, opaque, alpha_fn, max_steps)
     shadow = torch.where(need, torch.where(blocked, 0.0, 1.0), 1.0)
     light = torch.clamp(float(np.float32(ambient)) + ds * shadow, 0.0, 1.0)
     rgb = color[:, :3] * light[:, None]
@@ -583,9 +607,10 @@ def render_frame_deferred(world, octree_scale, mips, mat_params, mat_tex, *,
                           highlight_pos, max_steps: int = 1000,
                           opaque: bool = False, beams=None,
                           tables: KernelTables | None = None,
-                          workspace: DeferredWorkspace | None = None):
+                          workspace: DeferredWorkspace | None = None,
+                          adaptive: bool | None = None):
     """The deferred frame (voxelrs_tpu/ops/shading.py::render_frame_deferred
-    :3058, non-adaptive): raygen → primary trace from the pixel floors of
+    :3058): raygen → primary trace from the pixel floors of
     ``beams`` (an ``ops.beams.BeamContext``, or None) → shade the hits →
     shadow candidates → compact (K6) → opaque with a sun map: certify (K8),
     compact the uncertified (K6) and trace those; otherwise floor the
@@ -609,7 +634,40 @@ def render_frame_deferred(world, octree_scale, mips, mat_params, mat_tex, *,
     K8 floors, the shadow stage and the finishing stage — the counts stay
     in device memory, so the frame makes no host round trip. ``tables``
     and ``workspace`` (a ``DeferredWorkspace`` of this frame's size and
-    device) let a caller reuse them across frames."""
+    device) let a caller reuse them across frames.
+
+    On an opaque world the JAX rule picks the adaptive thick-ray frame
+    (``ops.adaptive.adaptive_levels``: from 2^18 pixels, both sides over
+    4; ``VOXELRS_ADAPTIVE`` and ``VOXELRS_HIERARCHY`` override it, and
+    ``adaptive`` True / False pins it): ``ops.adaptive.
+    render_frame_adaptive`` (K9) on the card, its plain version on the
+    CPU. A translucent world keeps this exact judged frame; asking it for
+    the adaptive one raises (the judged adaptive frame is not ported)."""
+    from .adaptive import frame_levels
+
+    return render_frame_deferred_at(
+        frame_levels(width, height, opaque, adaptive), world, octree_scale,
+        mips, mat_params, mat_tex, width=width, height=height,
+        render_shadows=render_shadows, cam_pos=cam_pos, cam_right=cam_right,
+        cam_up=cam_up, cam_fwd=cam_fwd, fov_y_rad=fov_y_rad, aspect=aspect,
+        ambient=ambient, light_dir=light_dir, shadow_distance=shadow_distance,
+        highlight_pos=highlight_pos, max_steps=max_steps, opaque=opaque,
+        beams=beams, tables=tables, workspace=workspace)
+
+
+def render_frame_deferred_at(levels: int, world, octree_scale, mips,
+                             mat_params, mat_tex, *, width: int, height: int,
+                             render_shadows: bool, cam_pos, cam_right, cam_up,
+                             cam_fwd, fov_y_rad, aspect, ambient, light_dir,
+                             shadow_distance, highlight_pos,
+                             max_steps: int = 1000, opaque: bool = False,
+                             beams=None, tables: KernelTables | None = None,
+                             workspace: DeferredWorkspace | None = None):
+    """``render_frame_deferred`` with the grid levels already chosen
+    (``ops.adaptive.frame_levels``; 0 the exact frame), for a caller that
+    records the choice, as ``Svo.render`` does."""
+    from . import adaptive as _adaptive
+
     kw = dict(width=width, height=height, render_shadows=render_shadows,
               cam_pos=cam_pos, cam_right=cam_right, cam_up=cam_up,
               cam_fwd=cam_fwd, fov_y_rad=fov_y_rad, aspect=aspect,
@@ -619,11 +677,15 @@ def render_frame_deferred(world, octree_scale, mips, mat_params, mat_tex, *,
     mip_mode = mip_mode_from_env()
     buf = world_tensor(world)
     if not buf.is_cuda:
+        if levels:
+            return _adaptive.render_frame_adaptive_plain(
+                world, octree_scale, mips, mat_params, mat_tex, beams=beams,
+                levels=levels, mip_mode=mip_mode, **kw)
         return render_frame_deferred_plain(world, octree_scale, mips,
                                            mat_params, mat_tex, opaque=opaque,
                                            beams=beams, mip_mode=mip_mode,
                                            **kw)
-    global launches_primary, launches_shade, launches_shadow, launches_finish
+    global launches_primary, launches_shade
     dev = buf.device
     csvo = isinstance(world, CsvoBuffer)
     if csvo:
@@ -651,6 +713,10 @@ def render_frame_deferred(world, octree_scale, mips, mat_params, mat_tex, *,
     ws = workspace
     if ws is None or ws.key != (B, dev):
         ws = DeferredWorkspace(B, dev)
+    if levels:
+        return _adaptive.render_frame_adaptive(
+            world, scale, tables, params, levels=levels, beams=beams,
+            light_dir=light_dir, ws=ws, img=img)
     _build.launch_kd_primary(world, scale, tables, params, alpha_mode, tf,
                              ws.rec, ws.hit, img)
     launches_primary += 1
@@ -660,27 +726,38 @@ def render_frame_deferred(world, octree_scale, mips, mat_params, mat_tex, *,
                            ws.ds, ws.need, ws.sro, img)
     launches_shade += 1
     if render_shadows:
-        sidx, scount = compact.compact_indices(ws.need, B, out=ws.sidx,
-                                               count=ws.scount,
-                                               scratch=ws.scratch)
-        blk = todo = tidx = tcount = floors = None
-        if opaque and beams is not None and beams.has_sun():
-            # certify what the sun map can; trace the rest unfloored
-            beams.sun_verdicts(ws.sro, None, idx=sidx, count=scount,
-                               todo=ws.todo, out=(ws.lit, ws.blk))
-            blk, todo = ws.blk, ws.todo
-            tidx, tcount = compact.compact_indices(todo, B, out=ws.tidx,
-                                                   count=ws.tcount,
-                                                   scratch=ws.scratch)
-        elif beams is not None:
-            floors = beams.shadow_ray_floors(
-                ws.sro, None, -np.asarray(light_dir, np.float32), idx=sidx,
-                count=scount, out=ws.floors)
-        _build.launch_kd_shadow(world, scale, tables, params, alpha_mode,
-                                ws.sro, sidx, scount, tidx, tcount, floors,
-                                ws.traced)
-        launches_shadow += 1
-        _build.launch_kd_finish(params, hidx, sidx, scount, ws.color, ws.ds,
-                                blk, todo, ws.traced, img)
-        launches_finish += 1
+        shadow_pass(world, scale, tables, params, alpha_mode, beams,
+                    light_dir, ws, ws.need, hidx, img)
     return img
+
+
+def shadow_pass(world, scale, tables, params, alpha_mode, beams, light_dir,
+                ws, mask, hidx, img, blkp=None):
+    """One shadow pass of the deferred stages on the card over the
+    candidate lanes ``mask`` (of the compacted hits ``hidx``): K6; opaque
+    with a sun map, K8's certificates and K6 over the uncertified, else
+    K7 / K8 floors where ``beams``; the shadow stage; the finishing stage
+    (``blkp``: None, or the pixel-space verdicts it writes)."""
+    global launches_shadow, launches_finish
+    B = mask.shape[0]
+    sidx, scount = compact.compact_indices(mask, B, out=ws.sidx,
+                                           count=ws.scount, scratch=ws.scratch)
+    blk = todo = tidx = tcount = floors = None
+    if alpha_mode == 0 and beams is not None and beams.has_sun():
+        # certify what the sun map can; trace the rest unfloored
+        beams.sun_verdicts(ws.sro, None, idx=sidx, count=scount,
+                           todo=ws.todo, out=(ws.lit, ws.blk))
+        blk, todo = ws.blk, ws.todo
+        tidx, tcount = compact.compact_indices(todo, B, out=ws.tidx,
+                                               count=ws.tcount,
+                                               scratch=ws.scratch)
+    elif beams is not None:
+        floors = beams.shadow_ray_floors(
+            ws.sro, None, -np.asarray(light_dir, np.float32), idx=sidx,
+            count=scount, out=ws.floors)
+    _build.launch_kd_shadow(world, scale, tables, params, alpha_mode, ws.sro,
+                            sidx, scount, tidx, tcount, floors, ws.traced)
+    launches_shadow += 1
+    _build.launch_kd_finish(params, hidx, sidx, scount, ws.color, ws.ds, blk,
+                            todo, ws.traced, img, blkp)
+    launches_finish += 1

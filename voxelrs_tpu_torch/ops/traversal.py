@@ -247,7 +247,7 @@ class EsvoReader:
         return (torch.where(want_push, pushed, pp),)
 
 
-def _hit_geometry(c: RayConsts, octant_idx, scale, posx, posy, posz, t_min):
+def _hit_geometry(c: RayConsts, scale, posx, posy, posz, t_min):
     """Face id, uv, distance and texture lod of a candidate hit (pure math)."""
     scale_exp2 = _exp2_scale(scale)
     t2x = (posx + scale_exp2) * c.tcx - c.tbx
@@ -317,7 +317,7 @@ def traversal_step(reader, c: RayConsts, s: State,
     if alpha_fn is not None:
         leaf_value = reader.leaf_value(node, octant_idx)
         face_id, ux, uy, _, tex_lod, _ = _hit_geometry(
-            c, octant_idx, s.scale, s.posx, s.posy, s.posz, s.t_min)
+            c, s.scale, s.posx, s.posy, s.posz, s.t_min)
         alpha = alpha_fn(leaf_value, face_id, torch.stack([ux, uy], -1),
                          tex_lod)
         first_of_kind = (adj_count == 0) | ((leaf_value & _NO_VALUE)
@@ -449,43 +449,60 @@ def run_loop(reader, c: RayConsts, state: State, budget: int,
     return state
 
 
-def finalize(reader, c: RayConsts, state: State) -> TraversalResult:
-    """Recompute the full hit record from frozen per-ray state (one pass)."""
-    octant_idx = state.idx ^ c.octant_mask
-    leaf_value = reader.leaf_value(state.node, octant_idx)
+def finalize_fields(c: RayConsts, scale, posx, posy, posz, t_min, hit,
+                    leaf_value):
+    """(t, value, face_id, pos, uv, lod) of the leaf of ``scale`` based at
+    ``pos`` (mirrored space) entered at ``t_min`` (octree units), where
+    ``hit``: the hit record of the JAX finalize (:1053), also that of a
+    frozen K9 record (``ops.adaptive``)."""
     face_id, ux, uy, dst, tex_lod, (upx, upy, upz) = _hit_geometry(
-        c, octant_idx, state.scale, state.posx, state.posy, state.posz,
-        state.t_min)
-    scale_exp2 = _exp2_scale(state.scale)
-    hit = state.hit
+        c, scale, posx, posy, posz, t_min)
+    scale_exp2 = _exp2_scale(scale)
 
     def clip(x, lo, hi):
         return torch.minimum(torch.maximum(x, lo), hi)
 
-    hx = clip(c.rox + state.t_min * c.rdx, upx + EPSILON, upx + scale_exp2 - EPSILON)
-    hy = clip(c.roy + state.t_min * c.rdy, upy + EPSILON, upy + scale_exp2 - EPSILON)
-    hz = clip(c.roz + state.t_min * c.rdz, upz + EPSILON, upz + scale_exp2 - EPSILON)
+    hx = clip(c.rox + t_min * c.rdx, upx + EPSILON, upx + scale_exp2 - EPSILON)
+    hy = clip(c.roy + t_min * c.rdy, upy + EPSILON, upy + scale_exp2 - EPSILON)
+    hz = clip(c.roz + t_min * c.rdz, upz + EPSILON, upz + scale_exp2 - EPSILON)
     hit_pos = (torch.stack([hx, hy, hz], -1) - 1.0) / c.octree_scale
+    return (torch.where(hit, dst, -1.0),
+            torch.where(hit, leaf_value, 0),
+            torch.where(hit, face_id, 0).to(torch.int32),
+            torch.where(hit[:, None], hit_pos, 0.0),
+            torch.where(hit[:, None], torch.stack([ux, uy], -1), 0.0),
+            torch.where(hit, tex_lod, 0.0))
 
-    return TraversalResult(
-        t=torch.where(hit, dst, -1.0),
-        value=torch.where(hit, leaf_value, 0),
-        face_id=torch.where(hit, face_id, 0).to(torch.int32),
-        pos=torch.where(hit[:, None], hit_pos, 0.0),
-        uv=torch.where(hit[:, None], torch.stack([ux, uy], -1), 0.0),
-        lod=torch.where(hit, tex_lod, 0.0),
-        inside_voxel=state.inside,
-        steps=state.steps,
-    )
+
+def finalize(reader, c: RayConsts, state: State) -> TraversalResult:
+    """Recompute the full hit record from frozen per-ray state (one pass)."""
+    octant_idx = state.idx ^ c.octant_mask
+    leaf_value = reader.leaf_value(state.node, octant_idx)
+    t, value, face_id, pos, uv, lod = finalize_fields(
+        c, state.scale, state.posx, state.posy, state.posz, state.t_min,
+        state.hit, leaf_value)
+    return TraversalResult(t=t, value=value, face_id=face_id, pos=pos, uv=uv,
+                           lod=lod, inside_voxel=state.inside,
+                           steps=state.steps)
+
+
+def trace_state(reader, octree_scale, ro, rd, max_dst, alpha_fn,
+                budget: int, t_floor: Optional[torch.Tensor] = None):
+    """(ray constants, frozen state) of the plain traversal through
+    ``reader``'s format: the (optionally floored) start and the loop. A
+    hit lane's state is frozen at its leaf (t_min, idx, scale, pos), the
+    state ``finalize`` reads and K9's records hold (``ops.adaptive``)."""
+    c = make_ray_consts(octree_scale, ro, rd, max_dst)
+    state = init_state(c, reader.root(ro.shape[0], ro.device), t_floor)
+    return c, run_loop(reader, c, state, budget, alpha_fn)
 
 
 def trace(reader, octree_scale, ro, rd, max_dst, alpha_fn, budget: int,
           t_floor: Optional[torch.Tensor] = None):
     """The plain traversal through ``reader``'s format: ray constants,
     the (optionally floored) start, the loop, the hit record."""
-    c = make_ray_consts(octree_scale, ro, rd, max_dst)
-    state = init_state(c, reader.root(ro.shape[0], ro.device), t_floor)
-    return finalize(reader, c, run_loop(reader, c, state, budget, alpha_fn))
+    return finalize(reader, *trace_state(reader, octree_scale, ro, rd,
+                                         max_dst, alpha_fn, budget, t_floor))
 
 
 def intersect_octree_plain(descriptors, octree_scale, ro, rd, max_dst,
