@@ -43,7 +43,21 @@ beams only and no heightfield and against K3's frame within the JAX
 thick-ray budget, holds K9's kernels against their plain versions on pose
 0's own inputs and its coarse trace against K1 / K4 on the same rays, and
 times the kernels alone and the adaptive, exact deferred and fused frames
-in the same run. The game phases count the frames
+in the same run. On a translucent world the default at 1080p is the JAX
+package's judged adaptive frame (K9-judged): ``build_translucent_world``
+puts water in the valleys, glass towers and leaf canopies into the bench
+region from a seed, and per format a judged phase drives the frame
+(counts from 0 over the 5 bench poses and a pitched-up one; K9-judged's
+three kernels, K9's shadow cells, K6, K8 and the shading and shadow
+stages), holds it against its plain version
+(``render_frame_adaptive_judged_plain``) on those poses and one with
+``VOXELRS_HOLE_FILL=1``, against the exact judged frame within the
+thick-ray budget, and against its beams-only variant (the sun map's
+certificates on judged shadow rays against floored judged traces:
+reported), holds K9-judged's kernels against their plain versions on pose
+0's own inputs and its traces against K1 / K4 judged on the same rays,
+and times the judged adaptive, exact judged and fused frames in one run.
+The game phases count the frames
 that had a sun map and hold the deferred frame of the streamed buffer
 against K3's and against the plain deferred frame, and the adaptive frame
 (the game's own at 1080p) against its plain version, timing the three
@@ -65,7 +79,11 @@ against K1 / K4 — every field equal; the adaptive frame against its plain
 version — max |d| <= 1e-6, against K3's — the thick-ray budget of
 tests/test_render.py:162-182 (coarse-sample pixels equal to the exact
 deferred frame's, mean |d| < 0.002, under 2% of the pixels off by more
-than 1e-3). Both kernels run the same IEEE float32 operations as their
+than 1e-3); K9-judged's kernels against their plain versions — equal (the
+finalize's sky within 1e-6), its traces against K1 / K4 judged — every
+field equal; the judged adaptive frame against its plain version — max
+|d| <= 1e-6, against the exact judged frame — the same thick-ray budget.
+Both kernels run the same IEEE float32 operations as their
 plain versions in the same order (built with -fmad=false); H100 runs
 measured no difference at all, and the 1e-6 leaves room only for a last-bit
 rounding of powf/acosf, not for a wrong pixel.
@@ -147,6 +165,23 @@ OPS_K9_FINALIZE = 60
 # the pitched-up pose of the adaptive phase: under this share of the
 # pixels hit, below JAX's dense threshold (349,356 of 2,073,600 at 1080p)
 SKY_HIT_SHARE = 0.16
+# K9-judged's kernels (csrc/k9_judged.cuh: k9j_<name>_kernel), each counted
+# by ops.adaptive_judged.launches_<name>, and the JAX functions they replace
+K9J = {"trace": "voxelrs_tpu/ops/shading.py:3259",
+       "merge": "voxelrs_tpu/ops/shading.py:2807",
+       "finalize": "voxelrs_tpu/ops/shading.py:3023"}
+# float operations of K9-judged outside the traversal, counted from
+# csrc/k9_judged.cuh: one fill (plane, quantization, entry face, the
+# geometry and finalize of the filled hit; counted for every interior lane
+# whose four corners hit), one sky colour
+OPS_K9J_FILL = 160
+OPS_SKY = 20
+# the translucent scene of the judged phases: bench.py's region with water
+# in the valleys, glass towers and leaf canopies placed from a seed
+TRANSLUCENT_SEED = 1
+SEA_PERCENTILE = 30
+GLASS_TOWERS = 4
+CANOPIES = 8
 
 
 def log(msg: str) -> None:
@@ -750,7 +785,25 @@ def main() -> int:
     ae = adaptive_phase(svo, hf, poses, card)
     ac = adaptive_phase(csvo, hf, poses, card)
 
-    # ---- 10. the game loop's path, ESVO then CSVO: counts from 0 ----------
+    # ---- 10. the judged adaptive frame per format: K9-judged --------------
+    with Phase("translucent world"):
+        tsvo = Svo(new_registry(), capacity_mb=64, device="cuda")
+        tworld, tcworld, tchunks, thf, tinfo = build_translucent_world(
+            opaque_lut_from_mask(tsvo.translucent_block_mask))
+        tsvo.update(tworld)
+        tcsvo = Svo(new_registry(), capacity_mb=64, buffer_dtype=np.uint8,
+                    device="cuda")
+        tcsvo.update(tcworld)
+    log(f"translucent world: {tchunks} chunks, depth {tsvo.depth}, "
+        f"{tsvo.stats.used_bytes / 1e6:.2f} MB ESVO, "
+        f"{tcsvo.stats.used_bytes / 1e6:.2f} MB CSVO; {json.dumps(tinfo)}")
+    if tsvo.is_opaque() or tcsvo.is_opaque():
+        fail("the translucent world holds no translucent block")
+    je = judged_phase(tsvo, thf, poses, card)
+    jc = judged_phase(tcsvo, thf, poses, card)
+    del tsvo, tcsvo, tworld, tcworld
+
+    # ---- 11. the game loop's path, ESVO then CSVO: counts from 0 ----------
     ge, ce = game_phase("esvo", card)
     gc, cc = game_phase("csvo", card)
 
@@ -928,11 +981,37 @@ def main() -> int:
                                *ac["vs_plain"].values(),
                                ce["adaptive_game_err"],
                                cc["adaptive_game_err"])))
+    # K9-judged: held to its plain versions on pose 0's own inputs of the
+    # translucent scene, the judged frame to its plain version on every
+    # pose; "ms" sums the kernel's launches in one frame (pose 0), alone
+    for k, rep in K9J.items():
+        kernels.append(dict(
+            name=f"k9j_{k}", route="cuda",
+            source="voxelrs_tpu_torch/csrc/k9_judged.cuh", replaces=rep,
+            launches=je["launches"][f"k9j_{k}"],
+            max_abs_err=max(je["k9j"][k]["err"], jc["k9j"][k]["err"]),
+            ms=je["k9j"][k]["ms"], plain_ms=je["k9j"][k]["plain_ms"],
+            bound_ms=je[f"{k}_bound"][0], bound_by=je[f"{k}_bound"][1],
+            library_ms=None,
+            ok=je["k9j"][k]["equal"] and jc["k9j"][k]["equal"],
+            launches_per_frame=len(je["k9j"][k]["calls"]),
+            ms_per_launch=[c["ms"] for c in je["k9j"][k]["calls"]],
+            launches_csvo=jc["launches"][f"k9j_{k}"],
+            ms_csvo=jc["k9j"][k]["ms"], plain_ms_csvo=jc["k9j"][k]["plain_ms"],
+            bound_ms_csvo=jc[f"{k}_bound"][0],
+            frame_vs_plain=max(je["vs_plain"], jc["vs_plain"])))
     for kd in kernels:
         if kd["name"].startswith("kd_"):
             st = kd["name"][3:]
             kd["launches_adaptive"] = ae["launches"][f"kd_{st}"]
             kd["launches_adaptive_csvo"] = ac["launches"][f"kd_{st}"]
+            kd["launches_judged"] = je["launches"][f"kd_{st}"]
+            kd["launches_judged_csvo"] = jc["launches"][f"kd_{st}"]
+        elif kd["name"] in ("k6_compact", "k8_sun", "k9_shadow_cells"):
+            key = {"k6_compact": "k6", "k8_sun": "k8",
+                   "k9_shadow_cells": "k9_shadow_cells"}[kd["name"]]
+            kd["launches_judged"] = je["launches"][key]
+            kd["launches_judged_csvo"] = jc["launches"][key]
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s (budget {BUDGET_S} s)")
     game_keys = ("load_s", "serialize_chunk_ms_mean",
@@ -964,6 +1043,24 @@ def main() -> int:
                     "adaptive_branches": ae["branches"],
                     "adaptive_shares": ae["shares_pose0"],
                     "adaptive_shares_csvo": ac["shares_pose0"],
+                    "judged_frame_ms": je["frame_ms"],
+                    "judged_frame_ms_csvo": jc["frame_ms"],
+                    "judged_times": je["times"],
+                    "judged_times_csvo": jc["times"],
+                    "judged_host_us": je["host_us"],
+                    "judged_host_us_csvo": jc["host_us"],
+                    "judged_traced_share": je["traced_share"],
+                    "judged_traced_share_csvo": jc["traced_share"],
+                    "judged_shares": je["shares_pose0"],
+                    "judged_shares_csvo": jc["shares_pose0"],
+                    "judged_branches": je["branches"],
+                    "judged_vs_exact": je["vs_exact"],
+                    "judged_vs_exact_csvo": jc["vs_exact"],
+                    "judged_certificates_vs_traces": je[
+                        "certificates_vs_traces"],
+                    "judged_certificates_vs_traces_csvo": jc[
+                        "certificates_vs_traces"],
+                    "translucent_world": tinfo,
                     "floored": de["floored"], "floored_csvo": dc["floored"],
                     "card": card, "build_s": _build.build_seconds,
                     "native_build_s": native.build_seconds, "total_s": total,
@@ -1964,6 +2061,455 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         f"{out['frame_ms']:.3f} ms/frame, per-pose medians "
         f"{[round(x, 3) for x in frame_ms]}; {out['mrays']:.2f} Mrays/s; "
         f"host time of the call {out['host_us']:.1f} us, on {card}")
+    return out
+
+
+def build_translucent_world(opaque_lut, seed: int = TRANSLUCENT_SEED):
+    """``bench.py``'s procedural region (``build_world``: the same
+    generator, chunks and distance-banded LOD) with three translucent
+    materials placed from ``seed``: water up to a sea level in the valleys
+    (the columns under the SEA_PERCENTILE-th percentile of the surface),
+    GLASS_TOWERS 3 x 3 glass columns 12 voxels tall and CANOPIES leaf
+    canopies (5 x 2 x 5 leaves on a 4-log trunk), on land in the part of
+    the region the bench poses look at. Returns (ESVO world, CSVO world,
+    chunk count, HeightField, a summary of what was placed)."""
+    import numpy as np
+
+    from voxelrs_tpu_torch.gamelogic import content as C
+    from voxelrs_tpu_torch.gamelogic.worldgen import Generator, default_config
+    from voxelrs_tpu_torch.systems.chunkloader import ChunkLoader
+    from voxelrs_tpu_torch.world.chunk import ChunkPos
+    from voxelrs_tpu_torch.world.csvo import Csvo, CsvoSerializedChunk
+    from voxelrs_tpu_torch.world.esvo import Esvo, SerializedChunk
+    from voxelrs_tpu_torch.world.heightfield import (HeightField,
+                                                     chunk_column_tops,
+                                                     chunk_solid_bases,
+                                                     chunk_voxel_tops)
+    from voxelrs_tpu_torch.world.octree import Position
+
+    radius, n, top = 4, 256, 256
+    gen = Generator(1, default_config())
+    surf = np.zeros((n, n), np.int32)  # [x, z]: the grass voxel's y
+    cols = {}
+    for cx in range(2 * radius):
+        for cz in range(2 * radius):
+            cols[cx, cz] = gen.get_column(cx, cz)
+            surf[cx * 32:(cx + 1) * 32, cz * 32:(cz + 1) * 32] = \
+                cols[cx, cz].height_map
+    # the generator's fill (Generator.generate_chunk), dense over the region
+    y = np.arange(top, dtype=np.int32)[None, :, None]
+    h = surf[:, None, :]
+    vox = np.where(y > h, C.AIR, np.where(y >= h, C.GRASS, np.where(
+        y >= h - 3, C.DIRT, C.STONE))).astype(np.uint8)
+    sea = int(np.percentile(surf, SEA_PERCENTILE))
+    wet = surf < sea
+    water = (y > h) & (y <= sea) & wet[:, None, :]
+    vox[water] = C.WATER
+    rng = np.random.default_rng(seed)
+    land = np.argwhere(~wet[40:150, 30:150]) + np.array([40, 30])
+    placed = []
+    for i, (x, z) in enumerate(land[rng.choice(len(land),
+                                               GLASS_TOWERS + CANOPIES,
+                                               replace=False)]):
+        if i < GLASS_TOWERS:
+            base = int(surf[x:x + 3, z:z + 3].max()) + 1
+            box = vox[x:x + 3, base:base + 12, z:z + 3]
+            box[box == C.AIR] = C.GLASS
+            placed.append(("glass", int(x), base, int(z)))
+        else:
+            base = int(surf[x, z]) + 1
+            vox[x, base:base + 4, z] = C.OAK_LOG
+            box = vox[x - 2:x + 3, base + 4:base + 6, z - 2:z + 3]
+            box[box == C.AIR] = C.OAK_LEAVES
+            placed.append(("leaves", int(x), base, int(z)))
+    svo, csvo, hf = Esvo(), Csvo(), HeightField()
+    center = ChunkPos(radius, 2, radius)
+    count = 0
+    for cx in range(2 * radius):
+        for cz in range(2 * radius):
+            lod = ChunkLoader.calculate_lod(center, ChunkPos(cx, 0, cz))
+            for cy in range(top // 32):
+                v = vox[cx * 32:(cx + 1) * 32, cy * 32:(cy + 1) * 32,
+                        cz * 32:(cz + 1) * 32].astype(np.uint32)
+                # bench.py's chunks, and those the placements reach
+                if not (cols[cx, cz].contains_chunk(cy)
+                        or np.isin(v, (C.GLASS, C.OAK_LOG, C.OAK_LEAVES,
+                                       C.WATER)).any()):
+                    continue
+                pos = ChunkPos(cx, cy, cz)
+                sc = SerializedChunk.from_voxels(pos, v, lod)
+                if not sc.has_data():
+                    continue
+                svo.set_leaf(Position(cx, cy, cz), sc, True)
+                csvo.set_leaf(Position(cx, cy, cz),
+                              CsvoSerializedChunk.from_voxels(pos, v, lod),
+                              True)
+                hf.set_chunk((cx, cy, cz), chunk_column_tops(v, lod),
+                             vtops=chunk_voxel_tops(v, lod),
+                             sbase=chunk_solid_bases(v, lod, opaque_lut))
+                count += 1
+    svo.serialize()
+    csvo.serialize()
+    info = dict(sea_level=sea, water_columns=int(wet.sum()),
+                water_voxels=int(water.sum()), placed=placed)
+    return svo, csvo, count, hf, info
+
+
+def judged_counts():
+    """Launch counts of the judged adaptive frame's kernels and those
+    around them (``deferred_counts``)."""
+    from voxelrs_tpu_torch.ops import adaptive_judged
+
+    return dict(**{f"k9j_{k}": getattr(adaptive_judged, f"launches_{k}")
+                   for k in K9J}, **deferred_counts())
+
+
+def zero_judged_counts():
+    from voxelrs_tpu_torch.ops import adaptive_judged
+
+    for k in K9J:
+        setattr(adaptive_judged, f"launches_{k}", 0)
+    zero_deferred_counts()
+
+
+def plain_judged(svo, p, beams, hole_fill=False):
+    """The plain judged adaptive frame of pose ``p`` on ``svo``'s own
+    tensors, with the grids ``Svo.render`` takes."""
+    from voxelrs_tpu_torch.ops import adaptive, adaptive_judged
+
+    return adaptive_judged.render_frame_adaptive_judged_plain(
+        svo.world(), svo.octree_scale, svo.mips, svo.mat_params, svo.mat_tex,
+        **svo.frame_kwargs(p, W, H), beams=beams,
+        levels=adaptive.frame_levels(W, H, False), hole_fill=hole_fill)
+
+
+def judged_phase(svo, hf, poses, card) -> dict:
+    """The judged adaptive frame (``Svo.render``'s default at 1080p on a
+    translucent world) on ``svo``'s format with the scene's envelope:
+    counts from 0 over the 5 bench poses and a pitched-up one (the
+    single-pass shadow branch); the frame against its plain version on
+    every pose, against the exact judged frame within the thick-ray budget
+    and against its beams-only variant (the sun map's certificates on the
+    judged shadow rays against the floored judged traces); a pose with the
+    hole fill; K9-judged's kernels against their plain versions on pose
+    0's own inputs and its grid trace against K1 / K4 judged on the same
+    rays; the kernels alone; the judged adaptive, exact judged and fused
+    frames timed in one run, and the grids' shares."""
+    import numpy as np
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import (adaptive, adaptive_judged, beams,
+                                       traversal, traversal_csvo)
+
+    aj = adaptive_judged
+    csvo = svo.buffer_dtype == np.uint8
+    fmt = "csvo" if csvo else "esvo"
+    dev = svo.device_buf.device
+    B = W * H
+    svo.set_heightfield(hf)
+    levels = adaptive.frame_levels(W, H, False)
+    out = {"levels": levels}
+
+    def buffers():
+        return svo._workspace.adaptive(W, H, levels, aj.REC_WORDS)
+
+    with Phase(f"judged pitched-up pose ({fmt})"):
+        sky, deg, sky_hits = sky_pose(svo, poses[0])
+    poses6 = list(poses) + [sky]
+    log(f"judged ({fmt}): pose 5 = pose 0 pitched up {deg} degrees, "
+        f"{sky_hits} hit pixels ({sky_hits / B:.4f})")
+
+    with Phase(f"judged main path ({fmt})"):
+        zero_judged_counts()
+        frames, infos, marks = [], [], []
+        for p in poses6:
+            frames.append(svo.render(p, W, H))
+            infos.append(dict(svo.last_frame))
+            marks.append((svo._workspace.hcount.clone(),
+                           buffers().dense.clone()))
+        torch.cuda.synchronize()
+        n = out["launches"] = judged_counts()
+    branches = [dict(hits=int(h), dense=bool(int(d)),
+                     dense_rule=adaptive.dense_frame(int(h), B))
+                for h, d in marks]
+    out["branches"] = branches
+    log(f"judged main path launches ({fmt}, {len(poses6)} poses): "
+        f"{json.dumps(n)}; last frame {json.dumps(infos[-1])}")
+    log(f"judged shadow branch per pose ({fmt}): " + ", ".join(
+        f"pose {i}: {b['hits']} hits, "
+        f"{'two-pass cells' if b['dense'] else 'single pass'}"
+        for i, b in enumerate(branches)))
+    if not all(n[f"k9j_{k}"] for k in K9J) or not (
+            n["k6"] and n["k8_verdicts"] and n["k9_shadow_cells"]
+            and n["kd_shade"] and n["kd_shadow"] and n["kd_finish"]) \
+            or n["kd_primary"] or n["k9_trace"] or n["k9_merge"] \
+            or n["k9_finalize"]:
+        fail(f"the {fmt} judged adaptive path launched another set of "
+             "kernels")
+    if not all(i.get("adaptive") and i.get("hierarchy") == levels - 1
+               and i.get("opaque") is False and i.get("beams")
+               and i.get("sun") for i in infos):
+        fail(f"the {fmt} translucent frame did not take the judged adaptive "
+             "frame with beams and the sun map")
+    if any(b["dense"] != b["dense_rule"] for b in branches) \
+            or branches[-1]["dense"] or not branches[0]["dense"]:
+        fail(f"the {fmt} judged frame took the wrong shadow branch")
+    for img in frames:
+        if tuple(img.shape) != (H, W, 4) or not bool(torch.isfinite(img).all()):
+            fail(f"{fmt} judged frame has the wrong shape or non-finite "
+                 "values")
+
+    with Phase(f"judged vs plain and vs exact ({fmt})"):
+        err, stats, cert, exact_vs_k3 = 0.0, [], [], 0.0
+        for i, p in enumerate(poses6):
+            fused = svo.render(p, W, H, mode="fused")
+            exact = svo.render(p, W, H, adaptive=False)
+            # the exact judged frame is K3's, so the budget against K3
+            # (thick_ray) is the budget against the exact frame
+            exact_vs_k3 = max(exact_vs_k3, max_abs(exact, fused))
+            ctx = svo.beam_context(p, W, H)
+            img = svo.render(p, W, H, beams=ctx)
+            ref = []
+            ms = event_ms(lambda: ref.append(plain_judged(svo, p, ctx)))
+            if i == 0:
+                out["plain_ms"] = ms
+            err = max(err, max_abs(img, ref[0]))
+            stats.append(thick_ray(img, fused, exact, levels))
+            # certificates against floored judged traces: the frame with
+            # the beams only differs only where a certificate disagrees;
+            # of those pixels, the ones where either frame is the exact
+            # frame's (a shadow origin of a correct pixel)
+            floored = svo.render(p, W, H, beams=ctx.without_sun())
+            diff = (img != floored).any(-1)
+            right = ~(img != exact).any(-1) | ~(floored != exact).any(-1)
+            cert.append(dict(pixels=int(diff.sum()),
+                             on_exact_pixels=int((diff & right).sum())))
+        # one pose with the hole fill (VOXELRS_HOLE_FILL=1)
+        os.environ["VOXELRS_HOLE_FILL"] = "1"
+        try:
+            ctx = svo.beam_context(poses[0], W, H)
+            fill = svo.render(poses[0], W, H, beams=ctx)
+            fill_ref = plain_judged(svo, poses[0], ctx, hole_fill=True)
+            fused = svo.render(poses[0], W, H, mode="fused")
+            exact = svo.render(poses[0], W, H, adaptive=False)
+        finally:
+            del os.environ["VOXELRS_HOLE_FILL"]
+        fill_err = max_abs(fill, fill_ref)
+        fill_stats = thick_ray(fill, fused, exact, levels)
+        fill_changed = int((fill != frames[0]).any(-1).sum())
+    out["vs_plain"] = max(err, fill_err)
+    out["vs_plain_ok"] = out["vs_plain"] <= K3_MAX_ABS
+    out["vs_exact"], out["vs_exact_hole_fill"] = stats, fill_stats
+    out["exact_vs_k3"] = exact_vs_k3
+    out["vs_exact_ok"] = exact_vs_k3 <= K3_MAX_ABS and all(
+        thick_ray_ok(st) for st in stats + [fill_stats])
+    out["certificates_vs_traces"] = cert
+    log(f"judged vs its plain version ({fmt}, {len(poses6)} poses and pose "
+        f"0 with the hole fill): max |d| {err:.3g} / {fill_err:.3g} "
+        f"(tolerance {K3_MAX_ABS:g}); ok {out['vs_plain_ok']}; plain frame "
+        f"(pose 0) {out['plain_ms']:.1f} ms")
+    log(f"judged vs the exact judged frame ({fmt}; the traced grid's pixels "
+        f"equal to the exact frame's and within {K3_MAX_ABS:g} of K3's, "
+        f"mean |d| < 0.002, under 2% of pixels off by 1e-3; the exact "
+        f"judged frame within {exact_vs_k3:.3g} of K3's): "
+        f"{json.dumps(stats)}; with the hole fill (pose 0, "
+        f"{fill_changed} pixels changed) {json.dumps(fill_stats)}; ok "
+        f"{out['vs_exact_ok']}")
+    log(f"judged shadow rays, the sun map's certificates against the "
+        f"floored judged traces ({fmt}; pixels differing per pose, and of "
+        f"them those where a frame equals the exact frame): "
+        f"{json.dumps(cert)}")
+    if not out["vs_plain_ok"]:
+        fail(f"the {fmt} judged frame disagrees with its plain version")
+    if not out["vs_exact_ok"]:
+        fail(f"the {fmt} judged frame is outside the thick-ray budget")
+
+    with Phase(f"k9j vs plain, alone ({fmt})"):
+        p0 = poses[0]
+        ctx = svo.beam_context(p0, W, H)
+        spies = {k: Spy(aj, f"k9j_{k}") for k in K9J}
+        for sp in spies.values():
+            sp.__enter__()
+        try:
+            svo.render(p0, W, H, beams=ctx)
+        finally:
+            for sp in spies.values():
+                sp.__exit__()
+        torch.cuda.synchronize()
+        ncalls = {k: len(sp.calls) for k, sp in spies.items()}
+        if ncalls != dict(trace=levels + 1, merge=levels, finalize=1):
+            fail(f"the {fmt} judged frame ran K9-judged another way: "
+                 f"{ncalls}")
+        res = {k: dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0, calls=[])
+               for k in K9J}
+
+        def note(k, equal, err, ms, plain_ms, **info):
+            r = res[k]
+            r["equal"] &= bool(equal)
+            r["err"] = max(r["err"], err)
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["calls"].append(dict(equal=bool(equal), ms=ms, **info))
+
+        # trace: every call, and each against K1 / K4 judged on the same
+        # pixel rays from the same floors (the world counted once a frame)
+        vs_k1 = dict.fromkeys(("t", "value", "face_id", "pos", "uv", "lod",
+                               "inside_voxel"), 0)
+        trace_steps = trace_lanes = 0
+        trace_bytes = svo.device_buf.numel() * 4
+        for args, kw in spies["trace"].calls:
+            world, scale, tables, fp, tf, level, rec0 = args
+            idx, cnt = kw.get("idx"), kw.get("count")
+            outs = [rec0.clone() for _ in range(3)]
+            aj.k9j_trace(world, scale, tables, fp, tf, level, outs[0], idx,
+                         cnt)
+            pms = event_ms(lambda: aj.k9j_trace_plain(
+                world, scale, tables, fp, tf, level, outs[1], idx, cnt))
+            kms = kernel_ms(lambda: _build.launch_k9j_trace(
+                world, scale, tables, fp, tf, level, outs[2], idx, cnt))
+            lanes = (torch.arange(rec0.shape[0], device=dev) if idx is None
+                     else idx[: int(cnt)].long())
+            ids = adaptive.grid_pixel_ids(W, H, level, dev)[lanes]
+            ro, rd = adaptive._frame_rays(fp, ids)
+            fl = beams.pixel_floors_at(tf, ids, W)
+            if csvo:
+                k1 = traversal_csvo.intersect_octree_csvo(
+                    world.words, scale, world.root_ptr, world.total_depth,
+                    ro, rd, -1.0, True, tables.alpha_fn, t_floor=fl)
+            else:
+                k1 = traversal.intersect_octree(world, scale, ro, rd, -1.0,
+                                                True, tables.alpha_fn,
+                                                t_floor=fl)
+            r = outs[0][lanes]
+            rf = r.view(torch.float32)
+            fields = (rf[:, 0], r[:, 1].long() & 0xFFFFFFFF, r[:, 2],
+                      rf[:, 3:6], rf[:, 6:8], rf[:, 8], r[:, 9] != 0)
+            for f, a, b in zip(vs_k1, fields, (k1.t, k1.value, k1.face_id,
+                                               k1.pos, k1.uv, k1.lod,
+                                               k1.inside_voxel)):
+                neq = a != b
+                vs_k1[f] += int((neq.any(-1) if neq.dim() > 1 else neq).sum())
+            steps = int(k1.steps.sum())
+            trace_steps += steps
+            trace_lanes += lanes.shape[0]
+            trace_bytes += (lanes.shape[0] * aj.REC_WORDS * 4
+                            + tf.numel() * 4
+                            + (0 if idx is None else lanes.shape[0] * 4 + 4))
+            note("trace", torch.equal(outs[0], outs[1]),
+                 max_abs(outs[0], outs[1]), kms, pms, level=level,
+                 lanes=lanes.shape[0], steps=steps)
+        out["trace_vs_k1"] = dict(lanes=trace_lanes, differing=vs_k1,
+                                  steps=trace_steps)
+        out["trace_bound"] = bound(trace_bytes, trace_steps * OPS_PER_STEP
+                                   + trace_lanes * OPS_K9_RAY)
+        out["traced_share"] = trace_lanes / B
+        # merge: each level, as the frame ran it (hole fill off)
+        shares = {}
+        merge_bytes = merge_ops = 0
+        for args, _kw in spies["merge"].calls:
+            scale, tables, fp, level, lo, hi0, ref0, fill = args
+            ko, kr = hi0.clone(), ref0.clone()
+            aj.k9j_merge(scale, tables, fp, level, lo, ko, kr, fill)
+            po, pr = hi0.clone(), ref0.clone()
+            pms = event_ms(lambda: aj.k9j_merge_plain(
+                scale, tables, fp, level, lo, po, pr, fill))
+            to, tr = hi0.clone(), ref0.clone()
+            kms = kernel_ms(lambda: _build.launch_k9j_merge(
+                scale, tables, fp, level, fill, lo, to, tr))
+            wl, hl = adaptive.grid_dims(W, H, level)[level]
+            g = adaptive.coarse_grid(wl, hl, dev)
+            sample = g.sample_masks()[0]
+            hit = ko.view(torch.float32)[:, 0] != -1.0
+            h4 = g.up4(lo.view(torch.float32)[:, 0] != -1.0)
+            all4 = h4[0] & h4[1] & h4[2] & h4[3] & ~sample
+            nl = ko.shape[0]
+            shares[level] = dict(
+                lanes=nl, samples=float(sample.double().mean()),
+                filled=int((hit & ~sample & ~kr).sum()) / nl,
+                refined=int(kr.sum()) / nl)
+            merge_bytes += lo.shape[0] * aj.REC_WORDS * 4 + nl * (
+                aj.REC_WORDS * 4 + 1)
+            merge_ops += int(all4.sum()) * (OPS_K9_RAY + OPS_K9J_FILL)
+            note("merge", torch.equal(ko, po) and torch.equal(kr, pr),
+                 max(max_abs(ko, po), max_abs(kr, pr)), kms, pms,
+                 level=level)
+        out["merge_bound"] = bound(merge_bytes, merge_ops)
+        shares[levels] = dict(lanes=spies["trace"].calls[0][0][6].shape[0],
+                              samples=1.0, filled=0.0, refined=0.0)
+        out["shares_pose0"] = shares
+        # finalize
+        (fp, frec, rec0, hit0, img0, np0, bp0), _kw = \
+            spies["finalize"].calls[0]
+        ko = [t.clone() for t in (rec0, hit0, img0, np0, bp0)]
+        aj.k9j_finalize(fp, frec, *ko)
+        po = [t.clone() for t in (rec0, hit0, img0, np0, bp0)]
+        pms = event_ms(lambda: aj.k9j_finalize_plain(fp, frec, *po))
+        to = [t.clone() for t in (rec0, hit0, img0, np0, bp0)]
+        kms = kernel_ms(lambda: _build.launch_k9j_finalize(fp, frec, *to))
+        hits = int(ko[1].sum())
+        img_err = max_abs(ko[2], po[2])
+        note("finalize", all(bits_equal(a, b) for i, (a, b) in
+                             enumerate(zip(ko, po)) if i != 2)
+             and img_err <= K3_MAX_ABS, img_err, kms, pms, hits=hits)
+        out["finalize_bound"] = bound(
+            B * 36 * 2 + B + (B - hits) * 16 + 2 * B,
+            (B - hits) * (OPS_K9_RAY + OPS_SKY))
+    out["k9j"] = res
+    out["k9j_ok"] = all(r["equal"] for r in res.values()) and not any(
+        out["trace_vs_k1"]["differing"].values())
+    log(f"k9j trace vs {'k4' if csvo else 'k1'} judged ({fmt}, pose 0's "
+        f"{levels + 1} traces; {out['trace_vs_k1']['lanes']} lanes from the "
+        f"tile floors, {out['traced_share']:.4f} of the pixels): rays "
+        f"differing {json.dumps(out['trace_vs_k1']['differing'])}; "
+        f"{out['trace_vs_k1']['steps']} steps")
+    for k in K9J:
+        r = res[k]
+        bd = out[f"{k}_bound"]
+        log(f"k9j_{k} vs plain ({fmt}, pose 0's own inputs, "
+            f"{len(r['calls'])} launches a frame): equal {r['equal']} (max "
+            f"|d| {r['err']:.3g}); alone {r['ms']:.4f} ms a frame "
+            f"({json.dumps([round(c['ms'], 4) for c in r['calls']])}), "
+            f"plain {r['plain_ms']:.2f} ms, bound {bd[0]:.4g} ms ({bd[1]}) "
+            f"on {card}")
+    log(f"judged grids ({fmt}, pose 0; per level: lanes, sample share, "
+        f"filled share, refined = re-traced share): {json.dumps(shares)}")
+    if not out["k9j_ok"]:
+        fail(f"a K9-judged kernel disagrees with its plain version or K1 "
+             f"({fmt})")
+
+    with Phase(f"judged timing ({fmt})"):
+        for p in poses:  # warm-up
+            svo.render(p, W, H)
+            svo.render(p, W, H, adaptive=False)
+            svo.render(p, W, H, mode="fused")
+        times = {}
+        for path, kw in (("judged", {}), ("exact", dict(adaptive=False)),
+                         ("fused", dict(mode="fused"))):
+            ms = sorted(cuda_ms(lambda: svo.render(p, W, H, **kw), REPS)
+                        for p in poses)
+            times[path] = dict(median=ms[len(ms) // 2], poses=ms)
+        out["host_us"] = host_us(lambda: svo.render(poses[0], W, H))
+        torch.cuda.synchronize()
+        rc = buffers().rcounts.tolist()
+    out["times"] = times
+    out["frame_ms"] = times["judged"]["median"]
+    dims = adaptive.grid_dims(W, H, levels)
+    out["refined_after_window"] = {
+        k: dict(lanes=dims[k][0] * dims[k][1], refined=rc[k],
+                share=rc[k] / (dims[k][0] * dims[k][1]))
+        for k in range(levels)}
+    log(f"judged frame {W}x{H} ({fmt}; Svo.render default on the "
+        f"translucent scene, beams and sun map; events from call to "
+        f"finished frame, median over the 5 bench poses): judged adaptive "
+        f"{times['judged']['median']:.3f} ms, exact judged "
+        f"{times['exact']['median']:.3f} ms, fused (K3) "
+        f"{times['fused']['median']:.3f} ms in the same run; per-pose "
+        + json.dumps({k: [round(x, 3) for x in v['poses']]
+                      for k, v in times.items()})
+        + f"; host time of the judged call {out['host_us']:.1f} us; "
+        f"refined lanes of the last timed frame (pose 0) "
+        f"{json.dumps(out['refined_after_window'])}; on {card}")
     return out
 
 

@@ -461,15 +461,16 @@ def test_selection_rule(monkeypatch):
     monkeypatch.setenv("VOXELRS_HIERARCHY", "2")
     assert adaptive.grid_dims(256, 256, 2)[2] == (65, 65)  # 4,225 lanes
     assert lv(256, 256, True) == 3 and lv(256, 200, True) == 2
+    assert adaptive.frame_levels(1920, 1080, False) == 2
     monkeypatch.delenv("VOXELRS_HIERARCHY")
-    # a translucent world keeps the exact judged frame; asking it for the
-    # adaptive one raises
-    assert adaptive.frame_levels(1920, 1080, False) == 0
-    with pytest.raises(NotImplementedError):
-        adaptive.frame_levels(1920, 1080, False, True)
+    # a translucent world takes the JAX judged rule: the quarter grid from
+    # 4,096 quarter lanes (1080p), else the half grid (128x96), never the
+    # eighth grid; adaptive=False keeps the exact judged frame
+    assert adaptive.frame_levels(1920, 1080, False) == 2
+    assert adaptive.frame_levels(1920, 1080, False, True) == 2
+    assert adaptive.frame_levels(1920, 1080, False, False) == 0
     monkeypatch.setenv("VOXELRS_ADAPTIVE", "1")
-    with pytest.raises(NotImplementedError):
-        adaptive.frame_levels(128, 96, False)
+    assert adaptive.frame_levels(128, 96, False) == 1
     assert adaptive.frame_levels(128, 96, False, False) == 0
     # the dense test is JAX's first-frame bucket rule
     from voxelrs_tpu.ops.shading import _margin_bucket

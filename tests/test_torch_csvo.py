@@ -58,6 +58,11 @@ from voxelrs_tpu_torch.world import ChunkPos, Position, csvo, esvo_dense
 from voxelrs_tpu_torch.world.esvo import PREAMBLE_LENGTH_IN_U32, Esvo
 from voxelrs_tpu_torch.world.esvo import SerializedChunk
 
+import test_torch_judged as tj
+# the judged scene's module fixtures (a module of their own here)
+from test_torch_judged import (jax_frames, one_torch_thread,  # noqa: F401
+                               port_exact, scenes)
+
 TOL_T = 1e-3
 TOL_UV = 1e-3
 TOL_LOD = 1e-4
@@ -555,6 +560,24 @@ def test_csvo_frame_matches_jax(frame_pair, max_steps):
 # ---------------------------------------------------------------------------
 # Picker
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_csvo_judged_adaptive_frame_matches_jax(scenes, jax_frames,
+                                                port_exact, monkeypatch):
+    """The judged adaptive frame of a CSVO world (tests/test_torch_judged.py's
+    translucent scene at 128x96, whose quarter grid is under 4,096 lanes:
+    the half grid) against the JAX ``Svo.render`` with
+    ``VOXELRS_ADAPTIVE=1`` (its second render; beams and the sun map)
+    within the port's frame budget (measured: 0 pixels off) and within the
+    thick-ray budget of the port's exact judged frame; then the port's
+    plain judged trace of the half grid against the JAX CSVO deferred trace
+    (measured: no lane disagrees)."""
+    monkeypatch.setenv("VOXELRS_HIERARCHY", "1")
+    monkeypatch.delenv("VOXELRS_HOLE_FILL", raising=False)
+    tj.check_frame("csvo", "1", tj.SW, tj.SH, "overview", 1, scenes,
+                   jax_frames, port_exact)
+    tj.check_trace("csvo", "overview", scenes)
 
 
 def tol(depth: int) -> float:

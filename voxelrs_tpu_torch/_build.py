@@ -1,5 +1,5 @@
 """Build and bind the CUDA kernels (K1, K3, K4, K5, K6, K7, K8, the
-deferred frame's stages and K9): one ``nvcc`` call, a plain C interface,
+deferred frame's stages, K9 and K9-judged): one ``nvcc`` call, a plain C interface,
 ``ctypes``.
 
 At first use ``library()`` compiles ``csrc/kernels.cu`` into
@@ -18,8 +18,8 @@ them synchronises. K3 and K5 take the world as an ESVO buffer (an int32
 tensor) or a CSVO world (``(words, root_ptr, total_depth)``, as
 ``ops.traversal_csvo.CsvoBuffer``) and launch that format's instantiation;
 so do the deferred stages that trace (``launch_kd_primary``,
-``launch_kd_shadow``, ``launch_k9_trace``). Optional pointers (a floor, an index list, a
-count) cross as None for "absent".
+``launch_kd_shadow``, ``launch_k9_trace``, ``launch_k9j_trace``). Optional
+pointers (a floor, an index list, a count) cross as None for "absent".
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("csrc/kernels.cu", "csrc/k1_traversal.cuh",
             "csrc/k4_csvo_traversal.cuh", "csrc/k6_compact.cuh",
-            "csrc/k7_beams.cuh", "csrc/k8_sun.cuh", "csrc/k9_adaptive.cuh")
+            "csrc/k7_beams.cuh", "csrc/k8_sun.cuh", "csrc/k9_adaptive.cuh",
+            "csrc/k9_judged.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -52,6 +53,7 @@ MAX_BEAM_LEVELS = 16  # envelope pyramid levels (csrc/k7_beams.cuh)
 K6_BLOCK = 1024  # mask lanes per K6 block (csrc/k6_compact.cuh)
 HIT_WORDS = 9  # words of a deferred hit record (kernels.cu HitRec)
 K9_WORDS = 8  # words of a K9 record (k9_adaptive.cuh K9Rec)
+K9J_WORDS = 16  # words of a K9-judged record (k9_judged.cuh K9JRec)
 
 
 class TexTables(ctypes.Structure):
@@ -201,7 +203,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("vx_k9_merge", [F, P, I, P, P, P, I, P]),
             ("vx_k9_finalize", [F, P, P, P, P, P, P, P, P]),
             ("vx_k9_shadow_cells", [I, P, P, P, I, P, P, P, P, P, P, P, P,
-                                    P])):
+                                    P]),
+            ("vx_k9j_trace", [P, LL, F, P, P, P, I, I, P, P, I, P, P]),
+            ("vx_k9j_trace_csvo", [P, LL, F, U, I, P, P, P, I, I, P, P, I,
+                                   P, P]),
+            ("vx_k9j_merge", [F, P, P, I, I, P, P, P, P, I, P]),
+            ("vx_k9j_finalize", [P, P, P, P, P, P, P, P])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = I
@@ -451,3 +458,49 @@ def launch_k9_shadow_cells(step, params: FrameParams, hidx, hcount, need,
         _ptr(need), _ptr(needp), _ptr(blkp), _ptr(mask), _ptr(dense),
         _ptr(color), _ptr(ds), _ptr(img), _stream(img.device))
     _raise_on(err, "K9 shadow cells (vx_k9_shadow_cells)")
+
+
+def launch_k9j_trace(world, octree_scale, tables, params: FrameParams, tf,
+                     level, out, idx=None, count=None):
+    """K9-judged's trace of grid level ``level`` into its (n, 16) int32
+    records ``out``: every lane, or the refine list ``idx`` ((size,)
+    int32) up to its device ``count``; ``tf`` None or the (nty, ntx) tile
+    floors; ``tables`` the texture tables the alpha judge reads."""
+    lib = library()
+    size = out.shape[0] if idx is None else idx.shape[0]
+    ntx = 0 if tf is None else tf.shape[1]
+    tail = (ctypes.byref(tables.struct), ctypes.byref(params), _ptr(tf), ntx,
+            level, _ptr(idx), _ptr(count), size, _ptr(out))
+    if isinstance(world, torch.Tensor):
+        err = lib.vx_k9j_trace(_ptr(world), world.shape[0], octree_scale,
+                               *tail, _stream(world.device))
+    else:
+        words, root_ptr, depth = world
+        err = lib.vx_k9j_trace_csvo(_ptr(words), words.shape[0],
+                                    octree_scale, root_ptr, depth, *tail,
+                                    _stream(words.device))
+    _raise_on(err, "K9-judged trace (vx_k9j_trace)")
+
+
+def launch_k9j_merge(octree_scale, tables, params: FrameParams, level,
+                     hole_fill, lo, hi, refine):
+    """K9-judged's merge of the records ``lo`` of level + 1 onto level
+    ``level``: ``hi`` (n, 16) int32, ``refine`` (n,) bool; the hole table
+    is ``tables.hole``."""
+    err = library().vx_k9j_merge(
+        octree_scale, ctypes.byref(tables.struct), ctypes.byref(params),
+        level, int(bool(hole_fill)), _ptr(tables.hole), _ptr(lo), _ptr(hi),
+        _ptr(refine), hi.shape[0], _stream(hi.device))
+    _raise_on(err, "K9-judged merge (vx_k9j_merge)")
+
+
+def launch_k9j_finalize(params: FrameParams, frec, rec, hit, img, needp,
+                        blkp):
+    """K9-judged's finalize of the pixel records ``frec`` into the deferred
+    hit records ``rec`` (H*W, 9), ``hit`` and the sky of ``img``; clears
+    ``needp``/``blkp`` ((H*W,) bool)."""
+    err = library().vx_k9j_finalize(ctypes.byref(params), _ptr(frec),
+                                    _ptr(rec), _ptr(hit), _ptr(img),
+                                    _ptr(needp), _ptr(blkp),
+                                    _stream(img.device))
+    _raise_on(err, "K9-judged finalize (vx_k9j_finalize)")

@@ -65,6 +65,9 @@ struct Hit {
   float lod;
   bool inside;
   int steps;
+  // a judged cast rejected a candidate leaf on its way (its texel alpha 0,
+  // or the adjacency rule): JAX's acc_passed | resume
+  bool passed;
   // the frozen state at an accepted hit (K9's record): t_min in octree
   // units, the leaf's child slot and scale, its base in the mirrored
   // [1, 2) space
@@ -392,6 +395,7 @@ __device__ __forceinline__ void traverse_with(
   out.lod = 0.f;
   out.inside = false;
   out.steps = 0;
+  out.passed = false;
   out.t_oct = 0.f;
   out.idx = out.scale = 0;
   out.leaf[0] = out.leaf[1] = out.leaf[2] = 0.f;
@@ -429,6 +433,7 @@ __device__ __forceinline__ void traverse_with(
         if (!accept) {
           adj_count = adj_count + 1 < 255 ? adj_count + 1 : 255;
           last_value = leaf_value & NO_VALUE;
+          out.passed = true;
         }
       }
       if (accept) {  // finalize

@@ -2,11 +2,11 @@
 // K4 (CSVO ray-batch traversal), K5 (the picker), K6 (compaction,
 // k6_compact.cuh), K7 (beam floors, k7_beams.cuh), K8 (sun certificates,
 // k8_sun.cuh), the stages of the deferred frame and K9 (the adaptive
-// thick-ray opaque frame, k9_adaptive.cuh), with a plain C
-// interface for ctypes (see voxelrs_tpu_torch/_build.py). K3, K5 and the
-// deferred stages that trace are templates on the world format: an ESVO
-// buffer (K1's traversal) or a CSVO byte stream (K4's), each instantiated
-// once.
+// thick-ray frame: of an opaque world, k9_adaptive.cuh, and of a
+// translucent one, k9_judged.cuh), with a plain C interface for ctypes
+// (see voxelrs_tpu_torch/_build.py). K3, K5 and the deferred stages that
+// trace are templates on the world format: an ESVO buffer (K1's traversal)
+// or a CSVO byte stream (K4's), each instantiated once.
 //
 // K1 replaces voxelrs_tpu/ops/traversal.py::intersect_octree (:1087), the
 // translucent classic loop and its finalize: one thread per ray, the
@@ -49,7 +49,9 @@
 // the blocked candidates). Between them K6 compacts on the card, and each
 // stage reads the count K6 left in device memory. The adaptive frame
 // (k9_adaptive.cuh) replaces kd_primary with K9's grid traces, merges and
-// finalize, and runs the shadow stages twice around K9's shadow cells.
+// finalize, and runs the shadow stages twice around K9's shadow cells; its
+// judged variant (k9_judged.cuh) does the same with judged traces and a
+// result-level merge.
 //
 // What bounds them on an H100: the traversal's dependent loads and branch
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
@@ -493,6 +495,7 @@ inline int grid_for(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
 }  // namespace vx
 
 #include "k9_adaptive.cuh"
+#include "k9_judged.cuh"
 
 extern "C" {
 
@@ -767,6 +770,59 @@ int vx_k9_shadow_cells(int step, const vx::FrameParams* fp, const int* hidx,
                                (cudaStream_t)stream>>>(
       step, *fp, hidx, hcount, size, need, needp, blkp, mask, dense,
       (const float4*)color, ds, img);
+  return (int)cudaGetLastError();
+}
+
+// ---- K9-judged: the adaptive frame of a translucent world -------------------
+
+// out: the 16-word records of grid level `level` (its lane count when idx
+// is null, else at least the largest index); idx/count: a refine list of
+// `size` entries and its count on the card, or null.
+int vx_k9j_trace(const uint32_t* desc, long long n_words, float octree_scale,
+                 const vx::TexTables* tex, const vx::FrameParams* fp,
+                 const float* tf, int ntx, int level, const int* idx,
+                 const int* count, int size, void* out, void* stream) {
+  const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
+  vx::k9j_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, tf, ntx, level, idx, count, size,
+      (vx::K9JRec*)out);
+  return (int)cudaGetLastError();
+}
+
+int vx_k9j_trace_csvo(const uint32_t* words, long long n_words,
+                      float octree_scale, unsigned root_ptr, int total_depth,
+                      const vx::TexTables* tex, const vx::FrameParams* fp,
+                      const float* tf, int ntx, int level, const int* idx,
+                      const int* count, int size, void* out, void* stream) {
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  vx::k9j_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, tf, ntx, level, idx, count, size,
+      (vx::K9JRec*)out);
+  return (int)cudaGetLastError();
+}
+
+// lo: the records of level + 1; hi, refine: the n lanes of level `level`;
+// hole: the (mat_rows, n_levels) hole table of the texture tables.
+int vx_k9j_merge(float octree_scale, const vx::TexTables* tex,
+                 const vx::FrameParams* fp, int level, int hole_fill,
+                 const uint8_t* hole, const void* lo, void* hi,
+                 uint8_t* refine, int n, void* stream) {
+  vx::k9j_merge_kernel<<<vx::grid_for(n), vx::BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+      octree_scale, *tex, *fp, level, hole_fill, hole, (const vx::K9JRec*)lo,
+      (vx::K9JRec*)hi, refine);
+  return (int)cudaGetLastError();
+}
+
+int vx_k9j_finalize(const vx::FrameParams* fp, const void* frec, void* rec,
+                    uint8_t* hit, float* img, uint8_t* needp, uint8_t* blkp,
+                    void* stream) {
+  vx::k9j_finalize_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+                            vx::BLOCK, 0, (cudaStream_t)stream>>>(
+      *fp, (const vx::K9JRec*)frec, (vx::HitRec*)rec, hit, img, needp, blkp);
   return (int)cudaGetLastError();
 }
 

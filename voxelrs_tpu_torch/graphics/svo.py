@@ -293,12 +293,14 @@ class Svo:
         CSVO instantiation for a CSVO buffer). On the card the kernels
         run; on the CPU their plain versions.
 
-        The opaque branch is the adaptive thick-ray frame (K9) by the JAX
-        rule (``ops.adaptive.adaptive_levels``: from 2^18 pixels, or as
-        ``VOXELRS_ADAPTIVE``/``VOXELRS_HIERARCHY`` say); ``adaptive`` True
-        / False pins it. ``last_frame`` records ``adaptive`` and the
-        ``hierarchy`` (0 the half grid, 1 the quarter grid, 2 the eighth
-        grid; None for the exact frame)."""
+        Both branches take the adaptive thick-ray frame by the JAX rule
+        (``ops.adaptive.frame_levels``: from 2^18 pixels, or as
+        ``VOXELRS_ADAPTIVE``/``VOXELRS_HIERARCHY`` say): K9 on an opaque
+        world, K9-judged on a translucent one (never the eighth grid);
+        ``adaptive`` True / False pins it. ``last_frame`` records
+        ``opaque``, ``adaptive`` and the ``hierarchy`` the frame traced (0
+        the half grid, 1 the quarter grid, 2 the eighth grid; None for the
+        exact frame)."""
         if mode not in ("deferred", "fused", "csvo"):
             raise ValueError(f"Svo.render: unknown mode {mode!r}")
         kw = self.frame_kwargs(params, width, height, max_steps)

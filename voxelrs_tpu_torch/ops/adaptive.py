@@ -26,6 +26,9 @@ sample pixels first and lets an interior pixel whose four cell corners
 agree reuse their verdict. The frame is not the exact frame: a fill can
 differ from a trace in the last bits, and a reused verdict from the
 pixel's own; the tests hold it to the JAX package's thick-ray budget.
+A translucent world's adaptive frame (K9-judged, ``ops/adaptive_judged.
+py``) takes its grids, its rule (``frame_levels``) and its tail of
+shading and shadows (``shade_and_shadow``) from here.
 
 Records. A grid lane's record is the frozen state of its opaque trace,
 8 int32 words (``_build.K9_WORDS``): t_min in octree units, ``idx | scale
@@ -66,6 +69,8 @@ REC_WORDS = _build.K9_WORDS
 ADAPTIVE_MIN_PIXELS = 1 << 18
 # JAX: the eighth grid runs only above this many quarter lanes (:3812)
 EIGHTH_MIN_QUARTER = 4096
+# JAX: the judged frame traces the quarter grid from this many lanes (:3316)
+JUDGED_MIN_QUARTER = 4096
 
 launches_trace = 0  # K9 launches by the wrappers below
 launches_merge = 0
@@ -87,27 +92,40 @@ def grid_dims(width: int, height: int, levels: int) -> list:
     return dims
 
 
-def adaptive_levels(width: int, height: int,
-                    adaptive: bool | None = None) -> int:
-    """The grid levels the opaque frame traces above the pixels, 0 for the
-    exact frame: the JAX rule (:3776-3800). ``adaptive`` None takes
-    ``VOXELRS_ADAPTIVE`` (an integer; unset: adaptive from 2^18 pixels with
-    both sides over 4), True / False pin it. ``VOXELRS_HIERARCHY`` (unset or
-    not an integer: 1) picks the coarsest grid: 0 the half grid (1 level),
-    1 the quarter grid (2), 2 or more the eighth grid (3) where the quarter
-    grid has at least 4,096 lanes, else the quarter grid."""
+def adaptive_on(width: int, height: int, adaptive: bool | None = None) -> bool:
+    """Whether the JAX rule picks the adaptive frame (:3776-3782, :3104-3108):
+    ``adaptive`` None takes ``VOXELRS_ADAPTIVE`` (an integer; unset:
+    adaptive from 2^18 pixels with both sides over 4), True / False pin
+    it."""
     if adaptive is None:
         env = os.environ.get("VOXELRS_ADAPTIVE")
         adaptive = (bool(int(env)) if env is not None else
                     (width * height >= ADAPTIVE_MIN_PIXELS and width > 4
                      and height > 4))
-    if not adaptive:
-        return 0
+    return bool(adaptive)
+
+
+def hierarchy() -> int:
+    """``VOXELRS_HIERARCHY`` as the JAX frames read it (unset or not an
+    integer: 1)."""
     env = os.environ.get("VOXELRS_HIERARCHY")
     try:
-        hier = int(env) if env else 1
+        return int(env) if env else 1
     except ValueError:
-        hier = 1
+        return 1
+
+
+def adaptive_levels(width: int, height: int,
+                    adaptive: bool | None = None) -> int:
+    """The grid levels the opaque frame traces above the pixels, 0 for the
+    exact frame: the JAX rule (:3776-3800). ``adaptive_on`` decides;
+    ``VOXELRS_HIERARCHY`` (``hierarchy``) picks the coarsest grid: 0 the
+    half grid (1 level), 1 the quarter grid (2), 2 or more the eighth grid
+    (3) where the quarter grid has at least 4,096 lanes, else the quarter
+    grid."""
+    if not adaptive_on(width, height, adaptive):
+        return 0
+    hier = hierarchy()
     if hier < 1:
         return 1
     wq, hq = grid_dims(width, height, 2)[2]
@@ -116,19 +134,18 @@ def adaptive_levels(width: int, height: int,
 
 def frame_levels(width: int, height: int, opaque: bool,
                  adaptive: bool | None = None) -> int:
-    """``adaptive_levels`` for the opaque branch. A translucent world keeps
-    the exact judged frame (the JAX judged adaptive frame, ``_render_frame_
-    judged_adaptive`` :3183, is not ported): there an explicit request for
-    the adaptive frame (``adaptive=True`` or ``VOXELRS_ADAPTIVE`` set to a
-    non-zero integer) raises."""
+    """The grid levels of the frame ``render_frame_deferred`` draws, 0 for
+    the exact frame: ``adaptive_levels`` for an opaque world; for a
+    translucent one the JAX judged rule (:3104-3108, :3311-3316): adaptive
+    by ``adaptive_on``, then the quarter grid (2 levels) where
+    ``hierarchy`` is at least 1 and the quarter grid has at least 4,096
+    lanes, else the half grid (1); never the eighth grid."""
     if opaque:
         return adaptive_levels(width, height, adaptive)
-    env = os.environ.get("VOXELRS_ADAPTIVE")
-    if adaptive or (adaptive is None and env is not None and int(env)):
-        raise NotImplementedError(
-            "the adaptive frame of a translucent world (K9-judged) is not "
-            "ported; render it with adaptive=False")
-    return 0
+    if not adaptive_on(width, height, adaptive):
+        return 0
+    wq, hq = grid_dims(width, height, 2)[2]
+    return 2 if hierarchy() >= 1 and wq * hq >= JUDGED_MIN_QUARTER else 1
 
 
 def grid_pixel_ids(width: int, height: int, level: int,
@@ -584,16 +601,18 @@ def k9_shadow_cells(step: int, fp: _build.FrameParams, hidx, hcount, need,
 # ---------------------------------------------------------------------------
 
 class AdaptiveBuffers:
-    """The adaptive frame's scratch for one frame size and depth of
-    grids: the records of each level, a refine mask and list, the refine
-    counts of each level, the pixel-space shadow need and verdicts, the
-    shadow-pass mask and the dense flag."""
+    """The adaptive frame's scratch for one frame size, depth of grids and
+    record size (``words`` a lane: K9's 8, K9-judged's 16): the records of
+    each level, a refine mask and list, the refine counts of each level,
+    the pixel-space shadow need and verdicts, the shadow-pass mask and the
+    dense flag."""
 
-    def __init__(self, width: int, height: int, levels: int, dev):
-        self.key = (width, height, levels)
+    def __init__(self, width: int, height: int, levels: int, dev,
+                 words: int = REC_WORDS):
+        self.key = (width, height, levels, words)
         dims = grid_dims(width, height, levels)
         B = width * height
-        self.recs = [torch.empty((w * h, REC_WORDS), dtype=i32, device=dev)
+        self.recs = [torch.empty((w * h, words), dtype=i32, device=dev)
                      for w, h in dims]
         self.refine = torch.empty(B, dtype=torch.bool, device=dev)
         self.ridx = torch.empty(B, dtype=i32, device=dev)
@@ -615,7 +634,6 @@ def render_frame_adaptive(world, octree_scale, tables, params, *, levels: int,
     finishing stage. No count leaves the card. ``ws`` is the frame's
     ``DeferredWorkspace``, ``img`` the (H, W, 4) output."""
     W, H = params.width, params.height
-    B = W * H
     ab = ws.adaptive(W, H, levels)
     scale = float(octree_scale)
     tf = None if beams is None else beams.tile_floors
@@ -630,6 +648,18 @@ def render_frame_adaptive(world, octree_scale, tables, params, *, levels: int,
                  count=rcount)
     k9_finalize(scale, params, ab.recs[0], ws.rec, ws.hit, img, ab.needp,
                 ab.blkp)
+    return shade_and_shadow(world, scale, tables, params, 0, beams, light_dir,
+                            ws, ab, img)
+
+
+def shade_and_shadow(world, scale, tables, params, alpha_mode, beams,
+                     light_dir, ws, ab, img):
+    """The adaptive frame's tail on the card, once its hit records are in
+    ``ws.rec`` / ``ws.hit``: K6 over the hits and the shading stage; with
+    shadows, two passes of K9's shadow cells, K6, the certificates (K8, K6)
+    or floors (K7 / K8), the shadow stage (judged unless ``alpha_mode`` is
+    0) and the finishing stage (JAX :3912-4037, :3384-3474)."""
+    B = params.width * params.height
     hidx, hcount = compact.compact_indices(ws.hit, B, out=ws.hidx,
                                            count=ws.hcount, scratch=ws.scratch)
     _build.launch_kd_shade(tables, params, hidx, hcount, ws.rec, ws.color,
@@ -639,8 +669,9 @@ def render_frame_adaptive(world, octree_scale, tables, params, *, levels: int,
         for step in (1, 2):
             k9_shadow_cells(step, params, hidx, hcount, ws.need, ab.needp,
                             ab.blkp, ab.mask, ab.dense, ws.color, ws.ds, img)
-            shading.shadow_pass(world, scale, tables, params, 0, beams,
-                                light_dir, ws, ab.mask, hidx, img,
+            shading.shadow_pass(world, scale, tables, params, alpha_mode,
+                                beams, light_dir, ws, ab.mask, hidx, img,
+                                certify=True,
                                 blkp=ab.blkp if step == 1 else None)
     return img
 
@@ -683,8 +714,24 @@ def render_frame_adaptive_plain(world, octree_scale, mips, mat_params,
     needp = torch.empty(B, dtype=torch.bool, device=dev)
     blkp = torch.empty(B, dtype=torch.bool, device=dev)
     k9_finalize_plain(scale, fp, recs[0], rec, hit, img, needp, blkp)
+    return shade_and_shadow_plain(
+        world, scale, mips, mat_params, mat_tex, fp, rec, hit, img, needp,
+        blkp, cam_pos=cam_pos, light_dir=light_dir,
+        highlight_pos=highlight_pos, max_steps=max_steps, beams=beams,
+        mip_mode=mip_mode, alpha_fn=None)
 
-    # the shading stage on the compacted hit lanes
+
+def shade_and_shadow_plain(world, scale, mips, mat_params, mat_tex, fp, rec,
+                           hit, img, needp, blkp, *, cam_pos, light_dir,
+                           highlight_pos, max_steps: int, beams,
+                           mip_mode: str, alpha_fn):
+    """``shade_and_shadow``'s plain version on any device: the deferred
+    frame's plain shading of the hit records ``rec`` / ``hit`` into
+    ``img``, and with shadows the two passes of the shadow cells, the
+    shadow rays opaque (``alpha_fn`` None) or judged by ``alpha_fn``,
+    certified by the sun map where ``beams`` has one."""
+    dev = rec.device
+    B = fp.width * fp.height
     hidx, hcount = compact.compact_indices_plain(hit, B)
     n = int(hcount)
     lane = hidx[:n].to(i64)
@@ -702,7 +749,7 @@ def render_frame_adaptive_plain(world, octree_scale, mips, mat_params,
     amb = float(fp.ambient)
     flat = img.view(-1, 4)
     flat[lane] = _composite(color, ds, 1.0, amb)
-    if not render_shadows:
+    if not fp.render_shadows:
         return img
     need = torch.zeros(B, dtype=torch.bool, device=dev)
     need[:n] = (res.t < float(fp.shadow_distance)) & (ds > 0)
@@ -718,7 +765,8 @@ def render_frame_adaptive_plain(world, octree_scale, mips, mat_params,
         sidx, scount = compact.compact_indices_plain(mask, B)
         cand = sidx[: int(scount)].to(i64)
         blocked = shading.shadow_blocked_plain(
-            world, scale, sro[cand], ldir, beams, True, None, max_steps)
+            world, scale, sro[cand], ldir, beams, alpha_fn is None, alpha_fn,
+            max_steps, certify=True)
         pix = lane[cand]
         if step == 1:
             blkp[pix] = blocked

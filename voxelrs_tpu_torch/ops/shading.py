@@ -24,9 +24,10 @@ the plain version runs on the CPU and serves the comparisons on the card.
 (``render_frame_deferred`` :3058): the same pixels through stages — the
 primary trace from the beam floors (K7), shading, the shadow trace of the
 compacted candidates (K6) with sun certificates (K8) or floors — built on
-the card from K3's device functions. On an opaque world it takes the JAX
-rule's adaptive thick-ray frame (K9, ``ops/adaptive.py``) from 2^18
-pixels, as the JAX opaque branch does.
+the card from K3's device functions. From 2^18 pixels it takes the JAX
+rule's adaptive thick-ray frame, as the JAX package does: K9
+(``ops/adaptive.py``) on an opaque world, K9-judged
+(``ops/adaptive_judged.py``) on a translucent one.
 """
 
 from __future__ import annotations
@@ -89,12 +90,16 @@ class KernelTables:
     """Texture and material tables as the kernels read them: the flat RGBA
     atlas of all mip levels plus per-level (h, w, offset), the material
     table and the paired-atlas layer tables. Holds the tensors the C struct
-    points into."""
+    points into, and, made at first use and kept, the judged adaptive
+    frame's hole table (``hole``) and the plain alpha judge over the same
+    mips (``alpha_fn``)."""
 
     def __init__(self, mips, mat_tex, mat_params=None):
         T = mips[0].shape[0]
         if len(mips) > _build.MAX_LEVELS or mips[0].shape[-1] != 4:
             raise ValueError("kernels take at most 8 RGBA mip levels")
+        self.mips = tuple(mips)
+        self._hole = self._alpha_fn = None
         self.atlas = torch.cat([m.reshape(-1) for m in mips]).to(torch.float32)
         self.mat_tex = mat_tex.to(torch.int32).contiguous()
         self.mat_params = (None if mat_params is None
@@ -117,6 +122,23 @@ class KernelTables:
             s.pair_normal = self.pair_normal.data_ptr()
             s.pair_cap = self.pair_color.shape[0]
         self.struct = s
+
+    @property
+    def hole(self) -> torch.Tensor:
+        """(mat_rows, n_levels) bool: ``ops.adaptive_judged.hole_table``."""
+        if self._hole is None:
+            from .adaptive_judged import hole_table
+
+            self._hole = hole_table(self.mips, self.mat_tex)
+        return self._hole
+
+    @property
+    def alpha_fn(self) -> "AlphaFn":
+        """``make_alpha_fn(mips, mat_tex)``: the plain judge the kernels
+        inline (texel_alpha, mode 1)."""
+        if self._alpha_fn is None:
+            self._alpha_fn = make_alpha_fn(self.mips, self.mat_tex)
+        return self._alpha_fn
 
 
 def pair_layers(mat_tex, T: int):
@@ -505,33 +527,36 @@ class DeferredWorkspace:
         self.scratch = e(max(1, _build.k6_blocks(B)), i32)
         self._adaptive = None
 
-    def adaptive(self, width: int, height: int, levels: int):
+    def adaptive(self, width: int, height: int, levels: int,
+                 words: int = _build.K9_WORDS):
         """The adaptive frame's buffers (``ops.adaptive.AdaptiveBuffers``)
-        for this frame size and depth of grids, made the first time a
-        frame needs them and kept."""
+        for this frame size, depth of grids and record size (``words``:
+        K9's records, or K9-judged's ``_build.K9J_WORDS``), made the first
+        time a frame needs them and kept."""
         from .adaptive import AdaptiveBuffers
 
         if self._adaptive is None \
-                or self._adaptive.key != (width, height, levels):
+                or self._adaptive.key != (width, height, levels, words):
             self._adaptive = None  # free the old scratch first
             self._adaptive = AdaptiveBuffers(width, height, levels,
-                                             self.key[1])
+                                             self.key[1], words)
         return self._adaptive
 
 
 def shadow_blocked_plain(world, octree_scale, sro, light_dir, beams, opaque,
-                         alpha_fn, max_steps):
+                         alpha_fn, max_steps, certify: bool):
     """The plain deferred frame's shadow verdicts: (k,) bool, the rays from
-    the origins ``sro`` toward the light blocked. Opaque with a sun map:
-    certify what it can (K8's plain version), trace the rest unfloored;
-    otherwise trace, from the floors of ``beams`` where given."""
+    the origins ``sro`` toward the light blocked (judged by ``alpha_fn``
+    unless ``opaque``). ``certify`` with a sun map: certify what it can
+    (K8's plain version), trace the rest unfloored; otherwise trace, from
+    the floors of ``beams`` where given."""
     dev = sro.device
     if sro.shape[0] == 0:
         return torch.zeros(0, dtype=torch.bool, device=dev)
     md = torch.full((sro.shape[0],), -1.0, dtype=torch.float32, device=dev)
     neg_light = -light_dir
     srd = neg_light[None, :].expand(sro.shape).contiguous()
-    if opaque and beams is not None and beams.has_sun():
+    if certify and beams is not None and beams.has_sun():
         sb, n1, d_len, d, origin = beams._sun
         lit, blk = sun_verdict_masks_plain(sb, n1, sro, md, d_len, d, origin,
                                            margin=beams.sun_margin)
@@ -539,7 +564,7 @@ def shadow_blocked_plain(world, octree_scale, sro, light_dir, beams, opaque,
                                                      sro.shape[0])
         todo = tidx[: int(tcount)].to(torch.int64)
         sres = trace_plain(world, octree_scale, sro[todo], srd[todo], -1.0,
-                           False, None, max_steps)
+                           not opaque, alpha_fn, max_steps)
         cblk = blk.clone()
         cblk[todo] = sres.t >= 0
         return cblk
@@ -591,7 +616,7 @@ def render_frame_deferred_plain(world, octree_scale, mips, mat_params,
         cand = sidx[: int(scount)].to(torch.int64)
         blocked[cand] = shadow_blocked_plain(
             world, octree_scale, res_k.pos[cand] + normal[cand] * 0.001,
-            light_dir, beams, opaque, alpha_fn, max_steps)
+            light_dir, beams, opaque, alpha_fn, max_steps, certify=opaque)
     shadow = torch.where(need, torch.where(blocked, 0.0, 1.0), 1.0)
     light = torch.clamp(float(np.float32(ambient)) + ds * shadow, 0.0, 1.0)
     rgb = color[:, :3] * light[:, None]
@@ -641,8 +666,10 @@ def render_frame_deferred(world, octree_scale, mips, mat_params, mat_tex, *,
     4; ``VOXELRS_ADAPTIVE`` and ``VOXELRS_HIERARCHY`` override it, and
     ``adaptive`` True / False pins it): ``ops.adaptive.
     render_frame_adaptive`` (K9) on the card, its plain version on the
-    CPU. A translucent world keeps this exact judged frame; asking it for
-    the adaptive one raises (the judged adaptive frame is not ported)."""
+    CPU. A translucent world takes the JAX judged rule (``ops.adaptive.
+    frame_levels``: the quarter grid from 4,096 quarter lanes, else the half
+    grid) and ``ops.adaptive_judged.render_frame_adaptive_judged``
+    (K9-judged); ``adaptive=False`` keeps this exact judged frame."""
     from .adaptive import frame_levels
 
     return render_frame_deferred_at(
@@ -667,6 +694,7 @@ def render_frame_deferred_at(levels: int, world, octree_scale, mips,
     (``ops.adaptive.frame_levels``; 0 the exact frame), for a caller that
     records the choice, as ``Svo.render`` does."""
     from . import adaptive as _adaptive
+    from . import adaptive_judged
 
     kw = dict(width=width, height=height, render_shadows=render_shadows,
               cam_pos=cam_pos, cam_right=cam_right, cam_up=cam_up,
@@ -678,9 +706,10 @@ def render_frame_deferred_at(levels: int, world, octree_scale, mips,
     buf = world_tensor(world)
     if not buf.is_cuda:
         if levels:
-            return _adaptive.render_frame_adaptive_plain(
-                world, octree_scale, mips, mat_params, mat_tex, beams=beams,
-                levels=levels, mip_mode=mip_mode, **kw)
+            frame = (_adaptive.render_frame_adaptive_plain if opaque else
+                     adaptive_judged.render_frame_adaptive_judged_plain)
+            return frame(world, octree_scale, mips, mat_params, mat_tex,
+                         beams=beams, levels=levels, mip_mode=mip_mode, **kw)
         return render_frame_deferred_plain(world, octree_scale, mips,
                                            mat_params, mat_tex, opaque=opaque,
                                            beams=beams, mip_mode=mip_mode,
@@ -714,9 +743,10 @@ def render_frame_deferred_at(levels: int, world, octree_scale, mips,
     if ws is None or ws.key != (B, dev):
         ws = DeferredWorkspace(B, dev)
     if levels:
-        return _adaptive.render_frame_adaptive(
-            world, scale, tables, params, levels=levels, beams=beams,
-            light_dir=light_dir, ws=ws, img=img)
+        frame = (_adaptive.render_frame_adaptive if opaque else
+                 adaptive_judged.render_frame_adaptive_judged)
+        return frame(world, scale, tables, params, levels=levels, beams=beams,
+                     light_dir=light_dir, ws=ws, img=img)
     _build.launch_kd_primary(world, scale, tables, params, alpha_mode, tf,
                              ws.rec, ws.hit, img)
     launches_primary += 1
@@ -726,24 +756,26 @@ def render_frame_deferred_at(levels: int, world, octree_scale, mips,
                            ws.ds, ws.need, ws.sro, img)
     launches_shade += 1
     if render_shadows:
+        # the exact judged frame floors its shadow rays (JAX :3152-3163)
         shadow_pass(world, scale, tables, params, alpha_mode, beams,
-                    light_dir, ws, ws.need, hidx, img)
+                    light_dir, ws, ws.need, hidx, img, certify=opaque)
     return img
 
 
 def shadow_pass(world, scale, tables, params, alpha_mode, beams, light_dir,
-                ws, mask, hidx, img, blkp=None):
+                ws, mask, hidx, img, *, certify: bool, blkp=None):
     """One shadow pass of the deferred stages on the card over the
-    candidate lanes ``mask`` (of the compacted hits ``hidx``): K6; opaque
-    with a sun map, K8's certificates and K6 over the uncertified, else
-    K7 / K8 floors where ``beams``; the shadow stage; the finishing stage
-    (``blkp``: None, or the pixel-space verdicts it writes)."""
+    candidate lanes ``mask`` (of the compacted hits ``hidx``): K6;
+    ``certify`` with a sun map, K8's certificates and K6 over the
+    uncertified, else K7 / K8 floors where ``beams``; the shadow stage
+    (judged unless ``alpha_mode`` is 0); the finishing stage (``blkp``:
+    None, or the pixel-space verdicts it writes)."""
     global launches_shadow, launches_finish
     B = mask.shape[0]
     sidx, scount = compact.compact_indices(mask, B, out=ws.sidx,
                                            count=ws.scount, scratch=ws.scratch)
     blk = todo = tidx = tcount = floors = None
-    if alpha_mode == 0 and beams is not None and beams.has_sun():
+    if certify and beams is not None and beams.has_sun():
         # certify what the sun map can; trace the rest unfloored
         beams.sun_verdicts(ws.sro, None, idx=sidx, count=scount,
                            todo=ws.todo, out=(ws.lit, ws.blk))

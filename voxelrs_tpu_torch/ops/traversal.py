@@ -104,6 +104,7 @@ class State(NamedTuple):
     stack_node: torch.Tensor  # (H, B) stack words
     stack_tmax: torch.Tensor  # (H, B)
     steps: torch.Tensor
+    passed: torch.Tensor  # a judged cast rejected a candidate leaf
 
 
 def _exp2_scale(scale: torch.Tensor) -> torch.Tensor:
@@ -191,6 +192,7 @@ def init_state(c: RayConsts, root: tuple,
         stack_node=torch.zeros((STACK_HEIGHT, B), dtype=i64, device=dev),
         stack_tmax=torch.zeros((STACK_HEIGHT, B), dtype=f32, device=dev),
         steps=torch.zeros(B, dtype=torch.int32, device=dev),
+        passed=torch.zeros(B, dtype=torch.bool, device=dev),
     )
 
 
@@ -313,7 +315,7 @@ def traversal_step(reader, c: RayConsts, s: State,
 
     # ---- HIT: leaf with positive travel (glsl:185-265) -----------------
     leaf_hit = hit_branch & is_leaf & (s.t_min > 0)
-    adj_count, last_value = s.adj_count, s.last_value
+    adj_count, last_value, passed = s.adj_count, s.last_value, s.passed
     if alpha_fn is not None:
         leaf_value = reader.leaf_value(node, octant_idx)
         face_id, ux, uy, _, tex_lod, _ = _hit_geometry(
@@ -329,6 +331,7 @@ def traversal_step(reader, c: RayConsts, s: State,
                                 adj_count)
         last_value = torch.where(passthrough, leaf_value & _NO_VALUE,
                                  last_value)
+        passed = passed | passthrough
     else:
         accept = active & leaf_hit
 
@@ -428,6 +431,7 @@ def traversal_step(reader, c: RayConsts, s: State,
         stack_node=stack_node,
         stack_tmax=stack_tmax,
         steps=steps,
+        passed=passed,
     )
 
 
