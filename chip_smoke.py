@@ -61,7 +61,24 @@ The game phases count the frames
 that had a sun map and hold the deferred frame of the streamed buffer
 against K3's and against the plain deferred frame, and the adaptive frame
 (the game's own at 1080p) against its plain version, timing the three
-paths once each on that buffer.
+paths once each on that buffer. A batch phase drives the JAX package's
+batched fly-through path, ``Svo.render_batch`` (K10: the opaque frame's
+stages with a pose dimension, each launched once for the 5 bench poses),
+on the ESVO renderer with the envelope and pose 0's sun map shared: counts
+from 0 over one batch and over one frame, on the adaptive branch (the
+1080p default) and on the exact one (``VOXELRS_ADAPTIVE=0``), equal apart
+from the per-pose K7 tile floors; each pose's image against ``Svo.render``
+of that pose given the shared sun map, and the exact batch against K3's
+frames; the batched K9 kernels and K6 with segment starts against their
+plain versions on the batch's own inputs, the batched stages through the
+plain frames of poses 0 and 3; None from the CSVO and translucent
+renderers; then the batch (call to done and two batches in flight, ms a
+pose), the sequential and two-in-flight single frames and the host time
+of one batch call, timed in one run, and the batch workspace's megabytes.
+A probe phase runs the gather probe P0 (``python -m
+voxelrs_tpu_torch.probes.gather_probe``'s 10 configurations, counted from
+0) and holds its kernel to its plain version on the probe's table and a
+random one.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -82,7 +99,12 @@ deferred frame's, mean |d| < 0.002, under 2% of the pixels off by more
 than 1e-3); K9-judged's kernels against their plain versions — equal (the
 finalize's sky within 1e-6), its traces against K1 / K4 judged — every
 field equal; the judged adaptive frame against its plain version — max
-|d| <= 1e-6, against the exact judged frame — the same thick-ray budget.
+|d| <= 1e-6, against the exact judged frame — the same thick-ray budget;
+each pose of a batch against its own frame — max |d| 0, the exact batch
+against K3's — max |d| <= 1e-6; the batched K9 kernels and K6 against
+their plain versions — equal (the finalize's sky within 1e-6), the
+batched stages' images against the plain frames — max |d| <= 1e-6; P0 —
+equal, every configuration and table.
 Both kernels run the same IEEE float32 operations as their
 plain versions in the same order (built with -fmad=false); H100 runs
 measured no difference at all, and the 1e-6 leaves room only for a last-bit
@@ -762,6 +784,9 @@ def main() -> int:
     if not gd < 0.015:
         fail("golden frame over budget")
 
+    # ---- 6b. the gather probe: P0 ------------------------------------------
+    pe = probe_phase(card)
+
     # ---- 7. the renderer's path in CSVO: K4 and K3-CSVO, held to ESVO ------
     c = renderer_phase(csvo, poses, card)
     vs = {f: int((getattr(c["hits"], f) != getattr(e["hits"], f)).sum())
@@ -801,6 +826,9 @@ def main() -> int:
         fail("the translucent world holds no translucent block")
     je = judged_phase(tsvo, thf, poses, card)
     jc = judged_phase(tcsvo, thf, poses, card)
+
+    # ---- 10b. the pose batch: K10 ------------------------------------------
+    be = batch_phase(svo, csvo, tsvo, hf, poses, card)
     del tsvo, tcsvo, tworld, tcworld
 
     # ---- 11. the game loop's path, ESVO then CSVO: counts from 0 ----------
@@ -1000,6 +1028,51 @@ def main() -> int:
             ms_csvo=jc["k9j"][k]["ms"], plain_ms_csvo=jc["k9j"][k]["plain_ms"],
             bound_ms_csvo=jc[f"{k}_bound"][0],
             frame_vs_plain=max(je["vs_plain"], jc["vs_plain"])))
+    # K10: the opaque frame's stages with a pose dimension, each launched
+    # once for the batch; K9's and K6's held to their plain versions on the
+    # batch's own inputs, the stages (whose plain version is the plain
+    # frame) through the plain frames of two poses; "ms" sums the kernel's
+    # launches in one batch of the 5 poses, alone
+    k10_src = dict(k9="voxelrs_tpu_torch/csrc/k9_adaptive.cuh",
+                   k6="voxelrs_tpu_torch/csrc/k6_compact.cuh",
+                   kd="voxelrs_tpu_torch/csrc/kernels.cu")
+    for name, r in be["kernels"].items():
+        bd = be["bounds"][name]
+        kernels.append(dict(
+            name="k10_" + ("k6_compact" if name == "k6" else name),
+            route="cuda", source=k10_src[name[:2]],
+            replaces="voxelrs_tpu/ops/shading.py:3580",
+            launches=(be["launches_exact"] if name == "kd_primary"
+                      else be["launches"])[name],
+            max_abs_err=r.get("err", be["stage_err"]), ms=r["ms"],
+            plain_ms=r.get("plain_ms", be["stage_plain_ms"]),
+            bound_ms=bd[0], bound_by=bd[1],
+            library_ms=be["k6_library_ms"] if name == "k6" else None,
+            ok=r.get("equal", be["stage_err"] <= K3_MAX_ABS),
+            poses=POSES, launches_per_batch=r["calls"],
+            launches_one_frame=(be["launches_frame_exact"]
+                                if name == "kd_primary"
+                                else be["launches_frame"])[name],
+            **({} if "equal" in r else dict(
+                plain_is="the plain frames of poses 0 and 3, adaptive "
+                         "(exact for kd_primary)"))))
+    # P0: each kind at its largest table, every configuration beside
+    for kind in ("flat", "axis0", "axis1", "two_step"):
+        runs = [r for r in pe["runs"] if r["kind"] == kind]
+        big = max(runs, key=lambda r: r["rows"])
+        kernels.append(dict(
+            name=f"p0_gather_{kind}", route="cuda",
+            source="voxelrs_tpu_torch/csrc/p0_gather.cuh",
+            replaces="scripts/probes/pallas_probe.py:32",
+            launches=sum(r["launches"] for r in runs),
+            max_abs_err=max(r["err"] for r in runs), ms=big["ms"],
+            plain_ms=big["plain_ms"], bound_ms=big["bound"][0],
+            bound_by=big["bound"][1], library_ms=None,
+            ok=all(r["equal"] for r in runs), rows=big["rows"],
+            configs=[dict(rows=r["rows"], sub=r["sub"], ms=r["ms"],
+                          g_gathers_per_s=r["g_gathers_per_s"],
+                          plain_ms=r["plain_ms"], equal=r["equal"])
+                     for r in runs]))
     for kd in kernels:
         if kd["name"].startswith("kd_"):
             st = kd["name"][3:]
@@ -1061,6 +1134,16 @@ def main() -> int:
                     "judged_certificates_vs_traces_csvo": jc[
                         "certificates_vs_traces"],
                     "translucent_world": tinfo,
+                    "batched_frame_ms": be["batched_frame_ms"],
+                    "batch_seq_frame_ms": be["seq_frame_ms"],
+                    "batch_piped_frame_ms": be["piped_frame_ms"],
+                    "batched_piped_frame_ms": be["batched_piped_frame_ms"],
+                    "batch_host_us": be["host_us"],
+                    "batch_exact_batched_frame_ms": be[
+                        "exact_batched_frame_ms"],
+                    "batch_exact_seq_frame_ms": be["exact_seq_frame_ms"],
+                    "batch_workspace_mb": be["workspace_mb"],
+                    "batch_branches": be["branches"],
                     "floored": de["floored"], "floored_csvo": dc["floored"],
                     "card": card, "build_s": _build.build_seconds,
                     "native_build_s": native.build_seconds, "total_s": total,
@@ -2510,6 +2593,486 @@ def judged_phase(svo, hf, poses, card) -> dict:
         + f"; host time of the judged call {out['host_us']:.1f} us; "
         f"refined lanes of the last timed frame (pose 0) "
         f"{json.dumps(out['refined_after_window'])}; on {card}")
+    return out
+
+
+def workspace_mb(ws) -> float:
+    """Megabytes of the tensors of a ``DeferredWorkspace`` and its adaptive
+    buffers."""
+    import torch
+
+    def tensors(o):
+        for v in vars(o).values():
+            if isinstance(v, torch.Tensor):
+                yield v
+            elif isinstance(v, list):
+                yield from (t for t in v if isinstance(t, torch.Tensor))
+
+    total = sum(t.numel() * t.element_size() for t in tensors(ws))
+    if ws._adaptive is not None:
+        total += sum(t.numel() * t.element_size()
+                     for t in tensors(ws._adaptive))
+    return total / 1e6
+
+
+def two_in_flight_ms(calls) -> float:
+    """Mean milliseconds a call of ``calls`` (functions called in turn),
+    issued with two in flight: the next is issued before the last is
+    waited for (CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ends = []
+    start.record()
+    for i, fn in enumerate(calls):
+        fn()
+        e = torch.cuda.Event()
+        e.record()
+        ends.append(e)
+        if i >= 1:
+            ends[i - 1].synchronize()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(calls)
+
+
+def batch_trace_steps(svo, fp, cams, tf, level, lanes) -> int:
+    """Traversal steps of a batched K9 trace's lanes (pose-major), from K1
+    on the same pixel rays from the same floors, pose by pose."""
+    from voxelrs_tpu_torch.ops import adaptive, beams, shading, traversal
+
+    dev = lanes.device
+    w, h = adaptive.grid_dims(W, H, level)[level]
+    n = w * h
+    steps = 0
+    for q in range(cams.shape[0]):
+        mine = lanes[(lanes >= q * n) & (lanes < (q + 1) * n)] - q * n
+        if mine.numel() == 0:
+            continue
+        ids = adaptive.grid_pixel_ids(W, H, level, dev)[mine]
+        ro, rd = adaptive._frame_rays(shading.pose_params(fp, cams, q), ids)
+        k1 = traversal.intersect_octree(svo.world(), float(svo.octree_scale),
+                                        ro, rd, -1.0, False,
+                                        t_floor=beams.pixel_floors_at(
+                                            tf[q], ids, W))
+        steps += int(k1.steps.sum())
+    return steps
+
+
+def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
+    """K10: ``Svo.render_batch`` (ESVO, the 5 bench poses at 1920x1080 with
+    shadows, the envelope and pose 0's sun map shared): counts from 0 over
+    one batch and one frame on the adaptive branch (the 1080p default) and
+    on the exact one (``VOXELRS_ADAPTIVE=0``), equal apart from the
+    per-pose tile floors; each pose's image against ``Svo.render`` of that
+    pose given the shared sun map (max |d| 0) on both branches, the exact
+    one against K3's; the batched K9 and K6 launches against their plain
+    versions on the batch's own inputs (every pose) and the batched stages
+    through the plain frames of poses 0 and 3; the CSVO and translucent
+    renderers' None; the batch, sequential and two-in-flight frames and the
+    host time of a batch call in one run, and the workspace's megabytes."""
+    import numpy as np
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import (adaptive, beams, compact, shading,
+                                       traversal)
+
+    dev = svo.device_buf.device
+    N, B = len(poses), W * H
+    svo.set_heightfield(hf)
+    out = {}
+    sun0 = svo.beam_context(poses[0], W, H)._sun
+    if sun0 is None:
+        fail("the bench scene has no sun map for the batch")
+
+    def singles(**kw):
+        return [svo.render(p, W, H, beams=svo.beam_context(
+            p, W, H, shared_sun=sun0), **kw) for p in poses]
+
+    def counted(fn):
+        zero_deferred_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, deferred_counts()
+
+    levels = adaptive.adaptive_levels(W, H)
+    with Phase("batch main path (esvo)"):
+        svo.render_batch(poses, W, H)  # warm-up: workspace, tables
+        imgs, nb = counted(lambda: svo.render_batch(poses, W, H))
+        info = dict(svo.last_frame)
+        ab = svo._batch_workspace._adaptive
+        dense, hstart = ab.dense.tolist(), ab.hstart.tolist()
+        hits_total = int(svo._batch_workspace.hcount)
+        _, n1 = counted(lambda: svo.render(poses[0], W, H))
+        os.environ["VOXELRS_ADAPTIVE"] = "0"
+        try:
+            svo.render_batch(poses, W, H)
+            imgs_e, nbe = counted(lambda: svo.render_batch(poses, W, H))
+            hits_total_e = int(svo._batch_workspace.hcount)
+            _, n1e = counted(lambda: svo.render(poses[0], W, H))
+        finally:
+            del os.environ["VOXELRS_ADAPTIVE"]
+        out["workspace_mb"] = workspace_mb(svo._batch_workspace)
+    hits = [(hstart + [hits_total])[q + 1] - hstart[q] for q in range(N)]
+    out["launches"], out["launches_exact"] = nb, nbe
+    out["launches_frame"], out["launches_frame_exact"] = n1, n1e
+    out["branches"] = [dict(hits=h, dense=bool(d),
+                            dense_rule=adaptive.dense_frame(h, B))
+                       for h, d in zip(hits, dense)]
+    log(f"batch main path (esvo, {N} poses, adaptive): launches "
+        f"{json.dumps(nb)}; one frame {json.dumps(n1)}; exact branch "
+        f"(VOXELRS_ADAPTIVE=0): batch {json.dumps(nbe)}, one frame "
+        f"{json.dumps(n1e)}; {json.dumps(info)}; per-pose hits and dense "
+        f"flags {json.dumps(out['branches'])}; workspace "
+        f"{out['workspace_mb']:.1f} MB ({out['workspace_mb'] / N:.1f} MB a "
+        f"pose)")
+    for a, b, name in ((nb, n1, "adaptive"), (nbe, n1e, "exact")):
+        if any(a[k] != b[k] for k in a if not k.startswith("k7")) \
+                or a["k7_shadow"] != b["k7_shadow"] \
+                or (a["k7_tile"], b["k7_tile"]) != (N, 1):
+            fail(f"the {name} batch made other launches than one frame "
+                 "(apart from its per-pose tile floors)")
+    if not all(nb[f"k9_{k}"] for k in K9) or not (
+            nb["k6"] and nb["k8"] and nb["kd_shade"] and nb["kd_shadow"]
+            and nb["kd_finish"]) or nb["kd_primary"] or not (
+            nbe["kd_primary"] and nbe["kd_shade"] and nbe["kd_shadow"]
+            and nbe["kd_finish"]) or any(nbe[f"k9_{k}"] for k in K9):
+        fail("the batch launched another set of kernels")
+    if info.get("mode") != "batch" or not (info.get("adaptive")
+                                           and info.get("sun")) \
+            or info.get("hierarchy") != levels - 1:
+        fail("the batch did not take the adaptive branch with the sun map")
+    if any(b["dense"] != b["dense_rule"] for b in out["branches"]):
+        fail("a pose of the batch took the wrong shadow branch")
+    for im in (imgs, imgs_e):
+        if tuple(im.shape) != (N, H, W, 4) or not bool(
+                torch.isfinite(im).all()):
+            fail("the batch has the wrong shape or non-finite values")
+
+    with Phase("batch vs single frames and k3 (esvo)"):
+        vs_single = [max_abs(imgs[q], s) for q, s in enumerate(singles())]
+        os.environ["VOXELRS_ADAPTIVE"] = "0"
+        try:
+            vs_single_e = [max_abs(imgs_e[q], s)
+                           for q, s in enumerate(singles())]
+        finally:
+            del os.environ["VOXELRS_ADAPTIVE"]
+        vs_k3 = [max_abs(imgs_e[q], svo.render(p, W, H, mode="fused"))
+                 for q, p in enumerate(poses)]
+        none = dict(csvo=csvo.render_batch(poses, W, H) is None,
+                    translucent=tsvo.render_batch(poses, W, H) is None)
+    out["vs_single"], out["vs_single_exact"], out["vs_k3"] = (
+        vs_single, vs_single_e, vs_k3)
+    out["none"] = none
+    log(f"batch vs Svo.render of each pose given pose 0's sun map (esvo; "
+        f"max |d|, must be 0): adaptive {vs_single}, exact {vs_single_e}; "
+        f"the exact batch vs K3's frames: {vs_k3} (tolerance "
+        f"{K3_MAX_ABS:g}); None for the CSVO and translucent renderers: "
+        f"{json.dumps(none)}")
+    if any(vs_single) or any(vs_single_e):
+        fail("a pose of the batch differs from its own frame")
+    if not all(v <= K3_MAX_ABS for v in vs_k3):
+        fail("the exact batch disagrees with K3's frames")
+    if not all(none.values()):
+        fail("render_batch did not return None where the JAX package does")
+
+    with Phase("k10 kernels vs plain, alone (esvo)"):
+        names = [f"k9_{k}" for k in K9]
+        spies = {k: Spy(adaptive, k) for k in names}
+        spies["k6"] = Spy(compact, "compact_indices")
+        spies.update({f"kd_{s}": Spy(_build, f"launch_kd_{s}")
+                      for s in STAGES if s != "primary"})
+        for sp in spies.values():
+            sp.__enter__()
+        try:
+            svo.render_batch(poses, W, H)
+        finally:
+            for sp in spies.values():
+                sp.__exit__()
+        os.environ["VOXELRS_ADAPTIVE"] = "0"
+        try:
+            with Spy(_build, "launch_kd_primary") as prim:
+                svo.render_batch(poses, W, H)
+        finally:
+            del os.environ["VOXELRS_ADAPTIVE"]
+        spies["kd_primary"] = prim
+        torch.cuda.synchronize()
+        res = {}
+        for name in names + ["k6"]:
+            r = res[name] = dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0,
+                                 calls=len(spies[name].calls))
+            for args, kw in spies[name].calls:
+                if name == "k6":
+                    mask, size = args
+                    starts = kw.get("starts")
+                    ks = None if starts is None else starts.clone()
+                    ki, kc = compact.compact_indices(mask, size, starts=ks)
+                    ps = None if starts is None else starts.clone()
+                    pms = event_ms(lambda: compact.compact_indices_plain(
+                        mask, size, starts=ps))
+                    pi, pc = compact.compact_indices_plain(mask, size,
+                                                           starts=ps)
+                    pairs = [(ki, pi), (kc, pc)] + (
+                        [] if ks is None else [(ks, ps)])
+                    o, c, sc = (torch.empty_like(ki), torch.empty_like(kc),
+                                torch.empty(_build.k6_blocks(mask.shape[0]),
+                                            dtype=torch.int32, device=dev))
+                    kms = kernel_ms(lambda: _build.launch_k6(
+                        mask, size, o, c, sc,
+                        None if starts is None else starts.clone()))
+                else:
+                    kargs = [a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args]
+                    pargs = [a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args]
+                    targs = [a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args]
+                    spies[name].fn(*kargs, **kw)
+                    plain = getattr(adaptive, f"{name}_plain")
+                    pms = event_ms(lambda: plain(*pargs, **kw))
+                    launch = getattr(_build, f"launch_{name}")
+                    kms = kernel_ms(lambda: launch(*targs, **kw))
+                    pairs = [(a, b) for a, b in zip(kargs, pargs)
+                             if isinstance(a, torch.Tensor)]
+                errs = [max_abs(a, b) for a, b in pairs]
+                # the finalize's sky: within 1e-6 (acosf); all else equal
+                eq = all(bits_equal(a, b) or (name == "k9_finalize"
+                                              and a.dtype == torch.float32
+                                              and e <= K3_MAX_ABS)
+                         for (a, b), e in zip(pairs, errs))
+                r["equal"] &= eq
+                r["err"] = max(r["err"], *errs)
+                r["ms"] += kms
+                r["plain_ms"] += pms
+        # the stages alone (spied launch arguments replayed)
+        for s in STAGES:
+            sp = spies[f"kd_{s}"]
+            res[f"kd_{s}"] = dict(calls=len(sp.calls), ms=sum(
+                kernel_ms(lambda a=a, k=k: sp.fn(*a, **k))
+                for a, k in sp.calls))
+        # the stages' plain version: the plain frames of poses 0 and 3
+        kws = [svo.frame_kwargs(p, W, H) for p in poses]
+        tf = torch.stack([svo.beam_context(p, W, H).tile_floors
+                          for p in poses])
+        ctx0 = svo.beam_context(poses[0], W, H)
+        pick = (0, 3)
+
+        def plain_frames(lv):
+            k0 = kws[0]
+            return shading.render_frames_opaque_batch_plain(
+                svo.world(), svo.octree_scale, svo.mips, svo.mat_params,
+                svo.mat_tex, tuple(np.stack([kws[q][k] for q in pick]) for k
+                                   in ("cam_pos", "cam_right", "cam_up",
+                                       "cam_fwd")),
+                k0["fov_y_rad"], k0["aspect"], k0["ambient"],
+                k0["light_dir"], k0["shadow_distance"],
+                np.full(3, np.nan, np.float32), width=W, height=H,
+                render_shadows=True, beams_shared=ctx0,
+                t_floor_stack=tf[list(pick)].contiguous(), levels=lv)
+
+        box = []
+        stage_plain_ms = event_ms(lambda: box.append(plain_frames(levels)))
+        stage_err = max(max_abs(imgs[q], box[0][i])
+                        for i, q in enumerate(pick))
+        ex = plain_frames(0)
+        stage_err = max(stage_err, *(max_abs(imgs_e[q], ex[i])
+                                     for i, q in enumerate(pick)))
+        # bounds, from this run's inputs
+        world_bytes = svo.device_buf.numel() * 4
+        ntiles = -(-W // 8) * -(-H // 8)
+        tr_bytes, tr_ops = world_bytes, 0
+        for args, kw in spies["k9_trace"].calls:
+            _w, _s, fp, tfl, level, rec0 = args
+            idx, cnt, cams = kw.get("idx"), kw.get("count"), kw["cams"]
+            lanes = (torch.arange(rec0.shape[0], device=dev) if idx is None
+                     else idx[: int(cnt)].long())
+            tr_ops += (batch_trace_steps(svo, fp, cams, tfl, level, lanes)
+                       * OPS_PER_STEP + lanes.shape[0] * OPS_K9_RAY)
+            tr_bytes += (lanes.shape[0] * 32 + N * ntiles * 4
+                         + (0 if idx is None else lanes.shape[0] * 4 + 4))
+        mg_bytes = mg_ops = 0
+        for args, _kw in spies["k9_merge"].calls:
+            _s, _fp, level, lo, hi0, _r = args
+            wl, hl = adaptive.grid_dims(W, H, level)[level]
+            g = adaptive.coarse_grid(wl, hl, dev)
+            sample = g.sample_masks()[0]
+            nlo = lo.shape[0] // N
+            for q in range(N):
+                h4 = g.up4((lo[q * nlo:(q + 1) * nlo, 6] & 1) != 0)
+                mg_ops += int((h4[0] & h4[1] & h4[2] & h4[3]
+                               & ~sample).sum()) * (OPS_K9_RAY + OPS_K9_FILL)
+            mg_bytes += lo.shape[0] * 32 + hi0.shape[0] * 33
+        fin_hits = hits_total
+        cells_bytes = 0
+        for args, _kw in spies["k9_shadow_cells"].calls:
+            nh = int(args[3])
+            cells_bytes += nh * (4 + 1 + 1 + 1) + (nh * 8 if args[0] == 2
+                                                   else 4 * N)
+        # the masks in, the set lanes' indices, the counts and starts out
+        k6_bytes = sum(int(a[0].shape[0]) + int(a[0].sum()) * 4 + 4
+                       + (4 * N if k.get("starts") is not None else 0)
+                       for a, k in spies["k6"].calls)
+        # the shadow stage's traced rays and their steps (K1 from the same
+        # origins and floors), and its candidates
+        sh_bytes, sh_ops, cand = 0, 0, 0
+        light = None
+        for args, _kw in spies["kd_shadow"].calls:
+            (_w, _s, _t, _fp, _am, sro, sidx, scount, tidx, tcount, floors,
+             _tr) = args
+            c = (tidx[: int(tcount)].long() if tidx is not None
+                 else torch.arange(int(scount), device=dev))
+            origins = sro[sidx[c].long()].contiguous()
+            if light is None:
+                light = -torch.as_tensor(np.asarray(kws[0]["light_dir"],
+                                                    np.float32), device=dev)
+            srd = light.expand(origins.shape).contiguous()
+            st = traversal.intersect_octree(
+                svo.world(), float(svo.octree_scale), origins, srd, -1.0,
+                False, t_floor=None if floors is None else floors[c])
+            sh_ops += int(st.steps.sum()) * OPS_PER_STEP
+            sh_bytes += world_bytes + c.shape[0] * (4 + 4 + 12 + 1)
+            cand += int(scount)
+        # the exact branch's primary: every pixel of every pose from its
+        # tile floors
+        pr_ops = 0
+        for q, p in enumerate(poses):
+            ro, rd = primary_rays(svo, p)
+            k1 = traversal.intersect_octree(
+                svo.world(), float(svo.octree_scale), ro, rd, -1.0, False,
+                t_floor=beams.pixel_floors(tf[q], width=W, height=H))
+            pr_ops += int(k1.steps.sum()) * OPS_PER_STEP
+        NB = N * B
+        out["bounds"] = dict(
+            k9_trace=bound(tr_bytes, tr_ops),
+            k9_merge=bound(mg_bytes, mg_ops),
+            k9_finalize=bound(NB * 32 + NB * 36 + NB + (NB - fin_hits) * 16
+                              + 2 * NB, NB * OPS_K9_RAY
+                              + fin_hits * OPS_K9_FINALIZE),
+            k9_shadow_cells=bound(cells_bytes, 0),
+            k6=bound(k6_bytes, 0),
+            # tile floors in; hit records, hit mask and sky pixels out
+            kd_primary=bound(world_bytes + N * ntiles * 4 + NB * 37
+                             + (NB - hits_total_e) * 16, pr_ops),
+            kd_shade=bound(fin_hits * (4 + 36 + 16 + 4 + 1 + 12 + 16),
+                           fin_hits * OPS_PER_PIXEL),
+            kd_shadow=bound(sh_bytes, sh_ops),
+            kd_finish=bound(cand * (4 + 4 + 3 + 16 + 4 + 16), cand * 10))
+        # K6's library yardstick: torch.nonzero plus the pad on the batch's
+        # hit mask
+        hmask, hsize = next(a for a, k in spies["k6"].calls
+                            if k.get("starts") is not None)
+
+        def library():
+            nz = torch.nonzero(hmask).flatten()[:hsize].to(torch.int32)
+            return torch.nn.functional.pad(nz, (0, hsize - nz.shape[0]))
+
+        out["k6_library_ms"] = event_ms(library)
+    out["kernels"], out["stage_plain_ms"], out["stage_err"] = (
+        res, stage_plain_ms, stage_err)
+    out["ok"] = all(r.get("equal", True) for r in res.values()) \
+        and stage_err <= K3_MAX_ABS
+    for name, r in res.items():
+        bd = out["bounds"][name]
+        log(f"k10 {name} (esvo, the batch's {r['calls']} launches, {N} "
+            f"poses): " + (f"equal to its plain version {r['equal']} (max "
+                           f"|d| {r['err']:.3g}), plain {r['plain_ms']:.2f} "
+                           "ms, " if "equal" in r else "")
+            + f"alone {r['ms']:.4f} ms, bound {bd[0]:.4g} ms ({bd[1]}) on "
+            f"{card}")
+    log(f"k10 stages vs their plain version (the plain frames of poses "
+        f"{list(pick)}, adaptive and exact): max |d| {stage_err:.3g} "
+        f"(tolerance {K3_MAX_ABS:g}); plain adaptive frames "
+        f"{stage_plain_ms:.1f} ms")
+    if not out["ok"]:
+        fail("a batched kernel disagrees with its plain version")
+
+    with Phase("batch timing (esvo)"):
+        for p in poses:  # warm-up
+            svo.render(p, W, H)
+        svo.render_batch(poses, W, H)
+        batch_ms = sorted(cuda_ms(lambda: svo.render_batch(poses, W, H), 1)
+                          / N for _ in range(REPS))
+        seq = sorted(cuda_ms(lambda: svo.render(p, W, H), REPS)
+                     for p in poses)
+        piped = two_in_flight_ms([lambda p=p: svo.render(p, W, H)
+                                  for p in poses] * REPS)
+        batch_piped = two_in_flight_ms(
+            [lambda: svo.render_batch(poses, W, H)] * REPS) / N
+        out["host_us"] = host_us(lambda: svo.render_batch(poses, W, H))
+        os.environ["VOXELRS_ADAPTIVE"] = "0"
+        try:
+            svo.render_batch(poses, W, H)
+            exact_batch_ms = sorted(
+                cuda_ms(lambda: svo.render_batch(poses, W, H), 1) / N
+                for _ in range(REPS))[REPS // 2]
+            exact_seq = sorted(cuda_ms(lambda: svo.render(p, W, H), REPS)
+                               for p in poses)[N // 2]
+        finally:
+            del os.environ["VOXELRS_ADAPTIVE"]
+    out["batched_frame_ms"] = batch_ms[REPS // 2]
+    out["seq_frame_ms"] = seq[N // 2]
+    out["piped_frame_ms"] = piped
+    out["batched_piped_frame_ms"] = batch_piped
+    out["exact_batched_frame_ms"] = exact_batch_ms
+    out["exact_seq_frame_ms"] = exact_seq
+    log(f"batch timing (esvo, {N} poses at {W}x{H}, CUDA events): "
+        f"batched_frame_ms {out['batched_frame_ms']:.3f} ms a pose (the "
+        f"batch {out['batched_frame_ms'] * N:.3f} ms; per run "
+        f"{[round(x, 3) for x in batch_ms]}; two batches in flight "
+        f"{batch_piped:.3f} ms a pose), sequential frames "
+        f"{out['seq_frame_ms']:.3f} ms, two in flight {piped:.3f} ms; "
+        f"host time of one batch call {out['host_us']:.1f} us; exact "
+        f"branch: batched {exact_batch_ms:.3f} ms a pose, sequential "
+        f"{exact_seq:.3f} ms, in the same run on {card}")
+    return out
+
+
+def probe_phase(card) -> dict:
+    """P0: the gather probe's entry point over every configuration, counted
+    from 0 (the probe's own timing: median of 5), then each configuration's
+    kernel against its plain version bit for bit on the probe's table and
+    a random one, the plain version timed."""
+    import torch
+
+    from voxelrs_tpu_torch.probes import gather_probe as gp
+
+    out = {}
+    with Phase("probe main path"):
+        gp.launches = 0
+        runs = []
+        for kind, rows, sub in gp.probe_configs():
+            c0 = gp.launches
+            runs.append(gp.run(kind, rows, sub, card))
+            runs[-1]["launches"] = gp.launches - c0
+        torch.cuda.synchronize()
+        out["launches"] = gp.launches
+    with Phase("probe vs plain"):
+        for r in runs:
+            seeds = gp.random_words((r["sub"], 128), seed=3, high=1 << 30,
+                                    device="cuda")
+            eq, err = True, 0.0
+            for tbl in (gp.arange_table(r["rows"], "cuda"),
+                        gp.random_words((r["rows"], 128), seed=r["rows"],
+                                        device="cuda")):
+                k = gp.gather_probe(tbl, seeds, r["kind"])
+                box = []
+                pms = event_ms(lambda: box.append(gp.gather_probe_plain(
+                    tbl, seeds, r["kind"])))
+                eq &= bool(torch.equal(k, box[0]))
+                err = max(err, float((k.long() - box[0].long()).abs().max()))
+            r.update(equal=eq, err=err, plain_ms=pms,
+                     bound=bound(r["sub"] * 128 * gp.N_STEPS * 4, 0))
+    out["runs"] = runs
+    out["ok"] = all(r["equal"] for r in runs)
+    log(f"probe (P0, {out['launches']} launches over "
+        f"{len(runs)} configurations): " + "; ".join(
+            f"{r['kind']} rows {r['rows']}: {r['ms']:.4f} ms, "
+            f"{r['g_gathers_per_s']:.3f} G gathers/s, equal {r['equal']}, "
+            f"plain {r['plain_ms']:.1f} ms" for r in runs) + f" on {card}")
+    if not out["ok"]:
+        fail("the gather probe disagrees with its plain version")
     return out
 
 

@@ -1,10 +1,11 @@
-"""Kernels K1, K3, K4, K5, K6, K7, K8 and K9 against their plain PyTorch
-versions on a CUDA card (K3, K5 and K9's trace in both their ESVO and CSVO
-instantiations), K1 and K4 from the beam floors against their unfloored
-runs, the deferred frame against K3's fused frame in both formats, the
-adaptive frame against its plain version, the game loop launching K5 and
-the deferred frame's kernels in both formats, and the crosshair overlay on
-the card against the CPU.
+"""Kernels K1, K3, K4, K5, K6, K7, K8, K9, K10 (K9's kernels and K6 with a
+pose dimension) and P0 against their plain PyTorch versions on a CUDA card
+(K3, K5 and K9's trace in both their ESVO and CSVO instantiations), K1 and
+K4 from the beam floors against their unfloored runs, the deferred frame
+against K3's fused frame in both formats, the adaptive frame against its
+plain version, a pose batch against each pose's own frame, the game loop
+launching K5 and the deferred frame's kernels in both formats, and the
+crosshair overlay on the card against the CPU.
 
 Every test here needs the card (marker ``cuda``) and skips without one. The
 file imports neither JAX nor ``voxelrs_tpu``, so it also runs where JAX is
@@ -862,3 +863,154 @@ def test_judged_adaptive_frame_equals_plain(judged_scenes, dev, fmt, cam,
         **s.frame_kwargs(p, TW, TH), beams=ctx, levels=1)
     torch.cuda.synchronize()
     assert float((img - ref).abs().max()) <= K3_MAX_ABS
+
+
+# ---- K10: a batch of poses -------------------------------------------------
+
+BATCH_CAMS = ("horizon", "down", "on-ground")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+def test_batched_stages_equal_plain(terrains, dev, fmt, monkeypatch):
+    """Each pose-batched K9 kernel and K6 with segment starts against its
+    plain version on the batch's own inputs (3 poses, the quarter grid),
+    bit for bit (the finalize's sky within 1e-6: acosf). The world's
+    format picks the trace's instantiation (the CSVO one is reached by
+    ``render_frames_opaque_batch`` on a CSVO world; ``Svo.render_batch``
+    returns None for it, as in the JAX package)."""
+    s = terrains[(fmt, False)]
+    monkeypatch.setenv("VOXELRS_ADAPTIVE", "1")
+    poses = [_tparams(c) for c in BATCH_CAMS]
+    ctx0 = s.beam_context(poses[0], TW, TH)
+    ctxs = [s.beam_context(p, TW, TH, shared_sun=ctx0._sun) for p in poses]
+    kws = [s.frame_kwargs(p, TW, TH) for p in poses]
+    cam_stack = tuple(np.stack([kw[k] for kw in kws]) for k in (
+        "cam_pos", "cam_right", "cam_up", "cam_fwd"))
+    k0 = kws[0]
+    calls = {}
+    names = ("k9_trace", "k9_merge", "k9_finalize", "k9_shadow_cells")
+    for mod, name in [(adaptive, n) for n in names] + [(compact,
+                                                        "compact_indices")]:
+        fn = getattr(mod, name)
+        calls[name] = []
+
+        def run(*args, _fn=fn, _name=name, **kw):
+            keep = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+            calls[_name].append(([keep(a) for a in args],
+                                 {k: keep(v) for k, v in kw.items()}))
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(mod, name, run)
+    shading.render_frames_opaque_batch(
+        s.world(), s.octree_scale, s.mips, s.mat_params, s.mat_tex, cam_stack,
+        k0["fov_y_rad"], k0["aspect"], k0["ambient"], k0["light_dir"],
+        k0["shadow_distance"], k0["highlight_pos"], width=TW, height=TH,
+        render_shadows=True, beams_shared=ctx0,
+        t_floor_stack=torch.stack([c.tile_floors for c in ctxs]))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert [len(calls[n]) for n in names] == [3, 2, 1, 2]
+    assert len(calls["compact_indices"]) == 7
+    for name in names:
+        kernel, plain = getattr(adaptive, name), getattr(adaptive,
+                                                         f"{name}_plain")
+        for args, kw in calls[name]:
+            ka = [a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+            pa = [a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+            kernel(*ka, **kw)
+            plain(*pa, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(ka, pa):
+                if not isinstance(a, torch.Tensor):
+                    continue
+                if name == "k9_finalize" and a.dtype == torch.float32:
+                    assert float((a - b).abs().max()) <= K3_MAX_ABS
+                    continue
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b), name
+    starts_seen = 0
+    for (mask, size), kw in calls["compact_indices"]:
+        st = kw.get("starts")
+        ks = None if st is None else st.clone()
+        ps = None if st is None else st.clone()
+        ki, kc = compact.compact_indices(mask, size, starts=ks)
+        pi, pc = compact.compact_indices_plain(mask, size, starts=ps)
+        assert torch.equal(ki, pi) and torch.equal(kc, pc)
+        if st is not None:
+            starts_seen += 1
+            assert torch.equal(ks, ps) and ks.shape[0] == len(poses)
+    assert starts_seen == 1  # the hits' compaction
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["adaptive", "exact"])
+def test_render_batch_equals_per_pose_render(terrains, dev, branch,
+                                             monkeypatch):
+    """``Svo.render_batch`` against ``Svo.render`` of each pose given pose
+    0's sun map, bit for bit, with the batch's stage launches those of one
+    frame (apart from the per-pose tile floors); the exact branch within
+    1e-6 of K3's frames."""
+    monkeypatch.setenv("VOXELRS_ADAPTIVE", "1" if branch == "adaptive"
+                       else "0")
+    s = terrains[("esvo", False)]
+    poses = [_tparams(c) for c in BATCH_CAMS]
+    s.render_batch(poses, TW, TH)
+    counters = [(shading, f"launches_{st}") for st in
+                ("primary", "shade", "shadow", "finish")] + [
+        (compact, "launches"), (beams, "launches_tile"),
+        (beams, "launches_sun")] + [
+        (adaptive, f"launches_{k}") for k in ("trace", "merge", "finalize",
+                                              "shadow_cells")]
+
+    def launches(fn):
+        n0 = [getattr(m, c) for m, c in counters]
+        r = fn()
+        torch.cuda.synchronize()
+        return r, [getattr(m, c) - n for (m, c), n in zip(counters, n0)]
+
+    imgs, nb = launches(lambda: s.render_batch(poses, TW, TH))
+    _, n1 = launches(lambda: s.render(poses[0], TW, TH))
+    tile = counters.index((beams, "launches_tile"))
+    assert nb[tile] == len(poses) and n1[tile] == 1
+    nb[tile] = n1[tile] = 0
+    assert nb == n1 and any(nb)
+    assert s.last_frame["adaptive"] == (branch == "adaptive")
+    assert tuple(imgs.shape) == (len(poses), TH, TW, 4)
+    sun0 = s.beam_context(poses[0], TW, TH)._sun
+    for i, p in enumerate(poses):
+        single = s.render(p, TW, TH,
+                          beams=s.beam_context(p, TW, TH, shared_sun=sun0))
+        assert torch.equal(imgs[i], single), i
+        if branch == "exact":
+            fused = s.render(p, TW, TH, mode="fused")
+            assert float((imgs[i] - fused).abs().max()) <= K3_MAX_ABS
+    # a CSVO and a translucent renderer give None, as in the JAX package
+    assert terrains[("csvo", False)].render_batch(poses, TW, TH) is None
+    assert terrains[("esvo", True)].render_batch(poses, TW, TH) is None
+
+
+# ---- P0: the gather probe --------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["flat", "axis0", "axis1", "two_step"])
+def test_p0_equals_plain(dev, kind):
+    """P0's kernel against its plain version, bit for bit: the probe's
+    tables (rows 512, 4096, 16384; axis1 512) and a random one, at 512
+    steps and 37."""
+    from voxelrs_tpu_torch.probes import gather_probe as gp
+
+    for _kind, rows, sub in gp.probe_configs([kind]):
+        seeds = gp.random_words((sub, 128), seed=3, high=1 << 30,
+                                device=dev)
+        for tbl in (gp.arange_table(rows, dev),
+                    gp.random_words((rows, 128), seed=rows, device=dev)):
+            for steps in (gp.N_STEPS, 37):
+                n0 = gp.launches
+                got = gp.gather_probe(tbl, seeds, kind, steps)
+                assert gp.launches == n0 + 1
+                want = gp.gather_probe_plain(tbl, seeds, kind, steps)
+                assert torch.equal(got, want), (rows, steps)

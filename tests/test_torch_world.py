@@ -263,6 +263,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "native/__init__.py", "world/common.py", "world/csvo.py",
                    "ops/traversal_csvo.py", "convert.py",
                    "world/heightfield.py", "ops/beams.py", "ops/compact.py",
-                   "bench.py", "ops/adaptive.py", "ops/adaptive_judged.py"):
+                   "bench.py", "ops/adaptive.py", "ops/adaptive_judged.py",
+                   "probes/__init__.py", "probes/gather_probe.py"):
         assert f"voxelrs_tpu_torch/{module}" in seen, module
     assert not bad, bad

@@ -1,5 +1,6 @@
 """Build and bind the CUDA kernels (K1, K3, K4, K5, K6, K7, K8, the
-deferred frame's stages, K9 and K9-judged): one ``nvcc`` call, a plain C interface,
+deferred frame's stages, K9, K9-judged and P0; K10 is the opaque frame's
+stages with a pose dimension): one ``nvcc`` call, a plain C interface,
 ``ctypes``.
 
 At first use ``library()`` compiles ``csrc/kernels.cu`` into
@@ -20,6 +21,9 @@ tensor) or a CSVO world (``(words, root_ptr, total_depth)``, as
 so do the deferred stages that trace (``launch_kd_primary``,
 ``launch_kd_shadow``, ``launch_k9_trace``, ``launch_k9j_trace``). Optional
 pointers (a floor, an index list, a count) cross as None for "absent".
+The opaque frame's stages take ``cams`` — None for one frame, or the (N,
+12) float32 cameras of a pose batch (K10), whose lanes are pose-major —
+and the batch's sizes follow from their outputs.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("csrc/kernels.cu", "csrc/k1_traversal.cuh",
             "csrc/k4_csvo_traversal.cuh", "csrc/k6_compact.cuh",
             "csrc/k7_beams.cuh", "csrc/k8_sun.cuh", "csrc/k9_adaptive.cuh",
-            "csrc/k9_judged.cuh")
+            "csrc/k9_judged.cuh", "csrc/p0_gather.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
@@ -185,30 +189,31 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vx_k5_picker_csvo.argtypes = [P, LL, F, U, I, P, I, I, P, P, P]
     lib.vx_k5_picker_csvo.restype = I
     for name, args in (
-            ("vx_k6_compact", [P, I, I, P, P, P, P]),
+            ("vx_k6_compact", [P, I, I, P, P, P, I, P, P]),
             ("vx_k7_tiles", [P, P, P, P, P]),
             ("vx_k7_shadow", [P, P, P, P, P, P, P, P, I, P, P]),
             ("vx_k8_sun", [P, P, P, P, P, P, I, P, P, P, P, P]),
-            ("vx_kd_primary", [P, LL, F, P, P, I, P, I, P, P, P, P]),
-            ("vx_kd_primary_csvo", [P, LL, F, U, I, P, P, I, P, I, P, P, P,
-                                    P]),
-            ("vx_kd_shade", [P, P, P, P, I, P, P, P, P, P, P, P]),
+            ("vx_kd_primary", [P, LL, F, P, P, P, I, I, P, I, P, P, P, P]),
+            ("vx_kd_primary_csvo", [P, LL, F, U, I, P, P, P, I, I, P, I, P,
+                                    P, P, P]),
+            ("vx_kd_shade", [P, P, P, P, P, I, P, P, P, P, P, P, P]),
             ("vx_kd_shadow", [P, LL, F, P, P, I, P, P, P, P, P, P, I, P, P]),
             ("vx_kd_shadow_csvo", [P, LL, F, U, I, P, P, I, P, P, P, P, P, P,
                                    I, P, P]),
             ("vx_kd_finish", [P, P, P, P, I, P, P, P, P, P, P, P, P]),
-            ("vx_k9_trace", [P, LL, F, P, P, I, I, P, P, I, P, P]),
-            ("vx_k9_trace_csvo", [P, LL, F, U, I, P, P, I, I, P, P, I, P,
+            ("vx_k9_trace", [P, LL, F, P, P, P, I, I, P, P, I, P, P]),
+            ("vx_k9_trace_csvo", [P, LL, F, U, I, P, P, P, I, I, P, P, I, P,
                                   P]),
-            ("vx_k9_merge", [F, P, I, P, P, P, I, P]),
-            ("vx_k9_finalize", [F, P, P, P, P, P, P, P, P]),
-            ("vx_k9_shadow_cells", [I, P, P, P, I, P, P, P, P, P, P, P, P,
-                                    P]),
+            ("vx_k9_merge", [F, P, P, I, P, P, P, I, P]),
+            ("vx_k9_finalize", [F, P, P, I, P, P, P, P, P, P, P]),
+            ("vx_k9_shadow_cells", [I, P, P, P, P, I, I, P, P, P, P, P, P,
+                                    P, P, P]),
             ("vx_k9j_trace", [P, LL, F, P, P, P, I, I, P, P, I, P, P]),
             ("vx_k9j_trace_csvo", [P, LL, F, U, I, P, P, P, I, I, P, P, I,
                                    P, P]),
             ("vx_k9j_merge", [F, P, P, I, I, P, P, P, P, I, P]),
-            ("vx_k9j_finalize", [P, P, P, P, P, P, P, P])):
+            ("vx_k9j_finalize", [P, P, P, P, P, P, P, P]),
+            ("vx_p0_gather", [I, P, I, P, I, I, P, P])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = I
@@ -302,13 +307,15 @@ def k6_blocks(n: int) -> int:
     return -(-n // K6_BLOCK)
 
 
-def launch_k6(mask, size, out, count, scratch):
+def launch_k6(mask, size, out, count, scratch, starts=None):
     """Launch K6 (three kernels) on the current stream: ``mask`` (n,) bool,
     ``out`` (size,) int32, ``count`` (1,) int32, ``scratch``
-    (>= k6_blocks(n),) int32."""
+    (>= k6_blocks(n),) int32; ``starts`` None or (m,) int32, m dividing n,
+    which receives the rank of every (n / m)-th lane."""
+    seg = 0 if starts is None else mask.shape[0] // starts.shape[0]
     err = library().vx_k6_compact(_ptr(mask), mask.shape[0], size, _ptr(out),
-                                  _ptr(count), _ptr(scratch),
-                                  _stream(mask.device))
+                                  _ptr(count), _ptr(scratch), seg,
+                                  _ptr(starts), _stream(mask.device))
     _raise_on(err, "K6 (vx_k6_compact)")
 
 
@@ -343,15 +350,21 @@ def launch_k8(sb_words, params: SunParams, ro, max_dst, idx, count, k, lit,
     _raise_on(err, "K8 (vx_k8_sun)")
 
 
+def _poses(cams) -> int:
+    return 1 if cams is None else cams.shape[0]
+
+
 def launch_kd_primary(world, octree_scale, tables, params: FrameParams,
-                      alpha_mode, tf, rec, hit, img):
+                      alpha_mode, tf, rec, hit, img, cams=None):
     """The deferred frame's primary stage: ``tf`` None or the (nty, ntx)
-    tile floors, ``rec`` (H*W, 9) int32 hit records, ``hit`` (H*W,) bool,
-    ``img`` (H, W, 4) float32 (its sky pixels)."""
+    tile floors ((N, nty, ntx) for a batch), ``rec`` (N*H*W, 9) int32 hit
+    records, ``hit`` (N*H*W,) bool, ``img`` (N, H, W, 4) float32 (its sky
+    pixels); N = 1 and ``cams`` None for one frame."""
     lib = library()
-    ntx = 0 if tf is None else tf.shape[1]
-    tail = (ctypes.byref(tables.struct), ctypes.byref(params), alpha_mode,
-            _ptr(tf), ntx, _ptr(rec), _ptr(hit), _ptr(img))
+    ntx = 0 if tf is None else tf.shape[-1]
+    tail = (ctypes.byref(tables.struct), ctypes.byref(params), _ptr(cams),
+            _poses(cams), alpha_mode, _ptr(tf), ntx, _ptr(rec), _ptr(hit),
+            _ptr(img))
     if isinstance(world, torch.Tensor):
         err = lib.vx_kd_primary(_ptr(world), world.shape[0], octree_scale,
                                 *tail, _stream(world.device))
@@ -364,12 +377,13 @@ def launch_kd_primary(world, octree_scale, tables, params: FrameParams,
 
 
 def launch_kd_shade(tables, params: FrameParams, hidx, hcount, rec, color, ds,
-                    need, sro, img):
-    """The deferred frame's shading stage over the compacted hit lanes."""
+                    need, sro, img, cams=None):
+    """The deferred frame's shading stage over the compacted hit lanes
+    (of all the poses of ``cams``)."""
     err = library().vx_kd_shade(
-        ctypes.byref(tables.struct), ctypes.byref(params), _ptr(hidx),
-        _ptr(hcount), hidx.shape[0], _ptr(rec), _ptr(color), _ptr(ds),
-        _ptr(need), _ptr(sro), _ptr(img), _stream(img.device))
+        ctypes.byref(tables.struct), ctypes.byref(params), _ptr(cams),
+        _ptr(hidx), _ptr(hcount), hidx.shape[0], _ptr(rec), _ptr(color),
+        _ptr(ds), _ptr(need), _ptr(sro), _ptr(img), _stream(img.device))
     _raise_on(err, "deferred shade (vx_kd_shade)")
 
 
@@ -408,15 +422,16 @@ def launch_kd_finish(params: FrameParams, hidx, sidx, scount, color, ds, blk,
 
 
 def launch_k9_trace(world, octree_scale, params: FrameParams, tf, level, out,
-                    idx=None, count=None):
+                    idx=None, count=None, cams=None):
     """K9's trace of grid level ``level`` into its (n, 8) int32 records
-    ``out``: every lane, or the refine list ``idx`` ((size,) int32) up to
-    its device ``count``; ``tf`` None or the (nty, ntx) tile floors."""
+    ``out`` (N times the level's lanes): every lane, or the refine list
+    ``idx`` ((size,) int32) up to its device ``count``; ``tf`` None or the
+    (nty, ntx) tile floors ((N, nty, ntx) for a batch)."""
     lib = library()
     size = out.shape[0] if idx is None else idx.shape[0]
-    ntx = 0 if tf is None else tf.shape[1]
-    tail = (ctypes.byref(params), _ptr(tf), ntx, level, _ptr(idx),
-            _ptr(count), size, _ptr(out))
+    ntx = 0 if tf is None else tf.shape[-1]
+    tail = (ctypes.byref(params), _ptr(cams), _ptr(tf), ntx, level,
+            _ptr(idx), _ptr(count), size, _ptr(out))
     if isinstance(world, torch.Tensor):
         err = lib.vx_k9_trace(_ptr(world), world.shape[0], octree_scale,
                               *tail, _stream(world.device))
@@ -428,33 +443,39 @@ def launch_k9_trace(world, octree_scale, params: FrameParams, tf, level, out,
     _raise_on(err, "K9 trace (vx_k9_trace)")
 
 
-def launch_k9_merge(octree_scale, params: FrameParams, level, lo, hi, refine):
+def launch_k9_merge(octree_scale, params: FrameParams, level, lo, hi, refine,
+                    cams=None):
     """K9's merge of the records ``lo`` of level + 1 onto level ``level``:
-    ``hi`` (n, 8) int32, ``refine`` (n,) bool."""
-    err = library().vx_k9_merge(octree_scale, ctypes.byref(params), level,
-                                _ptr(lo), _ptr(hi), _ptr(refine), hi.shape[0],
-                                _stream(hi.device))
+    ``hi`` (n, 8) int32, ``refine`` (n,) bool (n: N times the level's
+    lanes)."""
+    err = library().vx_k9_merge(octree_scale, ctypes.byref(params),
+                                _ptr(cams), level, _ptr(lo), _ptr(hi),
+                                _ptr(refine), hi.shape[0], _stream(hi.device))
     _raise_on(err, "K9 merge (vx_k9_merge)")
 
 
 def launch_k9_finalize(octree_scale, params: FrameParams, frec, rec, hit, img,
-                       needp, blkp):
+                       needp, blkp, cams=None):
     """K9's finalize of the pixel records ``frec`` into the deferred hit
-    records ``rec`` (H*W, 9), ``hit`` and the sky of ``img``; clears
-    ``needp``/``blkp`` ((H*W,) bool)."""
+    records ``rec`` (N*H*W, 9), ``hit`` and the sky of ``img``; clears
+    ``needp``/``blkp`` ((N*H*W,) bool)."""
     err = library().vx_k9_finalize(octree_scale, ctypes.byref(params),
-                                   _ptr(frec), _ptr(rec), _ptr(hit), _ptr(img),
+                                   _ptr(cams), _poses(cams), _ptr(frec),
+                                   _ptr(rec), _ptr(hit), _ptr(img),
                                    _ptr(needp), _ptr(blkp), _stream(img.device))
     _raise_on(err, "K9 finalize (vx_k9_finalize)")
 
 
 def launch_k9_shadow_cells(step, params: FrameParams, hidx, hcount, need,
-                           needp, blkp, mask, dense, color, ds, img):
-    """K9's shadow cells, ``step`` 1 (pass-1 mask, needp, the dense flag)
+                           needp, blkp, mask, dense, color, ds, img,
+                           hstart=None):
+    """K9's shadow cells, ``step`` 1 (pass-1 mask, needp, the dense flags)
     or 2 (the corner reuse and the pass-2 mask), over the compacted hit
-    lanes ``hidx`` up to ``hcount``."""
+    lanes ``hidx`` up to ``hcount``; ``hstart`` None (one frame) or the
+    (N,) int32 first hit lane of each pose of a batch."""
     err = library().vx_k9_shadow_cells(
-        step, ctypes.byref(params), _ptr(hidx), _ptr(hcount), hidx.shape[0],
+        step, ctypes.byref(params), _ptr(hidx), _ptr(hcount), _ptr(hstart),
+        1 if hstart is None else hstart.shape[0], hidx.shape[0],
         _ptr(need), _ptr(needp), _ptr(blkp), _ptr(mask), _ptr(dense),
         _ptr(color), _ptr(ds), _ptr(img), _stream(img.device))
     _raise_on(err, "K9 shadow cells (vx_k9_shadow_cells)")
@@ -504,3 +525,15 @@ def launch_k9j_finalize(params: FrameParams, frec, rec, hit, img, needp,
                                     _ptr(needp), _ptr(blkp),
                                     _stream(img.device))
     _raise_on(err, "K9-judged finalize (vx_k9j_finalize)")
+
+
+P0_KINDS = ("flat", "axis0", "axis1", "two_step")  # csrc/p0_gather.cuh
+
+
+def launch_p0(kind, tbl, seeds, steps, out):
+    """P0, the gather probe: ``tbl`` (rows, 128) and ``seeds`` / ``out``
+    (sub, 128) int32 tensors of u32 words, ``kind`` one of P0_KINDS."""
+    err = library().vx_p0_gather(P0_KINDS.index(kind), _ptr(tbl),
+                                 tbl.shape[0], _ptr(seeds), seeds.shape[0],
+                                 steps, _ptr(out), _stream(tbl.device))
+    _raise_on(err, "P0 (vx_p0_gather)")

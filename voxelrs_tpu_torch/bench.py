@@ -22,8 +22,11 @@ the frame has no host round trip inside). Prints one JSON line with
 shadow ray a pixel; the better of the two modes), ``seq_frame_ms``,
 ``piped_frame_ms``, the path that ran (``mode`` "adaptive" or "deferred",
 ``hierarchy``), the exact deferred frame's ``exact_seq_frame_ms`` and
-``exact_piped_frame_ms``, ``batched_frame_ms`` (null: rendering the poses
-as one batch is a later slice), the card's name and power limit. The JAX bench's
+``exact_piped_frame_ms``, ``batched_frame_ms`` (the 5 poses rendered by
+``Svo.render_batch``, K10: every stage launched once for the batch; CUDA
+events around the whole batch, milliseconds a pose, as the JAX bench's
+:238-274; the Mrays/s line takes the best of the sequential, pipelined and
+batched frames, as it does), the card's name and power limit. The JAX bench's
 Minecraft-world scene is not carried over: it needs the reference's
 bundled world, which the repository does not hold.
 
@@ -158,6 +161,28 @@ def measure(render, frames) -> tuple[float, float]:
     return seq[len(seq) // 2], start.elapsed_time(end) / n
 
 
+def measure_batch(svo, frames) -> float | None:
+    """Milliseconds a pose of ``Svo.render_batch`` over ``frames``: CUDA
+    events around each whole batch, waited for before the next (as the
+    JAX bench reads each batch back), the mean of REPS batches after one
+    warm-up; None where the batch does not run."""
+    import torch
+
+    if svo.render_batch(frames, W, H) is None:
+        return None
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        svo.render_batch(frames, W, H)
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / (REPS * len(frames))
+
+
 def card_line() -> str:
     """``nvidia-smi``'s name and power limit of the card."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -184,7 +209,8 @@ def main(argv=None) -> int:
     ran = dict(svo.last_frame)
     exact_seq, exact_piped = measure(
         lambda p: svo.render(p, W, H, adaptive=False), frames)
-    best = min(seq, piped)
+    batched = measure_batch(svo, frames)
+    best = min(t for t in (seq, piped, batched) if t is not None)
     card = card_line()
     name, _, limit = card.partition(",")
     print(json.dumps({
@@ -195,7 +221,7 @@ def main(argv=None) -> int:
         "hierarchy": ran.get("hierarchy"),
         "svo_format": args.svo_format, "seq_frame_ms": seq,
         "piped_frame_ms": piped, "exact_seq_frame_ms": exact_seq,
-        "exact_piped_frame_ms": exact_piped, "batched_frame_ms": None,
+        "exact_piped_frame_ms": exact_piped, "batched_frame_ms": batched,
         "sun_map": bool(ran.get("sun")),
         "card": name.strip(), "power_limit": limit.strip()}))
     return 0

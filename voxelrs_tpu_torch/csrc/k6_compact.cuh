@@ -15,7 +15,11 @@
 // again, and each set lane writes its own index at block offset + warp
 // offset + its rank among the warp's set lanes, and the output slots at or
 // past the count get the 0 padding. Consumers read *count and exit past it,
-// so a frame compacts without a host round trip.
+// so a frame compacts without a host round trip. A pose batch (K10)
+// compacts the lanes of all its poses in one call; with `starts` the write
+// pass also hands out the rank of every seg-th lane, i.e. where each pose's
+// set lanes begin in the output, so the consumers read each pose's count
+// without a round trip or another launch.
 //
 // What bounds it on an H100: bytes — the mask is read twice (1 byte a
 // lane) and each set lane's index written once; at 2,073,600 lanes that is
@@ -81,7 +85,8 @@ k6_scan_kernel(int* __restrict__ block_counts, int nb,
 __global__ void __launch_bounds__(K6_BLOCK)
 k6_write_kernel(const uint8_t* __restrict__ mask, int n,
                 const int* __restrict__ block_offsets, int size,
-                const int* __restrict__ count, int* __restrict__ out) {
+                const int* __restrict__ count, int* __restrict__ out,
+                int seg, int* __restrict__ starts) {
   __shared__ int warp_offs[K6_BLOCK / 32];
   const int i = blockIdx.x * K6_BLOCK + threadIdx.x;
   const unsigned ballot = k6_ballot(mask, n, i);
@@ -98,10 +103,12 @@ k6_write_kernel(const uint8_t* __restrict__ mask, int n,
     warp_offs[lane] = incl - v;
   }
   __syncthreads();
-  if (i < n && ((ballot >> lane) & 1u)) {
+  if (i < n) {
+    // the set lanes before lane i: its rank, if it is set
     const int rank = block_offsets[blockIdx.x] + warp_offs[warp] +
                      __popc(ballot & ((1u << lane) - 1u));
-    if (rank < size) out[rank] = i;
+    if (((ballot >> lane) & 1u) && rank < size) out[rank] = i;
+    if (starts && i % seg == 0) starts[i / seg] = rank;
   }
   if (i < size && i >= *count) out[i] = 0;  // the padding
 }

@@ -35,6 +35,17 @@
 // plane equalities decide which pixels are filled, and the mantissa
 // quantization of the leaf base is done on the bits.
 //
+// K10 (voxelrs_tpu/ops/shading.py::render_frames_opaque_batch :3580, a
+// lax.map of the frame over N poses) is these kernels with a pose
+// dimension: one launch covers the lanes of every pose, pose-major (lane =
+// pose * n_k + lane of the pose for a level of n_k lanes), each pose's
+// camera read from `cams` (kernels.cu pose_params) and its tile floors
+// from its block of `tf`. A merge reads the corners of its own pose only:
+// a level's grid holds its last row and column, so the poses cannot be
+// stacked as one tall frame. The shadow cells decide each pose's dense
+// flag from that pose's own hit count (K6's segment starts `hstart`).
+// One frame is the case n_poses = 1 with cams and hstart null.
+//
 // What bounds them on an H100: k9_trace is the traversal (K1 / K4,
 // dependent loads); the merge reads four 32-byte records and writes one,
 // with some seventy float operations where a lane's corners agree (bytes
@@ -110,24 +121,31 @@ __device__ __forceinline__ bool k9_dense(long long hits, long long B) {
 // One thread per lane of grid level `level` (idx null: lane m < size) or
 // per entry of its refine list (lane idx[m], m < *count): the opaque trace
 // of the lane's pixel ray from the pixel's tile floor (tf null =
-// unfloored), its record into out[lane].
+// unfloored), its record into out[lane]. A lane's pose is lane / (the
+// level's lane count).
 template <class World>
 __global__ void __launch_bounds__(BLOCK)
 k9_trace_kernel(World world, float octree_scale, FrameParams fp,
-                const float* __restrict__ tf, int ntx, int level,
-                const int* __restrict__ idx, const int* __restrict__ count,
-                int size, K9Rec* __restrict__ out) {
+                const float* __restrict__ cams, const float* __restrict__ tf,
+                int ntx, int level, const int* __restrict__ idx,
+                const int* __restrict__ count, int size,
+                K9Rec* __restrict__ out) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= size || (idx && m >= count_of(count, size))) return;
   const int lane = idx ? idx[m] : m;
-  const int px = k9_pixel(fp, level, lane);
+  int wl, hl;
+  k9_dims(fp.width, fp.height, level, wl, hl);
+  const int pose = lane / (wl * hl);
+  const FrameParams f = pose_params(fp, cams, pose);
+  const int px = k9_pixel(fp, level, lane - pose * wl * hl);
   float rd[3];
-  gen_ray(fp, px, rd);
+  gen_ray(f, px, rd);
+  const float* tfp = pose_floors(fp, tf, ntx, pose);
   const float t_floor =
-      tf ? tf[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)] : 0.f;
+      tfp ? tfp[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)] : 0.f;
   const TexTables no_tables = {};  // the opaque cast reads no texture
   Hit p;
-  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
+  world.trace(octree_scale, f.cam_pos[0], f.cam_pos[1], f.cam_pos[2], rd[0],
               rd[1], rd[2], -1.f, fp.primary_budget, 0, no_tables, p,
               tf != nullptr, t_floor);
   K9Rec r = {};
@@ -162,16 +180,21 @@ __device__ __forceinline__ float k9_quant(float m, uint32_t sc) {
 // plane, leaf scale and ray octant, and whose own ray enters that plane's
 // leaf there (its own entry face, t_int == tcmin, inside the cube), gets
 // the synthesized record of that leaf (the fill); the others get an empty
-// record and, unless all four corners missed, refine[i] = 1.
+// record and, unless all four corners missed, refine[i] = 1. Lane g of
+// the n lanes is lane i of pose g / (wh * hh), whose corners are its own
+// pose's records.
 __global__ void __launch_bounds__(BLOCK)
-k9_merge_kernel(float octree_scale, FrameParams fp, int level,
+k9_merge_kernel(float octree_scale, FrameParams fp,
+                const float* __restrict__ cams, int level,
                 const K9Rec* __restrict__ lo, K9Rec* __restrict__ hi,
-                uint8_t* __restrict__ refine) {
+                uint8_t* __restrict__ refine, int n) {
   int wh, hh, wl, hl;
   k9_dims(fp.width, fp.height, level, wh, hh);
   k9_dims(fp.width, fp.height, level + 1, wl, hl);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= wh * hh) return;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n) return;
+  const int pose = g / (wh * hh), i = g - pose * wh * hh;
+  lo += (size_t)pose * wl * hl;
   const int y = i / wh, x = i % wh;
   const int cy = y >> 1, cx = x >> 1;
   const int cy1 = min(cy + 1, hl - 1), cx1 = min(cx + 1, wl - 1);
@@ -179,8 +202,8 @@ k9_merge_kernel(float octree_scale, FrameParams fp, int level,
   const K9Rec a10 = lo[cy1 * wl + cx], a11 = lo[cy1 * wl + cx1];
   const bool ylast = y == hh - 1, xlast = x == wh - 1;
   if (k9_is_sample(y, x, wh, hh)) {
-    hi[i] = ylast && xlast ? a11 : (ylast ? a10 : (xlast ? a01 : a00));
-    refine[i] = 0;
+    hi[g] = ylast && xlast ? a11 : (ylast ? a10 : (xlast ? a01 : a00));
+    refine[g] = 0;
     return;
   }
   const bool h00 = a00.flags & 1u, h01 = a01.flags & 1u;
@@ -200,10 +223,11 @@ k9_merge_kernel(float octree_scale, FrameParams fp, int level,
       (a11.idxscale >> 8) == (a00.idxscale >> 8)) {
     const int axis00 = (int)(surf & 3u);
     const int scale00 = (int)(a00.idxscale >> 8);
+    const FrameParams f = pose_params(fp, cams, pose);
     float rd[3];
-    gen_ray(fp, k9_pixel(fp, level, i), rd);
-    const RayConsts c = ray_consts(octree_scale, fp.cam_pos[0], fp.cam_pos[1],
-                                   fp.cam_pos[2], rd[0], rd[1], rd[2]);
+    gen_ray(f, k9_pixel(fp, level, i), rd);
+    const RayConsts c = ray_consts(octree_scale, f.cam_pos[0], f.cam_pos[1],
+                                   f.cam_pos[2], rd[0], rd[1], rd[2]);
     // the pixel's own ray meets the shared plane at t_int
     const float se = exp2_scale(scale00);
     const float tc_ax = axis00 == 0 ? c.tcx : (axis00 == 1 ? c.tcy : c.tcz);
@@ -244,31 +268,35 @@ k9_merge_kernel(float octree_scale, FrameParams fp, int level,
       r.flags = 1u | (surf << 1);
     }
   }
-  hi[i] = r;
-  refine[i] = (!smooth && !miss4) ? 1 : 0;
+  hi[g] = r;
+  refine[g] = (!smooth && !miss4) ? 1 : 0;
 }
 
-// One thread per pixel: the record's hit (its ray's finalize, through the
-// traversal's own device functions) as the deferred frame's HitRec and
-// hit flag, or a miss and its sky; clears the pixel-space shadow masks
-// (needp, blkp) the shadow cells read.
+// One thread per pixel of each pose: the record's hit (its ray's
+// finalize, through the traversal's own device functions) as the deferred
+// frame's HitRec and hit flag, or a miss and its sky; clears the
+// pixel-space shadow masks (needp, blkp) the shadow cells read.
 __global__ void __launch_bounds__(BLOCK)
 k9_finalize_kernel(float octree_scale, FrameParams fp,
+                   const float* __restrict__ cams, int n_poses,
                    const K9Rec* __restrict__ frec, HitRec* __restrict__ rec,
                    uint8_t* __restrict__ hit, float* __restrict__ img,
                    uint8_t* __restrict__ needp, uint8_t* __restrict__ blkp) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= fp.width * fp.height) return;
+  const int B = fp.width * fp.height;
+  if (i >= B * n_poses) return;
+  const int pose = i / B;
+  const FrameParams f = pose_params(fp, cams, pose);
   const K9Rec r = frec[i];
   float rd[3];
-  gen_ray(fp, i, rd);
+  gen_ray(f, i - pose * B, rd);
   needp[i] = 0;
   blkp[i] = 0;
   HitRec o = {};
   o.t = -1.f;
   if (r.flags & 1u) {
-    const RayConsts c = ray_consts(octree_scale, fp.cam_pos[0], fp.cam_pos[1],
-                                   fp.cam_pos[2], rd[0], rd[1], rd[2]);
+    const RayConsts c = ray_consts(octree_scale, f.cam_pos[0], f.cam_pos[1],
+                                   f.cam_pos[2], rd[0], rd[1], rd[2]);
     const HitGeom g = hit_geometry(c, octree_scale, (int)(r.idxscale >> 8),
                                    r.pos[0], r.pos[1], r.pos[2], r.t);
     Hit h;
@@ -283,23 +311,32 @@ k9_finalize_kernel(float octree_scale, FrameParams fp,
     hit[i] = 1;
   } else {
     hit[i] = 0;
-    write_sky(fp, rd, img + 4 * (size_t)i);
+    write_sky(f, rd, img + 4 * (size_t)i);
   }
   rec[i] = o;
 }
 
 // One thread per compacted hit lane j < size (pixel hidx[j], j < *hcount).
-// Step 1: the pixel-space need (needp), the dense flag of this frame's
-// hit count (*dense), and the pass-1 shadow candidates (mask): on a dense
+// Step 1: the pixel-space need (needp), the dense flag of each pose's hit
+// count (dense[pose]), and the pass-1 shadow candidates (mask): on a dense
 // frame those on the half grid's sample pixels, else all of them (the
 // single pass). Step 2 (after pass 1 left its verdicts in blkp): on a
 // dense frame, an interior pixel whose four cell corners agree on need and
 // verdict and need a shadow reuses the corners' verdict (a blocked one is
 // composited here, with kd_finish's colour); the rest of its candidates
-// are the pass-2 mask.
+// are the pass-2 mask. A batch's hit lanes are pose-major (the pose of
+// lane hidx[j] is hidx[j] / (W * H)); pose q's hits run from hstart[q] to
+// the next pose's start (hstart null: one frame, all the hits).
+__device__ __forceinline__ int k9_pose_hits(const int* __restrict__ hstart,
+                                            int n_poses, int n, int q) {
+  if (!hstart) return n;
+  return (q + 1 < n_poses ? hstart[q + 1] : n) - hstart[q];
+}
+
 __global__ void __launch_bounds__(BLOCK)
 k9_shadow_cells_kernel(int step, FrameParams fp, const int* __restrict__ hidx,
-                       const int* __restrict__ hcount, int size,
+                       const int* __restrict__ hcount,
+                       const int* __restrict__ hstart, int n_poses, int size,
                        const uint8_t* __restrict__ need,
                        uint8_t* __restrict__ needp,
                        const uint8_t* __restrict__ blkp,
@@ -308,20 +345,22 @@ k9_shadow_cells_kernel(int step, FrameParams fp, const int* __restrict__ hidx,
                        const float* __restrict__ ds, float* __restrict__ img) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= size) return;
-  const int W = fp.width, H = fp.height;
+  const int W = fp.width, H = fp.height, B = W * H;
   const int n = count_of(hcount, size);
-  const bool dense = k9_dense(n, (long long)W * H);
-  if (step == 1 && j == 0) *dense_out = dense ? 1 : 0;
+  if (step == 1 && j < n_poses)
+    dense_out[j] = k9_dense(k9_pose_hits(hstart, n_poses, n, j), B) ? 1 : 0;
   if (j >= n) {
     mask[j] = 0;
     return;
   }
-  const int p = hidx[j];
+  const int g = hidx[j];  // the lane: pose * B + pixel
+  const int pose = g / B, base = pose * B, p = g - base;
+  const bool dense = k9_dense(k9_pose_hits(hstart, n_poses, n, pose), B);
   const bool nd = need[j] != 0;
   const int y = p / W, x = p % W;
   const bool sample = k9_is_sample(y, x, W, H);
   if (step == 1) {
-    needp[p] = nd ? 1 : 0;
+    needp[g] = nd ? 1 : 0;
     mask[j] = (nd && (!dense || sample)) ? 1 : 0;
     return;
   }
@@ -329,11 +368,12 @@ k9_shadow_cells_kernel(int step, FrameParams fp, const int* __restrict__ hidx,
     mask[j] = 0;
     return;
   }
-  // the cell corners: half-grid lanes and their pixels
+  // the cell corners: half-grid lanes and their pixels, in the same pose
   const int hc = H / 2 + 1, wc = W / 2 + 1;
   const int cy = y >> 1, cx = x >> 1;
   const int cy1 = min(cy + 1, hc - 1), cx1 = min(cx + 1, wc - 1);
-  const int r0 = min(2 * cy, H - 1) * W, r1 = min(2 * cy1, H - 1) * W;
+  const int r0 = base + min(2 * cy, H - 1) * W;
+  const int r1 = base + min(2 * cy1, H - 1) * W;
   const int c0 = min(2 * cx, W - 1), c1 = min(2 * cx1, W - 1);
   const int q00 = r0 + c0, q01 = r0 + c1, q10 = r1 + c0, q11 = r1 + c1;
   const uint8_t n00 = needp[q00], b00 = blkp[q00];
@@ -341,7 +381,7 @@ k9_shadow_cells_kernel(int step, FrameParams fp, const int* __restrict__ hidx,
                      needp[q11] == n00 && blkp[q01] == b00 &&
                      blkp[q10] == b00 && blkp[q11] == b00;
   if (reuse) {
-    if (nd && b00) composite(fp, color[j], ds[j], 0.f, img + 4 * (size_t)p);
+    if (nd && b00) composite(fp, color[j], ds[j], 0.f, img + 4 * (size_t)g);
     mask[j] = 0;
   } else {
     mask[j] = nd ? 1 : 0;

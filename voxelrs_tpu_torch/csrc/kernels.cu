@@ -3,7 +3,8 @@
 // k6_compact.cuh), K7 (beam floors, k7_beams.cuh), K8 (sun certificates,
 // k8_sun.cuh), the stages of the deferred frame and K9 (the adaptive
 // thick-ray frame: of an opaque world, k9_adaptive.cuh, and of a
-// translucent one, k9_judged.cuh), with a plain C interface for ctypes
+// translucent one, k9_judged.cuh; with a pose dimension, K10), P0 (the
+// gather probe, p0_gather.cuh), with a plain C interface for ctypes
 // (see voxelrs_tpu_torch/_build.py). K3, K5 and the deferred stages that
 // trace are templates on the world format: an ESVO buffer (K1's traversal)
 // or a CSVO byte stream (K4's), each instantiated once.
@@ -53,6 +54,17 @@
 // judged variant (k9_judged.cuh) does the same with judged traces and a
 // result-level merge.
 //
+// K10 replaces voxelrs_tpu/ops/shading.py::render_frames_opaque_batch
+// (:3580), a lax.map of the opaque frame over N poses in one XLA program,
+// whose point is to pay the per-dispatch floor once per batch. Here it is
+// the opaque frame's stages with a pose dimension, each launched once for
+// all N poses (kd_primary, kd_shade, K9's four kernels, K6 with segment
+// starts; kd_shadow, kd_finish, K7's shadow floors and K8 over the
+// concatenated lanes, which need no camera): pose-major lanes, each pose's
+// camera from a (N, 12) device array (pose_params), its tile floors from
+// its block of the stacked floors. There is no second copy of a kernel:
+// one frame is the case N = 1.
+//
 // What bounds them on an H100: the traversal's dependent loads and branch
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
 // in, hit records or the frame out) are a small share. Speed is later work:
@@ -72,6 +84,7 @@
 #include "k6_compact.cuh"
 #include "k7_beams.cuh"
 #include "k8_sun.cuh"
+#include "p0_gather.cuh"
 
 namespace vx {
 
@@ -229,6 +242,36 @@ __device__ __forceinline__ void gen_ray(const FrameParams& fp, int i,
   for (int k = 0; k < 3; ++k) rd[k] = rd[k] / rn;
 }
 
+// K10, a batch of poses: the lanes of a batched launch are pose-major
+// (lane = pose * n + i for the n lanes of one pose), and `cams` holds each
+// pose's camera as one row of a (n_poses, 12) float32 array [cam_pos,
+// right, up, fwd]; null is one frame, whose camera is fp's own. Every
+// other field of fp is shared by the poses (the JAX batch takes pose 0's,
+// graphics/svo.py:458-470). A launch's lane count stays under 2^31
+// (ops/shading.py::check_batch), so lanes are ints.
+__device__ __forceinline__ FrameParams pose_params(
+    const FrameParams& fp, const float* __restrict__ cams, int pose) {
+  FrameParams f = fp;
+  if (cams) {
+    const float* c = cams + 12 * (size_t)pose;
+    for (int k = 0; k < 3; ++k) {
+      f.cam_pos[k] = c[k];
+      f.right[k] = c[3 + k];
+      f.up[k] = c[6 + k];
+      f.fwd[k] = c[9 + k];
+    }
+  }
+  return f;
+}
+
+// The tile floors of pose `pose`: (n_poses, ceil(H/8), ntx) float32, one
+// pose's (ceil(H/8), ntx) block after another; null stays null.
+__device__ __forceinline__ const float* pose_floors(const FrameParams& fp,
+                                                    const float* tf, int ntx,
+                                                    int pose) {
+  return tf ? tf + (size_t)pose * ((fp.height + 7) >> 3) * ntx : nullptr;
+}
+
 // surface_shading of a hit: its colour, mapped normal n and the light
 // terms ds = diffuse + specular.
 __device__ void shade_surface(const TexTables& tx, const FrameParams& fp,
@@ -353,21 +396,28 @@ __device__ __forceinline__ int count_of(const int* __restrict__ count,
 }
 
 // Raygen, the primary trace from the pixel's tile floor (tf[py/8][px/8] of
-// K7; tf null = unfloored), the hit record and flag, the sky of a miss.
+// K7; tf null = unfloored), the hit record and flag, the sky of a miss:
+// one thread per pixel of each of the n_poses poses (K10: lane = pose *
+// W * H + pixel, the pose's camera from cams and its floors from tf).
 template <class World>
 __global__ void __launch_bounds__(BLOCK)
 kd_primary_kernel(World world, float octree_scale, TexTables tx,
-                  FrameParams fp, int alpha_mode, const float* __restrict__ tf,
-                  int ntx, HitRec* __restrict__ rec, uint8_t* __restrict__ hit,
+                  FrameParams fp, const float* __restrict__ cams, int n_poses,
+                  int alpha_mode, const float* __restrict__ tf, int ntx,
+                  HitRec* __restrict__ rec, uint8_t* __restrict__ hit,
                   float* __restrict__ img) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= fp.width * fp.height) return;
+  const int B = fp.width * fp.height;
+  if (i >= B * n_poses) return;
+  const int pose = i / B, px = i - pose * B;
+  const FrameParams f = pose_params(fp, cams, pose);
   float rd[3];
-  gen_ray(fp, i, rd);
+  gen_ray(f, px, rd);
+  const float* tfp = pose_floors(fp, tf, ntx, pose);
   const float t_floor =
-      tf ? tf[((i / fp.width) >> 3) * ntx + ((i % fp.width) >> 3)] : 0.f;
+      tfp ? tfp[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)] : 0.f;
   Hit p;
-  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
+  world.trace(octree_scale, f.cam_pos[0], f.cam_pos[1], f.cam_pos[2], rd[0],
               rd[1], rd[2], -1.f, fp.primary_budget, alpha_mode, tx, p,
               tf != nullptr, t_floor);
   HitRec r;
@@ -380,15 +430,17 @@ kd_primary_kernel(World world, float octree_scale, TexTables tx,
   r.lod = p.lod;
   rec[i] = r;
   hit[i] = p.t != -1.f ? 1 : 0;
-  if (p.t == -1.f) write_sky(fp, rd, img + 4 * (size_t)i);
+  if (p.t == -1.f) write_sky(f, rd, img + 4 * (size_t)i);
 }
 
 // One thread per compacted hit lane j < *hcount (pixel hidx[j]): surface
 // shading; the pixel gets its lit colour (shadow 1), and the lane its
 // colour, light terms, shadow-candidate flag (lanes past the count: 0) and
-// shadow origin.
+// shadow origin. K10: hidx holds batch lanes, whose pose (hidx[j] / (W *
+// H)) gives the camera the specular term views from.
 __global__ void __launch_bounds__(BLOCK)
-kd_shade_kernel(TexTables tx, FrameParams fp, const int* __restrict__ hidx,
+kd_shade_kernel(TexTables tx, FrameParams fp, const float* __restrict__ cams,
+                const int* __restrict__ hidx,
                 const int* __restrict__ hcount, int size,
                 const HitRec* __restrict__ rec, float4* __restrict__ color,
                 float* __restrict__ ds_out, uint8_t* __restrict__ need,
@@ -400,6 +452,7 @@ kd_shade_kernel(TexTables tx, FrameParams fp, const int* __restrict__ hidx,
     return;
   }
   const int px = hidx[j];
+  const FrameParams f = pose_params(fp, cams, px / (fp.width * fp.height));
   const HitRec r = rec[px];
   Hit p;
   p.t = r.t;
@@ -411,19 +464,20 @@ kd_shade_kernel(TexTables tx, FrameParams fp, const int* __restrict__ hidx,
   p.lod = r.lod;
   float4 c;
   float n[3], ds;
-  shade_surface(tx, fp, p, c, n, ds);
+  shade_surface(tx, f, p, c, n, ds);
   color[j] = c;
   ds_out[j] = ds;
   // a shadow only matters where it can darken something
   need[j] = (fp.render_shadows && p.t < fp.shadow_distance && ds > 0.f) ? 1 : 0;
-  for (int k = 0; k < 3; ++k) sro[3 * j + k] = p.pos[k] + n[k] * 0.001f;
+  for (int k = 0; k < 3; ++k) sro[3 * (size_t)j + k] = p.pos[k] + n[k] * 0.001f;
   composite(fp, c, ds, 1.f, img + 4 * (size_t)px);
 }
 
 // One thread per shadow ray to trace: slot m < count of the candidate
 // list (sidx, *scount) or, with tidx, of its uncertified sub-list (tidx,
 // *tcount); floors (per candidate) null = unfloored. traced[c] = the
-// candidate's ray hit something.
+// candidate's ray hit something. A shadow ray needs no camera, so a batch
+// (K10) runs the candidates of all its poses in one launch unchanged.
 template <class World>
 __global__ void __launch_bounds__(BLOCK)
 kd_shadow_kernel(World world, float octree_scale, TexTables tx,
@@ -584,9 +638,10 @@ int vx_k5_picker_csvo(const uint32_t* words, long long n_words,
 // ---- K6, K7, K8 -----------------------------------------------------------
 
 // mask: n >= 0 bytes; out: size ints; block_counts: max(1, ceil(n /
-// 1024)) ints of scratch.
+// 1024)) ints of scratch; starts: null, or n / seg ints that receive the
+// rank of every seg-th lane (the first output slot of each segment).
 int vx_k6_compact(const uint8_t* mask, int n, int size, int* out, int* count,
-                  int* block_counts, void* stream) {
+                  int* block_counts, int seg, int* starts, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) {
     cudaMemsetAsync(count, 0, sizeof(int), st);
@@ -598,7 +653,7 @@ int vx_k6_compact(const uint8_t* mask, int n, int size, int* out, int* count,
   vx::k6_count_kernel<<<nb, vx::K6_BLOCK, 0, st>>>(mask, n, block_counts);
   vx::k6_scan_kernel<<<1, vx::K6_BLOCK, 0, st>>>(block_counts, nb, count);
   vx::k6_write_kernel<<<nw, vx::K6_BLOCK, 0, st>>>(mask, n, block_counts, size,
-                                                   count, out);
+                                                   count, out, seg, starts);
   return (int)cudaGetLastError();
 }
 
@@ -630,40 +685,47 @@ int vx_k8_sun(const uint16_t* sb, const vx::SunParams* sp, const float* ro,
 
 // ---- the deferred frame's stages ------------------------------------------
 
+// cams: null (one frame) or the (n_poses, 12) cameras of a batch (K10);
+// tf: null or the (n_poses, ceil(H/8), ntx) tile floors; rec, hit, img:
+// n_poses * W * H lanes.
 int vx_kd_primary(const uint32_t* desc, long long n_words, float octree_scale,
                   const vx::TexTables* tex, const vx::FrameParams* fp,
-                  int alpha_mode, const float* tf, int ntx, void* rec,
-                  uint8_t* hit, float* img, void* stream) {
+                  const float* cams, int n_poses, int alpha_mode,
+                  const float* tf, int ntx, void* rec, uint8_t* hit,
+                  float* img, void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
-  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height *
+                                       n_poses),
                           vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, alpha_mode, tf, ntx, (vx::HitRec*)rec,
-      hit, img);
+      world, octree_scale, *tex, *fp, cams, n_poses, alpha_mode, tf, ntx,
+      (vx::HitRec*)rec, hit, img);
   return (int)cudaGetLastError();
 }
 
 int vx_kd_primary_csvo(const uint32_t* words, long long n_words,
                        float octree_scale, unsigned root_ptr, int total_depth,
                        const vx::TexTables* tex, const vx::FrameParams* fp,
-                       int alpha_mode, const float* tf, int ntx, void* rec,
-                       uint8_t* hit, float* img, void* stream) {
+                       const float* cams, int n_poses, int alpha_mode,
+                       const float* tf, int ntx, void* rec, uint8_t* hit,
+                       float* img, void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
-  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height *
+                                       n_poses),
                           vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, alpha_mode, tf, ntx, (vx::HitRec*)rec,
-      hit, img);
+      world, octree_scale, *tex, *fp, cams, n_poses, alpha_mode, tf, ntx,
+      (vx::HitRec*)rec, hit, img);
   return (int)cudaGetLastError();
 }
 
 int vx_kd_shade(const vx::TexTables* tex, const vx::FrameParams* fp,
-                const int* hidx, const int* hcount, int size, const void* rec,
-                float* color, float* ds, uint8_t* need, float* sro, float* img,
-                void* stream) {
+                const float* cams, const int* hidx, const int* hcount,
+                int size, const void* rec, float* color, float* ds,
+                uint8_t* need, float* sro, float* img, void* stream) {
   vx::kd_shade_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
                         (cudaStream_t)stream>>>(
-      *tex, *fp, hidx, hcount, size, (const vx::HitRec*)rec, (float4*)color,
-      ds, need, sro, img);
+      *tex, *fp, cams, hidx, hcount, size, (const vx::HitRec*)rec,
+      (float4*)color, ds, need, sro, img);
   return (int)cudaGetLastError();
 }
 
@@ -711,65 +773,74 @@ int vx_kd_finish(const vx::FrameParams* fp, const int* hidx, const int* sidx,
 
 // ---- K9: the adaptive frame ------------------------------------------------
 
-// out: the records of grid level `level` (its lane count when idx is null,
-// else at least the largest index); idx/count: a refine list of `size`
-// entries and its count on the card, or null.
+// Each K9 entry takes cams (null, or the (n_poses, 12) cameras of a batch,
+// K10) and n_poses: the lanes of every pose, pose-major.
+// out: the records of grid level `level` (n_poses times its lane count
+// when idx is null, else at least the largest index); idx/count: a refine
+// list of `size` entries and its count on the card, or null; tf: null or
+// the (n_poses, ceil(H/8), ntx) tile floors.
 int vx_k9_trace(const uint32_t* desc, long long n_words, float octree_scale,
-                const vx::FrameParams* fp, const float* tf, int ntx,
-                int level, const int* idx, const int* count, int size,
+                const vx::FrameParams* fp, const float* cams, const float* tf,
+                int ntx, int level, const int* idx, const int* count, int size,
                 void* out, void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
   vx::k9_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
                         (cudaStream_t)stream>>>(
-      world, octree_scale, *fp, tf, ntx, level, idx, count, size,
+      world, octree_scale, *fp, cams, tf, ntx, level, idx, count, size,
       (vx::K9Rec*)out);
   return (int)cudaGetLastError();
 }
 
 int vx_k9_trace_csvo(const uint32_t* words, long long n_words,
                      float octree_scale, unsigned root_ptr, int total_depth,
-                     const vx::FrameParams* fp, const float* tf, int ntx,
-                     int level, const int* idx, const int* count, int size,
-                     void* out, void* stream) {
+                     const vx::FrameParams* fp, const float* cams,
+                     const float* tf, int ntx, int level, const int* idx,
+                     const int* count, int size, void* out, void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
   vx::k9_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
                         (cudaStream_t)stream>>>(
-      world, octree_scale, *fp, tf, ntx, level, idx, count, size,
+      world, octree_scale, *fp, cams, tf, ntx, level, idx, count, size,
       (vx::K9Rec*)out);
   return (int)cudaGetLastError();
 }
 
-// lo: the records of level + 1; hi, refine: the n lanes of level `level`.
-int vx_k9_merge(float octree_scale, const vx::FrameParams* fp, int level,
-                const void* lo, void* hi, uint8_t* refine, int n,
-                void* stream) {
+// lo: the records of level + 1; hi, refine: the n lanes of level `level`
+// (n_poses times the level's lane count).
+int vx_k9_merge(float octree_scale, const vx::FrameParams* fp,
+                const float* cams, int level, const void* lo, void* hi,
+                uint8_t* refine, int n, void* stream) {
   vx::k9_merge_kernel<<<vx::grid_for(n), vx::BLOCK, 0,
                         (cudaStream_t)stream>>>(
-      octree_scale, *fp, level, (const vx::K9Rec*)lo, (vx::K9Rec*)hi,
-      refine);
+      octree_scale, *fp, cams, level, (const vx::K9Rec*)lo, (vx::K9Rec*)hi,
+      refine, n);
   return (int)cudaGetLastError();
 }
 
 int vx_k9_finalize(float octree_scale, const vx::FrameParams* fp,
-                   const void* frec, void* rec, uint8_t* hit, float* img,
-                   uint8_t* needp, uint8_t* blkp, void* stream) {
-  vx::k9_finalize_kernel<<<vx::grid_for((long long)fp->width * fp->height),
+                   const float* cams, int n_poses, const void* frec, void* rec,
+                   uint8_t* hit, float* img, uint8_t* needp, uint8_t* blkp,
+                   void* stream) {
+  vx::k9_finalize_kernel<<<vx::grid_for((long long)fp->width * fp->height *
+                                        n_poses),
                            vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      octree_scale, *fp, (const vx::K9Rec*)frec, (vx::HitRec*)rec, hit, img,
-      needp, blkp);
+      octree_scale, *fp, cams, n_poses, (const vx::K9Rec*)frec,
+      (vx::HitRec*)rec, hit, img, needp, blkp);
   return (int)cudaGetLastError();
 }
 
+// hstart: null (one frame) or the n_poses first hit lanes of each pose in
+// hidx (K6's segment starts).
 int vx_k9_shadow_cells(int step, const vx::FrameParams* fp, const int* hidx,
-                       const int* hcount, int size, const uint8_t* need,
-                       uint8_t* needp, const uint8_t* blkp, uint8_t* mask,
-                       int* dense, const float* color, const float* ds,
-                       float* img, void* stream) {
+                       const int* hcount, const int* hstart, int n_poses,
+                       int size, const uint8_t* need, uint8_t* needp,
+                       const uint8_t* blkp, uint8_t* mask, int* dense,
+                       const float* color, const float* ds, float* img,
+                       void* stream) {
   vx::k9_shadow_cells_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
                                (cudaStream_t)stream>>>(
-      step, *fp, hidx, hcount, size, need, needp, blkp, mask, dense,
-      (const float4*)color, ds, img);
+      step, *fp, hidx, hcount, hstart, n_poses, size, need, needp, blkp, mask,
+      dense, (const float4*)color, ds, img);
   return (int)cudaGetLastError();
 }
 
@@ -823,6 +894,37 @@ int vx_k9j_finalize(const vx::FrameParams* fp, const void* frec, void* rec,
   vx::k9j_finalize_kernel<<<vx::grid_for((long long)fp->width * fp->height),
                             vx::BLOCK, 0, (cudaStream_t)stream>>>(
       *fp, (const vx::K9JRec*)frec, (vx::HitRec*)rec, hit, img, needp, blkp);
+  return (int)cudaGetLastError();
+}
+
+// ---- P0: the gather probe ------------------------------------------------
+
+// kind: 0 flat, 1 axis0, 2 axis1, 3 two_step; tbl: rows * 128 words;
+// seeds, out: sub * 128 words (axis1 reads rows 0..sub-1: sub <= rows).
+int vx_p0_gather(int kind, const uint32_t* tbl, int rows,
+                 const uint32_t* seeds, int sub, int steps, uint32_t* out,
+                 void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (kind) {
+    case vx::P0_FLAT:
+      vx::p0_gather_kernel<vx::P0_FLAT><<<sub, vx::P0_LANES, 0, st>>>(
+          tbl, (uint32_t)rows, seeds, steps, out);
+      break;
+    case vx::P0_AXIS0:
+      vx::p0_gather_kernel<vx::P0_AXIS0><<<sub, vx::P0_LANES, 0, st>>>(
+          tbl, (uint32_t)rows, seeds, steps, out);
+      break;
+    case vx::P0_AXIS1:
+      vx::p0_gather_kernel<vx::P0_AXIS1><<<sub, vx::P0_LANES, 0, st>>>(
+          tbl, (uint32_t)rows, seeds, steps, out);
+      break;
+    case vx::P0_TWO_STEP:
+      vx::p0_gather_kernel<vx::P0_TWO_STEP><<<sub, vx::P0_LANES, 0, st>>>(
+          tbl, (uint32_t)rows, seeds, steps, out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

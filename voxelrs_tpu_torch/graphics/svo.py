@@ -7,7 +7,8 @@ Counterpart: voxelrs_tpu/graphics/svo.py (``__init__`` :63-111,
 ``reload_resources``, ``_compute_translucent_blocks`` :207, ``render`` :224
 — its default ``mode="deferred"`` :245-290 for both formats, ``"fused"``
 and, for a CSVO buffer, ``"csvo"`` :292-366 — ``set_heightfield`` :413,
-``_beam_floors`` :479-521, ``raycast`` :559-589, ``get_stats``), itself
+``render_batch`` :419-470, ``_beam_floors`` :479-521, ``raycast``
+:559-589, ``get_stats``), itself
 after reference: src/graphics/svo.rs:56-255. The
 persistently-mapped GL buffer is an int32 torch tensor holding u32 words,
 patched on exactly the ranges the serializer changed.
@@ -29,8 +30,9 @@ import torch
 from ..device import resolve_device
 from ..ops.adaptive import frame_levels
 from ..ops.picker import raycast
-from ..ops.shading import (DeferredWorkspace, KernelTables, render_frame,
-                           render_frame_deferred_at)
+from ..ops.shading import (DeferredWorkspace, KernelTables, check_batch,
+                           render_frame, render_frame_deferred_at,
+                           render_frames_opaque_batch)
 from ..ops.traversal_csvo import MAX_STREAM_BYTES, CsvoBuffer
 from .picker import PickerBatch, PickerBatchResult
 
@@ -100,6 +102,7 @@ class Svo:
         self.heightfield = None
         self.last_frame = {}
         self._workspace = None  # the deferred frame's scratch on the card
+        self._batch_workspace = None  # render_batch's, for N poses
 
     # -- world upload ---------------------------------------------------------
 
@@ -321,17 +324,82 @@ class Svo:
                                sun=beams is not None and beams.has_sun(),
                                adaptive=levels > 0,
                                hierarchy=levels - 1 if levels else None)
-        ws = None
-        if self.device.type == "cuda":
-            key = (width * height, self.device_buf.device)
-            if self._workspace is None or self._workspace.key != key:
-                self._workspace = None  # free the old scratch first
-                self._workspace = DeferredWorkspace(*key)
-            ws = self._workspace
         return render_frame_deferred_at(
             levels, self.world(), self.octree_scale, self.mips,
             self.mat_params, self.mat_tex, **kw, opaque=opaque, beams=beams,
-            tables=tables, workspace=ws)
+            tables=tables, workspace=self._workspace_for("_workspace",
+                                                         width * height))
+
+    def _workspace_for(self, attr: str, lanes: int):
+        """The ``DeferredWorkspace`` kept in ``attr`` for ``lanes`` lanes on
+        the card (None on the CPU), the old one freed before a new one is
+        allocated."""
+        if self.device.type != "cuda":
+            return None
+        key = (lanes, self.device_buf.device)
+        if getattr(self, attr) is None or getattr(self, attr).key != key:
+            setattr(self, attr, None)  # free the old scratch first
+            setattr(self, attr, DeferredWorkspace(*key))
+        return getattr(self, attr)
+
+    def render_batch(self, params_list, width: int, height: int,
+                     max_steps: int = 1000):
+        """Render a sequence of poses in one pass (JAX :419-470, the
+        benchmark fly-through): ``ops.shading.render_frames_opaque_batch``
+        (K10) launches each stage of the opaque frame once for all the
+        poses. Returns an (N, H, W, 4) float32 tensor on the renderer's
+        device, each pose's image equal to ``render`` of that pose given
+        pose 0's sun map (``beam_context(shared_sun=)``), or None where the
+        JAX package returns None: a CSVO buffer, a world with a translucent
+        block, or beams available for pose 0 and not for every pose.
+
+        As in JAX, every pose takes pose 0's ``fov_y_rad``,
+        ``aspect_ratio``, ``ambient_intensity``, ``light_dir``,
+        ``shadow_distance`` and ``render_shadows``, no block is highlighted,
+        and each pose's tile floors (K7, one launch a pose) come with the
+        envelope and pose 0's sun map shared. ``last_frame`` records what
+        ran, as for ``render``. The JAX switch ``_fused_frame_on()``
+        (``VOXELRS_FUSED_FRAME``) selects its whole-frame XLA programs and
+        their plan store, which the port does not have, so it is not read:
+        the batch always runs. A batch beyond
+        ``ops.shading.check_batch`` (64 poses at 1080p) is refused."""
+        n = len(params_list)
+        check_batch(n, width, height)
+        if self.buffer_dtype != np.uint32 or not self.is_opaque():
+            return None
+        ctxs = []
+        for i, p in enumerate(params_list):
+            ctxs.append(self.beam_context(
+                p, width, height,
+                shared_sun=ctxs[0]._sun if i and ctxs[0] is not None
+                else None))
+        beams0 = ctxs[0]
+        if beams0 is not None and any(c is None for c in ctxs):
+            return None  # mixed beam availability (JAX :456-457)
+        kws = [self.frame_kwargs(p, width, height, max_steps)
+               for p in params_list]
+        kw0 = kws[0]
+        cam_stack = tuple(np.stack([kw[k] for kw in kws]) for k in (
+            "cam_pos", "cam_right", "cam_up", "cam_fwd"))
+        levels = frame_levels(width, height, True)
+        self.last_frame = dict(mode="batch", poses=n, opaque=True,
+                               beams=beams0 is not None,
+                               sun=beams0 is not None and beams0.has_sun(),
+                               adaptive=levels > 0,
+                               hierarchy=levels - 1 if levels else None)
+        return render_frames_opaque_batch(
+            self.world(), self.octree_scale, self.mips, self.mat_params,
+            self.mat_tex, cam_stack, kw0["fov_y_rad"], kw0["aspect"],
+            kw0["ambient"], kw0["light_dir"], kw0["shadow_distance"],
+            np.full(3, np.nan, np.float32), width=width, height=height,
+            render_shadows=kw0["render_shadows"], max_steps=max_steps,
+            beams_shared=beams0,
+            t_floor_stack=(None if beams0 is None else torch.stack(
+                [c.tile_floors for c in ctxs])),
+            tables=self.kernel_tables() if self.device.type == "cuda"
+            else None,
+            workspace=self._workspace_for("_batch_workspace",
+                                          n * width * height))
 
     # -- picking ---------------------------------------------------------------
 

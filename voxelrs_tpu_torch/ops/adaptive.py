@@ -44,6 +44,17 @@ its kernel (``csrc/k9_adaptive.cuh``) for CUDA tensors, counting the
 launches. The plain versions take the same inputs (the kernels'
 ``FrameParams``) and write the same outputs in place, operation for
 operation, so on the card kernel and plain version agree bit for bit.
+
+A pose batch (K10, JAX ``render_frames_opaque_batch`` :3580) runs the same
+kernels once for N poses: ``cams`` ((N, 12) float32 on the card, each
+pose's cam_pos, right, up and fwd; ``ops.shading.batch_cameras``) and,
+for the shadow cells, ``hstart`` (each pose's first hit lane, K6's
+segment starts) select it. Lanes are pose-major, so every buffer of one
+frame becomes N of them end to end; the tile floors stack to (N, nty,
+ntx). The plain versions run a batch pose by pose on those slices with
+the pose's ``FrameParams`` (``ops.shading.pose_params``), which is what
+holds the kernels' pose arithmetic. ``render_frames_adaptive_batch``
+drives the frame of one pose or of a batch.
 """
 
 from __future__ import annotations
@@ -299,13 +310,35 @@ def _unpack(rec):
             fl[:, 4], rec[:, 5].to(i64) & U32_MASK, rec[:, 6].to(i64))
 
 
+def _level_lanes(fp: _build.FrameParams, level: int) -> int:
+    w, h = grid_dims(fp.width, fp.height, level)[level]
+    return w * h
+
+
 def k9_trace_plain(world, octree_scale, fp: _build.FrameParams, tf,
-                   level: int, out, idx=None, count=None):
+                   level: int, out, idx=None, count=None, cams=None):
     """``k9_trace``'s function: the opaque trace of the lanes of grid level
     ``level`` (all of them, or ``idx[:count]``) at their pixels' rays from
     their pixels' tile floors (``tf`` None: unfloored), each lane's record
-    written into ``out[lane]``."""
+    written into ``out[lane]``; with ``cams``, of the lanes of every pose
+    (lane = pose * the level's lanes + lane of the pose)."""
     dev = out.device
+    if cams is not None:
+        n = _level_lanes(fp, level)
+        lanes = (None if idx is None
+                 else idx[: min(int(count), idx.shape[0])].to(i64))
+        for p in range(cams.shape[0]):
+            local = None
+            if lanes is not None:
+                local = lanes[(lanes >= p * n) & (lanes < (p + 1) * n)] - p * n
+                if local.numel() == 0:
+                    continue
+            k9_trace_plain(world, octree_scale,
+                           shading.pose_params(fp, cams, p),
+                           None if tf is None else tf[p], level,
+                           out[p * n:(p + 1) * n], local,
+                           None if local is None else local.numel())
+        return out
     if idx is None:
         lanes = torch.arange(out.shape[0], dtype=i64, device=dev)
     else:
@@ -321,11 +354,19 @@ def k9_trace_plain(world, octree_scale, fp: _build.FrameParams, tf,
 
 
 def k9_merge_plain(octree_scale, fp: _build.FrameParams, level: int, lo, hi,
-                   refine):
+                   refine, cams=None):
     """``k9_merge``'s function (JAX ``_make_frozen_merge``'s ``merge``
     :1974-2117): the records ``lo`` of grid level + 1 onto the lanes of
     level ``level``, written into ``hi``, and the lanes to re-trace into
-    ``refine``."""
+    ``refine``; with ``cams``, each pose's from its own records."""
+    if cams is not None:
+        nh, nl = _level_lanes(fp, level), _level_lanes(fp, level + 1)
+        for p in range(cams.shape[0]):
+            k9_merge_plain(octree_scale, shading.pose_params(fp, cams, p),
+                           level, lo[p * nl:(p + 1) * nl],
+                           hi[p * nh:(p + 1) * nh],
+                           refine[p * nh:(p + 1) * nh])
+        return hi, refine
     dev = lo.device
     wh, hh = grid_dims(fp.width, fp.height, level)[level]
     g = coarse_grid(wh, hh, dev)
@@ -412,11 +453,20 @@ def k9_merge_plain(octree_scale, fp: _build.FrameParams, level: int, lo, hi,
 
 
 def k9_finalize_plain(octree_scale, fp: _build.FrameParams, frec, rec, hit,
-                      img, needp, blkp):
+                      img, needp, blkp, cams=None):
     """``k9_finalize``'s function (JAX ``_finalize_lanes`` :1894 with the
     carried values): the pixel records ``frec`` as the deferred frame's
     (H*W, 9) hit records ``rec`` and ``hit``; a miss gets its sky in
-    ``img``; ``needp``/``blkp`` cleared."""
+    ``img``; ``needp``/``blkp`` cleared. With ``cams`` every pose's, its
+    image ``img[pose]``."""
+    if cams is not None:
+        B = fp.width * fp.height
+        for p in range(cams.shape[0]):
+            sl = slice(p * B, (p + 1) * B)
+            k9_finalize_plain(octree_scale, shading.pose_params(fp, cams, p),
+                              frec[sl], rec[sl], hit[sl], img[p], needp[sl],
+                              blkp[sl])
+        return rec, hit
     dev = frec.device
     ro, rd = _frame_rays(fp, torch.arange(frec.shape[0], dtype=i64,
                                           device=dev))
@@ -448,7 +498,8 @@ def _composite(color, ds, shadow: float, ambient: float):
 
 
 def k9_shadow_cells_plain(step: int, fp: _build.FrameParams, hidx, hcount,
-                          need, needp, blkp, mask, dense, color, ds, img):
+                          need, needp, blkp, mask, dense, color, ds, img,
+                          hstart=None):
     """``k9_shadow_cells``'s function over the compacted hit lanes
     (``hidx``, up to ``hcount``). Step 1 (JAX ``shadow_mask1`` :2170 and
     the dense test :3912): ``needp`` at the hit pixels, ``dense``, and the
@@ -456,7 +507,22 @@ def k9_shadow_cells_plain(step: int, fp: _build.FrameParams, hidx, hcount,
     and ``shadow_combine`` :2192): on a dense frame an interior pixel whose
     four cell corners agree on (need, verdict) and need a shadow reuses the
     verdict (a blocked one is composited into ``img``); the other
-    candidates are the pass-2 ``mask``."""
+    candidates are the pass-2 ``mask``. ``hstart`` (a batch): pose q's
+    hit lanes are ``hidx[hstart[q]:hstart[q + 1]]``, each pose decides its
+    own ``dense[q]`` from its own count and reads its own pixels."""
+    if hstart is not None:
+        B = fp.width * fp.height
+        n = min(int(hcount.reshape(-1)[0]), hidx.shape[0])
+        ends = hstart.tolist() + [n]
+        for q in range(hstart.shape[0]):
+            a, b = ends[q], ends[q + 1]
+            k9_shadow_cells_plain(
+                step, fp, hidx[a:b] - q * B,
+                torch.tensor([b - a], dtype=i32, device=hidx.device),
+                need[a:b], needp[q * B:(q + 1) * B], blkp[q * B:(q + 1) * B],
+                mask[a:b], dense[q:q + 1], color[a:b], ds[a:b], img[q])
+        mask[n:] = False
+        return mask
     W, H = fp.width, fp.height
     size = hidx.shape[0]
     n = min(int(hcount.reshape(-1)[0]), size)
@@ -506,62 +572,75 @@ def _check_rec(name, t, n=None):
                          "int32 records")
 
 
+def _poses(cams, fp: _build.FrameParams, dev) -> int:
+    """The poses of a launch: 1 for one frame (``cams`` None), else the
+    rows of ``cams``, checked (``ops.shading.check_cams``)."""
+    if cams is None:
+        return 1
+    shading.check_cams(cams, fp.width, fp.height, dev)
+    return cams.shape[0]
+
+
 def k9_trace(world, octree_scale, fp: _build.FrameParams, tf, level: int, out,
-             idx=None, count=None):
+             idx=None, count=None, cams=None):
     """The trace of grid level ``level`` into its records ``out`` (n, 8)
     int32: every lane, or the refine list ``idx`` up to its device
-    ``count`` (K6's output). Plain version on the CPU, K9's trace kernel
-    on the card."""
+    ``count`` (K6's output); with ``cams``, of the N poses' lanes (``out``
+    N times the level's lanes, ``tf`` (N, nty, ntx)). Plain version on the
+    CPU, K9's trace kernel on the card."""
     if not out.is_cuda:
         return k9_trace_plain(world, octree_scale, fp, tf, level, out, idx,
-                              count)
+                              count, cams)
     global launches_trace
-    w, h = grid_dims(fp.width, fp.height, level)[level]
-    _check_rec("out", out, w * h)
+    n = _level_lanes(fp, level) * _poses(cams, fp, out.device)
+    _check_rec("out", out, n)
     if shading.world_tensor(world).device != out.device or (
             tf is not None and (tf.device != out.device
-                                or tf.dtype != f32 or not tf.is_contiguous())):
+                                or tf.dtype != f32 or not tf.is_contiguous()
+                                or tf.dim() != (2 if cams is None else 3))):
         raise ValueError("k9_trace: world, floors and records on one device")
     if (idx is None) != (count is None):
         raise ValueError("k9_trace: idx and count come together")
-    size = w * h if idx is None else idx.shape[0]
+    size = n if idx is None else idx.shape[0]
     if size:
         _build.launch_k9_trace(world, float(octree_scale), fp, tf, level, out,
-                               idx, count)
+                               idx, count, cams)
         launches_trace += 1
     return out
 
 
 def k9_merge(octree_scale, fp: _build.FrameParams, level: int, lo, hi,
-             refine):
+             refine, cams=None):
     """The merge of the records ``lo`` of level + 1 onto level ``level``
-    (``hi`` (n, 8) int32, ``refine`` (n,) bool). Plain version on the CPU,
-    K9's merge kernel on the card."""
+    (``hi`` (n, 8) int32, ``refine`` (n,) bool; with ``cams``, of the N
+    poses). Plain version on the CPU, K9's merge kernel on the card."""
     if not lo.is_cuda:
-        return k9_merge_plain(octree_scale, fp, level, lo, hi, refine)
+        return k9_merge_plain(octree_scale, fp, level, lo, hi, refine, cams)
     global launches_merge
-    dims = grid_dims(fp.width, fp.height, level + 1)
-    _check_rec("lo", lo, dims[level + 1][0] * dims[level + 1][1])
-    n = dims[level][0] * dims[level][1]
+    N = _poses(cams, fp, lo.device)
+    _check_rec("lo", lo, _level_lanes(fp, level + 1) * N)
+    n = _level_lanes(fp, level) * N
     _check_rec("hi", hi, n)
     if refine.dtype != torch.bool or tuple(refine.shape) != (n,) \
             or not refine.is_contiguous():
         raise ValueError(f"refine: expected a contiguous ({n},) bool tensor")
-    _build.launch_k9_merge(float(octree_scale), fp, level, lo, hi, refine)
+    _build.launch_k9_merge(float(octree_scale), fp, level, lo, hi, refine,
+                           cams)
     launches_merge += 1
     return hi, refine
 
 
 def k9_finalize(octree_scale, fp: _build.FrameParams, frec, rec, hit, img,
-                needp, blkp):
+                needp, blkp, cams=None):
     """The pixel records ``frec`` as the deferred frame's hit records,
-    hit flags and sky; ``needp``/``blkp`` cleared. Plain version on the
-    CPU, K9's finalize kernel on the card."""
+    hit flags and sky; ``needp``/``blkp`` cleared; with ``cams``, of the N
+    poses (``img`` (N, H, W, 4)). Plain version on the CPU, K9's finalize
+    kernel on the card."""
     if not frec.is_cuda:
         return k9_finalize_plain(octree_scale, fp, frec, rec, hit, img, needp,
-                                 blkp)
+                                 blkp, cams)
     global launches_finalize
-    B = fp.width * fp.height
+    B = fp.width * fp.height * _poses(cams, fp, frec.device)
     _check_rec("frec", frec, B)
     if tuple(rec.shape) != (B, _build.HIT_WORDS) or hit.shape[0] != B \
             or img.numel() != 4 * B:
@@ -570,28 +649,36 @@ def k9_finalize(octree_scale, fp: _build.FrameParams, frec, rec, hit, img,
         if t.dtype != torch.bool or t.shape[0] != B:
             raise ValueError(f"{name}: expected ({B},) bool")
     _build.launch_k9_finalize(float(octree_scale), fp, frec, rec, hit, img,
-                              needp, blkp)
+                              needp, blkp, cams)
     launches_finalize += 1
     return rec, hit
 
 
 def k9_shadow_cells(step: int, fp: _build.FrameParams, hidx, hcount, need,
-                    needp, blkp, mask, dense, color, ds, img):
-    """Step 1 or 2 of the shadow cells (``k9_shadow_cells_plain``). Plain
-    version on the CPU, K9's shadow-cell kernel on the card."""
+                    needp, blkp, mask, dense, color, ds, img, hstart=None):
+    """Step 1 or 2 of the shadow cells (``k9_shadow_cells_plain``; with
+    ``hstart``, of a batch's poses). Plain version on the CPU, K9's
+    shadow-cell kernel on the card."""
     if not hidx.is_cuda:
         return k9_shadow_cells_plain(step, fp, hidx, hcount, need, needp,
-                                     blkp, mask, dense, color, ds, img)
+                                     blkp, mask, dense, color, ds, img,
+                                     hstart)
     global launches_shadow_cells
     if step not in (1, 2):
         raise ValueError(f"k9_shadow_cells: step {step}")
-    B = fp.width * fp.height
+    N = 1 if hstart is None else hstart.shape[0]
+    if hstart is not None and (hstart.dtype != i32 or hstart.dim() != 1
+                               or hstart.device != hidx.device
+                               or dense.shape[0] < N):
+        raise ValueError("hstart: expected (N,) int32 on the hits' device "
+                         "and N dense flags")
+    B = fp.width * fp.height * N
     for name, t in (("need", need), ("needp", needp), ("blkp", blkp),
                     ("mask", mask)):
         if t.dtype != torch.bool or t.shape[0] != B:
             raise ValueError(f"{name}: expected ({B},) bool")
     _build.launch_k9_shadow_cells(step, fp, hidx, hcount, need, needp, blkp,
-                                  mask, dense, color, ds, img)
+                                  mask, dense, color, ds, img, hstart)
     launches_shadow_cells += 1
     return mask
 
@@ -601,18 +688,20 @@ def k9_shadow_cells(step: int, fp: _build.FrameParams, hidx, hcount, need,
 # ---------------------------------------------------------------------------
 
 class AdaptiveBuffers:
-    """The adaptive frame's scratch for one frame size, depth of grids and
-    record size (``words`` a lane: K9's 8, K9-judged's 16): the records of
-    each level, a refine mask and list, the refine counts of each level,
-    the pixel-space shadow need and verdicts, the shadow-pass mask and the
-    dense flag."""
+    """The adaptive frame's scratch for one frame size, depth of grids,
+    record size (``words`` a lane: K9's 8, K9-judged's 16) and number of
+    poses (a batch's, pose-major): the records of each level, a refine
+    mask and list, the refine counts of each level, the pixel-space shadow
+    need and verdicts, the shadow-pass mask, each pose's dense flag and
+    first hit lane."""
 
     def __init__(self, width: int, height: int, levels: int, dev,
-                 words: int = REC_WORDS):
-        self.key = (width, height, levels, words)
+                 words: int = REC_WORDS, n_poses: int = 1):
+        self.key = (width, height, levels, words, n_poses)
         dims = grid_dims(width, height, levels)
-        B = width * height
-        self.recs = [torch.empty((w * h, words), dtype=i32, device=dev)
+        N = n_poses
+        B = width * height * N
+        self.recs = [torch.empty((w * h * N, words), dtype=i32, device=dev)
                      for w, h in dims]
         self.refine = torch.empty(B, dtype=torch.bool, device=dev)
         self.ridx = torch.empty(B, dtype=i32, device=dev)
@@ -620,55 +709,66 @@ class AdaptiveBuffers:
         self.needp = torch.empty(B, dtype=torch.bool, device=dev)
         self.blkp = torch.empty(B, dtype=torch.bool, device=dev)
         self.mask = torch.empty(B, dtype=torch.bool, device=dev)
-        self.dense = torch.zeros(1, dtype=i32, device=dev)
+        self.dense = torch.zeros(N, dtype=i32, device=dev)
+        self.hstart = torch.zeros(N, dtype=i32, device=dev)
 
 
-def render_frame_adaptive(world, octree_scale, tables, params, *, levels: int,
-                          beams, light_dir, ws, img):
+def render_frames_adaptive_batch(world, octree_scale, tables, params, cams,
+                                 *, levels: int, beams, light_dir, ws, img):
     """The adaptive frame on the card (``ops.shading.render_frame_deferred``
-    dispatches here for an opaque world): K9's trace of the coarsest grid,
-    then per finer level K9's merge, K6 over the refine mask and K9's
-    trace of the refine list; K9's finalize; K6 over the hits and the
-    shading stage; with shadows, two passes of K9's shadow cells, K6, the
-    certificates (K8, K6) or floors (K7 / K8), the shadow stage and the
-    finishing stage. No count leaves the card. ``ws`` is the frame's
-    ``DeferredWorkspace``, ``img`` the (H, W, 4) output."""
+    dispatches here for an opaque world), of one pose (``cams`` None) or
+    of each pose of a batch (``cams`` (N, 12), K10): K9's trace of the
+    coarsest grid, then per finer level K9's merge, K6 over the refine mask
+    and K9's trace of the refine list; K9's finalize; K6 over the hits and
+    the shading stage; with shadows, two passes of K9's shadow cells, K6,
+    the certificates (K8, K6) or floors (K7 / K8), the shadow stage and
+    the finishing stage. A batch makes these launches once for all its
+    poses. No count leaves the card. ``ws`` is the frame's
+    ``DeferredWorkspace`` (N * H * W lanes), ``img`` the (H, W, 4) or (N,
+    H, W, 4) output, ``beams.tile_floors`` (nty, ntx) or (N, nty, ntx)."""
     W, H = params.width, params.height
-    ab = ws.adaptive(W, H, levels)
+    ab = ws.adaptive(W, H, levels, n_poses=1 if cams is None
+                     else cams.shape[0])
     scale = float(octree_scale)
     tf = None if beams is None else beams.tile_floors
-    k9_trace(world, scale, params, tf, levels, ab.recs[levels])
+    k9_trace(world, scale, params, tf, levels, ab.recs[levels], cams=cams)
     for k in range(levels - 1, -1, -1):
         n = ab.recs[k].shape[0]
-        k9_merge(scale, params, k, ab.recs[k + 1], ab.recs[k], ab.refine[:n])
+        k9_merge(scale, params, k, ab.recs[k + 1], ab.recs[k], ab.refine[:n],
+                 cams=cams)
         ridx, rcount = compact.compact_indices(
             ab.refine[:n], n, out=ab.ridx[:n], count=ab.rcounts[k:k + 1],
             scratch=ws.scratch)
         k9_trace(world, scale, params, tf, k, ab.recs[k], idx=ridx,
-                 count=rcount)
+                 count=rcount, cams=cams)
     k9_finalize(scale, params, ab.recs[0], ws.rec, ws.hit, img, ab.needp,
-                ab.blkp)
+                ab.blkp, cams=cams)
     return shade_and_shadow(world, scale, tables, params, 0, beams, light_dir,
-                            ws, ab, img)
+                            ws, ab, img, cams=cams)
 
 
 def shade_and_shadow(world, scale, tables, params, alpha_mode, beams,
-                     light_dir, ws, ab, img):
+                     light_dir, ws, ab, img, cams=None):
     """The adaptive frame's tail on the card, once its hit records are in
     ``ws.rec`` / ``ws.hit``: K6 over the hits and the shading stage; with
     shadows, two passes of K9's shadow cells, K6, the certificates (K8, K6)
     or floors (K7 / K8), the shadow stage (judged unless ``alpha_mode`` is
-    0) and the finishing stage (JAX :3912-4037, :3384-3474)."""
-    B = params.width * params.height
-    hidx, hcount = compact.compact_indices(ws.hit, B, out=ws.hidx,
-                                           count=ws.hcount, scratch=ws.scratch)
+    0) and the finishing stage (JAX :3912-4037, :3384-3474). With ``cams``
+    the lanes of a batch's poses, whose hit compaction also leaves each
+    pose's first hit lane in ``ab.hstart``."""
+    n = ws.hit.shape[0]
+    hstart = None if cams is None else ab.hstart
+    hidx, hcount = compact.compact_indices(ws.hit, n, out=ws.hidx,
+                                           count=ws.hcount, scratch=ws.scratch,
+                                           starts=hstart)
     _build.launch_kd_shade(tables, params, hidx, hcount, ws.rec, ws.color,
-                           ws.ds, ws.need, ws.sro, img)
+                           ws.ds, ws.need, ws.sro, img, cams=cams)
     shading.launches_shade += 1
     if params.render_shadows:
         for step in (1, 2):
             k9_shadow_cells(step, params, hidx, hcount, ws.need, ab.needp,
-                            ab.blkp, ab.mask, ab.dense, ws.color, ws.ds, img)
+                            ab.blkp, ab.mask, ab.dense, ws.color, ws.ds, img,
+                            hstart=hstart)
             shading.shadow_pass(world, scale, tables, params, alpha_mode,
                                 beams, light_dir, ws, ab.mask, hidx, img,
                                 certify=True,
@@ -684,7 +784,7 @@ def render_frame_adaptive_plain(world, octree_scale, mips, mat_params,
                                 levels: int, max_steps: int = 1000,
                                 beams=None, mip_mode: str | None = None):
     """The plain PyTorch adaptive frame on any device: the same steps as
-    ``render_frame_adaptive``, through the plain versions of K9, K6, K7
+    ``render_frames_adaptive_batch``, through the plain versions of K9, K6, K7
     and K8 and the deferred frame's plain shading, over ``levels`` grids
     above the pixels (``adaptive_levels``)."""
     csvo = isinstance(world, CsvoBuffer)

@@ -11,6 +11,11 @@ On a CUDA mask ``compact_indices`` launches K6 (``csrc/k6_compact.cuh``):
 a warp-ballot count per 1024-lane block, one block's scan of the block
 counts (which also writes the total), and a write pass that places each
 set lane at its rank. On the CPU it runs the plain version.
+
+A pose batch (K10) compacts the lanes of all its poses at once, pose-major;
+``starts`` then receives where each pose's set lanes begin in the output
+(the write pass's rank of each pose's first lane), so a kernel reads each
+pose's count on the card.
 """
 
 from __future__ import annotations
@@ -22,11 +27,28 @@ from .. import _build
 launches = 0  # K6 launches by compact_indices (the wrapper below)
 
 
-def compact_indices_plain(mask: torch.Tensor, size: int):
+def _check_starts(starts, n: int) -> int:
+    """The segment length of a ``starts`` tensor over ``n`` lanes."""
+    if starts.dtype != torch.int32 or starts.dim() != 1 \
+            or not starts.is_contiguous() or starts.shape[0] == 0 \
+            or n % starts.shape[0]:
+        raise ValueError("starts: expected a contiguous (m,) int32 tensor, "
+                         "m dividing the mask's lanes")
+    return n // starts.shape[0]
+
+
+def compact_indices_plain(mask: torch.Tensor, size: int, *, starts=None):
     """(indices, count): the ascending indices of the set lanes of the 1-d
     ``mask``, truncated at ``size`` and padded with 0 to ``size`` (int32),
-    and the number of set lanes as a (1,) int32 tensor (not truncated)."""
+    and the number of set lanes as a (1,) int32 tensor (not truncated).
+    ``starts`` None, or an (m,) int32 tensor that receives the number of
+    set lanes before lane ``k * n / m`` for each k (m segments of the n
+    lanes)."""
     m = mask.reshape(-1).to(torch.bool)
+    if starts is not None:
+        seg = _check_starts(starts, m.shape[0])
+        before = torch.cumsum(m.to(torch.int64), 0) - m.to(torch.int64)
+        starts.copy_(before[::seg].to(torch.int32))
     rank = torch.cumsum(m.to(torch.int64), 0) - 1
     keep = m & (rank < size)
     out = torch.zeros(size, dtype=torch.int32, device=m.device)
@@ -37,14 +59,15 @@ def compact_indices_plain(mask: torch.Tensor, size: int):
 
 
 def compact_indices(mask: torch.Tensor, size: int, *, out=None, count=None,
-                    scratch=None):
+                    scratch=None, starts=None):
     """``compact_indices_plain``'s function: the plain version for a CPU
     mask, K6 for a CUDA mask (a contiguous 1-d bool tensor). On the card
     ``out`` ((size,) int32), ``count`` ((1,) int32) and ``scratch``
     (int32, at least ``_build.k6_blocks(n)``) may be the caller's
-    workspace, reused across calls on one stream."""
+    workspace, reused across calls on one stream; ``starts`` as in the
+    plain version."""
     if not mask.is_cuda:
-        return compact_indices_plain(mask, size)
+        return compact_indices_plain(mask, size, starts=starts)
     global launches
     if mask.dtype != torch.bool or mask.dim() != 1 \
             or not mask.is_contiguous():
@@ -62,6 +85,9 @@ def compact_indices(mask: torch.Tensor, size: int, *, out=None, count=None,
                               device=dev)
     if out.shape[0] != size or scratch.shape[0] < _build.k6_blocks(n):
         raise ValueError("compact_indices: workspace of another size")
-    _build.launch_k6(mask, size, out, count, scratch)
+    if starts is not None and (_check_starts(starts, n) == 0
+                               or starts.device != dev):
+        raise ValueError("starts: on another device or of empty segments")
+    _build.launch_k6(mask, size, out, count, scratch, starts)
     launches += 1
     return out, count

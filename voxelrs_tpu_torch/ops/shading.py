@@ -28,6 +28,11 @@ the card from K3's device functions. From 2^18 pixels it takes the JAX
 rule's adaptive thick-ray frame, as the JAX package does: K9
 (``ops/adaptive.py``) on an opaque world, K9-judged
 (``ops/adaptive_judged.py``) on a translucent one.
+
+``render_frames_opaque_batch`` is K10 (``render_frames_opaque_batch``
+:3580): N poses of an opaque world rendered by one launch of each of the
+opaque frame's stages (their pose dimension: ``cams``, pose-major lanes),
+each pose's image equal to its own deferred frame.
 """
 
 from __future__ import annotations
@@ -425,6 +430,57 @@ def frame_params(*, width, height, render_shadows, cam_pos, cam_right, cam_up,
     return p
 
 
+# A batch's record offsets (lane * words, up to K9-judged's 16 words a
+# lane) stay under 2^31 so that no kernel index can overflow an int:
+# 64 poses at 1920x1080.
+MAX_BATCH_WORDS = 1 << 31
+
+
+def check_batch(n_poses: int, width: int, height: int) -> None:
+    """Refuse a batch of no pose, or one whose lanes' record words would
+    reach 2^31 (``MAX_BATCH_WORDS``): the kernels index lanes with ints."""
+    if n_poses < 1:
+        raise ValueError("a batch needs at least one pose")
+    if n_poses * width * height * _build.K9J_WORDS >= MAX_BATCH_WORDS:
+        raise ValueError(
+            f"a batch of {n_poses} poses at {width}x{height}: its records "
+            f"would reach 2^31 words; render at most "
+            f"{(MAX_BATCH_WORDS - 1) // (width * height * _build.K9J_WORDS)}"
+            " poses a batch")
+
+
+def batch_cameras(cam_stack, device) -> torch.Tensor:
+    """(N, 12) float32 on ``device``: each pose's cam_pos, right, up and
+    fwd, from ``cam_stack`` = (cam_pos, cam_right, cam_up, cam_fwd), each
+    (N, 3) (the JAX batch's layout)."""
+    rows = np.concatenate([np.asarray(c, np.float32).reshape(-1, 3)
+                           for c in cam_stack], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+
+
+def check_cams(cams, width: int, height: int, device) -> None:
+    """A batch's cameras as the kernels take them: a contiguous (N, 12)
+    float32 tensor on ``device``, N within ``check_batch``."""
+    if cams.dtype != torch.float32 or cams.dim() != 2 \
+            or cams.shape[1] != 12 or not cams.is_contiguous() \
+            or cams.device != device:
+        raise ValueError(f"cams: expected a contiguous (N, 12) float32 "
+                         f"tensor on {device}")
+    check_batch(cams.shape[0], width, height)
+
+
+def pose_params(fp: _build.FrameParams, cams,
+                pose: int) -> _build.FrameParams:
+    """``fp`` with the camera of pose ``pose`` of ``cams`` (N, 12), as the
+    kernels read it (``kernels.cu::pose_params``): the plain versions'
+    parameters for one pose of a batch."""
+    f = _build.FrameParams.from_buffer_copy(fp)
+    row = [float(x) for x in cams[pose].tolist()]
+    f.cam_pos[:], f.right[:] = row[0:3], row[3:6]
+    f.up[:], f.fwd[:] = row[6:9], row[9:12]
+    return f
+
+
 def crosshair_overlay(image: torch.Tensor, radius_px: float = 8.0,
                       thickness: float = 1.5) -> torch.Tensor:
     """Composite a smooth circular crosshair at the image center
@@ -528,18 +584,18 @@ class DeferredWorkspace:
         self._adaptive = None
 
     def adaptive(self, width: int, height: int, levels: int,
-                 words: int = _build.K9_WORDS):
+                 words: int = _build.K9_WORDS, n_poses: int = 1):
         """The adaptive frame's buffers (``ops.adaptive.AdaptiveBuffers``)
-        for this frame size, depth of grids and record size (``words``:
-        K9's records, or K9-judged's ``_build.K9J_WORDS``), made the first
-        time a frame needs them and kept."""
+        for this frame size, depth of grids, record size (``words``: K9's
+        records, or K9-judged's ``_build.K9J_WORDS``) and batch of poses,
+        made the first time a frame needs them and kept."""
         from .adaptive import AdaptiveBuffers
 
-        if self._adaptive is None \
-                or self._adaptive.key != (width, height, levels, words):
+        if self._adaptive is None or self._adaptive.key != (
+                width, height, levels, words, n_poses):
             self._adaptive = None  # free the old scratch first
             self._adaptive = AdaptiveBuffers(width, height, levels,
-                                             self.key[1], words)
+                                             self.key[1], words, n_poses)
         return self._adaptive
 
 
@@ -665,8 +721,8 @@ def render_frame_deferred(world, octree_scale, mips, mat_params, mat_tex, *,
     (``ops.adaptive.adaptive_levels``: from 2^18 pixels, both sides over
     4; ``VOXELRS_ADAPTIVE`` and ``VOXELRS_HIERARCHY`` override it, and
     ``adaptive`` True / False pins it): ``ops.adaptive.
-    render_frame_adaptive`` (K9) on the card, its plain version on the
-    CPU. A translucent world takes the JAX judged rule (``ops.adaptive.
+    render_frames_adaptive_batch`` (K9) on the card, its plain version on
+    the CPU. A translucent world takes the JAX judged rule (``ops.adaptive.
     frame_levels``: the quarter grid from 4,096 quarter lanes, else the half
     grid) and ``ops.adaptive_judged.render_frame_adaptive_judged``
     (K9-judged); ``adaptive=False`` keeps this exact judged frame."""
@@ -714,20 +770,43 @@ def render_frame_deferred_at(levels: int, world, octree_scale, mips,
                                            mat_params, mat_tex, opaque=opaque,
                                            beams=beams, mip_mode=mip_mode,
                                            **kw)
+    params = frame_params(mip_mode=mip_mode, deferred=True,
+                          csvo=isinstance(world, CsvoBuffer), **kw)
+    img = torch.empty((height, width, 4), dtype=torch.float32,
+                      device=buf.device)
+    return _frame_on_card(levels, world, octree_scale, mips, mat_params,
+                          mat_tex, params, None, opaque=opaque, beams=beams,
+                          light_dir=light_dir, tables=tables,
+                          workspace=workspace, img=img)
+
+
+def _frame_on_card(levels: int, world, octree_scale, mips, mat_params,
+                   mat_tex, params: _build.FrameParams, cams, *, opaque: bool,
+                   beams, light_dir, tables, workspace, img):
+    """The deferred frame's launches on the card into ``img``, of one pose
+    (``cams`` None) or of a batch (``cams`` (N, 12), an opaque world, K10):
+    the adaptive frame for ``levels`` > 0, else ``kd_primary`` → K6 →
+    ``kd_shade`` → ``shadow_pass``; each launched once for all the
+    poses."""
+    from . import adaptive as _adaptive
+    from . import adaptive_judged
+
     global launches_primary, launches_shade
+    buf = world_tensor(world)
     dev = buf.device
-    csvo = isinstance(world, CsvoBuffer)
-    if csvo:
+    if isinstance(world, CsvoBuffer):
         check_words(*world)
     elif buf.dtype != torch.int32 or buf.dim() != 1 \
             or buf.shape[0] < 12 or not buf.is_contiguous():
         raise ValueError("descriptors: expected a contiguous 1-d int32 buffer "
                          "of >= 12 words")
+    width, height = params.width, params.height
+    N = 1 if cams is None else cams.shape[0]
+    if cams is not None:
+        check_cams(cams, width, height, dev)
     if tables is None:
         tables = KernelTables(mips, mat_tex, mat_params)
-    params = frame_params(mip_mode=mip_mode, csvo=csvo, deferred=True, **kw)
-    B = width * height
-    img = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    B = width * height * N
     if B == 0:
         return img
     alpha_mode = 0 if opaque else 1
@@ -735,27 +814,33 @@ def render_frame_deferred_at(levels: int, world, octree_scale, mips,
     tf = None
     if beams is not None:
         tf = beams.tile_floors
+        tiles = (-(-height // 8), -(-width // 8))
         if tf.device != dev or tf.dtype != torch.float32 \
-                or not tf.is_contiguous() \
-                or tuple(tf.shape) != (-(-height // 8), -(-width // 8)):
+                or not tf.is_contiguous() or tuple(tf.shape) != (
+                    tiles if cams is None else (N, *tiles)):
             raise ValueError("beams: tile floors of another frame or device")
     ws = workspace
     if ws is None or ws.key != (B, dev):
         ws = DeferredWorkspace(B, dev)
     if levels:
-        frame = (_adaptive.render_frame_adaptive if opaque else
-                 adaptive_judged.render_frame_adaptive_judged)
-        return frame(world, scale, tables, params, levels=levels, beams=beams,
-                     light_dir=light_dir, ws=ws, img=img)
+        if opaque:
+            return _adaptive.render_frames_adaptive_batch(
+                world, scale, tables, params, cams, levels=levels,
+                beams=beams, light_dir=light_dir, ws=ws, img=img)
+        if cams is not None:
+            raise ValueError("a pose batch renders an opaque world")
+        return adaptive_judged.render_frame_adaptive_judged(
+            world, scale, tables, params, levels=levels, beams=beams,
+            light_dir=light_dir, ws=ws, img=img)
     _build.launch_kd_primary(world, scale, tables, params, alpha_mode, tf,
-                             ws.rec, ws.hit, img)
+                             ws.rec, ws.hit, img, cams=cams)
     launches_primary += 1
     hidx, hcount = compact.compact_indices(ws.hit, B, out=ws.hidx,
                                            count=ws.hcount, scratch=ws.scratch)
     _build.launch_kd_shade(tables, params, hidx, hcount, ws.rec, ws.color,
-                           ws.ds, ws.need, ws.sro, img)
+                           ws.ds, ws.need, ws.sro, img, cams=cams)
     launches_shade += 1
-    if render_shadows:
+    if params.render_shadows:
         # the exact judged frame floors its shadow rays (JAX :3152-3163)
         shadow_pass(world, scale, tables, params, alpha_mode, beams,
                     light_dir, ws, ws.need, hidx, img, certify=opaque)
@@ -793,3 +878,130 @@ def shadow_pass(world, scale, tables, params, alpha_mode, beams, light_dir,
     _build.launch_kd_finish(params, hidx, sidx, scount, ws.color, ws.ds, blk,
                             todo, ws.traced, img, blkp)
     launches_finish += 1
+
+
+# ---------------------------------------------------------------------------
+# K10: a batch of poses (the JAX package's render_frames_opaque_batch)
+# ---------------------------------------------------------------------------
+
+def _batch_beams(beams_shared, t_floor_stack, n_poses: int):
+    """The batch's beam context: each pose's tile floors stacked (N, nty,
+    ntx) (``t_floor_stack``, or the shared context's own floors for every
+    pose), the envelope and the sun map shared (JAX :3625-3634)."""
+    from .beams import BeamContext
+
+    if beams_shared is None:
+        return None
+    tf = t_floor_stack
+    if tf is None:
+        tf = beams_shared.tile_floors.expand(n_poses,
+                                             *beams_shared.tile_floors.shape)
+    return BeamContext(tf.contiguous(), beams_shared._dev,
+                       beams_shared.width, beams_shared.height,
+                       sun=beams_shared._sun,
+                       sun_margin=beams_shared.sun_margin)
+
+
+def render_frames_opaque_batch_plain(world, octree_scale, mips, mat_params,
+                                     mat_tex, cam_stack, fov_y_rad, aspect,
+                                     ambient, light_dir, shadow_distance,
+                                     highlight_pos, *, width: int,
+                                     height: int, render_shadows: bool,
+                                     max_steps: int = 1000,
+                                     beams_shared=None, t_floor_stack=None,
+                                     levels: int = 0,
+                                     mip_mode: str | None = None):
+    """``render_frames_opaque_batch``'s plain version on any device: the
+    port's plain frame of each pose in turn (the adaptive frame for
+    ``levels`` > 0, else the exact deferred frame), with that pose's tile
+    floors and the shared envelope and sun map. Returns (N, H, W, 4)."""
+    from .adaptive import render_frame_adaptive_plain
+    from .beams import BeamContext
+
+    beams = _batch_beams(beams_shared, t_floor_stack, len(cam_stack[0]))
+    frames = []
+    for p, cam in enumerate(zip(*cam_stack)):
+        b = None if beams is None else BeamContext(
+            beams.tile_floors[p], beams._dev, width, height, sun=beams._sun,
+            sun_margin=beams.sun_margin)
+        kw = dict(width=width, height=height, render_shadows=render_shadows,
+                  cam_pos=cam[0], cam_right=cam[1], cam_up=cam[2],
+                  cam_fwd=cam[3], fov_y_rad=fov_y_rad, aspect=aspect,
+                  ambient=ambient, light_dir=light_dir,
+                  shadow_distance=shadow_distance,
+                  highlight_pos=highlight_pos, max_steps=max_steps, beams=b,
+                  mip_mode=mip_mode)
+        frames.append(
+            render_frame_adaptive_plain(world, octree_scale, mips, mat_params,
+                                        mat_tex, levels=levels, **kw)
+            if levels else
+            render_frame_deferred_plain(world, octree_scale, mips, mat_params,
+                                        mat_tex, opaque=True, **kw))
+    return torch.stack(frames)
+
+
+def render_frames_opaque_batch(world, octree_scale, mips, mat_params, mat_tex,
+                               cam_stack, fov_y_rad, aspect, ambient,
+                               light_dir, shadow_distance, highlight_pos, *,
+                               width: int, height: int, render_shadows: bool,
+                               max_steps: int = 1000, beams_shared=None,
+                               t_floor_stack=None,
+                               tables: KernelTables | None = None,
+                               workspace: DeferredWorkspace | None = None):
+    """N poses of an opaque world in one pass (voxelrs_tpu/ops/shading.py::
+    render_frames_opaque_batch :3580, K10). Returns (N, H, W, 4) float32.
+
+    ``cam_stack`` = (cam_pos, cam_right, cam_up, cam_fwd), each (N, 3);
+    every pose takes the one ``fov_y_rad``, ``aspect``, ``ambient``,
+    ``light_dir``, ``shadow_distance``, ``highlight_pos`` and
+    ``render_shadows`` (the JAX batch passes pose 0's). ``beams_shared``
+    (an ``ops.beams.BeamContext``, or None) gives the envelope and the sun
+    map all poses share, ``t_floor_stack`` the (N, nty, ntx) tile floors of
+    each pose (None: the shared context's own). Each pose's image is the
+    frame ``render_frame_deferred_at`` draws for it on an opaque world: the
+    adaptive frame where ``ops.adaptive.frame_levels`` picks it (from 2^18
+    pixels, or as ``VOXELRS_ADAPTIVE`` / ``VOXELRS_HIERARCHY`` say), else
+    the exact deferred frame. The JAX ``max_steps`` applies;
+    ``stack_height`` and ``engine`` have no counterpart (the port's
+    traversal keeps its stack in registers, and the world's format picks
+    it).
+
+    The JAX function is a ``lax.map`` of the frame in one XLA program,
+    paying the per-dispatch floor once per batch. Here every stage of the
+    opaque frame is launched once for all N poses (``_frame_on_card`` with
+    ``cams``: pose-major lanes, each pose's camera from an (N, 12) device
+    array), so a batch makes as many stage launches as one frame; only the
+    per-pose tile floors (K7, built by the caller) grow with N. On the CPU
+    this is ``render_frames_opaque_batch_plain``. ``tables`` and
+    ``workspace`` (a ``DeferredWorkspace`` of N * H * W lanes) let a caller
+    reuse them. A batch is refused beyond ``check_batch``."""
+    from .adaptive import frame_levels
+
+    N = len(cam_stack[0])
+    check_batch(N, width, height)
+    levels = frame_levels(width, height, True)
+    buf = world_tensor(world)
+    mip_mode = mip_mode_from_env()
+    if not buf.is_cuda:
+        return render_frames_opaque_batch_plain(
+            world, octree_scale, mips, mat_params, mat_tex, cam_stack,
+            fov_y_rad, aspect, ambient, light_dir, shadow_distance,
+            highlight_pos, width=width, height=height,
+            render_shadows=render_shadows, max_steps=max_steps,
+            beams_shared=beams_shared, t_floor_stack=t_floor_stack,
+            levels=levels, mip_mode=mip_mode)
+    params = frame_params(
+        width=width, height=height, render_shadows=render_shadows,
+        cam_pos=cam_stack[0][0], cam_right=cam_stack[1][0],
+        cam_up=cam_stack[2][0], cam_fwd=cam_stack[3][0], fov_y_rad=fov_y_rad,
+        aspect=aspect, ambient=ambient, light_dir=light_dir,
+        shadow_distance=shadow_distance, highlight_pos=highlight_pos,
+        max_steps=max_steps, mip_mode=mip_mode,
+        csvo=isinstance(world, CsvoBuffer), deferred=True)
+    img = torch.empty((N, height, width, 4), dtype=torch.float32,
+                      device=buf.device)
+    return _frame_on_card(
+        levels, world, octree_scale, mips, mat_params, mat_tex, params,
+        batch_cameras(cam_stack, buf.device), opaque=True,
+        beams=_batch_beams(beams_shared, t_floor_stack, N),
+        light_dir=light_dir, tables=tables, workspace=workspace, img=img)

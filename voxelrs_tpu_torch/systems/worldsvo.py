@@ -329,6 +329,16 @@ class Svo:
         return self.graphics_svo.render(self.svo_params(params), width,
                                         height, max_steps, mode=mode)
 
+    def render_batch(self, params_list, width: int, height: int,
+                     max_steps: int = 1000):
+        """A sequence of world-space poses in one pass (JAX :323-341): each
+        pose's camera converted to SVO space (``svo_params``), then
+        ``graphics.Svo.render_batch`` (K10); None where that returns
+        None."""
+        return self.graphics_svo.render_batch(
+            [self.svo_params(p) for p in params_list], width, height,
+            max_steps)
+
     def raycast(self, batch: PickerBatch, result: PickerBatchResult) -> None:
         for ray in batch.rays:
             ray.pos = self.coord_space.cnv_block_pos(ray.pos)
