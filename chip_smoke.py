@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of voxelrs_tpu_torch on one CUDA card (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the kernels (one nvcc call) and the native chunk serializers (g++;
 the run fails if they do not load), builds the procedural scene of
@@ -79,6 +79,19 @@ A probe phase runs the gather probe P0 (``python -m
 voxelrs_tpu_torch.probes.gather_probe``'s 10 configurations, counted from
 0) and holds its kernel to its plain version on the probe's table and a
 random one.
+K6 is held to its plain version on every call of the exact and adaptive
+frames, the batch and both game runs (indices, count and starts equal),
+and each call of a frame and of the batch is timed alone beside
+``torch.nonzero`` plus the pad, timed the same way; the kernels the card
+runs for one K6 call are counted from a ``torch.profiler`` trace, after
+the game runs; each launch of K9's trace prints its lanes, its mean and
+maximum steps a lane and its SIMD efficiency (from K1 / K4's steps on the
+same rays), and is timed alone. With ``--parent DIR`` (the parent
+commit's ``voxelrs_tpu_torch``, e.g. from ``git archive``, unpacked in
+DIR) the parent's kernels build in a second ``nvcc`` beside this tree's,
+its K6 and K9 trace are timed on the same inputs, and its renderer's
+frames (adaptive, exact and fused in both formats, the ESVO batch) are
+timed in turns with this tree's and compared with them.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -128,12 +141,16 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 W, H = 1920, 1080
 POSES = 5
 REPS = 5
 KERNEL_REPS = 20
+K6_LAUNCH_SEED = 11  # the masks of k6_launch_phase
+KERNEL_SLEEP_CYCLES = 4_000_000  # ~2 ms of the card's clock: kernel_ms
+AB_ROUNDS = 6  # rounds of turns of the frames against the parent's
 HOST_REPS = 50
 K3_MAX_ABS = 1e-6
 IMAGE_BUDGET = 0.015  # mean |d| of two renders of one scene
@@ -146,6 +163,7 @@ FLY_FRAMES = 84  # forward at 60 blocks/s: three chunk boundaries
 DESCEND_FRAMES = 36  # the last frames of the flight also descend
 FALL_FRAMES = 60  # at most, until the player lands
 EDIT_WAIT_FRAMES = 30  # at most, for the broken block's chunk to upload
+GAME_K6_CALLS = 1000  # rows of K6's recorder in a game run (~550 calls)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -206,8 +224,330 @@ GLASS_TOWERS = 4
 CANOPIES = 8
 
 
+# the parent commit's kernel library (``parent_vx._build``), built beside
+# this tree's when the script is given --parent DIR (a git archive of the
+# parent's voxelrs_tpu_torch unpacked in DIR): K6, K9's trace and the
+# frames are then timed against the parent's on the same inputs, in the
+# same run
+PARENT = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def load_parent(path: str) -> None:
+    """Import the parent tree's ``voxelrs_tpu_torch`` as the package
+    ``parent_vx`` (its modules import each other relatively; its kernels
+    build into the parent tree's ``_build/``)."""
+    import importlib
+    import importlib.util
+
+    init = os.path.join(path, "voxelrs_tpu_torch", "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        "parent_vx", init,
+        submodule_search_locations=[os.path.dirname(init)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["parent_vx"] = pkg
+    spec.loader.exec_module(pkg)
+
+
+class FullWorld:
+    """A serialized world whose changed ranges are all of it: the first
+    ``Svo.update`` of another renderer on a world already uploaded once."""
+
+    def __init__(self, world):
+        self.world = world
+
+    def __getattr__(self, name):
+        return getattr(self.world, name)
+
+    def write_changes_to(self, dst, reset: bool = True):
+        return [(0, self.world.write_to(dst))]
+
+
+def parent_frames_phase(worlds, hf, poses, card) -> dict:
+    """The renderer's frames of this tree against the parent's on the same
+    worlds and envelope: per format the adaptive, exact deferred and fused
+    frames, and the ESVO batch, one frame a sample, the sides in turns
+    (parent, this tree, this tree, parent) on each pose, AB_ROUNDS times;
+    each side's median and quartiles. The fused frame (K3, the same code
+    on both sides) shows the noise."""
+    import importlib
+
+    import numpy as np
+
+    from voxelrs_tpu_torch.gamelogic.content import new_registry
+    from voxelrs_tpu_torch.graphics.svo import Svo
+
+    PSvo = importlib.import_module("parent_vx.graphics.svo").Svo
+    preg = importlib.import_module("parent_vx.gamelogic.content").new_registry
+    out, diff = {}, {}
+    with Phase("frames, this tree against the parent"):
+        for fmt, world in worlds.items():
+            dt = np.uint32 if fmt == "esvo" else np.uint8
+            sides = {"this tree": Svo(new_registry(), capacity_mb=64,
+                                      buffer_dtype=dt, device="cuda"),
+                     "parent": PSvo(preg(), capacity_mb=64, buffer_dtype=dt,
+                                    device="cuda")}
+            for sv in sides.values():
+                sv.update(FullWorld(world))
+                sv.set_heightfield(hf)
+            paths = [("adaptive", lambda sv, p: sv.render(p, W, H)),
+                     ("exact", lambda sv, p: sv.render(p, W, H,
+                                                       adaptive=False)),
+                     ("fused", lambda sv, p: sv.render(p, W, H,
+                                                       mode="fused"))]
+            if fmt == "esvo":
+                paths.append(("batch", None))
+            for path, fn in paths:
+                got = {k: [] for k in sides}
+                for sv in sides.values():  # warm-up
+                    for p in poses:
+                        fn(sv, p) if fn else sv.render_batch(poses, W, H)
+                imgs = [fn(sv, poses[0]) if fn else sv.render_batch(
+                    poses, W, H) for sv in sides.values()]
+                diff[f"{fmt} {path}"] = max_abs(*imgs)
+                # one frame (or batch) a sample, the sides in turns on
+                # each pose, so that a slow spell of the host falls on both
+                for _ in range(AB_ROUNDS):
+                    for p in poses if fn else [None]:
+                        for side in ("parent", "this tree", "this tree",
+                                     "parent"):
+                            sv = sides[side]
+                            got[side].append(
+                                cuda_ms(lambda: fn(sv, p), 1) if fn else
+                                cuda_ms(lambda: sv.render_batch(poses, W, H),
+                                        1) / len(poses))
+                # each side's median and quartiles
+                out[f"{fmt} {path}"] = {
+                    k: [sorted(v)[len(v) * q // 4] for q in (2, 1, 3)]
+                    for k, v in got.items()}
+            del sides
+    log(f"frames, this tree against the parent (ms: median, lower and "
+        f"upper quartile of {AB_ROUNDS} rounds of turns parent, this tree, "
+        f"this tree, parent on each pose; the batch ms a pose): "
+        f"{json.dumps(out)}; max |d| "
+        f"of the two sides' images "
+        f"(pose 0, the batch's 5): {json.dumps(diff)} on {card}")
+    if not all(d <= K3_MAX_ABS for d in diff.values()):
+        fail("this tree's frames differ from the parent's")
+    return dict(ms=out, max_abs=diff)
+
+
+def warp_stats(steps, wid) -> dict:
+    """Per-lane traversal steps of one launch grouped into warps by
+    ``wid``: lanes, mean and maximum steps a lane, the maximum steps of a
+    warp summed over the warps against the steps summed over the lanes,
+    and their ratio over 32 lanes (the SIMD efficiency)."""
+    import torch
+
+    s = steps.long()
+    if s.numel() == 0:
+        return dict(lanes=0, mean=0.0, max=0, warp_max_sum=0, lane_sum=0,
+                    simd_eff=None)
+    wid = wid.long()
+    wmax = torch.zeros(int(wid.max()) + 1, dtype=torch.long,
+                       device=s.device).scatter_reduce_(0, wid, s, "amax")
+    wsum, lsum = int(wmax.sum()), int(s.sum())
+    return dict(lanes=s.numel(), mean=lsum / s.numel(), max=int(s.max()),
+                warp_max_sum=wsum, lane_sum=lsum,
+                simd_eff=lsum / (32 * wsum) if wsum else None)
+
+
+def tiled_warps(lanes, wl: int, hl: int):
+    """The warp of each coarsest-grid lane under K9's 4x8 tiles."""
+    pose, r = lanes // (wl * hl), lanes % (wl * hl)
+    y, x = r // wl, r % wl
+    return (pose * -(-hl // 4) + y // 4) * -(-wl // 8) + x // 8
+
+
+def trace_launch_stats(steps, lanes, idx, wl: int, hl: int) -> dict:
+    """A K9 trace launch's lanes and steps (``steps`` in launch order:
+    the grid's lanes, or the refine list's entries): warps of 32
+    consecutive items, and for the coarsest grid also of 4x8 tiles."""
+    import torch
+
+    st = warp_stats(steps, torch.arange(steps.numel(),
+                                        device=steps.device) // 32)
+    if idx is None:
+        st["tiled"] = warp_stats(steps, tiled_warps(lanes, wl, hl))
+    return st
+
+
+def k6_calls(calls, dev) -> list:
+    """K6 on each spied call of ``compact_indices`` (its mask, size and
+    starts): the kernel against its plain version (indices, count and
+    starts equal), and, alone, the kernel, the parent's
+    K6 (with --parent), ``torch.nonzero`` plus the pad (the library
+    yardstick, timed as the kernel is) and the plain version; the bound
+    counts the mask read once and every output slot, the count and the
+    starts written once."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import compact
+
+    rows = []
+    for args, kw in calls:
+        mask, size = args[0], args[1]
+        starts = kw.get("starts")
+        n = mask.shape[0]
+        ks = None if starts is None else torch.full_like(starts, -1)
+        ki, kc = compact.compact_indices(mask, size, starts=ks)
+        ps = None if starts is None else torch.full_like(starts, -1)
+        plain_ms = event_ms(lambda: compact.compact_indices_plain(
+            mask, size, starts=ps))
+        pi, pc = compact.compact_indices_plain(mask, size, starts=ps)
+        pairs = [(ki, pi), (kc, pc)] + ([] if ks is None else [(ks, ps)])
+        o, c = torch.empty_like(ki), torch.empty_like(kc)
+        ts = None if starts is None else torch.empty_like(starts)
+        scr = torch.zeros(_build.k6_blocks(n), dtype=torch.int32, device=dev)
+        ms = kernel_ms(lambda: _build.launch_k6(mask, size, o, c, scr, ts))
+        parent_ms = None
+        if PARENT is not None:
+            pscr = torch.zeros(max(1, PARENT.k6_blocks(n)), dtype=torch.int32,
+                               device=dev)
+            parent_ms = kernel_ms(lambda: PARENT.launch_k6(
+                mask, size, o, c, pscr, ts))
+
+        def library():
+            nz = torch.nonzero(mask).flatten()[:size].to(torch.int32)
+            return torch.nn.functional.pad(nz, (0, size - nz.shape[0]))
+
+        library_ms = kernel_ms(library)
+        rows.append(dict(
+            lanes=n, set=int(pc), size=size,
+            starts=None if starts is None else starts.numel(),
+            equal=all(bool(torch.equal(a, b)) for a, b in pairs),
+            err=max(max_abs(a, b) for a, b in pairs), ms=ms,
+            parent_ms=parent_ms, library_ms=library_ms, plain_ms=plain_ms,
+            bound=bound(n + size * 4 + 4 + (0 if starts is None
+                                            else starts.numel() * 4), 0)))
+    return rows
+
+
+def trace_parent(world, scale, fp, tf, level, rec0, idx, cnt, cams,
+                 ref):
+    """With --parent, one spied K9 trace launch through the parent's
+    kernel, held to ``ref`` (the plain version's records from ``rec0``) bit
+    for bit and timed alone; None without."""
+    if PARENT is None:
+        return None
+    import torch
+
+    def launch(o):
+        PARENT.launch_k9_trace(world, scale, fp, tf, level, o, idx, cnt,
+                               cams=cams)
+
+    o = rec0.clone()
+    launch(o)
+    return dict(equal=bool(torch.equal(o, ref)),
+                ms=kernel_ms(lambda: launch(o)))
+
+
+def k6_fixed_ms(dev) -> dict:
+    """K6 alone on a 1-lane mask (one tile, one block: the launch and the
+    chain of one tile's claim, load, scan and stores) and on 2,073,600
+    lanes with none set and size 1 (every tile, the look-back, almost no
+    output): what the kernel costs above its bytes."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+
+    out = {}
+    for name, n, size in (("one_lane", 1, 1), ("frame_none_set", W * H, 1)):
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        o = torch.empty(size, dtype=torch.int32, device=dev)
+        c = torch.empty(1, dtype=torch.int32, device=dev)
+        scr = torch.zeros(_build.k6_blocks(n), dtype=torch.int32, device=dev)
+        out[name] = kernel_ms(lambda: _build.launch_k6(mask, size, o, c, scr))
+    return out
+
+
+def device_ops(fn) -> list | None:
+    """The names of the operations the card ran for one call of ``fn``
+    (kernels, copies, memsets), from a ``torch.profiler`` trace of the
+    call; None where the trace holds no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # reported as not measured
+        log(f"torch.profiler: {type(exc).__name__}: {exc}")
+        return None
+    return names or None
+
+
+def k6_launch_phase(dev) -> dict:
+    """The card operations of one K6 launch call (``_build.launch_k6`` on
+    a workspace allocated before), counted from a profiler trace
+    (``device_ops``), and with --parent those of the parent's, on a
+    frame's mask (2,073,600 lanes, a third set, from a seed) and on a
+    batch's mask with starts (5 poses): the kernels a call, which the
+    timings do not show."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+
+    g = torch.Generator(device=dev).manual_seed(K6_LAUNCH_SEED)
+    out = {}
+    libs = [("", _build)] + ([] if PARENT is None else [("parent_", PARENT)])
+    for name, n, segs in (("frame", W * H, None), ("batch", POSES * W * H,
+                                                   POSES)):
+        mask = torch.rand(n, generator=g, device=dev) < 1 / 3
+        st = None if segs is None else torch.empty(segs, dtype=torch.int32,
+                                                   device=dev)
+        o = torch.empty(n, dtype=torch.int32, device=dev)
+        c = torch.empty(1, dtype=torch.int32, device=dev)
+        r = out[name] = dict(lanes=n)
+        for key, lib in libs:
+            scr = torch.zeros(max(1, lib.k6_blocks(n)), dtype=torch.int32,
+                              device=dev)
+            lib.launch_k6(mask, n, o, c, scr, st)  # warm-up
+            ops = device_ops(lambda: lib.launch_k6(mask, n, o, c, scr, st))
+            r[key + "ops"] = ops
+            r[key + "launches"] = None if ops is None else len(ops)
+        del mask, o
+    torch.cuda.synchronize()
+    return out
+
+
+def k6_summary(rows) -> dict:
+    """K6's calls of one path, summed."""
+    par = [r["parent_ms"] for r in rows]
+    return dict(calls=len(rows), equal=all(r["equal"] for r in rows),
+                err=max((r["err"] for r in rows), default=0.0),
+                ms=sum(r["ms"] for r in rows),
+                parent_ms=None if None in par else sum(par),
+                library_ms=sum(r["library_ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=sum(r["bound"][0] for r in rows))
+
+
+def log_k6(label: str, rows, card) -> None:
+    for i, r in enumerate(rows):
+        par = ("" if r["parent_ms"] is None
+               else f", parent's K6 {r['parent_ms']:.4f} ms")
+        log(f"k6 {label} call {i}: {r['lanes']} lanes, {r['set']} set, size "
+            f"{r['size']}" + ("" if r["starts"] is None
+                              else f", {r['starts']} starts")
+            + f"; equal {r['equal']}; alone {r['ms']:.4f} ms"
+            f"{par}, torch.nonzero + pad {r['library_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) on {card}")
+    sm = k6_summary(rows)
+    log(f"k6 {label}: {sm['calls']} calls, equal {sm['equal']}; sum "
+        f"{sm['ms']:.4f} ms" + ("" if sm["parent_ms"] is None else
+                                f" (parent's {sm['parent_ms']:.4f} ms)")
+        + f", torch.nonzero + pad {sm['library_ms']:.4f} ms, bound "
+        f"{sm['bound_ms']:.4f} ms on {card}")
 
 
 class Phase:
@@ -293,13 +633,16 @@ def cuda_ms(fn, reps: int) -> float:
 def kernel_ms(launch) -> float:
     """Milliseconds of one kernel launch: one warm-up launch, then
     KERNEL_REPS launches back to back between two CUDA events. The first
-    event is queued behind the warm-up, so the host time of the launches
-    overlaps the card's work and is not counted."""
+    event is queued behind the warm-up and a spin of the card
+    (``torch.cuda._sleep``, longer than the host takes to queue the
+    launches), so the host time of the launches is not counted even where
+    a launch takes the card less time than the host takes to queue it."""
     import torch
 
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     launch()
+    torch.cuda._sleep(KERNEL_SLEEP_CYCLES)
     a.record()
     for _ in range(KERNEL_REPS):
         launch()
@@ -378,6 +721,85 @@ class PickerRecorder:
                                  else buf.clone())
         self.batches.append((key, octree_scale, tasks.clone(), rows.clone()))
         return rows
+
+
+def driver_copy():
+    """``copy(dst, src)``: a device-to-device copy of the contiguous CUDA
+    tensor ``src`` into the first bytes of ``dst`` on the current stream,
+    through the CUDA driver's ``cuMemcpyDtoDAsync`` called from a
+    ``ctypes.PyDLL``, which keeps the interpreter lock over the call (a
+    torch copy gives it up, and the game's job threads then hold it for
+    up to a switch interval)."""
+    import ctypes
+
+    import torch
+
+    fn = ctypes.PyDLL("libcuda.so.1").cuMemcpyDtoDAsync_v2
+    fn.argtypes = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_size_t,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def copy(dst, src):
+        n = src.numel() * src.element_size()
+        if (not (src.is_contiguous() and dst.is_contiguous())
+                or dst.numel() * dst.element_size() < n):
+            raise ValueError("driver_copy: contiguous tensors, dst at "
+                             "least as large")
+        err = fn(dst.data_ptr(), src.data_ptr(), n,
+                 torch.cuda.current_stream(src.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"cuMemcpyDtoDAsync: CUresult {err}")
+
+    return copy
+
+
+class CompactRecorder:
+    """Stands in for ``ops.compact.compact_indices``: calls it, and copies
+    each call's mask, indices and count into rows of tables allocated
+    before the run, so that every K6 call of a game run is held to the
+    plain version after the run. The copies allocate nothing and keep the
+    interpreter lock (``driver_copy``), so the game's frames keep their
+    timing."""
+
+    def __init__(self, fn, lanes: int, calls: int, dev):
+        import torch
+
+        self.fn = fn
+        self.copy = driver_copy()
+        self.masks = torch.empty((calls, lanes), dtype=torch.bool, device=dev)
+        self.outs = torch.empty((calls, lanes), dtype=torch.int32, device=dev)
+        self.counts = torch.empty(calls, dtype=torch.int32, device=dev)
+        self.calls = []  # (lanes, size) of each call, in the tables' rows
+        self.missed = 0  # calls past the tables' rows or wider than a row
+
+    def __call__(self, mask, size, **kw):
+        idx, count = self.fn(mask, size, **kw)
+        k, n = len(self.calls), mask.shape[0]
+        if (k >= self.counts.shape[0] or n > self.masks.shape[1]
+                or size > self.outs.shape[1] or kw.get("starts") is not None):
+            self.missed += 1
+        else:
+            self.copy(self.masks[k, :n], mask)
+            self.copy(self.outs[k, :size], idx)
+            self.copy(self.counts[k:k + 1], count)
+            self.calls.append((n, size))
+        return idx, count
+
+    def check(self) -> dict:
+        """Every recorded call against ``compact_indices_plain``."""
+        import torch
+
+        from voxelrs_tpu_torch.ops import compact
+
+        bad = 0
+        for k, (n, size) in enumerate(self.calls):
+            pi, pc = compact.compact_indices_plain(self.masks[k, :n], size)
+            bad += not (torch.equal(self.outs[k, :size], pi)
+                        and torch.equal(self.counts[k:k + 1], pc))
+        return dict(k6_calls=len(self.calls), k6_bad=bad,
+                    k6_missed=self.missed,
+                    k6_ok=bad == 0 and self.missed == 0
+                    and len(self.calls) > 0)
 
 
 def play_game(game, recorder):
@@ -743,10 +1165,35 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     # ---- 1. build: the kernels (nvcc) and the native serializers (g++) ----
+    global PARENT
+    if "--parent" in sys.argv:
+        import importlib
+
+        load_parent(sys.argv[sys.argv.index("--parent") + 1])
+        PARENT = importlib.import_module("parent_vx._build")
     with Phase("build"):
+        # the parent's kernels (with --parent) build in a second nvcc
+        # started beside this tree's
+        errs = []
+
+        def build_parent():
+            try:
+                PARENT.library()
+            except Exception as exc:  # reported below
+                errs.append(exc)
+
+        th = threading.Thread(target=build_parent) if PARENT else None
+        if th:
+            th.start()
         _build.library()
         libs = native.loaded()
-    log(f"build: {_build.build_seconds:.2f} s (one nvcc call)")
+        if th:
+            th.join()
+    if errs:
+        fail(f"the parent's kernels did not build: {errs[0]}")
+    log(f"build: {_build.build_seconds:.2f} s (one nvcc call)"
+        + ("" if PARENT is None else f"; the parent's kernels "
+           f"{PARENT.build_seconds:.2f} s beside it"))
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
@@ -831,9 +1278,24 @@ def main() -> int:
     be = batch_phase(svo, csvo, tsvo, hf, poses, card)
     del tsvo, tcsvo, tworld, tcworld
 
+    # ---- 10c. with --parent: the frames against the parent's --------------
+    pf = (parent_frames_phase(dict(esvo=world, csvo=cworld), hf, poses, card)
+          if PARENT is not None else None)
+
     # ---- 11. the game loop's path, ESVO then CSVO: counts from 0 ----------
     ge, ce = game_phase("esvo", card)
     gc, cc = game_phase("csvo", card)
+
+    # ---- 12. K6's card operations a call, from a profiler trace ------------
+    with Phase("k6 launches"):
+        k6l = k6_launch_phase(torch.device("cuda"))
+    for name, r in k6l.items():
+        log(f"k6 card operations a call ({name} mask, {r['lanes']} lanes; "
+            f"torch.profiler): {r['launches']} {r['ops']}"
+            + ("" if PARENT is None else f"; the parent's K6 "
+               f"{r['parent_launches']} {r['parent_ops']}"))
+        if r["launches"] is not None and r["launches"] > 2:
+            fail(f"K6 ran {r['launches']} card operations a call (at most 2)")
 
     # ---- bounds: the least time the card could take for the same work -----
     B = W * H
@@ -917,11 +1379,25 @@ def main() -> int:
              launches=de["launches"]["k6"], max_abs_err=de["k6_err"],
              ms=de["k6_ms"], plain_ms=de["k6_plain_ms"],
              bound_ms=de["k6_bound"][0], bound_by=de["k6_bound"][1],
-             library_ms=de["k6_library_ms"], ok=de["k6_ok"] and dc["k6_ok"],
-             masks=de["k6"], launches_csvo=dc["launches"]["k6"],
+             library_ms=de["k6_library_ms"],
+             ok=all(r["equal"] for r in (*de["k6"], *dc["k6"],
+                                         *ae["k6_calls"], *ac["k6_calls"]))
+             and ce["k6_ok"] and cc["k6_ok"],
+             launches_per_call=k6l["frame"]["launches"],
+             launches_per_call_parent=k6l["frame"].get("parent_launches"),
+             parent_ms=de["k6"][0]["parent_ms"],
+             fixed_ms=de["k6_fixed_ms"],
+             ms_is="pose 0's hit mask, one call",
+             calls_exact=de["k6"], calls_exact_csvo=dc["k6"],
+             calls_adaptive=ae["k6_calls"], calls_adaptive_csvo=ac["k6_calls"],
+             adaptive_frame=k6_summary(ae["k6_calls"]),
+             adaptive_frame_csvo=k6_summary(ac["k6_calls"]),
+             launches_csvo=dc["launches"]["k6"],
              max_abs_err_csvo=dc["k6_err"], ms_csvo=dc["k6_ms"],
              launches_game=ge["launches"]["k6"],
-             launches_game_csvo=gc["launches"]["k6"]),
+             launches_game_csvo=gc["launches"]["k6"],
+             game_calls_checked=ce["k6_calls"],
+             game_calls_checked_csvo=cc["k6_calls"]),
         dict(name="k7_beams", route="cuda",
              source="voxelrs_tpu_torch/csrc/k7_beams.cuh",
              replaces="voxelrs_tpu/ops/beams.py:137",
@@ -1005,6 +1481,13 @@ def main() -> int:
             bound_ms_csvo=ac[f"{k}_bound"][0],
             launches_game=ge["launches"][f"k9_{k}"],
             launches_game_csvo=gc["launches"][f"k9_{k}"],
+            **({} if k != "trace" else dict(
+                per_launch=[dict(level=c["level"], ms=c["ms"], **c["launch"],
+                                 parent=c["parent"])
+                            for c in ae["k9"][k]["calls"]],
+                per_launch_csvo=[dict(level=c["level"], ms=c["ms"],
+                                      **c["launch"], parent=c["parent"])
+                                 for c in ac["k9"][k]["calls"]])),
             frame_vs_plain=max(*ae["vs_plain"].values(),
                                *ac["vs_plain"].values(),
                                ce["adaptive_game_err"],
@@ -1053,6 +1536,13 @@ def main() -> int:
             launches_one_frame=(be["launches_frame_exact"]
                                 if name == "kd_primary"
                                 else be["launches_frame"])[name],
+            **({} if name != "k6" else dict(
+                parent_ms=r["parent_ms"],
+                launches_per_call=k6l["batch"]["launches"],
+                launches_per_call_parent=k6l["batch"].get("parent_launches"),
+                per_call=be["k6_calls"])),
+            **({} if name != "k9_trace" else dict(
+                per_launch=be["trace_launches"])),
             **({} if "equal" in r else dict(
                 plain_is="the plain frames of poses 0 and 3, adaptive "
                          "(exact for kd_primary)"))))
@@ -1144,6 +1634,7 @@ def main() -> int:
                     "batch_exact_seq_frame_ms": be["exact_seq_frame_ms"],
                     "batch_workspace_mb": be["workspace_mb"],
                     "batch_branches": be["branches"],
+                    "frames_against_parent": pf,
                     "floored": de["floored"], "floored_csvo": dc["floored"],
                     "card": card, "build_s": _build.build_seconds,
                     "native_build_s": native.build_seconds, "total_s": total,
@@ -1490,7 +1981,7 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
     import torch
 
     from voxelrs_tpu_torch import _build
-    from voxelrs_tpu_torch.ops import (adaptive, beams, traversal,
+    from voxelrs_tpu_torch.ops import (adaptive, beams, compact, traversal,
                                        traversal_csvo)
 
     csvo = svo.buffer_dtype == np.uint8
@@ -1590,6 +2081,7 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
         p0 = poses[0]
         ctx = svo.beam_context(p0, W, H)
         spies = {k: Spy(adaptive, f"k9_{k}") for k in K9}
+        spies["k6"] = Spy(compact, "compact_indices")
         for sp in spies.values():
             sp.__enter__()
         try:
@@ -1598,6 +2090,7 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
             for sp in spies.values():
                 sp.__exit__()
         torch.cuda.synchronize()
+        k6_spy = spies.pop("k6")
         ncalls = {k: len(sp.calls) for k, sp in spies.items()}
         if ncalls != dict(trace=levels + 1, merge=levels, finalize=1,
                           shadow_cells=2):
@@ -1657,9 +2150,15 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
             trace_lanes += lanes.shape[0]
             trace_bytes += (lanes.shape[0] * 32 + tf.numel() * 4
                             + (0 if idx is None else lanes.shape[0] * 4 + 4))
-            note("trace", torch.equal(outs[0], outs[1]),
+            wl, hl = adaptive.grid_dims(W, H, level)[level]
+            parent = trace_parent(world, scale, fp, tf, level, rec0, idx, cnt,
+                                  None, outs[1])
+            note("trace", torch.equal(outs[0], outs[1])
+                 and (parent is None or parent["equal"]),
                  max_abs(outs[0], outs[1]), kms, pms, level=level,
-                 lanes=lanes.shape[0], steps=steps)
+                 lanes=lanes.shape[0], steps=steps,
+                 launch=trace_launch_stats(k1.steps, lanes, idx, wl, hl),
+                 parent=parent)
         out["trace_vs_k1"] = dict(lanes=trace_lanes, differing=vs_k1,
                                   steps=trace_steps)
         out["trace_bound"] = bound(trace_bytes, trace_steps * OPS_PER_STEP
@@ -1746,9 +2245,19 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                  max(max_abs(a, b) for a, b in zip(ko, po)), kms, pms,
                  step=step, hits=nh)
         out["shadow_cells_bound"] = bound(sc_bytes, 0)
+        out["k6_calls"] = k6_calls(k6_spy.calls, dev)
     out["k9"] = res
     out["k9_ok"] = all(r["equal"] for r in res.values()) and not any(
         out["trace_vs_k1"]["differing"].values())
+    log_k6(f"adaptive frame ({fmt}, pose 0)", out["k6_calls"], card)
+    for c in res["trace"]["calls"]:
+        log(f"k9_trace launch ({fmt}, pose 0, level {c['level']}, "
+            f"{'coarsest grid' if c['level'] == levels else 'refine list'}):"
+            f" {json.dumps(c['launch'])}; alone {c['ms']:.4f} ms; the "
+            f"parent's kernel {json.dumps(c['parent'])} on {card}")
+    if not all(r["equal"] for r in out["k6_calls"]):
+        fail(f"K6 disagrees with its plain version in the {fmt} adaptive "
+             "frame")
     log(f"k9 trace vs {'k4' if csvo else 'k1'} ({fmt}, pose 0's {levels + 1} "
         f"traces: the coarsest grid, then each refine list; "
         f"{out['trace_vs_k1']['lanes']} lanes from the tile floors): rays "
@@ -1888,32 +2397,11 @@ def deferred_phase(svo, hf, poses, card) -> dict:
                  f"{len(k6s.calls)} compactions, {len(k8s.calls)} K8, "
                  f"{len(k7s.calls)} K7 shadow calls")
         # K6 on the frame's own masks: hits, shadow candidates, uncertified
-        k6 = []
-        for (mask, size), _kw in k6s.calls:
-            idx, count = compact.compact_indices(mask, size)
-            pidx, pcount = compact.compact_indices_plain(mask, size)
-            k6.append(dict(lanes=int(mask.shape[0]), set=int(pcount),
-                           equal=bool(torch.equal(idx, pidx)
-                                      and torch.equal(count, pcount)),
-                           err=max(max_abs(idx, pidx),
-                                   max_abs(count, pcount))))
-        mask0, size0 = k6s.calls[0][0]
-        out0 = torch.zeros(size0, dtype=torch.int32, device=dev)
-        cnt0 = torch.empty(1, dtype=torch.int32, device=dev)
-        scr0 = torch.empty(_build.k6_blocks(mask0.shape[0]),
-                           dtype=torch.int32, device=dev)
-        k6_ms = kernel_ms(lambda: _build.launch_k6(mask0, size0, out0, cnt0,
-                                                   scr0))
-        k6_plain_ms = event_ms(lambda: compact.compact_indices_plain(
-            mask0, size0))
-
-        def library():
-            nz = torch.nonzero(mask0).flatten()[:size0].to(torch.int32)
-            return torch.nn.functional.pad(nz, (0, size0 - nz.shape[0]))
-
-        library()
-        k6_library_ms = event_ms(library)
-        k6_bound = bound(mask0.shape[0] + size0 * 4 + 4, 0)
+        k6 = k6_calls(k6s.calls, dev)
+        k6_ms, k6_plain_ms, k6_library_ms, k6_bound = (
+            k6[0]["ms"], k6[0]["plain_ms"], k6[0]["library_ms"],
+            k6[0]["bound"])
+        k6_fixed = k6_fixed_ms(dev)
 
         # K7 tile floors on pose 0
         kw = svo.frame_kwargs(p0, W, H)
@@ -2004,7 +2492,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
                         v_cand * OPS_SUN_RAY)
         certified = float((kl | kb).sum()) / max(v_cand, 1)
     out.update(
-        k6=k6, k6_ok=all(c["equal"] for c in k6),
+        k6=k6, k6_fixed_ms=k6_fixed, k6_ok=all(c["equal"] for c in k6),
         k6_err=max(c["err"] for c in k6), k6_ms=k6_ms,
         k6_plain_ms=k6_plain_ms, k6_library_ms=k6_library_ms,
         k6_bound=k6_bound, k7_tile_ok=tf_ok, k7_tile_err=tf_err,
@@ -2017,11 +2505,10 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         k8_lit_floors_ms=lf_ms, k8_rays=v_cand, k8_certified_share=certified,
         shadow_inf_share=float(torch.isinf(kf[:k_cand]).float().mean()),
         tile_inf_share=float(torch.isinf(ctx.tile_floors).float().mean()))
-    log(f"k6 vs plain ({fmt}, pose 0's masks: hits, shadow candidates, "
-        f"uncertified): {json.dumps(k6)}; alone on the {mask0.shape[0]}-lane "
-        f"hit mask {k6_ms:.4f} ms, plain {k6_plain_ms:.3f} ms, torch.nonzero "
-        f"+ pad {k6_library_ms:.4f} ms, bound {k6_bound[0]:.4g} ms "
-        f"({k6_bound[1]}) on {card}")
+    log_k6(f"exact deferred frame ({fmt}, pose 0: hits, shadow candidates, "
+           "uncertified)", k6, card)
+    log(f"k6 alone, above its bytes: {json.dumps(k6_fixed)} ms (a 1-lane "
+        f"mask; {W * H} lanes, none set, size 1) on {card}")
     log(f"k7 tile floors vs plain ({fmt}): equal {tf_ok} (max |d| {tf_err:.3g})"
         f"; {ntiles} tiles, {tile_steps} march steps, +inf share "
         f"{out['tile_inf_share']:.4f}; alone {tf_ms:.4f} ms, plain "
@@ -2637,15 +3124,18 @@ def two_in_flight_ms(calls) -> float:
     return start.elapsed_time(end) / len(calls)
 
 
-def batch_trace_steps(svo, fp, cams, tf, level, lanes) -> int:
-    """Traversal steps of a batched K9 trace's lanes (pose-major), from K1
-    on the same pixel rays from the same floors, pose by pose."""
+def batch_trace_steps(svo, fp, cams, tf, level, lanes):
+    """Traversal steps of each lane of a batched K9 trace (pose-major, in
+    the order of ``lanes``), from K1 on the same pixel rays from the same
+    floors, pose by pose."""
+    import torch
+
     from voxelrs_tpu_torch.ops import adaptive, beams, shading, traversal
 
     dev = lanes.device
     w, h = adaptive.grid_dims(W, H, level)[level]
     n = w * h
-    steps = 0
+    steps = []
     for q in range(cams.shape[0]):
         mine = lanes[(lanes >= q * n) & (lanes < (q + 1) * n)] - q * n
         if mine.numel() == 0:
@@ -2656,8 +3146,8 @@ def batch_trace_steps(svo, fp, cams, tf, level, lanes) -> int:
                                         ro, rd, -1.0, False,
                                         t_floor=beams.pixel_floors_at(
                                             tf[q], ids, W))
-        steps += int(k1.steps.sum())
-    return steps
+        steps.append(k1.steps)
+    return torch.cat(steps) if steps else torch.zeros(0, device=dev)
 
 
 def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
@@ -2800,42 +3290,33 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         spies["kd_primary"] = prim
         torch.cuda.synchronize()
         res = {}
-        for name in names + ["k6"]:
+        trace_runs = []
+        for name in names:
             r = res[name] = dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0,
                                  calls=len(spies[name].calls))
             for args, kw in spies[name].calls:
-                if name == "k6":
-                    mask, size = args
-                    starts = kw.get("starts")
-                    ks = None if starts is None else starts.clone()
-                    ki, kc = compact.compact_indices(mask, size, starts=ks)
-                    ps = None if starts is None else starts.clone()
-                    pms = event_ms(lambda: compact.compact_indices_plain(
-                        mask, size, starts=ps))
-                    pi, pc = compact.compact_indices_plain(mask, size,
-                                                           starts=ps)
-                    pairs = [(ki, pi), (kc, pc)] + (
-                        [] if ks is None else [(ks, ps)])
-                    o, c, sc = (torch.empty_like(ki), torch.empty_like(kc),
-                                torch.empty(_build.k6_blocks(mask.shape[0]),
-                                            dtype=torch.int32, device=dev))
-                    kms = kernel_ms(lambda: _build.launch_k6(
-                        mask, size, o, c, sc,
-                        None if starts is None else starts.clone()))
-                else:
-                    kargs = [a.clone() if isinstance(a, torch.Tensor) else a
-                             for a in args]
-                    pargs = [a.clone() if isinstance(a, torch.Tensor) else a
-                             for a in args]
-                    targs = [a.clone() if isinstance(a, torch.Tensor) else a
-                             for a in args]
-                    spies[name].fn(*kargs, **kw)
-                    plain = getattr(adaptive, f"{name}_plain")
-                    pms = event_ms(lambda: plain(*pargs, **kw))
-                    launch = getattr(_build, f"launch_{name}")
-                    kms = kernel_ms(lambda: launch(*targs, **kw))
-                    pairs = [(a, b) for a, b in zip(kargs, pargs)
-                             if isinstance(a, torch.Tensor)]
+                kargs = [a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args]
+                pargs = [a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args]
+                targs = [a.clone() if isinstance(a, torch.Tensor) else a
+                         for a in args]
+                spies[name].fn(*kargs, **kw)
+                plain = getattr(adaptive, f"{name}_plain")
+                pms = event_ms(lambda: plain(*pargs, **kw))
+                launch = getattr(_build, f"launch_{name}")
+                kms = kernel_ms(lambda: launch(*targs, **kw))
+                pairs = [(a, b) for a, b in zip(kargs, pargs)
+                         if isinstance(a, torch.Tensor)]
+                if name == "k9_trace":
+                    _w, _s, fp, tfl, level, rec0 = args
+                    parent = trace_parent(
+                        _w, _s, fp, tfl, level, rec0, kw.get("idx"),
+                        kw.get("count"), kw["cams"], pargs[5])
+                    trace_runs.append(dict(level=level, ms=kms,
+                                             parent=parent))
+                    if parent is not None and not parent["equal"]:
+                        pairs.append((torch.zeros(1), torch.ones(1)))
                 errs = [max_abs(a, b) for a, b in pairs]
                 # the finalize's sky: within 1e-6 (acosf); all else equal
                 eq = all(bits_equal(a, b) or (name == "k9_finalize"
@@ -2846,6 +3327,12 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                 r["err"] = max(r["err"], *errs)
                 r["ms"] += kms
                 r["plain_ms"] += pms
+        k6_rows = k6_calls(spies["k6"].calls, dev)
+        sm = k6_summary(k6_rows)
+        res["k6"] = dict(equal=sm["equal"], err=sm["err"], ms=sm["ms"],
+                         plain_ms=sm["plain_ms"], calls=sm["calls"],
+                         parent_ms=sm["parent_ms"])
+        out["k6_calls"] = k6_rows
         # the stages alone (spied launch arguments replayed)
         for s in STAGES:
             sp = spies[f"kd_{s}"]
@@ -2883,13 +3370,17 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         world_bytes = svo.device_buf.numel() * 4
         ntiles = -(-W // 8) * -(-H // 8)
         tr_bytes, tr_ops = world_bytes, 0
-        for args, kw in spies["k9_trace"].calls:
+        for i, (args, kw) in enumerate(spies["k9_trace"].calls):
             _w, _s, fp, tfl, level, rec0 = args
             idx, cnt, cams = kw.get("idx"), kw.get("count"), kw["cams"]
             lanes = (torch.arange(rec0.shape[0], device=dev) if idx is None
                      else idx[: int(cnt)].long())
-            tr_ops += (batch_trace_steps(svo, fp, cams, tfl, level, lanes)
-                       * OPS_PER_STEP + lanes.shape[0] * OPS_K9_RAY)
+            steps = batch_trace_steps(svo, fp, cams, tfl, level, lanes)
+            wl, hl = adaptive.grid_dims(W, H, level)[level]
+            trace_runs[i]["launch"] = trace_launch_stats(steps, lanes, idx,
+                                                           wl, hl)
+            tr_ops += (int(steps.sum()) * OPS_PER_STEP
+                       + lanes.shape[0] * OPS_K9_RAY)
             tr_bytes += (lanes.shape[0] * 32 + N * ntiles * 4
                          + (0 if idx is None else lanes.shape[0] * 4 + 4))
         mg_bytes = mg_ops = 0
@@ -2910,8 +3401,9 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
             nh = int(args[3])
             cells_bytes += nh * (4 + 1 + 1 + 1) + (nh * 8 if args[0] == 2
                                                    else 4 * N)
-        # the masks in, the set lanes' indices, the counts and starts out
-        k6_bytes = sum(int(a[0].shape[0]) + int(a[0].sum()) * 4 + 4
+        # each mask read once, every slot of its padded output, its count
+        # and starts written once (as one frame's K6 is counted)
+        k6_bytes = sum(int(a[0].shape[0]) + int(a[1]) * 4 + 4
                        + (4 * N if k.get("starts") is not None else 0)
                        for a, k in spies["k6"].calls)
         # the shadow stage's traced rays and their steps (K1 from the same
@@ -2959,18 +3451,17 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                            fin_hits * OPS_PER_PIXEL),
             kd_shadow=bound(sh_bytes, sh_ops),
             kd_finish=bound(cand * (4 + 4 + 3 + 16 + 4 + 16), cand * 10))
-        # K6's library yardstick: torch.nonzero plus the pad on the batch's
-        # hit mask
-        hmask, hsize = next(a for a, k in spies["k6"].calls
-                            if k.get("starts") is not None)
-
-        def library():
-            nz = torch.nonzero(hmask).flatten()[:hsize].to(torch.int32)
-            return torch.nn.functional.pad(nz, (0, hsize - nz.shape[0]))
-
-        out["k6_library_ms"] = event_ms(library)
+        # K6's library yardstick: torch.nonzero plus the pad on each of the
+        # batch's masks, timed as the kernel is, summed
+        out["k6_library_ms"] = sm["library_ms"]
     out["kernels"], out["stage_plain_ms"], out["stage_err"] = (
         res, stage_plain_ms, stage_err)
+    out["trace_launches"] = trace_runs
+    log_k6(f"batch (esvo, {N} poses)", k6_rows, card)
+    for c in trace_runs:
+        log(f"k9_trace launch (batch, esvo, {N} poses, level {c['level']}):"
+            f" {json.dumps(c['launch'])}; alone {c['ms']:.4f} ms; the "
+            f"parent's kernel {json.dumps(c['parent'])} on {card}")
     out["ok"] = all(r.get("equal", True) for r in res.values()) \
         and stage_err <= K3_MAX_ABS
     for name, r in res.items():
@@ -3083,9 +3574,13 @@ def game_phase(fmt: str, card):
     import torch
 
     from voxelrs_tpu_torch.gamelogic.game import Game, GameArgs
-    from voxelrs_tpu_torch.ops import picker, shading, traversal, traversal_csvo
+    from voxelrs_tpu_torch.ops import (compact, picker, shading, traversal,
+                                       traversal_csvo)
 
     recorder = PickerRecorder(picker.raycast)
+    k6rec = CompactRecorder(compact.compact_indices, W * H, GAME_K6_CALLS,
+                            "cuda")
+    compact.compact_indices = k6rec
     traversal.launches = traversal_csvo.launches = 0
     shading.launches = shading.launches_csvo = 0
     picker.launches = picker.launches_csvo = 0
@@ -3093,7 +3588,10 @@ def game_phase(fmt: str, card):
     game = Game(GameArgs(render_distance=GAME_RENDER_DISTANCE,
                          svo_format=fmt))
     try:
-        g = play_game(game, recorder)
+        try:
+            g = play_game(game, recorder)
+        finally:
+            compact.compact_indices = k6rec.fn
         torch.cuda.synchronize()
         n = g["launches"] = dict(
             k5=picker.launches, k3=shading.launches,
@@ -3122,10 +3620,18 @@ def game_phase(fmt: str, card):
         if not g["edit_ok"]:
             fail(f"breaking and placing a block did not change the voxel "
                  f"({fmt})")
+        with Phase(f"k6 vs plain, every call of the game run ({fmt})"):
+            k6c = k6rec.check()
+        log(f"k6 vs plain ({fmt} game run): {k6c['k6_calls']} calls, "
+            f"{k6c['k6_bad']} differing, {k6c['k6_missed']} not recorded; "
+            f"ok {k6c['k6_ok']}")
+        if not k6c["k6_ok"]:
+            fail(f"K6 disagrees with its plain version in the {fmt} game")
         c = check_game(game, recorder, card)
+        c.update(k6c)
     finally:
         game.shutdown()
-    del recorder  # the buffer copies
+    del recorder, k6rec  # the buffer and mask copies
     if not c["k5_ok"]:
         fail(f"K5 disagrees with its plain version ({fmt})")
     if not c["k3_game_ok"]:

@@ -443,27 +443,52 @@ def test_sun_margin_withdraws_corner_grazes(far, depth):
 # -- compaction ----------------------------------------------------------------
 
 
+K6_TILE = 8192  # lanes of a K6 tile on the card (csrc/k6_compact.cuh)
+
+
 def _masks():
+    """(name, mask, size, starts segments or None): the shapes K6 is held
+    to on the card too (tests/test_torch_cuda.py): tile boundaries, a mask
+    sliced at an odd offset, starts with segment 1 and with segments that
+    are not a multiple of the tile."""
     rng = np.random.default_rng(5)
-    yield "all false", np.zeros(3000, bool), 1024
-    yield "all true", np.ones(2500, bool), 2500
-    yield "size below count", rng.random(5000) < 0.5, 700
-    yield "ragged B", rng.random(1024 * 3 + 17) < 0.1, 1024 * 3 + 17
-    yield "one lane", np.eye(1, 4099, 4098, dtype=bool)[0], 8
-    yield "empty", np.zeros(0, bool), 4
+    yield "all false", np.zeros(3000, bool), 1024, None
+    yield "all true", np.ones(2500, bool), 2500, None
+    yield "size below count", rng.random(5000) < 0.5, 700, None
+    yield "ragged B", rng.random(1024 * 3 + 17) < 0.1, 1024 * 3 + 17, None
+    yield "one lane", np.eye(1, 4099, 4098, dtype=bool)[0], 8, None
+    yield "empty", np.zeros(0, bool), 4, None
+    for k, d in ((1, -1), (1, 0), (1, 1), (3, -1), (3, 1)):
+        n = K6_TILE * k + d
+        yield f"tile {k}{d:+d}", rng.random(n) < 0.3, n, None
+    yield "tile 3+1, size above count", rng.random(3 * K6_TILE + 1) < 0.3, \
+        3 * K6_TILE + 100, None
+    yield "sliced at offset 1", (rng.random(5 * K6_TILE + 78) < 0.4)[1:], \
+        5 * K6_TILE + 77, None
+    yield "starts, segment 1", rng.random(3000) < 0.5, 3000, 3000
+    yield "starts, segments off the tile", rng.random(5 * 12_345) < 0.5, \
+        5 * 12_345, 5
 
 
 @pytest.mark.parametrize("case", [m[0] for m in _masks()])
 def test_compact_indices_match_nonzero(case):
-    _name, mask, size = next(m for m in _masks() if m[0] == case)
+    _name, mask, size, m = next(c for c in _masks() if c[0] == case)
     want = np.asarray(jnp.nonzero(jnp.asarray(mask), size=size,
                                   fill_value=0)[0])
-    idx, count = compact_indices(torch.from_numpy(mask), size)
+    tmask = torch.from_numpy(np.ascontiguousarray(mask))
+    starts = None if m is None else torch.full((m,), -1, dtype=torch.int32)
+    idx, count = compact_indices(tmask, size, starts=starts)
     assert idx.dtype == torch.int32 and tuple(idx.shape) == (size,)
     np.testing.assert_array_equal(idx.numpy(), want)
     assert count.tolist() == [int(mask.sum())]
     if len(mask):  # the JAX package's bitpacked form agrees too
         np.testing.assert_array_equal(
             np.asarray(jcompact(jnp.asarray(mask), size)), want)
-    plain, _ = compact_indices_plain(torch.from_numpy(mask), size)
+    if m is not None:  # each segment's first rank: set lanes before it
+        every = np.asarray(jnp.nonzero(jnp.asarray(mask), size=len(mask),
+                                       fill_value=len(mask))[0])
+        seg = len(mask) // m
+        np.testing.assert_array_equal(
+            starts.numpy(), np.searchsorted(every, np.arange(m) * seg))
+    plain, _ = compact_indices_plain(tmask, size)
     np.testing.assert_array_equal(plain.numpy(), want)

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from voxelrs_tpu_torch import _build
 from voxelrs_tpu_torch.gamelogic import content
 from voxelrs_tpu_torch.gamelogic.game import Game, GameArgs
 from voxelrs_tpu_torch.graphics.picker import Aabb, PickerBatch, PickerBatchResult
@@ -367,6 +368,79 @@ def test_k6_equals_plain(dev, n, density, size):
     assert torch.equal(idx[: want.shape[0]], want)
 
 
+K6_TILE = 8192  # lanes of a K6 tile (csrc/k6_compact.cuh)
+
+
+def _k6_check(mask, size, starts_m=None, **ws):
+    """K6 against its plain version: indices, count and starts equal."""
+    ks = None if starts_m is None else torch.full(
+        (starts_m,), -1, dtype=torch.int32, device=mask.device)
+    ps = None if ks is None else ks.clone()
+    idx, count = compact.compact_indices(mask, size, starts=ks, **ws)
+    pidx, pcount = compact.compact_indices_plain(mask, size, starts=ps)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx) and torch.equal(count, pcount)
+    assert ks is None or torch.equal(ks, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [K6_TILE - 1, K6_TILE, K6_TILE + 1,
+                               3 * K6_TILE - 1, 3 * K6_TILE + 1,
+                               300 * K6_TILE + 1])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_k6_tile_boundaries(dev, n, density):
+    """n = tile * k +- 1: the scalar tail of the last tile, and a size
+    below and above the count."""
+    rng = np.random.default_rng(n)
+    mask = torch.tensor(rng.random(n) < density, device=dev)
+    _k6_check(mask, n)
+    _k6_check(mask, n // 3)
+    _k6_check(mask, n + 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 15])
+def test_k6_mask_sliced_at_an_odd_offset(dev, offset):
+    """A mask that starts at any byte: the head before the first 16-byte
+    boundary is read with scalar loads."""
+    rng = np.random.default_rng(offset)
+    n = 5 * K6_TILE + 77
+    base = torch.tensor(rng.random(n + offset) < 0.4, device=dev)
+    mask = base[offset:]
+    assert mask.data_ptr() % 16 == offset % 16
+    _k6_check(mask, n)
+    _k6_check(mask, 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(3000, 3000), (7 * K6_TILE, 7),
+                                 (5 * 12_345, 5), (3 * 1000, 3)])
+def test_k6_starts(dev, n, m):
+    """``starts`` with segment 1, and with segments that are not a
+    multiple of the tile."""
+    rng = np.random.default_rng(n + m)
+    mask = torch.tensor(rng.random(n) < 0.5, device=dev)
+    _k6_check(mask, n, starts_m=m)
+
+
+@pytest.mark.cuda
+def test_k6_calls_in_a_row_on_one_workspace(dev):
+    """Calls on one scratch: the status words and the tile counter an
+    earlier call left must not be read as this call's (a larger mask, then
+    smaller ones, then the larger again)."""
+    rng = np.random.default_rng(11)
+    big = 9 * K6_TILE + 5
+    scratch = torch.zeros(_build.k6_blocks(big), dtype=torch.int32,
+                          device=dev)
+    for n, p in [(big, 0.5), (2 * K6_TILE, 0.9), (big, 0.1), (100, 0.5),
+                 (big, 1.0), (big, 0.0), (0, 0.5), (big, 0.7)]:
+        mask = torch.tensor(rng.random(n) < p, device=dev)
+        out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        count = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        _k6_check(mask, n, out=out, count=count, scratch=scratch)
+    assert int(scratch[0]) == 0  # the tile counter, back to 0
+
+
 def _terrain_chunk(cx, cz, glass_tower=False):
     """tests/test_beams.py's terrain chunk."""
     vox = np.zeros((32, 32, 32), np.uint32)
@@ -624,6 +698,29 @@ def test_k9_trace_merge_finalize_equal_plain(terrains, dev, fmt, levels, cam):
     assert torch.equal(outs[0][1], outs[1][1]) and not outs[0][3].any()
     assert (adaptive.launches_trace - n0[0], adaptive.launches_merge - n0[1],
             adaptive.launches_finalize - n0[2]) == (levels + 1, levels, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("listed", [0, 1])
+def test_k9_trace_of_an_empty_and_a_one_lane_refine_list(terrains, dev, fmt,
+                                                         listed):
+    """K9's trace of a refine list with no entry and with one: equal to the
+    plain version, every other record untouched."""
+    s = terrains[(fmt, False)]
+    world, scale, fp, tf = _k9_inputs(s, _tparams(sorted(TCAMS)[0]), dev)
+    w, h = adaptive.grid_dims(TW, TH, 1)[0]
+    recs = torch.full((w * h, 8), 7, dtype=torch.int32, device=dev)
+    refine = torch.zeros(w * h, dtype=torch.bool, device=dev)
+    refine[(w * h) // 2 + 3: (w * h) // 2 + 3 + listed] = True
+    ridx, rcount = compact.compact_indices(refine, w * h)
+    before = recs.clone()
+    adaptive.k9_trace(world, scale, fp, tf, 0, recs, ridx, rcount)
+    adaptive.k9_trace_plain(world, scale, fp, tf, 0, before, ridx, rcount)
+    torch.cuda.synchronize()
+    assert int(rcount) == listed
+    assert torch.equal(recs, before)
+    assert int((recs != 7).any(1).sum()) <= listed
 
 
 @pytest.mark.cuda

@@ -242,3 +242,48 @@ def test_modes_and_small_frames():
             tsvo.render(tp, 32, 24, mode="adaptive")
     finally:
         tsvo.set_heightfield(None)
+
+
+def _jax_beam_floors(jsvo, p):
+    """The JAX ``Svo._beam_floors`` of a frame at W x H (its render's
+    camera basis)."""
+    from voxelrs_tpu.graphics.camera import Camera as JCamera
+
+    cam = JCamera(np.degrees(p.fov_y_rad), p.aspect_ratio, 0.01, 1024)
+    cam.position = np.asarray(p.cam_pos, np.float32)
+    cam.forward = np.asarray(p.cam_fwd, np.float32)
+    cam.up = np.asarray(p.cam_up, np.float32)
+    s, u, f = cam.camera_basis()
+    return jsvo._beam_floors(cam, s, u, f, p, W, H)
+
+
+@pytest.mark.parametrize("var", ["VOXELRS_BEAMS", "VOXELRS_SUN"])
+def test_beam_switches_follow_jax(var, monkeypatch):
+    """``VOXELRS_BEAMS=0`` turns the beam pre-pass off and
+    ``VOXELRS_SUN=0`` the sun map (a shared map is still taken), in
+    ``beam_context`` as in the JAX ``_beam_floors``; ``last_frame`` follows
+    and the image is the one rendered without the variable."""
+    jsvo, tsvo, jh, th = _get("opaque")
+    jp, tp = _params(JRenderParams, "horizon"), _params(RenderParams,
+                                                         "horizon")
+    jsvo.set_heightfield(jh)
+    tsvo.set_heightfield(th)
+    try:
+        ref = tsvo.render(tp, W, H).numpy()
+        assert tsvo.last_frame["beams"] and tsvo.last_frame["sun"]
+        full = tsvo.beam_context(tp, W, H)
+        monkeypatch.setenv(var, "0")
+        jctx, tctx = _jax_beam_floors(jsvo, jp), tsvo.beam_context(tp, W, H)
+        beams_on = var != "VOXELRS_BEAMS"
+        assert (jctx is not None) == (tctx is not None) == beams_on
+        if beams_on:
+            assert jctx._sun is None and not tctx.has_sun()
+            shared = tsvo.beam_context(tp, W, H, shared_sun=full._sun)
+            assert shared.has_sun()
+        img = tsvo.render(tp, W, H).numpy()
+        assert (tsvo.last_frame["beams"], tsvo.last_frame["sun"]) == (
+            beams_on, False)
+        np.testing.assert_array_equal(img, ref)
+    finally:
+        jsvo.set_heightfield(None)
+        tsvo.set_heightfield(None)

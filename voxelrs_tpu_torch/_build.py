@@ -54,7 +54,7 @@ build_seconds = 0.0  # 0.0 when a finished library was reused
 
 MAX_LEVELS = 8
 MAX_BEAM_LEVELS = 16  # envelope pyramid levels (csrc/k7_beams.cuh)
-K6_BLOCK = 1024  # mask lanes per K6 block (csrc/k6_compact.cuh)
+K6_TILE = 8192  # mask lanes of a K6 tile (csrc/k6_compact.cuh)
 HIT_WORDS = 9  # words of a deferred hit record (kernels.cu HitRec)
 K9_WORDS = 8  # words of a K9 record (k9_adaptive.cuh K9Rec)
 K9J_WORDS = 16  # words of a K9-judged record (k9_judged.cuh K9JRec)
@@ -189,7 +189,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vx_k5_picker_csvo.argtypes = [P, LL, F, U, I, P, I, I, P, P, P]
     lib.vx_k5_picker_csvo.restype = I
     for name, args in (
-            ("vx_k6_compact", [P, I, I, P, P, P, I, P, P]),
+            ("vx_k6_compact", [P, I, I, P, P, P, U, I, P, P]),
             ("vx_k7_tiles", [P, P, P, P, P]),
             ("vx_k7_shadow", [P, P, P, P, P, P, P, P, I, P, P]),
             ("vx_k8_sun", [P, P, P, P, P, P, I, P, P, P, P, P]),
@@ -201,9 +201,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("vx_kd_shadow_csvo", [P, LL, F, U, I, P, P, I, P, P, P, P, P, P,
                                    I, P, P]),
             ("vx_kd_finish", [P, P, P, P, I, P, P, P, P, P, P, P, P]),
-            ("vx_k9_trace", [P, LL, F, P, P, P, I, I, P, P, I, P, P]),
-            ("vx_k9_trace_csvo", [P, LL, F, U, I, P, P, P, I, I, P, P, I, P,
-                                  P]),
+            ("vx_k9_trace", [P, LL, F, P, P, P, I, I, P, P, I, I, P, P]),
+            ("vx_k9_trace_csvo", [P, LL, F, U, I, P, P, P, I, I, P, P, I, I,
+                                  P, P]),
             ("vx_k9_merge", [F, P, P, I, P, P, P, I, P]),
             ("vx_k9_finalize", [F, P, P, I, P, P, P, P, P, P, P]),
             ("vx_k9_shadow_cells", [I, P, P, P, P, I, I, P, P, P, P, P, P,
@@ -303,18 +303,28 @@ def launch_k5(world, octree_scale, tasks, budget, out, steps=None):
 
 
 def k6_blocks(n: int) -> int:
-    """K6's scratch length: one count per 1024-lane block."""
-    return -(-n // K6_BLOCK)
+    """K6's scratch length in int32 words for an ``n``-lane mask: the tile
+    counter, a spare word, 8-byte alignment and one 64-bit status word per
+    tile of K6_TILE lanes (the mask may start at any byte). The scratch is
+    zeroed when it is allocated and then used by K6 alone."""
+    return 4 + 2 * max(1, -(-(n + 15) // K6_TILE))
+
+
+_k6_epoch = 0  # the last K6 call's epoch (1..2^30-1, its status words' tag)
 
 
 def launch_k6(mask, size, out, count, scratch, starts=None):
-    """Launch K6 (three kernels) on the current stream: ``mask`` (n,) bool,
+    """Launch K6 (one kernel) on the current stream: ``mask`` (n,) bool,
     ``out`` (size,) int32, ``count`` (1,) int32, ``scratch``
-    (>= k6_blocks(n),) int32; ``starts`` None or (m,) int32, m dividing n,
-    which receives the rank of every (n / m)-th lane."""
+    (>= k6_blocks(n),) int32, zeroed when allocated; ``starts`` None or
+    (m,) int32, m dividing n, which receives the rank of every (n / m)-th
+    lane. Each call tags its status words with a new epoch, so the status
+    words of an earlier call on the same scratch read as not ready."""
+    global _k6_epoch
+    _k6_epoch = _k6_epoch % ((1 << 30) - 1) + 1
     seg = 0 if starts is None else mask.shape[0] // starts.shape[0]
     err = library().vx_k6_compact(_ptr(mask), mask.shape[0], size, _ptr(out),
-                                  _ptr(count), _ptr(scratch), seg,
+                                  _ptr(count), _ptr(scratch), _k6_epoch, seg,
                                   _ptr(starts), _stream(mask.device))
     _raise_on(err, "K6 (vx_k6_compact)")
 
@@ -426,12 +436,14 @@ def launch_k9_trace(world, octree_scale, params: FrameParams, tf, level, out,
     """K9's trace of grid level ``level`` into its (n, 8) int32 records
     ``out`` (N times the level's lanes): every lane, or the refine list
     ``idx`` ((size,) int32) up to its device ``count``; ``tf`` None or the
-    (nty, ntx) tile floors ((N, nty, ntx) for a batch)."""
+    (nty, ntx) tile floors ((N, nty, ntx) for a batch); ``cams`` None
+    (one pose) or the (N, ...) cameras of a batch."""
     lib = library()
     size = out.shape[0] if idx is None else idx.shape[0]
     ntx = 0 if tf is None else tf.shape[-1]
+    n_poses = 1 if cams is None else cams.shape[0]
     tail = (ctypes.byref(params), _ptr(cams), _ptr(tf), ntx, level,
-            _ptr(idx), _ptr(count), size, _ptr(out))
+            _ptr(idx), _ptr(count), size, n_poses, _ptr(out))
     if isinstance(world, torch.Tensor):
         err = lib.vx_k9_trace(_ptr(world), world.shape[0], octree_scale,
                               *tail, _stream(world.device))

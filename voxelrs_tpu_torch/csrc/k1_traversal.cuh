@@ -10,7 +10,8 @@
 //
 // Design: one thread per ray, as in the reference GLSL
 // (assets/shaders/svo.esvo.glsl). The 12-entry (node, t_max) stack lives
-// in local memory; each step reads one word of one 12-word block. The JAX
+// in local memory (K9's trace: shared memory, see SharedStack); each step
+// reads one word of one 12-word block. The JAX
 // version's TPU structure (lock-step batch, one-hot stacks, fat rows) is not
 // carried over. The arithmetic follows the JAX classic loop operation by
 // operation — separate multiplies and subtracts (build with -fmad=false),
@@ -297,23 +298,29 @@ __device__ __forceinline__ void finalize_hit(const RayConsts& c,
 // The ESVO node cursor of one ray: the packed stack word ``node`` =
 // ptr | parent_idx << 28 and the reads of the ESVO buffer. ``traverse_with``
 // drives the traversal through it; the CSVO cursor (k4_csvo_traversal.cuh)
-// has the same four methods over the CSVO byte stream.
-struct EsvoCursor {
+// has the same four methods over the CSVO byte stream. PREFETCH: the probe
+// also loads the node's child-pointer word (same block), beside its
+// descriptor word, so a push or a leaf's value waits for one load fewer;
+// the words read, and so the result, are the same.
+template <bool PREFETCH>
+struct EsvoCursorT {
   const uint32_t* __restrict__ desc;
   uint32_t n_rows;
   uint32_t node;
+  uint32_t pword;  // PREFETCH: the current node's child-pointer word
 
-  __device__ EsvoCursor(const uint32_t* __restrict__ d, uint32_t rows)
-      : desc(d), n_rows(rows), node(0u) {}
+  __device__ EsvoCursorT(const uint32_t* __restrict__ d, uint32_t rows)
+      : desc(d), n_rows(rows), node(0u), pword(0u) {}
 
   // child / leaf bits of child `oct` of the current node (the step's
   // descriptor fetch)
   __device__ __forceinline__ void probe(int oct, bool& is_child,
-                                        bool& is_leaf) const {
+                                        bool& is_leaf) {
     const uint32_t ptr = node & PTR_MASK;
     const uint32_t pidx = node >> PTR_BITS;
     const uint32_t bit = 1u << oct;
     uint32_t d = block_word(desc, n_rows, ptr, pidx >> 1);
+    if (PREFETCH) pword = block_word(desc, n_rows, ptr, 4u + pidx);
     if (pidx & 1u) d >>= 16;
     is_child = (d & (bit << 8)) != 0u;
     is_leaf = (d & bit) != 0u;
@@ -322,7 +329,9 @@ struct EsvoCursor {
   __device__ __forceinline__ uint32_t child_block(uint32_t& ptr) const {
     ptr = node & PTR_MASK;
     const uint32_t pidx = node >> PTR_BITS;
-    return resolve_ptr(block_word(desc, n_rows, ptr, 4u + pidx), ptr, pidx);
+    return resolve_ptr(PREFETCH ? pword
+                                : block_word(desc, n_rows, ptr, 4u + pidx),
+                       ptr, pidx);
   }
 
   // value of leaf child `oct` of the current node
@@ -339,6 +348,61 @@ struct EsvoCursor {
     node = (next & PTR_MASK) | ((uint32_t)oct << PTR_BITS);
   }
 };
+using EsvoCursor = EsvoCursorT<false>;
+
+// Where traverse_with keeps its 12-entry (node, t_max) stack, made inside
+// it from a Source. LocalStack: arrays of the thread (local memory, as
+// every kernel but K9's trace keeps it). SharedStack: the thread's column
+// of a block's shared-memory table, `stride` entries apart (entry
+// [slot][thread]: no bank conflicts).
+struct LocalStack {
+  struct Source {};
+  uint32_t node[STACK_HEIGHT];
+  float tmax[STACK_HEIGHT];
+
+  __device__ explicit LocalStack(Source) {}
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < STACK_HEIGHT; ++i) {
+      node[i] = 0u;
+      tmax[i] = 0.f;
+    }
+  }
+  __device__ __forceinline__ void put(int slot, uint32_t n, float t) {
+    node[slot] = n;
+    tmax[slot] = t;
+  }
+  __device__ __forceinline__ void get(int slot, uint32_t& n, float& t) const {
+    n = node[slot];
+    t = tmax[slot];
+  }
+};
+
+struct SharedStack {
+  struct Source {
+    uint32_t* node;  // &table_node[0][thread]
+    float* tmax;     // &table_tmax[0][thread]
+    int stride;      // threads of the block
+  };
+  Source s;
+
+  __device__ explicit SharedStack(Source src) : s(src) {}
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < STACK_HEIGHT; ++i) {
+      s.node[i * s.stride] = 0u;
+      s.tmax[i * s.stride] = 0.f;
+    }
+  }
+  __device__ __forceinline__ void put(int slot, uint32_t n, float t) {
+    s.node[slot * s.stride] = n;
+    s.tmax[slot * s.stride] = t;
+  }
+  __device__ __forceinline__ void get(int slot, uint32_t& n, float& t) const {
+    n = s.node[slot * s.stride];
+    t = s.tmax[slot * s.stride];
+  }
+};
 
 // One ray through the octree behind `cur` (the JAX classic loop).
 // `budget` is the step bound (max_steps rounded up to the JAX loop's
@@ -349,13 +413,15 @@ struct EsvoCursor {
 // restart_state_push voxelrs_tpu/ops/traversal.py:700-727): the root octant
 // is recomputed from the new t_min at the 1.5 thresholds, and a ray whose
 // floor lies past the cube's exit (+inf) misses with 0 steps. Unfloored
-// calls run exactly the arithmetic they ran before.
-template <class Cursor>
+// calls run exactly the arithmetic they ran before. Stack / `src`: where
+// the stack lives (LocalStack or SharedStack); the arithmetic is the same.
+template <class Cursor, class Stack = LocalStack>
 __device__ __forceinline__ void traverse_with(
     Cursor cur, float octree_scale, float ro_x, float ro_y, float ro_z,
     float rd_x, float rd_y, float rd_z, float max_dst, int budget,
     int alpha_mode, const TexTables& tx, Hit& out, bool floored = false,
-    float t_floor = 0.f) {
+    float t_floor = 0.f,
+    typename Stack::Source src = typename Stack::Source()) {
   // ---- ray constants (make_ray_consts) --------------------------------
   const RayConsts c = ray_consts(octree_scale, ro_x, ro_y, ro_z, rd_x, rd_y,
                                  rd_z);
@@ -377,13 +443,8 @@ __device__ __forceinline__ void traverse_with(
   float posx = in_x ? 1.5f : 1.f, posy = in_y ? 1.5f : 1.f,
         posz = in_z ? 1.5f : 1.f;
   float h = t_max;
-  uint32_t stack_node[STACK_HEIGHT];
-  float stack_tmax[STACK_HEIGHT];
-#pragma unroll
-  for (int i = 0; i < STACK_HEIGHT; ++i) {
-    stack_node[i] = 0u;
-    stack_tmax[i] = 0.f;
-  }
+  Stack stk(src);
+  stk.clear();
   int adj_count = 0;
   uint32_t last_value = NO_VALUE;
 
@@ -458,8 +519,7 @@ __device__ __forceinline__ void traverse_with(
     if (want_push) {
       const int slot = scale - STACK_BASE;
       if (tc_max < h && slot >= 0 && slot < STACK_HEIGHT) {
-        stack_node[slot] = cur.node;
-        stack_tmax[slot] = t_max;
+        stk.put(slot, cur.node, t_max);
       }
       h = tc_max;
       const bool pin_x = t_min < half * tcx + tcox;
@@ -501,8 +561,7 @@ __device__ __forceinline__ void traverse_with(
     const int pop_scale = 31 - __clz(db);
     if (pop_scale >= MAX_SCALE) break;  // left the octree
     const int pslot = clampi(pop_scale - STACK_BASE, 0, STACK_HEIGHT - 1);
-    cur.node = stack_node[pslot];
-    t_max = stack_tmax[pslot];
+    stk.get(pslot, cur.node, t_max);
     const int sc = clampi(pop_scale, 0, MAX_SCALE);
     const uint32_t shx = __float_as_uint(ax) >> sc;
     const uint32_t shy = __float_as_uint(ay) >> sc;

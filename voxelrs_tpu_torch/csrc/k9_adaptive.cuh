@@ -28,9 +28,9 @@
 // merge compares. The JAX record holds node pointers instead of the value
 // and refetches it; here the traversal hands the value out at its hit.
 //
-// Design: one thread per lane, no shared memory; counts stay in device
-// memory (K6's), and every kernel reads its count and exits past it, so a
-// frame makes no host round trip. The arithmetic is the plain version's
+// Design: one thread per lane; counts stay in device memory (K6's), and
+// every kernel reads its count and exits past it, so a frame makes no host
+// round trip. The arithmetic is the plain version's
 // operation for operation (-fmad=false): the fill's t_int == tcmin and
 // plane equalities decide which pixels are filled, and the mantissa
 // quantization of the leaf base is done on the bits.
@@ -47,10 +47,16 @@
 // One frame is the case n_poses = 1 with cams and hstart null.
 //
 // What bounds them on an H100: k9_trace is the traversal (K1 / K4,
-// dependent loads); the merge reads four 32-byte records and writes one,
-// with some seventy float operations where a lane's corners agree (bytes
-// bound); finalize and the shadow cells are bytes bound. Speed is later
-// work.
+// dependent loads). A launch lasts as long as its slowest warp's chain of
+// steps (the longest rays take ~140 steps, a warp's lanes ~0.7 of its
+// longest on average), so its shape shortens each step's wait: the stack
+// in shared memory instead of local memory, the ESVO cursor's child
+// pointer loaded beside the descriptor, 4x8 pixel tiles a warp on the
+// whole grid (its rays leave from one patch), 64-thread blocks, and a grid
+// no larger than the card holds at once (kernels.cu k9_trace_launch), so a
+// refine list's launch schedules no empty blocks past its count. The merge reads four 32-byte records and writes one, with
+// some seventy float operations where a lane's corners agree (bytes
+// bound); finalize and the shadow cells are bytes bound.
 
 #pragma once
 
@@ -118,48 +124,76 @@ __device__ __forceinline__ bool k9_dense(long long hits, long long B) {
   return k >= B / 3;
 }
 
-// One thread per lane of grid level `level` (idx null: lane m < size) or
-// per entry of its refine list (lane idx[m], m < *count): the opaque trace
+// Threads of a K9 trace block (kernels.cu k9_trace_launch).
+constexpr int K9_TRACE_THREADS = 64;
+
+// Work item m of a trace launch -> its lane, or -1. A refine list: lane
+// idx[m]. The whole grid: item m is lane (l >> 3, l & 7) of 4x8 tile
+// m / 32 (row-major tiles of each pose's (wl, hl) grid, poses one after
+// another), so a warp's rays leave from a compact patch of pixels.
+__device__ __forceinline__ int k9_trace_lane(int m, const int* __restrict__ idx,
+                                             int wl, int hl) {
+  if (idx) return idx[m];
+  const int tx = (wl + 7) >> 3, ty = (hl + 3) >> 2;
+  const int t = m >> 5, l = m & 31;
+  const int pose = t / (tx * ty), tp = t - pose * tx * ty;
+  const int y = (tp / tx) * 4 + (l >> 3), x = (tp % tx) * 8 + (l & 7);
+  return y < hl && x < wl ? pose * wl * hl + y * wl + x : -1;
+}
+
+// One thread per work item of grid level `level` (k9_trace_lane: idx null,
+// items m < size; else the refine list's entries m < *count), a block
+// looping over items gridDim.x * K9_TRACE_THREADS apart: the opaque trace
 // of the lane's pixel ray from the pixel's tile floor (tf null =
 // unfloored), its record into out[lane]. A lane's pose is lane / (the
-// level's lane count).
+// level's lane count). The traversal stack lives in the block's shared
+// memory (World::trace_shared).
 template <class World>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(K9_TRACE_THREADS)
 k9_trace_kernel(World world, float octree_scale, FrameParams fp,
                 const float* __restrict__ cams, const float* __restrict__ tf,
                 int ntx, int level, const int* __restrict__ idx,
                 const int* __restrict__ count, int size,
                 K9Rec* __restrict__ out) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= size || (idx && m >= count_of(count, size))) return;
-  const int lane = idx ? idx[m] : m;
+  __shared__ uint32_t s_node[STACK_HEIGHT * K9_TRACE_THREADS];
+  __shared__ float s_tmax[STACK_HEIGHT * K9_TRACE_THREADS];
   int wl, hl;
   k9_dims(fp.width, fp.height, level, wl, hl);
-  const int pose = lane / (wl * hl);
-  const FrameParams f = pose_params(fp, cams, pose);
-  const int px = k9_pixel(fp, level, lane - pose * wl * hl);
-  float rd[3];
-  gen_ray(f, px, rd);
-  const float* tfp = pose_floors(fp, tf, ntx, pose);
-  const float t_floor =
-      tfp ? tfp[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)] : 0.f;
-  const TexTables no_tables = {};  // the opaque cast reads no texture
-  Hit p;
-  world.trace(octree_scale, f.cam_pos[0], f.cam_pos[1], f.cam_pos[2], rd[0],
-              rd[1], rd[2], -1.f, fp.primary_budget, 0, no_tables, p,
-              tf != nullptr, t_floor);
-  K9Rec r = {};
-  if (p.t != -1.f) {
-    r.t = p.t_oct;
-    r.idxscale = (uint32_t)p.idx | ((uint32_t)p.scale << 8);
-    r.pos[0] = p.leaf[0];
-    r.pos[1] = p.leaf[1];
-    r.pos[2] = p.leaf[2];
-    r.value = p.value;
-    r.flags = 1u | ((uint32_t)(p.face >> 1) << 1) |
-              ((uint32_t)k9_octant(rd) << 3);
+  const int items = idx ? count_of(count, size) : size;
+  for (int m = blockIdx.x * K9_TRACE_THREADS + threadIdx.x; m < items;
+       m += gridDim.x * K9_TRACE_THREADS) {
+    const int lane = k9_trace_lane(m, idx, wl, hl);
+    if (lane < 0) continue;
+    const int pose = lane / (wl * hl);
+    const FrameParams f = pose_params(fp, cams, pose);
+    const int px = k9_pixel(fp, level, lane - pose * wl * hl);
+    float rd[3];
+    gen_ray(f, px, rd);
+    const float* tfp = pose_floors(fp, tf, ntx, pose);
+    const float t_floor =
+        tfp ? tfp[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)]
+            : 0.f;
+    const TexTables no_tables = {};  // the opaque cast reads no texture
+    Hit p;
+    world.trace_shared(
+        octree_scale, f.cam_pos[0], f.cam_pos[1], f.cam_pos[2], rd[0], rd[1],
+        rd[2], -1.f, fp.primary_budget, 0, no_tables, p, tf != nullptr,
+        t_floor,
+        SharedStack::Source{s_node + threadIdx.x, s_tmax + threadIdx.x,
+                            K9_TRACE_THREADS});
+    K9Rec r = {};
+    if (p.t != -1.f) {
+      r.t = p.t_oct;
+      r.idxscale = (uint32_t)p.idx | ((uint32_t)p.scale << 8);
+      r.pos[0] = p.leaf[0];
+      r.pos[1] = p.leaf[1];
+      r.pos[2] = p.leaf[2];
+      r.value = p.value;
+      r.flags = 1u | ((uint32_t)(p.face >> 1) << 1) |
+                ((uint32_t)k9_octant(rd) << 3);
+    }
+    out[lane] = r;
   }
-  out[lane] = r;
 }
 
 // The entry plane of a record's leaf on its face axis.

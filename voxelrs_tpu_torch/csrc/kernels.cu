@@ -128,6 +128,18 @@ struct EsvoWorld {
     traverse(desc, n_rows, octree_scale, ox, oy, oz, dx, dy, dz, max_dst,
              budget, alpha_mode, tx, out, floored, t_floor);
   }
+
+  // trace with the stack in shared memory and the cursor's pointer
+  // prefetch (EsvoCursorT<true>): K9's trace
+  __device__ __forceinline__ void trace_shared(
+      float octree_scale, float ox, float oy, float oz, float dx, float dy,
+      float dz, float max_dst, int budget, int alpha_mode,
+      const TexTables& tx, Hit& out, bool floored, float t_floor,
+      SharedStack::Source src) const {
+    traverse_with<EsvoCursorT<true>, SharedStack>(
+        EsvoCursorT<true>(desc, n_rows), octree_scale, ox, oy, oz, dx, dy, dz,
+        max_dst, budget, alpha_mode, tx, out, floored, t_floor, src);
+  }
 };
 
 struct CsvoWorld {
@@ -146,6 +158,19 @@ struct CsvoWorld {
     traverse_csvo(words, n_words, root_ptr, total_depth, octree_scale, ox, oy,
                   oz, dx, dy, dz, max_dst, budget, alpha_mode, tx, out,
                   floored, t_floor);
+  }
+
+  // trace with the stack in shared memory (K9's trace; the CSVO cursor's
+  // pointer follows its header, so it has no prefetch)
+  __device__ __forceinline__ void trace_shared(
+      float octree_scale, float ox, float oy, float oz, float dx, float dy,
+      float dz, float max_dst, int budget, int alpha_mode,
+      const TexTables& tx, Hit& out, bool floored, float t_floor,
+      SharedStack::Source src) const {
+    traverse_with<CsvoCursor, SharedStack>(
+        CsvoCursor(words, n_words, root_ptr, total_depth), octree_scale, ox,
+        oy, oz, dx, dy, dz, max_dst, budget, alpha_mode, tx, out, floored,
+        t_floor, src);
   }
 };
 
@@ -551,6 +576,47 @@ inline int grid_for(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
 #include "k9_adaptive.cuh"
 #include "k9_judged.cuh"
 
+// K9's trace launch (k9_adaptive.cuh k9_trace_kernel): the whole grid in
+// 4x8 tiles a warp (items past a pose's last row or column are skipped),
+// or the refine list's entries; a grid of at most the blocks the card
+// holds at once for each of the n_poses poses, each block looping over
+// its items, so a refine list's launch schedules few blocks past its
+// count, which only the card knows.
+template <class World>
+static int k9_trace_launch(const World& world, float octree_scale,
+                           const vx::FrameParams* fp, const float* cams,
+                           const float* tf, int ntx, int level, const int* idx,
+                           const int* count, int size, int n_poses, void* out,
+                           void* stream) {
+  const auto kernel = vx::k9_trace_kernel<World>;
+  constexpr int threads = vx::K9_TRACE_THREADS;
+  int wl = fp->width, hl = fp->height;
+  for (int k = 0; k < level; ++k) {
+    wl = wl > 1 ? wl / 2 + 1 : 1;
+    hl = hl > 1 ? hl / 2 + 1 : 1;
+  }
+  const long long items =
+      idx ? size
+          : (long long)n_poses * ((wl + 7) / 8) * ((hl + 3) / 4) * 32;
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  long long blocks = (items + threads - 1) / threads;
+  const long long cap = (long long)resident * (n_poses > 0 ? n_poses : 1);
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      world, octree_scale, *fp, cams, tf, ntx, level, idx, count, (int)items,
+      (vx::K9Rec*)out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -637,23 +703,31 @@ int vx_k5_picker_csvo(const uint32_t* words, long long n_words,
 
 // ---- K6, K7, K8 -----------------------------------------------------------
 
-// mask: n >= 0 bytes; out: size ints; block_counts: max(1, ceil(n /
-// 1024)) ints of scratch; starts: null, or n / seg ints that receive the
-// rank of every seg-th lane (the first output slot of each segment).
+// mask: n >= 0 bytes at any address; out: size ints; scratch:
+// _build.k6_blocks(n) ints, zeroed when allocated and used by K6 alone;
+// epoch: 1..2^30-1, a new one each call; starts: null, or n / seg ints that
+// receive the rank of every seg-th lane (the first output slot of each
+// segment). One launch; its grid is at most the blocks the card holds at
+// once (a block takes tiles until none is left).
 int vx_k6_compact(const uint8_t* mask, int n, int size, int* out, int* count,
-                  int* block_counts, int seg, int* starts, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0) {
-    cudaMemsetAsync(count, 0, sizeof(int), st);
-    if (size > 0) cudaMemsetAsync(out, 0, sizeof(int) * (size_t)size, st);
-    return (int)cudaGetLastError();
+                  int* scratch, unsigned epoch, int seg, int* starts,
+                  void* stream) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, vx::k6_compact_kernel, vx::K6_THREADS, 0);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
   }
-  const int nb = (n + vx::K6_BLOCK - 1) / vx::K6_BLOCK;
-  const int nw = ((n > size ? n : size) + vx::K6_BLOCK - 1) / vx::K6_BLOCK;
-  vx::k6_count_kernel<<<nb, vx::K6_BLOCK, 0, st>>>(mask, n, block_counts);
-  vx::k6_scan_kernel<<<1, vx::K6_BLOCK, 0, st>>>(block_counts, nb, count);
-  vx::k6_write_kernel<<<nw, vx::K6_BLOCK, 0, st>>>(mask, n, block_counts, size,
-                                                   count, out, seg, starts);
+  const int off = n > 0 ? (int)(reinterpret_cast<uintptr_t>(mask) & 15) : 0;
+  const long long lanes = (long long)n + off;
+  const int ntiles =
+      lanes > 0 ? (int)((lanes + vx::K6_TILE - 1) / vx::K6_TILE) : 1;
+  const int grid = ntiles < resident ? ntiles : resident;
+  vx::k6_compact_kernel<<<grid, vx::K6_THREADS, 0, (cudaStream_t)stream>>>(
+      mask, n, off, ntiles, size, out, count, scratch, epoch, seg, starts);
   return (int)cudaGetLastError();
 }
 
@@ -778,31 +852,27 @@ int vx_kd_finish(const vx::FrameParams* fp, const int* hidx, const int* sidx,
 // out: the records of grid level `level` (n_poses times its lane count
 // when idx is null, else at least the largest index); idx/count: a refine
 // list of `size` entries and its count on the card, or null; tf: null or
-// the (n_poses, ceil(H/8), ntx) tile floors.
+// the (n_poses, ceil(H/8), ntx) tile floors; n_poses: the rows of cams
+// (1 with cams null).
 int vx_k9_trace(const uint32_t* desc, long long n_words, float octree_scale,
                 const vx::FrameParams* fp, const float* cams, const float* tf,
                 int ntx, int level, const int* idx, const int* count, int size,
-                void* out, void* stream) {
+                int n_poses, void* out, void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
-  vx::k9_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                        (cudaStream_t)stream>>>(
-      world, octree_scale, *fp, cams, tf, ntx, level, idx, count, size,
-      (vx::K9Rec*)out);
-  return (int)cudaGetLastError();
+  return k9_trace_launch(world, octree_scale, fp, cams, tf, ntx, level, idx,
+                         count, size, n_poses, out, stream);
 }
 
 int vx_k9_trace_csvo(const uint32_t* words, long long n_words,
                      float octree_scale, unsigned root_ptr, int total_depth,
                      const vx::FrameParams* fp, const float* cams,
                      const float* tf, int ntx, int level, const int* idx,
-                     const int* count, int size, void* out, void* stream) {
+                     const int* count, int size, int n_poses, void* out,
+                     void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
-  vx::k9_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                        (cudaStream_t)stream>>>(
-      world, octree_scale, *fp, cams, tf, ntx, level, idx, count, size,
-      (vx::K9Rec*)out);
-  return (int)cudaGetLastError();
+  return k9_trace_launch(world, octree_scale, fp, cams, tf, ntx, level, idx,
+                         count, size, n_poses, out, stream);
 }
 
 // lo: the records of level + 1; hi, refine: the n lanes of level `level`

@@ -21,6 +21,7 @@ the 4-byte prefix as words, and ``root_ptr`` rides beside it).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -249,13 +250,15 @@ class Svo:
         :479-521): the tile floors of K7 plus the envelope, and, where
         shadows are on, the heightfield's sun map (or ``shared_sun``, a map
         already built, whose certificates are exact wherever its window
-        covers). None without a heightfield, below 16x16 pixels or before
-        the field holds a chunk; ``BeamContext.without_sun`` gives the
-        beams alone."""
+        covers). None without a heightfield, below 16x16 pixels, before
+        the field holds a chunk or under ``VOXELRS_BEAMS=0``; no sun map
+        is built under ``VOXELRS_SUN=0`` (``shared_sun`` is still taken),
+        as in JAX; ``BeamContext.without_sun`` gives the beams alone."""
         from ..ops.beams import CELL, BeamContext, sun_margin, tile_floors
         from ..ops.shading import tan_half_fov
 
-        if self.heightfield is None or width < 16 or height < 16:
+        if (self.heightfield is None or width < 16 or height < 16
+                or os.environ.get("VOXELRS_BEAMS") == "0"):
             return None
         dev = self.heightfield.device(self.device)
         if dev is None:
@@ -273,7 +276,8 @@ class Svo:
                          tan_half_fov(params.fov_y_rad), params.aspect_ratio,
                          -1.0, width=width, height=height)
         sun_map = shared_sun
-        if sun_map is None and params.render_shadows:
+        if (sun_map is None and params.render_shadows
+                and os.environ.get("VOXELRS_SUN") != "0"):
             sun_map = self.heightfield.sun_map(params.light_dir,
                                                center=params.cam_pos,
                                                device=self.device)

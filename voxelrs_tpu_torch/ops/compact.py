@@ -8,14 +8,15 @@ memory, and the kernels downstream read it and exit past it, so a frame
 makes no host round trip per compaction.
 
 On a CUDA mask ``compact_indices`` launches K6 (``csrc/k6_compact.cuh``):
-a warp-ballot count per 1024-lane block, one block's scan of the block
-counts (which also writes the total), and a write pass that places each
-set lane at its rank. On the CPU it runs the plain version.
+one kernel that reads the mask once, ranks its lanes with a single-pass
+scan (decoupled look-back over 8192-lane tiles), writes each set lane at
+its rank, the count, and the 0 padding past it. On the CPU it runs the
+plain version.
 
 A pose batch (K10) compacts the lanes of all its poses at once, pose-major;
 ``starts`` then receives where each pose's set lanes begin in the output
-(the write pass's rank of each pose's first lane), so a kernel reads each
-pose's count on the card.
+(the rank of each pose's first lane), so a kernel reads each pose's count
+on the card.
 """
 
 from __future__ import annotations
@@ -63,9 +64,9 @@ def compact_indices(mask: torch.Tensor, size: int, *, out=None, count=None,
     """``compact_indices_plain``'s function: the plain version for a CPU
     mask, K6 for a CUDA mask (a contiguous 1-d bool tensor). On the card
     ``out`` ((size,) int32), ``count`` ((1,) int32) and ``scratch``
-    (int32, at least ``_build.k6_blocks(n)``) may be the caller's
-    workspace, reused across calls on one stream; ``starts`` as in the
-    plain version."""
+    (int32, at least ``_build.k6_blocks(n)``, zeroed when allocated and
+    given to K6 alone) may be the caller's workspace, reused across calls
+    on one stream; ``starts`` as in the plain version."""
     if not mask.is_cuda:
         return compact_indices_plain(mask, size, starts=starts)
     global launches
@@ -81,7 +82,7 @@ def compact_indices(mask: torch.Tensor, size: int, *, out=None, count=None,
     if count is None:
         count = torch.empty(1, dtype=torch.int32, device=dev)
     if scratch is None:
-        scratch = torch.empty(max(1, _build.k6_blocks(n)), dtype=torch.int32,
+        scratch = torch.zeros(_build.k6_blocks(n), dtype=torch.int32,
                               device=dev)
     if out.shape[0] != size or scratch.shape[0] < _build.k6_blocks(n):
         raise ValueError("compact_indices: workspace of another size")

@@ -580,7 +580,9 @@ class DeferredWorkspace:
         self.hidx, self.sidx, self.tidx = e(B, i32), e(B, i32), e(B, i32)
         self.hcount, self.scount, self.tcount = (e(1, i32), e(1, i32),
                                                  e(1, i32))
-        self.scratch = e(max(1, _build.k6_blocks(B)), i32)
+        # K6's tile counter and status words: zeroed once, then kept
+        self.scratch = torch.zeros(_build.k6_blocks(B), dtype=i32,
+                                   device=dev)
         self._adaptive = None
 
     def adaptive(self, width: int, height: int, levels: int,
