@@ -86,12 +86,18 @@ and each call of a frame and of the batch is timed alone beside
 runs for one K6 call are counted from a ``torch.profiler`` trace, after
 the game runs; each launch of K9's trace prints its lanes, its mean and
 maximum steps a lane and its SIMD efficiency (from K1 / K4's steps on the
-same rays), and is timed alone. With ``--parent DIR`` (the parent
-commit's ``voxelrs_tpu_torch``, e.g. from ``git archive``, unpacked in
-DIR) the parent's kernels build in a second ``nvcc`` beside this tree's,
-its K6 and K9 trace are timed on the same inputs, and its renderer's
-frames (adaptive, exact and fused in both formats, the ESVO batch) are
-timed in turns with this tree's and compared with them.
+same rays), and is timed alone. K9's merge and finalize are held to their
+plain versions on every call of the adaptive phases' frames (both
+formats, the pitched-up pose among them) and of the batch, each launch
+is timed alone, and the card operations of one merge and one finalize
+call are counted from a profiler trace; the build prints the K9 kernels'
+loads and stores by width from ``cuobjdump -sass``. With ``--parent DIR``
+(the parent commit's ``voxelrs_tpu_torch``, e.g. from ``git archive``,
+unpacked in DIR) the parent's kernels build in a second ``nvcc`` beside
+this tree's, its K6 and K9 trace, merge and finalize are timed on the
+same inputs (each K9 launch held to the plain outputs), and its
+renderer's frames (adaptive, exact and fused in both formats, the ESVO
+batch) are timed in turns with this tree's and compared with them.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -226,9 +232,9 @@ CANOPIES = 8
 
 # the parent commit's kernel library (``parent_vx._build``), built beside
 # this tree's when the script is given --parent DIR (a git archive of the
-# parent's voxelrs_tpu_torch unpacked in DIR): K6, K9's trace and the
-# frames are then timed against the parent's on the same inputs, in the
-# same run
+# parent's voxelrs_tpu_torch unpacked in DIR): K6, K9's trace, merge and
+# finalize and the frames are then timed against the parent's on the same
+# inputs, in the same run
 PARENT = None
 
 
@@ -427,23 +433,53 @@ def k6_calls(calls, dev) -> list:
     return rows
 
 
-def trace_parent(world, scale, fp, tf, level, rec0, idx, cnt, cams,
-                 ref):
-    """With --parent, one spied K9 trace launch through the parent's
-    kernel, held to ``ref`` (the plain version's records from ``rec0``) bit
-    for bit and timed alone; None without."""
+# the arguments a K9 launch writes (by position), for parent_k9 and
+# held_k9; the finalize's image (position 5) is the sky, within K3_MAX_ABS
+K9_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5), "k9_finalize": (3, 4, 5, 6, 7)}
+
+
+def k9_outputs_equal(name, outs, ref) -> tuple:
+    """(equal, max |d|) of a K9 launch's outputs against the plain
+    version's: bit for bit, the finalize's image within K3_MAX_ABS."""
+    errs = [max_abs(a, b) for a, b in zip(outs, ref)]
+    eq = all(bits_equal(a, b) or (name == "k9_finalize"
+                                  and a.dtype.is_floating_point
+                                  and e <= K3_MAX_ABS)
+             for a, b, e in zip(outs, ref, errs))
+    return eq, max(errs)
+
+
+def held_k9(spy) -> dict:
+    """Every call a ``Spy`` of a K9 wrapper kept (with ``outs``: the
+    arguments the launch writes) held to the plain version on the call's
+    own inputs: calls, equal, max |d|."""
+    from voxelrs_tpu_torch.ops import adaptive
+
+    plain = getattr(adaptive, f"{spy.name}_plain")
+    eq, err = True, 0.0
+    for (args, kw), outs in zip(spy.calls, spy.outs):
+        plain(*args, **kw)  # into the spy's own copies
+        e, d = k9_outputs_equal(spy.name, outs,
+                                [args[i] for i in spy.out_pos])
+        eq, err = eq and e, max(err, d)
+    return dict(calls=len(spy.calls), equal=eq, err=err)
+
+
+def parent_k9(name, args, kw, ref):
+    """With --parent, one spied K9 launch (``name``: k9_trace, k9_merge or
+    k9_finalize, its wrapper's arguments) through the parent's kernel on
+    copies of the arguments it writes, held to ``ref`` (the plain
+    version's outputs) and timed alone; None without."""
     if PARENT is None:
         return None
     import torch
 
-    def launch(o):
-        PARENT.launch_k9_trace(world, scale, fp, tf, level, o, idx, cnt,
-                               cams=cams)
-
-    o = rec0.clone()
-    launch(o)
-    return dict(equal=bool(torch.equal(o, ref)),
-                ms=kernel_ms(lambda: launch(o)))
+    launch = getattr(PARENT, f"launch_{name}")
+    a = [x.clone() if i in K9_OUTS[name] else x for i, x in enumerate(args)]
+    launch(*a, **kw)
+    eq, err = k9_outputs_equal(name, [a[i] for i in K9_OUTS[name]], ref)
+    torch.cuda.synchronize()
+    return dict(equal=eq, err=err, ms=kernel_ms(lambda: launch(*a, **kw)))
 
 
 def k6_fixed_ms(dev) -> dict:
@@ -517,6 +553,65 @@ def k6_launch_phase(dev) -> dict:
             r[key + "launches"] = None if ops is None else len(ops)
         del mask, o
     torch.cuda.synchronize()
+    return out
+
+
+def k9_launch_phase(k9_args) -> dict:
+    """The card operations of one K9 merge (level 0) and one finalize
+    launch call on pose 0's own inputs (the ESVO adaptive frame's), counted
+    from a profiler trace (``device_ops``), and with --parent those of the
+    parent's kernels."""
+    from voxelrs_tpu_torch import _build
+
+    libs = [("", _build)] + ([] if PARENT is None else [("parent_", PARENT)])
+    out = {}
+    for k, (args, kw) in k9_args.items():
+        name = f"k9_{k}"
+        a = [x.clone() if i in K9_OUTS[name] else x
+             for i, x in enumerate(args)]
+        r = out[name] = {}
+        for key, lib in libs:
+            launch = getattr(lib, f"launch_{name}")
+            launch(*a, **kw)  # warm-up
+            ops = device_ops(lambda: launch(*a, **kw))
+            r[key + "ops"] = ops
+            r[key + "launches"] = None if ops is None else len(ops)
+    return out
+
+
+def sass_widths(names=("k9_trace", "k9_merge", "k9_finalize")) -> dict:
+    """The global and shared loads and stores of the K9 kernels in the
+    built library's SASS (``cuobjdump -sass``), counted by width (.128 =
+    16-byte words, .64, and 32 bits and less): per kernel, instruction
+    counts in the code, not executions. None where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+
+    from voxelrs_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = os.path.join(_build._HERE, "_build", _build.source_digest(),
+                       _build.LIB_NAME)
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    out, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((n for n in names if n in m.group(1)), None)
+            key = None if fn is None else (
+                fn + ("_csvo" if "Csvo" in m.group(1) else ""))
+            continue
+        m = re.search(r"\b(LDG|STG|LDS|STS)(\.\S+)?\s", line)
+        if key and m:
+            mods = m.group(2) or ""
+            w = ("128" if ".128" in mods else "64" if ".64" in mods
+                 else "32")
+            d = out.setdefault(key, {})
+            d[f"{m.group(1)}.{w}"] = d.get(f"{m.group(1)}.{w}", 0) + 1
     return out
 
 
@@ -1197,6 +1292,9 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    sass = sass_widths()
+    log(f"K9 loads and stores in the SASS by width (cuobjdump -sass; "
+        f"instructions in the code): {json.dumps(sass)}")
     log(f"native serializers: loaded {libs}; g++ {' '.join(native.GXX_FLAGS)}"
         f", seconds {native.build_seconds}")
     if not all(libs.values()):
@@ -1296,6 +1394,16 @@ def main() -> int:
                f"{r['parent_launches']} {r['parent_ops']}"))
         if r["launches"] is not None and r["launches"] > 2:
             fail(f"K6 ran {r['launches']} card operations a call (at most 2)")
+    with Phase("k9 launches"):
+        k9l = k9_launch_phase(ae.pop("k9_args"))
+        ac.pop("k9_args")
+    for name, r in k9l.items():
+        log(f"{name} card operations a call (pose 0, esvo; torch.profiler): "
+            f"{r['launches']} {r['ops']}"
+            + ("" if PARENT is None else f"; the parent's "
+               f"{r['parent_launches']} {r['parent_ops']}"))
+        if r["launches"] is not None and r["launches"] > 1:
+            fail(f"{name} ran {r['launches']} card operations a call")
 
     # ---- bounds: the least time the card could take for the same work -----
     B = W * H
@@ -1473,7 +1581,9 @@ def main() -> int:
             ms=ae["k9"][k]["ms"], plain_ms=ae["k9"][k]["plain_ms"],
             bound_ms=ae[f"{k}_bound"][0], bound_by=ae[f"{k}_bound"][1],
             library_ms=None,
-            ok=ae["k9"][k]["equal"] and ac["k9"][k]["equal"],
+            ok=ae["k9"][k]["equal"] and ac["k9"][k]["equal"]
+            and all(d["held"].get(f"k9_{k}", {}).get("equal", True)
+                    for d in (ae, ac)),
             launches_per_frame=len(ae["k9"][k]["calls"]),
             ms_per_launch=[c["ms"] for c in ae["k9"][k]["calls"]],
             launches_csvo=ac["launches"][f"k9_{k}"], ms_csvo=ac["k9"][k]["ms"],
@@ -1488,6 +1598,18 @@ def main() -> int:
                 per_launch_csvo=[dict(level=c["level"], ms=c["ms"],
                                       **c["launch"], parent=c["parent"])
                                  for c in ac["k9"][k]["calls"]])),
+            **({} if k not in ("merge", "finalize") else dict(
+                per_launch=[{f: c[f] for f in ("level", "ms", "ms_no_hits",
+                                               "parent") if f in c}
+                            for c in ae["k9"][k]["calls"]],
+                per_launch_csvo=[{f: c[f] for f in ("level", "ms",
+                                                    "ms_no_hits", "parent")
+                                  if f in c} for c in ac["k9"][k]["calls"]],
+                calls_checked=ae["held"][f"k9_{k}"]["calls"],
+                calls_checked_csvo=ac["held"][f"k9_{k}"]["calls"],
+                launches_per_call=k9l[f"k9_{k}"]["launches"],
+                launches_per_call_parent=k9l[f"k9_{k}"].get(
+                    "parent_launches"))),
             frame_vs_plain=max(*ae["vs_plain"].values(),
                                *ac["vs_plain"].values(),
                                ce["adaptive_game_err"],
@@ -1541,8 +1663,8 @@ def main() -> int:
                 launches_per_call=k6l["batch"]["launches"],
                 launches_per_call_parent=k6l["batch"].get("parent_launches"),
                 per_call=be["k6_calls"])),
-            **({} if name != "k9_trace" else dict(
-                per_launch=be["trace_launches"])),
+            **({} if name not in be["launch_runs"] else dict(
+                per_launch=be["launch_runs"][name])),
             **({} if "equal" in r else dict(
                 plain_is="the plain frames of poses 0 and 3, adaptive "
                          "(exact for kd_primary)"))))
@@ -1807,12 +1929,14 @@ def renderer_phase(svo, poses, card) -> dict:
 
 class Spy:
     """Stands in for a module function: calls it and keeps copies of the
-    tensors of each call's arguments (for the comparisons after a run)."""
+    tensors of each call's arguments (for the comparisons after a run),
+    and with ``outs`` (argument positions) copies of those arguments after
+    the call in ``self.outs``."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, outs=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.calls = []
+        self.calls, self.outs, self.out_pos = [], [], outs
 
     def __enter__(self):
         import torch
@@ -1821,7 +1945,10 @@ class Spy:
             keep = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
             self.calls.append(([keep(a) for a in args],
                                {k: keep(v) for k, v in kw.items()}))
-            return self.fn(*args, **kw)
+            r = self.fn(*args, **kw)
+            if self.out_pos:
+                self.outs.append([args[i].clone() for i in self.out_pos])
+            return r
 
         setattr(self.module, self.name, run)
         return self
@@ -2000,13 +2127,31 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
     with Phase(f"adaptive main path ({fmt})"):
         zero_deferred_counts()
         frames, infos, marks = [], [], []
-        for p in poses6:
-            frames.append(svo.render(p, W, H))
-            infos.append(dict(svo.last_frame))
-            ab = svo._workspace.adaptive(W, H, levels)
-            marks.append((svo._workspace.hcount.clone(), ab.dense.clone()))
+        held = {k: Spy(adaptive, k, K9_OUTS[k])
+                for k in ("k9_merge", "k9_finalize")}
+        for sp in held.values():
+            sp.__enter__()
+        try:
+            for p in poses6:
+                frames.append(svo.render(p, W, H))
+                infos.append(dict(svo.last_frame))
+                ab = svo._workspace.adaptive(W, H, levels)
+                marks.append((svo._workspace.hcount.clone(),
+                              ab.dense.clone()))
+        finally:
+            for sp in held.values():
+                sp.__exit__()
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
+    with Phase(f"k9 merge and finalize vs plain, every call ({fmt})"):
+        out["held"] = {k: held_k9(sp) for k, sp in held.items()}
+        del held
+    log(f"k9 merge and finalize vs their plain versions on every call of "
+        f"the {len(poses6)} frames ({fmt}; bit for bit, the sky within "
+        f"{K3_MAX_ABS:g}): {json.dumps(out['held'])}")
+    if not all(h["equal"] and h["calls"] for h in out["held"].values()):
+        fail(f"K9's merge or finalize disagrees with its plain version in "
+             f"the {fmt} adaptive frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -2151,8 +2296,7 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
             trace_bytes += (lanes.shape[0] * 32 + tf.numel() * 4
                             + (0 if idx is None else lanes.shape[0] * 4 + 4))
             wl, hl = adaptive.grid_dims(W, H, level)[level]
-            parent = trace_parent(world, scale, fp, tf, level, rec0, idx, cnt,
-                                  None, outs[1])
+            parent = parent_k9("k9_trace", args, kw, [outs[1]])
             note("trace", torch.equal(outs[0], outs[1])
                  and (parent is None or parent["equal"]),
                  max_abs(outs[0], outs[1]), kms, pms, level=level,
@@ -2189,9 +2333,15 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                 refined=int(kr.sum()) / nl)
             merge_bytes += lo.shape[0] * 32 + nl * 33
             merge_ops += int(all4.sum()) * (OPS_K9_RAY + OPS_K9_FILL)
-            note("merge", torch.equal(ko, po) and torch.equal(kr, pr),
+            parent = parent_k9("k9_merge", args, _kw, [po, pr])
+            # the same launch on records that all miss: no lane fills
+            lo0 = torch.zeros_like(lo)
+            ms0 = kernel_ms(lambda: _build.launch_k9_merge(
+                scale, fp, level, lo0, to, tr))
+            note("merge", torch.equal(ko, po) and torch.equal(kr, pr)
+                 and (parent is None or parent["equal"]),
                  max(max_abs(ko, po), max_abs(kr, pr)), kms, pms,
-                 level=level)
+                 level=level, parent=parent, ms_no_hits=ms0)
         out["merge_bound"] = bound(merge_bytes, merge_ops)
         shares[levels] = dict(lanes=spies["trace"].calls[0][0][5].shape[0],
                               samples=1.0, filled=0.0, refined=0.0)
@@ -2209,9 +2359,19 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                                                           *to))
         hits = int(ko[1].sum())
         img_err = max_abs(ko[2], po[2])
+        parent = parent_k9("k9_finalize", spies["finalize"].calls[0][0], _kw,
+                           po)
+        # the same launch on records that all miss: every pixel its sky
+        frec0 = torch.zeros_like(frec)
+        ms0 = kernel_ms(lambda: _build.launch_k9_finalize(scale, fp, frec0,
+                                                          *to))
         note("finalize", all(bits_equal(a, b) for i, (a, b) in
                              enumerate(zip(ko, po)) if i != 2)
-             and img_err <= K3_MAX_ABS, img_err, kms, pms, hits=hits)
+             and img_err <= K3_MAX_ABS
+             and (parent is None or parent["equal"]), img_err, kms, pms,
+             hits=hits, parent=parent, ms_no_hits=ms0)
+        out["k9_args"] = {k: spies[k].calls[0 if k == "finalize" else -1]
+                          for k in ("merge", "finalize")}
         out["finalize_bound"] = bound(
             B * 32 + B * 36 + B + (B - hits) * 16 + 2 * B,
             B * OPS_K9_RAY + hits * OPS_K9_FINALIZE)
@@ -2255,6 +2415,13 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
             f"{'coarsest grid' if c['level'] == levels else 'refine list'}):"
             f" {json.dumps(c['launch'])}; alone {c['ms']:.4f} ms; the "
             f"parent's kernel {json.dumps(c['parent'])} on {card}")
+    for k in ("merge", "finalize"):
+        for c in res[k]["calls"]:
+            log(f"k9_{k} launch ({fmt}, pose 0"
+                + (f", level {c['level']}" if "level" in c else "")
+                + f"): alone {c['ms']:.4f} ms, on records that all miss "
+                f"{c['ms_no_hits']:.4f} ms; the parent's kernel "
+                f"{json.dumps(c['parent'])} on {card}")
     if not all(r["equal"] for r in out["k6_calls"]):
         fail(f"K6 disagrees with its plain version in the {fmt} adaptive "
              "frame")
@@ -3290,7 +3457,7 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         spies["kd_primary"] = prim
         torch.cuda.synchronize()
         res = {}
-        trace_runs = []
+        runs = {name: [] for name in names if name in K9_OUTS}  # alone
         for name in names:
             r = res[name] = dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0,
                                  calls=len(spies[name].calls))
@@ -3308,25 +3475,26 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                 kms = kernel_ms(lambda: launch(*targs, **kw))
                 pairs = [(a, b) for a, b in zip(kargs, pargs)
                          if isinstance(a, torch.Tensor)]
-                if name == "k9_trace":
-                    _w, _s, fp, tfl, level, rec0 = args
-                    parent = trace_parent(
-                        _w, _s, fp, tfl, level, rec0, kw.get("idx"),
-                        kw.get("count"), kw["cams"], pargs[5])
-                    trace_runs.append(dict(level=level, ms=kms,
-                                             parent=parent))
-                    if parent is not None and not parent["equal"]:
-                        pairs.append((torch.zeros(1), torch.ones(1)))
                 errs = [max_abs(a, b) for a, b in pairs]
                 # the finalize's sky: within 1e-6 (acosf); all else equal
                 eq = all(bits_equal(a, b) or (name == "k9_finalize"
                                               and a.dtype == torch.float32
                                               and e <= K3_MAX_ABS)
                          for (a, b), e in zip(pairs, errs))
+                if name in K9_OUTS:
+                    parent = parent_k9(name, args, kw,
+                                       [pargs[i] for i in K9_OUTS[name]])
+                    runs[name].append(dict(
+                        ms=kms, parent=parent,
+                        **({} if name == "k9_finalize"
+                           else dict(level=args[4 if name == "k9_trace"
+                                                else 2]))))
+                    eq &= parent is None or parent["equal"]
                 r["equal"] &= eq
                 r["err"] = max(r["err"], *errs)
                 r["ms"] += kms
                 r["plain_ms"] += pms
+        trace_runs = runs["k9_trace"]
         k6_rows = k6_calls(spies["k6"].calls, dev)
         sm = k6_summary(k6_rows)
         res["k6"] = dict(equal=sm["equal"], err=sm["err"], ms=sm["ms"],
@@ -3456,12 +3624,18 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         out["k6_library_ms"] = sm["library_ms"]
     out["kernels"], out["stage_plain_ms"], out["stage_err"] = (
         res, stage_plain_ms, stage_err)
-    out["trace_launches"] = trace_runs
+    out["launch_runs"] = runs
     log_k6(f"batch (esvo, {N} poses)", k6_rows, card)
     for c in trace_runs:
         log(f"k9_trace launch (batch, esvo, {N} poses, level {c['level']}):"
             f" {json.dumps(c['launch'])}; alone {c['ms']:.4f} ms; the "
             f"parent's kernel {json.dumps(c['parent'])} on {card}")
+    for name in ("k9_merge", "k9_finalize"):
+        for c in runs[name]:
+            log(f"{name} launch (batch, esvo, {N} poses"
+                + (f", level {c['level']}" if "level" in c else "")
+                + f"): alone {c['ms']:.4f} ms; the parent's kernel "
+                f"{json.dumps(c['parent'])} on {card}")
     out["ok"] = all(r.get("equal", True) for r in res.values()) \
         and stage_err <= K3_MAX_ABS
     for name, r in res.items():

@@ -24,7 +24,8 @@ equal). Floored K1 and K4 equal their unfloored runs on value, face_id,
 inside_voxel and t. The deferred frame is within max |d| 1e-6 of K3's
 frame (its stages are K3's device functions; measured 0). K9's kernels
 equal their plain versions bit for bit (the finalize's sky within 1e-6:
-acosf); the adaptive frame is within max |d| 1e-6 of its plain version and
+acosf), at grid and frame sizes that are not multiples of the merge's
+tile or the finalize's block, and refuse records off a 16-byte word; the adaptive frame is within max |d| 1e-6 of its plain version and
 within the thick-ray budget of K3's frame (mean |d| <
 0.002, under 2% of the pixels off by more than 1e-3, the traced grid's
 pixels equal). The crosshair
@@ -721,6 +722,172 @@ def test_k9_trace_of_an_empty_and_a_one_lane_refine_list(terrains, dev, fmt,
     assert int(rcount) == listed
     assert torch.equal(recs, before)
     assert int((recs != 7).any(1).sum()) <= listed
+
+
+def _k9_fp(s, p, width, height):
+    """The FrameParams of a ``width`` x ``height`` frame of pose ``p``."""
+    return shading.frame_params(
+        mip_mode=shading.mip_mode_from_env(), csvo=s.buffer_dtype == np.uint8,
+        deferred=True, **s.frame_kwargs(p, width, height))
+
+
+def _k9_traced(s, poses, width, height, level, dev):
+    """(FrameParams of pose 0, cams or None, the unfloored records of grid
+    level ``level`` of every pose, pose-major) from K9's trace."""
+    fps = [_k9_fp(s, p, width, height) for p in poses]
+    cams = None if len(fps) == 1 else torch.tensor(
+        [list(f.cam_pos) + list(f.right) + list(f.up) + list(f.fwd)
+         for f in fps], dtype=torch.float32, device=dev)
+    w, h = adaptive.grid_dims(width, height, level)[level]
+    recs = torch.zeros((len(fps) * w * h, 8), dtype=torch.int32, device=dev)
+    adaptive.k9_trace(s.world(), float(s.octree_scale), fps[0], None, level,
+                      recs, cams=cams)
+    return fps[0], cams, recs
+
+
+# frame sizes whose grids are odd, even and not multiples of the merge's
+# 32 x 8 tile, and a 1 x N and an N x 1 frame
+K9_SIZES = [(37, 21), (64, 48), (70, 34), (161, 93), (1, 40), (40, 1)]
+
+
+def _merge_check(s, dev, poses, size, level):
+    fp, cams, lo = _k9_traced(s, poses, *size, level + 1, dev)
+    wh, hh = adaptive.grid_dims(*size, level)[level]
+    n = len(poses) * wh * hh
+    hi = torch.full((n, 8), 77, dtype=torch.int32, device=dev)
+    refine = torch.ones(n, dtype=torch.bool, device=dev)
+    hi_p, refine_p = hi.clone(), refine.clone()
+    n0 = adaptive.launches_merge
+    scale = float(s.octree_scale)
+    adaptive.k9_merge(scale, fp, level, lo, hi, refine, cams=cams)
+    adaptive.k9_merge_plain(scale, fp, level, lo, hi_p, refine_p, cams=cams)
+    torch.cuda.synchronize()
+    assert adaptive.launches_merge == n0 + 1
+    assert torch.equal(hi, hi_p) and torch.equal(refine, refine_p)
+    # the fill ran: some interior lane hit without a re-trace
+    assert bool((((hi_p[:, 6] & 1) != 0) & ~refine_p).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("size", K9_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k9_merge_tiles_equal_plain(terrains, dev, size, level):
+    """K9's merge (a block a 32 x 8 tile of the hi grid, its lo patch and
+    its hi rows moved as 16-byte words through shared memory) against its
+    plain version bit for bit, where the tiles and the clamped last row
+    and column meet the grid's edges."""
+    _merge_check(terrains[("esvo", False)], dev, [_tparams("horizon")], size,
+                 level)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("size", [(45, 27), (70, 34)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k9_merge_of_a_batch_equals_plain(terrains, dev, size, level):
+    """K9's merge of 3 poses in one launch, whose tiles end at each pose's
+    last row (no tile crosses a pose), against its plain version pose by
+    pose, bit for bit."""
+    _merge_check(terrains[("esvo", False)], dev,
+                 [_tparams(c) for c in BATCH_CAMS], size, level)
+
+
+def _k9_pose(kind):
+    """A pose whose pixels all hit ("hit": a 20-degree view straight down
+    onto the terrain), all miss ("miss": straight up) or both ("mixed")."""
+    if kind == "mixed":
+        return _tparams("horizon")
+    fwd = np.asarray([0.01, -1.0 if kind == "hit" else 1.0, 0.01],
+                     np.float32)
+    return RenderParams(cam_pos=np.asarray([48.0, 70.0, 48.0], np.float32),
+                        cam_fwd=fwd / np.linalg.norm(fwd),
+                        aspect_ratio=TW / TH, fov_y_rad=np.radians(20.0),
+                        render_shadows=True, shadow_distance=100.0)
+
+
+def _finalize_check(s, dev, poses, size):
+    fp, cams, frec = _k9_traced(s, poses, *size, 0, dev)
+    W, H = size
+    B = len(poses) * W * H
+    img_shape = (H, W, 4) if cams is None else (len(poses), H, W, 4)
+    outs = [(torch.full((B, 9), 5, dtype=torch.int32, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.full(img_shape, 3.0, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev)) for _ in range(2)]
+    scale = float(s.octree_scale)
+    adaptive.k9_finalize(scale, fp, frec, *outs[0], cams=cams)
+    adaptive.k9_finalize_plain(scale, fp, frec, *outs[1], cams=cams)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(*outs)):
+        if i == 2:  # the sky: within 1e-6 (acosf)
+            assert float((a - b).abs().max()) <= K3_MAX_ABS
+        else:
+            assert torch.equal(a, b), i
+    assert not outs[0][3].any() and not outs[0][4].any()
+    return int(outs[1][1].sum()), B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "hit", "miss"])
+@pytest.mark.parametrize("size", [(37, 21), (64, 48), (33, 1), (161, 93)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k9_finalize_equals_plain(terrains, dev, size, kind):
+    """K9's finalize (a block's 128 records loaded and its 128 HitRecs and
+    flags stored as 16-byte words through shared memory; a last block of
+    fewer pixels stores its tail word by word) against its plain version:
+    every HitRec, flag and cleared mask bit for bit, the sky within 1e-6,
+    at frame sizes that are not multiples of 128, on records that all hit,
+    all miss, or both."""
+    hits, B = _finalize_check(terrains[("esvo", False)], dev,
+                              [_k9_pose(kind)], size)
+    assert hits == {"hit": B, "miss": 0}.get(kind, hits)
+    # (the horizon pose's one-row frame hits on every pixel)
+    assert kind != "mixed" or size[1] == 1 or 0 < hits < B
+
+
+@pytest.mark.cuda
+def test_k9_finalize_of_a_batch_equals_plain(terrains, dev):
+    """K9's finalize of 3 poses in one launch (blocks across the poses'
+    boundaries) against its plain version pose by pose."""
+    hits, B = _finalize_check(terrains[("esvo", False)], dev,
+                              [_tparams(c) for c in BATCH_CAMS], (37, 21))
+    assert 0 < hits < B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trace", "merge", "finalize"])
+def test_k9_refuses_records_off_a_16_byte_word(terrains, dev, kernel):
+    """A record tensor viewed 4 bytes into its storage is refused by the
+    wrapper (the kernels' 16-byte accesses would fault), before a launch."""
+    s = terrains[("esvo", False)]
+    fp = _k9_fp(s, _tparams("horizon"), 37, 21)
+    scale = float(s.octree_scale)
+
+    def recs(level, shift=0):
+        w, h = adaptive.grid_dims(37, 21, level)[level]
+        buf = torch.zeros(w * h * 8 + 1, dtype=torch.int32, device=dev)
+        return buf[shift:shift + w * h * 8].view(w * h, 8)
+
+    B = 37 * 21
+    n0 = (adaptive.launches_trace, adaptive.launches_merge,
+          adaptive.launches_finalize)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "trace":
+            adaptive.k9_trace(s.world(), scale, fp, None, 1, recs(1, 1))
+        elif kernel == "merge":
+            adaptive.k9_merge(scale, fp, 0, recs(1, 1), recs(0),
+                              torch.empty(B, dtype=torch.bool, device=dev))
+        else:
+            adaptive.k9_finalize(
+                scale, fp, recs(0, 1),
+                torch.empty((B, 9), dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev),
+                torch.empty((21, 37, 4), device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev))
+    assert (adaptive.launches_trace, adaptive.launches_merge,
+            adaptive.launches_finalize) == n0
 
 
 @pytest.mark.cuda

@@ -204,7 +204,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("vx_k9_trace", [P, LL, F, P, P, P, I, I, P, P, I, I, P, P]),
             ("vx_k9_trace_csvo", [P, LL, F, U, I, P, P, P, I, I, P, P, I, I,
                                   P, P]),
-            ("vx_k9_merge", [F, P, P, I, P, P, P, I, P]),
+            ("vx_k9_merge", [F, P, P, I, I, P, P, P, P]),
             ("vx_k9_finalize", [F, P, P, I, P, P, P, P, P, P, P]),
             ("vx_k9_shadow_cells", [I, P, P, P, P, I, I, P, P, P, P, P, P,
                                     P, P, P]),
@@ -461,8 +461,8 @@ def launch_k9_merge(octree_scale, params: FrameParams, level, lo, hi, refine,
     ``hi`` (n, 8) int32, ``refine`` (n,) bool (n: N times the level's
     lanes)."""
     err = library().vx_k9_merge(octree_scale, ctypes.byref(params),
-                                _ptr(cams), level, _ptr(lo), _ptr(hi),
-                                _ptr(refine), hi.shape[0], _stream(hi.device))
+                                _ptr(cams), _poses(cams), level, _ptr(lo),
+                                _ptr(hi), _ptr(refine), _stream(hi.device))
     _raise_on(err, "K9 merge (vx_k9_merge)")
 
 

@@ -42,9 +42,10 @@
 // camera read from `cams` (kernels.cu pose_params) and its tile floors
 // from its block of `tf`. A merge reads the corners of its own pose only:
 // a level's grid holds its last row and column, so the poses cannot be
-// stacked as one tall frame. The shadow cells decide each pose's dense
-// flag from that pose's own hit count (K6's segment starts `hstart`).
-// One frame is the case n_poses = 1 with cams and hstart null.
+// stacked as one tall frame, and no merge tile crosses a pose. The shadow
+// cells decide each pose's dense flag from that pose's own hit count (K6's
+// segment starts `hstart`). One frame is the case n_poses = 1 with cams
+// and hstart null.
 //
 // What bounds them on an H100: k9_trace is the traversal (K1 / K4,
 // dependent loads). A launch lasts as long as its slowest warp's chain of
@@ -54,15 +55,31 @@
 // pointer loaded beside the descriptor, 4x8 pixel tiles a warp on the
 // whole grid (its rays leave from one patch), 64-thread blocks, and a grid
 // no larger than the card holds at once (kernels.cu k9_trace_launch), so a
-// refine list's launch schedules no empty blocks past its count. The merge reads four 32-byte records and writes one, with
-// some seventy float operations where a lane's corners agree (bytes
-// bound); finalize and the shadow cells are bytes bound.
+// refine list's launch schedules no empty blocks past its count.
+// The merge and the finalize are bytes bound, so they move records as
+// 16-byte words (K9Rec is 16-byte aligned: two words a record, as the
+// trace stores it). A merge block covers a 32 x 16 tile of one pose's hi
+// grid (two rows a thread), loads the 17 x 9 patch of lo records its
+// corners need into shared memory once, coalesced, takes each lane's four
+// corners from there, fills the lanes whose corners agree from a packed
+// list (the fill's divisions in full warps), and stages its hi records so
+// that each warp stores its rows as contiguous 16-byte words; its
+// registers are capped so that 8 blocks share an SM. On records that all
+// miss, where no lane fills, the merge takes most of its time still
+// (chip_smoke.py times both): the blocks' waits for their patches and
+// their stores hold it, not the fill. A finalize block
+// loads its 128 records (one 4,096-byte span) coalesced, stages its 128
+// HitRecs (4,608 bytes) and stores them as coalesced 16-byte words, its
+// byte flags as 16-byte words and a miss's sky as one. Shared words are
+// read and written at positions k9_swz, so a quarter warp's 16-byte
+// accesses hit distinct banks.
 
 #pragma once
 
 namespace vx {
 
-struct K9Rec {
+// 16-byte aligned, so a record moves as two 16-byte words
+struct __align__(16) K9Rec {
   float t;            // t_min in octree units
   uint32_t idxscale;  // child slot | scale << 8
   float pos[3];       // leaf base, mirrored [1, 2) space
@@ -71,9 +88,39 @@ struct K9Rec {
   uint32_t pad;
 };
 
-// (w, h) of grid level `level` of a width x height frame.
-__device__ __forceinline__ void k9_dims(int width, int height, int level,
-                                        int& w, int& h) {
+union K9Words {
+  K9Rec r;
+  uint4 q[2];
+};
+
+__device__ __forceinline__ K9Rec k9_load(const K9Rec* __restrict__ p) {
+  const uint4* w = reinterpret_cast<const uint4*>(p);
+  K9Words u;
+  u.q[0] = __ldg(w);
+  u.q[1] = __ldg(w + 1);
+  return u.r;
+}
+
+__device__ __forceinline__ void k9_store(K9Rec* __restrict__ p,
+                                         const K9Rec& r) {
+  K9Words u;
+  u.r = r;
+  uint4* w = reinterpret_cast<uint4*>(p);
+  w[0] = u.q[0];
+  w[1] = u.q[1];
+}
+
+// The shared-memory position of 16-byte word p of a staged span: the low
+// bit flipped in every second group of 8, so that the 8 threads of a
+// quarter warp, reading or writing word 2l or 2l + 1 of their record l,
+// meet 8 distinct groups of 4 banks, as do 8 threads on 8 consecutive
+// words.
+__device__ __forceinline__ int k9_swz(int p) { return p ^ ((p >> 3) & 1); }
+
+// (w, h) of grid level `level` of a width x height frame (the launchers'
+// too).
+__host__ __device__ __forceinline__ void k9_dims(int width, int height,
+                                                 int level, int& w, int& h) {
   w = width;
   h = height;
   for (int k = 0; k < level; ++k) {
@@ -192,7 +239,7 @@ k9_trace_kernel(World world, float octree_scale, FrameParams fp,
       r.flags = 1u | ((uint32_t)(p.face >> 1) << 1) |
                 ((uint32_t)k9_octant(rd) << 3);
     }
-    out[lane] = r;
+    k9_store(out + lane, r);
   }
 }
 
@@ -208,146 +255,292 @@ __device__ __forceinline__ float k9_quant(float m, uint32_t sc) {
   return __uint_as_float((__float_as_uint(m) >> sc) << sc);
 }
 
-// One thread per lane i of grid level `level` (the hi grid) from the
-// records `lo` of level + 1: a sample lane takes its corner's record; an
-// interior lane whose four corners hit the same value, face axis, entry
-// plane, leaf scale and ray octant, and whose own ray enters that plane's
-// leaf there (its own entry face, t_int == tcmin, inside the cube), gets
-// the synthesized record of that leaf (the fill); the others get an empty
-// record and, unless all four corners missed, refine[i] = 1. Lane g of
-// the n lanes is lane i of pose g / (wh * hh), whose corners are its own
-// pose's records.
-__global__ void __launch_bounds__(BLOCK)
+// The pixel (y, x) of lane (y, x) of grid level `level` (k9_pixel from
+// the lane's row and column).
+__device__ __forceinline__ void k9_pixel_yx(const FrameParams& fp, int level,
+                                            int& y, int& x) {
+  for (int k = level; k > 0; --k) {
+    int wk, hk;
+    k9_dims(fp.width, fp.height, k - 1, wk, hk);
+    y = min(2 * y, hk - 1);
+    x = min(2 * x, wk - 1);
+  }
+}
+
+// Whether an interior lane's four corners hit the same value, face axis,
+// entry plane, leaf scale and ray octant: the fill's precondition.
+__device__ __forceinline__ bool k9_corners_agree(const K9Rec& a00,
+                                                 const K9Rec& a01,
+                                                 const K9Rec& a10,
+                                                 const K9Rec& a11) {
+  const uint32_t surf = a00.flags >> 1;  // face axis and ray octant
+  const float plane00 = k9_plane(a00);
+  return (a00.flags & 1u) && (a01.flags & 1u) && (a10.flags & 1u) &&
+         (a11.flags & 1u) && a01.value == a00.value &&
+         a10.value == a00.value && a11.value == a00.value &&
+         (a01.flags >> 1) == surf && (a10.flags >> 1) == surf &&
+         (a11.flags >> 1) == surf && k9_plane(a01) == plane00 &&
+         k9_plane(a10) == plane00 && k9_plane(a11) == plane00 &&
+         (a01.idxscale >> 8) == (a00.idxscale >> 8) &&
+         (a10.idxscale >> 8) == (a00.idxscale >> 8) &&
+         (a11.idxscale >> 8) == (a00.idxscale >> 8);
+}
+
+// The fill of interior lane (y, x) of pose `pose` of grid level `level`
+// whose corners agree (a00 one of them): whether the pixel's own ray
+// enters the corners' leaf there (its own entry face, t_int == tcmin,
+// inside the cube), and if so that leaf's synthesized record in r.
+__device__ __forceinline__ bool k9_fill(float octree_scale,
+                                        const FrameParams& fp,
+                                        const float* __restrict__ cams,
+                                        int pose, int level, int y, int x,
+                                        const K9Rec& a00, K9Rec& r) {
+  const uint32_t surf = a00.flags >> 1;
+  const float plane00 = k9_plane(a00);
+  const int axis00 = (int)(surf & 3u);
+  const int scale00 = (int)(a00.idxscale >> 8);
+  const FrameParams f = pose_params(fp, cams, pose);
+  k9_pixel_yx(fp, level, y, x);
+  float rd[3];
+  gen_ray_yx(f, y, x, rd);
+  const RayConsts c = ray_consts(octree_scale, f.cam_pos[0], f.cam_pos[1],
+                                 f.cam_pos[2], rd[0], rd[1], rd[2]);
+  // the pixel's own ray meets the shared plane at t_int
+  const float se = exp2_scale(scale00);
+  const float tc_ax = axis00 == 0 ? c.tcx : (axis00 == 1 ? c.tcy : c.tcz);
+  const float tb_ax = axis00 == 0 ? c.tbx : (axis00 == 1 ? c.tby : c.tbz);
+  const float t_int = plane00 * tc_ax - tb_ax;
+  // hit point in mirrored [1, 2) space -> leaf base by mantissa
+  // quantization; the face axis takes the plane itself
+  float hx = c.rox + t_int * c.rdx;
+  float hy = c.roy + t_int * c.rdy;
+  float hz = c.roz + t_int * c.rdz;
+  if (c.mx) hx = 3.f - hx;
+  if (c.my) hy = 3.f - hy;
+  if (c.mz) hz = 3.f - hz;
+  const uint32_t sc = (uint32_t)clampi(scale00, 0, 31);
+  const float base_ax = plane00 - se;
+  const float posx = axis00 == 0 ? base_ax : k9_quant(hx, sc);
+  const float posy = axis00 == 1 ? base_ax : k9_quant(hy, sc);
+  const float posz = axis00 == 2 ? base_ax : k9_quant(hz, sc);
+  // the plane must be the pixel's own entry face of that leaf
+  const float t2x = (posx + se) * c.tcx - c.tbx;
+  const float t2y = (posy + se) * c.tcy - c.tby;
+  const float t2z = (posz + se) * c.tcz - c.tbz;
+  const float tcmin = fmaxf(fmaxf(t2x, t2y), t2z);
+  const bool on_x = tcmin == t2x;
+  const bool on_y = !on_x && tcmin == t2y;
+  const int axis_own = on_x ? 0 : (on_y ? 1 : 2);
+  const float t_cube_exit =
+      fminf(fminf(c.tcx - c.tbx, c.tcy - c.tby), c.tcz - c.tbz);
+  const bool smooth = c.octant_mask == (int)(surf >> 2) &&
+                      axis_own == axis00 && t_int == tcmin && t_int > 0.f &&
+                      t_int <= t_cube_exit;
+  if (smooth) {
+    r.t = t_int;
+    r.idxscale = (uint32_t)scale00 << 8;
+    r.pos[0] = posx;
+    r.pos[1] = posy;
+    r.pos[2] = posz;
+    r.value = a00.value;
+    r.flags = 1u | (surf << 1);
+  }
+  return smooth;
+}
+
+// K9's merge tile: K9M_TW x K9M_TH hi lanes a block of K9M_THREADS, warp w
+// rows w and w + 8 (each thread two lanes of one column); their corners
+// are a K9M_PW x K9M_PH patch of lo records. Registers are capped (32 a
+// thread, a few bytes spilled) so that an SM holds K9M_BLOCKS_PER_SM
+// blocks: more blocks wait out their patch loads at once.
+constexpr int K9M_TW = 32, K9M_THREADS = 256, K9M_BLOCKS_PER_SM = 8;
+constexpr int K9M_TH = 2 * K9M_THREADS / K9M_TW;
+constexpr int K9M_LANES = K9M_TW * K9M_TH;
+constexpr int K9M_PW = K9M_TW / 2 + 1, K9M_PH = K9M_TH / 2 + 1;
+
+// The merge of the records `lo` of grid level + 1 onto the hi grid (wh x
+// hh) of level `level`, one block per tile of one pose's hi grid (the
+// tiles of pose 0 row-major, then pose 1's, ...): a sample lane takes its
+// corner's record; an interior lane whose corners agree
+// (k9_corners_agree) gets the fill's record (k9_fill) if the fill holds,
+// else an empty record and refine = 1; the other interior lanes get an
+// empty record and, unless all four corners missed, refine = 1. Patch row
+// r, column c holds lo lane (min(cy0 + r, hl - 1), min(cx0 + c, wl - 1))
+// of the pose, so a lane's clamped corners (min(cy + 1, hl - 1), ...) are
+// patch entries. The lanes whose corners agree are packed into a list
+// and filled by the block's first threads, so the fill's divisions run in
+// full warps. Lanes past the grid's last row or column load and wait with
+// the others and store nothing.
+__global__ void __launch_bounds__(K9M_THREADS, K9M_BLOCKS_PER_SM)
 k9_merge_kernel(float octree_scale, FrameParams fp,
                 const float* __restrict__ cams, int level,
                 const K9Rec* __restrict__ lo, K9Rec* __restrict__ hi,
-                uint8_t* __restrict__ refine, int n) {
+                uint8_t* __restrict__ refine) {
+  __shared__ K9Rec s_lo[K9M_PH * K9M_PW];
+  __shared__ uint4 s_hi[K9M_TH][2 * K9M_TW];
+  __shared__ uint8_t s_refine[K9M_LANES];
+  __shared__ int s_fill[K9M_LANES];
+  __shared__ int s_nfill;
   int wh, hh, wl, hl;
   k9_dims(fp.width, fp.height, level, wh, hh);
   k9_dims(fp.width, fp.height, level + 1, wl, hl);
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const int pose = g / (wh * hh), i = g - pose * wh * hh;
+  const int ntx = (wh + K9M_TW - 1) / K9M_TW;
+  const int per_pose = ntx * ((hh + K9M_TH - 1) / K9M_TH);
+  const int pose = blockIdx.x / per_pose, tile = blockIdx.x % per_pose;
+  const int x0 = (tile % ntx) * K9M_TW, y0 = (tile / ntx) * K9M_TH;
+  const int cx0 = x0 >> 1, cy0 = y0 >> 1;
   lo += (size_t)pose * wl * hl;
-  const int y = i / wh, x = i % wh;
-  const int cy = y >> 1, cx = x >> 1;
-  const int cy1 = min(cy + 1, hl - 1), cx1 = min(cx + 1, wl - 1);
-  const K9Rec a00 = lo[cy * wl + cx], a01 = lo[cy * wl + cx1];
-  const K9Rec a10 = lo[cy1 * wl + cx], a11 = lo[cy1 * wl + cx1];
-  const bool ylast = y == hh - 1, xlast = x == wh - 1;
-  if (k9_is_sample(y, x, wh, hh)) {
-    hi[g] = ylast && xlast ? a11 : (ylast ? a10 : (xlast ? a01 : a00));
-    refine[g] = 0;
-    return;
+  if (threadIdx.x == 0) s_nfill = 0;
+  // the patch, row by row as 16-byte words (a row of records is
+  // contiguous but where its last column clamps)
+  uint4* s_low = reinterpret_cast<uint4*>(s_lo);
+  for (int q = threadIdx.x; q < 2 * K9M_PH * K9M_PW; q += K9M_THREADS) {
+    const int r = q / (2 * K9M_PW), c = (q >> 1) - r * K9M_PW;
+    const int ly = min(cy0 + r, hl - 1), lx = min(cx0 + c, wl - 1);
+    s_low[q] = __ldg(reinterpret_cast<const uint4*>(lo + (size_t)ly * wl +
+                                                    lx) + (q & 1));
   }
-  const bool h00 = a00.flags & 1u, h01 = a01.flags & 1u;
-  const bool h10 = a10.flags & 1u, h11 = a11.flags & 1u;
-  const bool miss4 = !(h00 || h01 || h10 || h11);
-  K9Rec r = {};
-  bool smooth = false;
-  const uint32_t surf = a00.flags >> 1;  // face axis and ray octant
-  const float plane00 = k9_plane(a00);
-  if (h00 && h01 && h10 && h11 && a01.value == a00.value &&
-      a10.value == a00.value && a11.value == a00.value &&
-      (a01.flags >> 1) == surf && (a10.flags >> 1) == surf &&
-      (a11.flags >> 1) == surf && k9_plane(a01) == plane00 &&
-      k9_plane(a10) == plane00 && k9_plane(a11) == plane00 &&
-      (a01.idxscale >> 8) == (a00.idxscale >> 8) &&
-      (a10.idxscale >> 8) == (a00.idxscale >> 8) &&
-      (a11.idxscale >> 8) == (a00.idxscale >> 8)) {
-    const int axis00 = (int)(surf & 3u);
-    const int scale00 = (int)(a00.idxscale >> 8);
-    const FrameParams f = pose_params(fp, cams, pose);
-    float rd[3];
-    gen_ray(f, k9_pixel(fp, level, i), rd);
-    const RayConsts c = ray_consts(octree_scale, f.cam_pos[0], f.cam_pos[1],
-                                   f.cam_pos[2], rd[0], rd[1], rd[2]);
-    // the pixel's own ray meets the shared plane at t_int
-    const float se = exp2_scale(scale00);
-    const float tc_ax = axis00 == 0 ? c.tcx : (axis00 == 1 ? c.tcy : c.tcz);
-    const float tb_ax = axis00 == 0 ? c.tbx : (axis00 == 1 ? c.tby : c.tbz);
-    const float t_int = plane00 * tc_ax - tb_ax;
-    // hit point in mirrored [1, 2) space -> leaf base by mantissa
-    // quantization; the face axis takes the plane itself
-    float hx = c.rox + t_int * c.rdx;
-    float hy = c.roy + t_int * c.rdy;
-    float hz = c.roz + t_int * c.rdz;
-    if (c.mx) hx = 3.f - hx;
-    if (c.my) hy = 3.f - hy;
-    if (c.mz) hz = 3.f - hz;
-    const uint32_t sc = (uint32_t)clampi(scale00, 0, 31);
-    const float base_ax = plane00 - se;
-    const float posx = axis00 == 0 ? base_ax : k9_quant(hx, sc);
-    const float posy = axis00 == 1 ? base_ax : k9_quant(hy, sc);
-    const float posz = axis00 == 2 ? base_ax : k9_quant(hz, sc);
-    // the plane must be the pixel's own entry face of that leaf
-    const float t2x = (posx + se) * c.tcx - c.tbx;
-    const float t2y = (posy + se) * c.tcy - c.tby;
-    const float t2z = (posz + se) * c.tcz - c.tbz;
-    const float tcmin = fmaxf(fmaxf(t2x, t2y), t2z);
-    const bool on_x = tcmin == t2x;
-    const bool on_y = !on_x && tcmin == t2y;
-    const int axis_own = on_x ? 0 : (on_y ? 1 : 2);
-    const float t_cube_exit =
-        fminf(fminf(c.tcx - c.tbx, c.tcy - c.tby), c.tcz - c.tbz);
-    smooth = c.octant_mask == (int)(surf >> 2) && axis_own == axis00 &&
-             t_int == tcmin && t_int > 0.f && t_int <= t_cube_exit;
-    if (smooth) {
-      r.t = t_int;
-      r.idxscale = (uint32_t)scale00 << 8;
-      r.pos[0] = posx;
-      r.pos[1] = posy;
-      r.pos[2] = posz;
-      r.value = a00.value;
-      r.flags = 1u | (surf << 1);
+  __syncthreads();
+  const int tx = threadIdx.x % K9M_TW, x = x0 + tx;
+  for (int l = threadIdx.x; l < K9M_LANES; l += K9M_THREADS) {
+    const int ty = l / K9M_TW, y = y0 + ty;
+    if (y >= hh || x >= wh) continue;
+    const K9Rec* p = s_lo + ((y >> 1) - cy0) * K9M_PW + ((x >> 1) - cx0);
+    const K9Rec &a00 = p[0], &a01 = p[1];
+    const K9Rec &a10 = p[K9M_PW], &a11 = p[K9M_PW + 1];
+    K9Words u;
+    u.r = K9Rec{};
+    bool rf = false;
+    if (k9_is_sample(y, x, wh, hh)) {
+      const bool ylast = y == hh - 1, xlast = x == wh - 1;
+      u.r = ylast && xlast ? a11 : (ylast ? a10 : (xlast ? a01 : a00));
+    } else if (k9_corners_agree(a00, a01, a10, a11)) {
+      s_fill[atomicAdd(&s_nfill, 1)] = l;  // filled below
+    } else {
+      rf = ((a00.flags | a01.flags | a10.flags | a11.flags) & 1u) != 0;
     }
+    s_hi[ty][k9_swz(2 * tx)] = u.q[0];
+    s_hi[ty][k9_swz(2 * tx + 1)] = u.q[1];
+    s_refine[l] = rf ? 1 : 0;
   }
-  hi[g] = r;
-  refine[g] = (!smooth && !miss4) ? 1 : 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < s_nfill; j += K9M_THREADS) {
+    const int l = s_fill[j], lx = l % K9M_TW, ly = l / K9M_TW;
+    const K9Rec* p = s_lo + (((y0 + ly) >> 1) - cy0) * K9M_PW +
+                     (((x0 + lx) >> 1) - cx0);
+    K9Words u;
+    u.r = K9Rec{};
+    const bool smooth =
+        k9_fill(octree_scale, fp, cams, pose, level, y0 + ly, x0 + lx, p[0],
+                u.r);
+    s_hi[ly][k9_swz(2 * lx)] = u.q[0];
+    s_hi[ly][k9_swz(2 * lx + 1)] = u.q[1];
+    s_refine[l] = smooth ? 0 : 1;
+  }
+  __syncthreads();
+  // each warp's rows of records as contiguous 16-byte words
+  const int words = 2 * min(K9M_TW, wh - x0);
+  for (int l = threadIdx.x; l < K9M_LANES; l += K9M_THREADS) {
+    const int ty = l / K9M_TW, y = y0 + ty;
+    if (y >= hh) continue;
+    const size_t row = ((size_t)pose * hh + y) * wh + x0;
+    uint4* out = reinterpret_cast<uint4*>(hi + row);
+    for (int j = tx; j < words; j += K9M_TW) out[j] = s_hi[ty][k9_swz(j)];
+    if (x < wh) refine[row + tx] = s_refine[l];
+  }
 }
 
-// One thread per pixel of each pose: the record's hit (its ray's
-// finalize, through the traversal's own device functions) as the deferred
-// frame's HitRec and hit flag, or a miss and its sky; clears the
-// pixel-space shadow masks (needp, blkp) the shadow cells read.
-__global__ void __launch_bounds__(BLOCK)
+// Threads of a K9 finalize block, one pixel each.
+constexpr int K9F_THREADS = 128;
+
+// One thread per pixel of each pose (block b: pixels 128b ...): the
+// record's hit (its ray's finalize, through the traversal's own device
+// functions) as the deferred frame's HitRec and hit flag, or a miss and
+// its sky; clears the pixel-space shadow masks (needp, blkp) the shadow
+// cells read. The block's records, HitRecs and flags move through shared
+// memory as 16-byte words; a last block of fewer than 128 pixels stores
+// its tail words and its flags one by one.
+__global__ void __launch_bounds__(K9F_THREADS)
 k9_finalize_kernel(float octree_scale, FrameParams fp,
                    const float* __restrict__ cams, int n_poses,
                    const K9Rec* __restrict__ frec, HitRec* __restrict__ rec,
                    uint8_t* __restrict__ hit, float* __restrict__ img,
                    uint8_t* __restrict__ needp, uint8_t* __restrict__ blkp) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int HW = sizeof(HitRec) / 4;  // 9 words
+  static_assert(sizeof(HitRec) == 36, "HitRec: t, value, face, pos, u, v, lod");
+  __shared__ uint4 s_rec[2 * K9F_THREADS];
+  __shared__ uint4 s_out[HW * K9F_THREADS / 4];
+  __shared__ uint4 s_hit[K9F_THREADS / 16];
   const int B = fp.width * fp.height;
-  if (i >= B * n_poses) return;
-  const int pose = i / B;
-  const FrameParams f = pose_params(fp, cams, pose);
-  const K9Rec r = frec[i];
-  float rd[3];
-  gen_ray(f, i - pose * B, rd);
-  needp[i] = 0;
-  blkp[i] = 0;
-  HitRec o = {};
-  o.t = -1.f;
-  if (r.flags & 1u) {
-    const RayConsts c = ray_consts(octree_scale, f.cam_pos[0], f.cam_pos[1],
-                                   f.cam_pos[2], rd[0], rd[1], rd[2]);
-    const HitGeom g = hit_geometry(c, octree_scale, (int)(r.idxscale >> 8),
-                                   r.pos[0], r.pos[1], r.pos[2], r.t);
-    Hit h;
-    finalize_hit(c, octree_scale, g, r.t, r.value, h);
-    o.t = h.t;
-    o.value = h.value;
-    o.face = h.face;
-    for (int k = 0; k < 3; ++k) o.pos[k] = h.pos[k];
-    o.u = h.u;
-    o.v = h.v;
-    o.lod = h.lod;
-    hit[i] = 1;
-  } else {
-    hit[i] = 0;
-    write_sky(f, rd, img + 4 * (size_t)i);
+  const long long total = (long long)B * n_poses;
+  const long long base = (long long)blockIdx.x * K9F_THREADS;
+  const int cnt = (int)min((long long)K9F_THREADS, total - base);
+  const uint4* src = reinterpret_cast<const uint4*>(frec + base);
+  for (int q = threadIdx.x; q < 2 * cnt; q += K9F_THREADS)
+    s_rec[k9_swz(q)] = __ldg(src + q);
+  __syncthreads();
+  const int t = threadIdx.x;
+  uint8_t* s_hitb = reinterpret_cast<uint8_t*>(s_hit);
+  if (t < cnt) {
+    const int i = (int)(base + t);
+    const int pose = i / B;
+    const FrameParams f = pose_params(fp, cams, pose);
+    K9Words u;
+    u.q[0] = s_rec[k9_swz(2 * t)];
+    u.q[1] = s_rec[k9_swz(2 * t + 1)];
+    const K9Rec& r = u.r;
+    float rd[3];
+    gen_ray(f, i - pose * B, rd);
+    // HitRec t, word by word, at word HW * t of the staged span (an odd
+    // stride: the 32 lanes of a warp meet 32 banks)
+    uint32_t* w = reinterpret_cast<uint32_t*>(s_out) + HW * t;
+    if (r.flags & 1u) {
+      const RayConsts c = ray_consts(octree_scale, f.cam_pos[0],
+                                     f.cam_pos[1], f.cam_pos[2], rd[0],
+                                     rd[1], rd[2]);
+      const HitGeom g = hit_geometry(c, octree_scale, (int)(r.idxscale >> 8),
+                                     r.pos[0], r.pos[1], r.pos[2], r.t);
+      Hit h;
+      finalize_hit(c, octree_scale, g, r.t, r.value, h);
+      w[0] = __float_as_uint(h.t);
+      w[1] = h.value;
+      w[2] = (uint32_t)h.face;
+      for (int k = 0; k < 3; ++k) w[3 + k] = __float_as_uint(h.pos[k]);
+      w[6] = __float_as_uint(h.u);
+      w[7] = __float_as_uint(h.v);
+      w[8] = __float_as_uint(h.lod);
+    } else {
+      w[0] = __float_as_uint(-1.f);  // a miss: t = -1, the rest 0
+      for (int k = 1; k < HW; ++k) w[k] = 0u;
+      float rgb[3];
+      sky_color(f, rd[0], rd[2], rgb);
+      reinterpret_cast<float4*>(img)[i] =
+          make_float4(rgb[0], rgb[1], rgb[2], 1.f);
+    }
+    s_hitb[t] = (r.flags & 1u) ? 1 : 0;
   }
-  rec[i] = o;
+  __syncthreads();
+  const int words = HW * cnt;  // of the block's HitRec span
+  uint4* dst = reinterpret_cast<uint4*>(rec + base);
+  for (int q = t; q < words / 4; q += K9F_THREADS) dst[q] = s_out[q];
+  if (cnt == K9F_THREADS) {
+    if (t < K9F_THREADS / 16) {
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      reinterpret_cast<uint4*>(hit + base)[t] = s_hit[t];
+      reinterpret_cast<uint4*>(needp + base)[t] = zero;
+      reinterpret_cast<uint4*>(blkp + base)[t] = zero;
+    }
+  } else {
+    const uint32_t* s_outw = reinterpret_cast<const uint32_t*>(s_out);
+    uint32_t* dstw = reinterpret_cast<uint32_t*>(rec + base);
+    const int q = (words & ~3) + t;
+    if (q < words) dstw[q] = s_outw[q];
+    if (t < cnt) {
+      hit[base + t] = s_hitb[t];
+      needp[base + t] = 0;
+      blkp[base + t] = 0;
+    }
+  }
 }
 
 // One thread per compacted hit lane j < size (pixel hidx[j], j < *hcount).

@@ -253,11 +253,11 @@ __device__ __forceinline__ void write_sky(const FrameParams& fp,
   out[3] = 1.f;
 }
 
-// generate_rays: the direction of pixel i (row 0 = top of the image).
-__device__ __forceinline__ void gen_ray(const FrameParams& fp, int i,
-                                        float* rd) {
-  const float px = (float)(i % fp.width);
-  const float py = (float)(i / fp.width);
+// generate_rays: the direction of pixel (y, x) (row 0 = top of the image).
+__device__ __forceinline__ void gen_ray_yx(const FrameParams& fp, int y,
+                                           int x, float* rd) {
+  const float px = (float)x;
+  const float py = (float)y;
   float u = px / (float)fp.width * 2.f - 1.f;
   float v = ((float)(fp.height - 1) - py) / (float)fp.height * 2.f - 1.f;
   u = u * fp.aspect * fp.tan_half;
@@ -265,6 +265,12 @@ __device__ __forceinline__ void gen_ray(const FrameParams& fp, int i,
   for (int k = 0; k < 3; ++k) rd[k] = u * fp.right[k] + v * fp.up[k] + fp.fwd[k];
   const float rn = sqrtf(rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2]);
   for (int k = 0; k < 3; ++k) rd[k] = rd[k] / rn;
+}
+
+// generate_rays: the direction of pixel i (row-major).
+__device__ __forceinline__ void gen_ray(const FrameParams& fp, int i,
+                                        float* rd) {
+  gen_ray_yx(fp, i / fp.width, i % fp.width, rd);
 }
 
 // K10, a batch of poses: the lanes of a batched launch are pose-major
@@ -590,11 +596,8 @@ static int k9_trace_launch(const World& world, float octree_scale,
                            void* stream) {
   const auto kernel = vx::k9_trace_kernel<World>;
   constexpr int threads = vx::K9_TRACE_THREADS;
-  int wl = fp->width, hl = fp->height;
-  for (int k = 0; k < level; ++k) {
-    wl = wl > 1 ? wl / 2 + 1 : 1;
-    hl = hl > 1 ? hl / 2 + 1 : 1;
-  }
+  int wl, hl;
+  vx::k9_dims(fp->width, fp->height, level, wl, hl);
   const long long items =
       idx ? size
           : (long long)n_poses * ((wl + 7) / 8) * ((hl + 3) / 4) * 32;
@@ -875,15 +878,22 @@ int vx_k9_trace_csvo(const uint32_t* words, long long n_words,
                          count, size, n_poses, out, stream);
 }
 
-// lo: the records of level + 1; hi, refine: the n lanes of level `level`
-// (n_poses times the level's lane count).
+// lo: the records of level + 1; hi, refine: the lanes of level `level`
+// (n_poses times its lane count); one block a K9M_TW x K9M_TH tile of each
+// pose's grid. Every record pointer (lo, hi, frec) is 16-byte aligned, and
+// so are rec, hit, img, needp and blkp (ops/adaptive.py checks).
 int vx_k9_merge(float octree_scale, const vx::FrameParams* fp,
-                const float* cams, int level, const void* lo, void* hi,
-                uint8_t* refine, int n, void* stream) {
-  vx::k9_merge_kernel<<<vx::grid_for(n), vx::BLOCK, 0,
+                const float* cams, int n_poses, int level, const void* lo,
+                void* hi, uint8_t* refine, void* stream) {
+  int wh, hh;
+  vx::k9_dims(fp->width, fp->height, level, wh, hh);
+  const long long blocks = (long long)n_poses *
+                           ((wh + vx::K9M_TW - 1) / vx::K9M_TW) *
+                           ((hh + vx::K9M_TH - 1) / vx::K9M_TH);
+  vx::k9_merge_kernel<<<(unsigned)blocks, vx::K9M_THREADS, 0,
                         (cudaStream_t)stream>>>(
       octree_scale, *fp, cams, level, (const vx::K9Rec*)lo, (vx::K9Rec*)hi,
-      refine, n);
+      refine);
   return (int)cudaGetLastError();
 }
 
@@ -891,9 +901,10 @@ int vx_k9_finalize(float octree_scale, const vx::FrameParams* fp,
                    const float* cams, int n_poses, const void* frec, void* rec,
                    uint8_t* hit, float* img, uint8_t* needp, uint8_t* blkp,
                    void* stream) {
-  vx::k9_finalize_kernel<<<vx::grid_for((long long)fp->width * fp->height *
-                                        n_poses),
-                           vx::BLOCK, 0, (cudaStream_t)stream>>>(
+  const long long n = (long long)fp->width * fp->height * n_poses;
+  vx::k9_finalize_kernel<<<(unsigned)((n + vx::K9F_THREADS - 1) /
+                                      vx::K9F_THREADS),
+                           vx::K9F_THREADS, 0, (cudaStream_t)stream>>>(
       octree_scale, *fp, cams, n_poses, (const vx::K9Rec*)frec,
       (vx::HitRec*)rec, hit, img, needp, blkp);
   return (int)cudaGetLastError();

@@ -566,10 +566,20 @@ def k9_shadow_cells_plain(step: int, fp: _build.FrameParams, hidx, hcount,
 # ---------------------------------------------------------------------------
 
 def _check_rec(name, t, n=None):
+    """Refuse what K9's kernels cannot take as records: they move each
+    32-byte record as two 16-byte words, which fault on the card at an
+    address that is not a multiple of 16."""
     if t.dtype != i32 or t.dim() != 2 or t.shape[1] != REC_WORDS \
             or not t.is_contiguous() or (n is not None and t.shape[0] != n):
         raise ValueError(f"{name}: expected contiguous ({n}, {REC_WORDS}) "
                          "int32 records")
+    _check_aligned(name, t)
+
+
+def _check_aligned(name, t):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor (a view "
+                         f"at byte {t.data_ptr() % 16} of a 16-byte word)")
 
 
 def _poses(cams, fp: _build.FrameParams, dev) -> int:
@@ -643,11 +653,17 @@ def k9_finalize(octree_scale, fp: _build.FrameParams, frec, rec, hit, img,
     B = fp.width * fp.height * _poses(cams, fp, frec.device)
     _check_rec("frec", frec, B)
     if tuple(rec.shape) != (B, _build.HIT_WORDS) or hit.shape[0] != B \
-            or img.numel() != 4 * B:
+            or img.numel() != 4 * B or needp.shape[0] != B \
+            or blkp.shape[0] != B:
         raise ValueError("k9_finalize: outputs of another frame size")
-    for name, t in (("needp", needp), ("blkp", blkp)):
-        if t.dtype != torch.bool or t.shape[0] != B:
-            raise ValueError(f"{name}: expected ({B},) bool")
+    for name, t, dt in (("rec", rec, i32), ("hit", hit, torch.bool),
+                        ("img", img, f32), ("needp", needp, torch.bool),
+                        ("blkp", blkp, torch.bool)):
+        if t.dtype != dt or not t.is_contiguous() \
+                or t.device != frec.device:
+            raise ValueError(f"{name}: expected a contiguous {dt} tensor on "
+                             f"{frec.device}")
+        _check_aligned(name, t)
     _build.launch_k9_finalize(float(octree_scale), fp, frec, rec, hit, img,
                               needp, blkp, cams)
     launches_finalize += 1
