@@ -91,13 +91,22 @@ plain versions on every call of the adaptive phases' frames (both
 formats, the pitched-up pose among them) and of the batch, each launch
 is timed alone, and the card operations of one merge and one finalize
 call are counted from a profiler trace; the build prints the K9 kernels'
-loads and stores by width from ``cuobjdump -sass``. With ``--parent DIR``
+and the shadow stage's loads and stores by width from ``cuobjdump
+-sass``. The shadow stage (``kd_shadow``) and K9's shadow cells (both
+steps) are held to their plain versions on every call of the deferred,
+adaptive and judged phases' frames, the batch and each game's final
+adaptive frame; each is timed alone on pose 0's own inputs and at a
+count of 0, ``kd_shadow`` also on the adaptive frame's two passes with
+the sun map and under ``VOXELRS_SUN=0`` (K7's floors, the games' branch)
+with its traced slots' steps, slowest warp and SIMD efficiency, and the
+card operations of one call of each are counted. With ``--parent DIR``
 (the parent commit's ``voxelrs_tpu_torch``, e.g. from ``git archive``,
 unpacked in DIR) the parent's kernels build in a second ``nvcc`` beside
 this tree's, its K6 and K9 trace, merge and finalize are timed on the
-same inputs (each K9 launch held to the plain outputs), and its
-renderer's frames (adaptive, exact and fused in both formats, the ESVO
-batch) are timed in turns with this tree's and compared with them.
+same inputs (each K9 launch held to the plain outputs), so are its
+shadow stage and shadow cells, and its renderer's frames (adaptive,
+exact and fused in both formats, the ESVO batch) are timed in turns with
+this tree's and compared with them.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -119,7 +128,10 @@ than 1e-3); K9-judged's kernels against their plain versions — equal (the
 finalize's sky within 1e-6), its traces against K1 / K4 judged — every
 field equal; the judged adaptive frame against its plain version — max
 |d| <= 1e-6, against the exact judged frame — the same thick-ray budget;
-each pose of a batch against its own frame — max |d| 0, the exact batch
+``kd_shadow`` and K9's shadow cells against their plain versions on
+every held call — bit for bit (``kd_shadow``'s hits also equal K1's / K4's
+on the same rays); each pose of a batch against its own frame — max |d|
+0, the exact batch
 against K3's — max |d| <= 1e-6; the batched K9 kernels and K6 against
 their plain versions — equal (the finalize's sky within 1e-6), the
 batched stages' images against the plain frames — max |d| <= 1e-6; P0 —
@@ -433,14 +445,17 @@ def k6_calls(calls, dev) -> list:
     return rows
 
 
-# the arguments a K9 launch writes (by position), for parent_k9 and
-# held_k9; the finalize's image (position 5) is the sky, within K3_MAX_ABS
-K9_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5), "k9_finalize": (3, 4, 5, 6, 7)}
+# the arguments a held launch writes (by position: of K9's wrappers, and
+# of _build.launch_kd_shadow), for parent_launch and held_calls; the
+# finalize's image (position 5) is the sky, within K3_MAX_ABS
+LAUNCH_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5),
+               "k9_finalize": (3, 4, 5, 6, 7),
+               "k9_shadow_cells": (5, 7, 8, 11), "kd_shadow": (11,)}
 
 
-def k9_outputs_equal(name, outs, ref) -> tuple:
-    """(equal, max |d|) of a K9 launch's outputs against the plain
-    version's: bit for bit, the finalize's image within K3_MAX_ABS."""
+def launch_outputs_equal(name, outs, ref) -> tuple:
+    """(equal, max |d|) of a launch's outputs against the plain version's:
+    bit for bit, K9's finalize's image within K3_MAX_ABS."""
     errs = [max_abs(a, b) for a, b in zip(outs, ref)]
     eq = all(bits_equal(a, b) or (name == "k9_finalize"
                                   and a.dtype.is_floating_point
@@ -449,37 +464,187 @@ def k9_outputs_equal(name, outs, ref) -> tuple:
     return eq, max(errs)
 
 
-def held_k9(spy) -> dict:
-    """Every call a ``Spy`` of a K9 wrapper kept (with ``outs``: the
-    arguments the launch writes) held to the plain version on the call's
-    own inputs: calls, equal, max |d|."""
+def spied(name):
+    """(module, attribute) of the function a held launch is spied on: K9's
+    wrappers, the shadow stage's launch function."""
+    from voxelrs_tpu_torch import _build
     from voxelrs_tpu_torch.ops import adaptive
 
-    plain = getattr(adaptive, f"{spy.name}_plain")
+    return (_build, "launch_kd_shadow") if name == "kd_shadow" \
+        else (adaptive, name)
+
+
+def plain_of(name):
+    """The plain version of a held launch."""
+    from voxelrs_tpu_torch.ops import adaptive, shading
+
+    return (shading.kd_shadow_plain if name == "kd_shadow"
+            else getattr(adaptive, f"{name}_plain"))
+
+
+class Held:
+    """Spies (``Spy`` with ``outs``) on the launches ``names`` of
+    LAUNCH_OUTS over a run; ``check()`` then holds every call to its
+    plain version on the call's own inputs (``held_calls``)."""
+
+    def __init__(self, names):
+        self.spies = {n: Spy(*spied(n), LAUNCH_OUTS[n]) for n in names}
+
+    def __enter__(self):
+        for sp in self.spies.values():
+            sp.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for sp in self.spies.values():
+            sp.__exit__()
+        return False
+
+    def check(self) -> dict:
+        r = {n: held_calls(sp, n) for n, sp in self.spies.items()}
+        self.spies = {}  # frees the copies
+        return r
+
+
+def held_calls(spy, name) -> dict:
+    """Every call a ``Spy`` of launch ``name`` kept (with ``outs``: the
+    arguments the launch writes) held to the plain version on the call's
+    own inputs: calls, equal, max |d|."""
+    plain = plain_of(name)
     eq, err = True, 0.0
     for (args, kw), outs in zip(spy.calls, spy.outs):
         plain(*args, **kw)  # into the spy's own copies
-        e, d = k9_outputs_equal(spy.name, outs,
+        e, d = launch_outputs_equal(name, outs,
                                 [args[i] for i in spy.out_pos])
         eq, err = eq and e, max(err, d)
     return dict(calls=len(spy.calls), equal=eq, err=err)
 
 
-def parent_k9(name, args, kw, ref):
-    """With --parent, one spied K9 launch (``name``: k9_trace, k9_merge or
-    k9_finalize, its wrapper's arguments) through the parent's kernel on
-    copies of the arguments it writes, held to ``ref`` (the plain
-    version's outputs) and timed alone; None without."""
+def held_ok(held) -> bool:
+    return all(h["equal"] and h["calls"] for h in held.values())
+
+
+def parent_launch(name, args, kw, ref, count_pos=None):
+    """With --parent, one spied launch (``name``: of LAUNCH_OUTS, its
+    wrapper's arguments) through the parent's kernel on copies of the
+    arguments it writes, held to ``ref`` (the plain version's outputs) and
+    timed alone, and with ``count_pos`` (the position of its count) also
+    timed at count 0; None without."""
     if PARENT is None:
         return None
     import torch
 
     launch = getattr(PARENT, f"launch_{name}")
-    a = [x.clone() if i in K9_OUTS[name] else x for i, x in enumerate(args)]
+    a = [x.clone() if i in LAUNCH_OUTS[name] else x
+         for i, x in enumerate(args)]
     launch(*a, **kw)
-    eq, err = k9_outputs_equal(name, [a[i] for i in K9_OUTS[name]], ref)
+    eq, err = launch_outputs_equal(name, [a[i] for i in LAUNCH_OUTS[name]], ref)
     torch.cuda.synchronize()
-    return dict(equal=eq, err=err, ms=kernel_ms(lambda: launch(*a, **kw)))
+    r = dict(equal=eq, err=err, ms=kernel_ms(lambda: launch(*a, **kw)))
+    if count_pos is not None:
+        idle = zero_count(a, count_pos)
+        r["ms_count0"] = kernel_ms(lambda: launch(*idle, **kw))
+    return r
+
+
+def zero_count(args, pos):
+    """``args`` with the count at position ``pos`` replaced by a (1,)
+    zero: the same launch with no work (its fixed cost)."""
+    import torch
+
+    a = list(args)
+    a[pos] = torch.zeros_like(args[pos])
+    return a
+
+
+def kd_shadow_call(svo, args) -> dict:
+    """One shadow-stage launch (``_build.launch_kd_shadow``'s arguments):
+    its traced slots and their traversal steps (K1 / K4 on the same rays
+    from the same floors, judged where the launch judges; their hits equal
+    to the kernel's flags), warps of 32 consecutive slots (the slowest
+    warp's steps, the SIMD efficiency), the launch alone and at count 0,
+    its plain version (the kernel bit for bit equal to it) and, with
+    --parent, the parent's kernel; the bound counts the world once, each
+    traced slot's index, candidate, origin, floor and flag, and its
+    steps."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import shading, traversal, traversal_csvo
+
+    (world, scale, tables, fp, am, sro, sidx, scount, tidx, tcount, floors,
+     traced) = args
+    dev = sro.device
+    n = min(int(scount if tidx is None else tcount), sidx.shape[0])
+    c = (tidx[:n].long() if tidx is not None
+         else torch.arange(n, device=dev))
+    ro = sro[sidx[c].long()].contiguous()
+    rd = (-torch.tensor(list(fp.light_dir), dtype=torch.float32,
+                        device=dev)).expand(ro.shape).contiguous()
+    kw = dict(alpha_fn=tables.alpha_fn if am else None,
+              max_steps=fp.shadow_budget,
+              t_floor=None if floors is None else floors[c].contiguous())
+    if isinstance(world, torch.Tensor):
+        k1 = traversal.intersect_octree(world, scale, ro, rd, -1.0, am != 0,
+                                        **kw)
+    else:
+        k1 = traversal_csvo.intersect_octree_csvo(
+            world.words, scale, world.root_ptr, world.total_depth, ro, rd,
+            -1.0, am != 0, **kw)
+    kt, pt, tt = traced.clone(), traced.clone(), traced.clone()
+    _build.launch_kd_shadow(*args[:11], kt)
+    plain_ms = event_ms(lambda: shading.kd_shadow_plain(*args[:11], pt))
+    ms = kernel_ms(lambda: _build.launch_kd_shadow(*args[:11], tt))
+    count_pos = 7 if tidx is None else 9
+    idle = zero_count(args[:11], count_pos)
+    ms0 = kernel_ms(lambda: _build.launch_kd_shadow(*idle, tt))
+    parent = parent_launch("kd_shadow", list(args[:11]) + [tt], {}, [pt],
+                           count_pos)
+    st = warp_stats(k1.steps, torch.arange(n, device=dev) // 32)
+    return dict(
+        lanes=n, floored=floors is not None, sublist=tidx is not None,
+        judged=am != 0, steps=st["lane_sum"], launch=st,
+        equal=bits_equal(kt, pt) and (parent is None or parent["equal"]),
+        vs_k1=int(((k1.t >= 0) != kt[c].bool()).sum()), ms=ms,
+        ms_count0=ms0, plain_ms=plain_ms, parent=parent,
+        bound=bound(shading.world_tensor(world).numel() * 4
+                    + n * (4 + 4 + 12 + 1 + (4 if floors is not None
+                                             else 0)),
+                    st["lane_sum"] * OPS_PER_STEP))
+
+
+def kd_shadow_passes(svo, p) -> dict:
+    """The shadow-stage launches of pose ``p``'s adaptive frame (its two
+    passes on a dense frame) with the sun map, the renderer's branch
+    (certificates, the uncertified sub-list traced unfloored), and under
+    VOXELRS_SUN=0, the games' branch (every candidate traced from K7's
+    shadow floors): ``kd_shadow_call`` of each; the first call's
+    arguments with the sun map, for the profiler count."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+
+    out = {}
+    for branch, sun in (("sun_map", True), ("no_sun_map", False)):
+        old = os.environ.get("VOXELRS_SUN")
+        if not sun:
+            os.environ["VOXELRS_SUN"] = "0"
+        try:
+            ctx = svo.beam_context(p, W, H)
+            with Spy(_build, "launch_kd_shadow") as sp:
+                svo.render(p, W, H, beams=ctx)
+        finally:
+            if old is None:
+                os.environ.pop("VOXELRS_SUN", None)
+            else:
+                os.environ["VOXELRS_SUN"] = old
+        torch.cuda.synchronize()
+        if ctx.has_sun() != sun or not svo.last_frame.get("adaptive"):
+            fail(f"the adaptive frame's {branch} branch did not run")
+        out[branch] = [kd_shadow_call(svo, args) for args, _kw in sp.calls]
+        if sun:
+            out["args"] = sp.calls[0]
+    return out
 
 
 def k6_fixed_ms(dev) -> dict:
@@ -556,18 +721,17 @@ def k6_launch_phase(dev) -> dict:
     return out
 
 
-def k9_launch_phase(k9_args) -> dict:
-    """The card operations of one K9 merge (level 0) and one finalize
-    launch call on pose 0's own inputs (the ESVO adaptive frame's), counted
-    from a profiler trace (``device_ops``), and with --parent those of the
-    parent's kernels."""
+def launch_ops_phase(calls) -> dict:
+    """The card operations of one launch call of each kernel of ``calls``
+    (name: a spied call's (args, kw), on pose 0's own inputs of the ESVO
+    adaptive frame), counted from a profiler trace (``device_ops``), and
+    with --parent those of the parent's kernels."""
     from voxelrs_tpu_torch import _build
 
     libs = [("", _build)] + ([] if PARENT is None else [("parent_", PARENT)])
     out = {}
-    for k, (args, kw) in k9_args.items():
-        name = f"k9_{k}"
-        a = [x.clone() if i in K9_OUTS[name] else x
+    for name, (args, kw) in calls.items():
+        a = [x.clone() if i in LAUNCH_OUTS[name] else x
              for i, x in enumerate(args)]
         r = out[name] = {}
         for key, lib in libs:
@@ -579,12 +743,13 @@ def k9_launch_phase(k9_args) -> dict:
     return out
 
 
-def sass_widths(names=("k9_trace", "k9_merge", "k9_finalize")) -> dict:
-    """The global and shared loads and stores of the K9 kernels in the
-    built library's SASS (``cuobjdump -sass``), counted by width (.128 =
-    16-byte words, .64, and 32 bits and less): per kernel, instruction
-    counts in the code, not executions. None where the toolkit has no
-    cuobjdump."""
+def sass_widths(names=("k9_trace", "k9_merge", "k9_finalize",
+                       "k9_shadow_cells", "kd_shadow")) -> dict:
+    """The global and shared loads and stores of the K9 kernels and the
+    shadow stage in the built library's SASS (``cuobjdump -sass``), counted
+    by width (.128 = 16-byte words, .64, and 32 bits and less): per kernel,
+    instruction counts in the code, not executions. None where the toolkit
+    has no cuobjdump."""
     import re
     import shutil
 
@@ -1167,9 +1332,11 @@ def check_game(game, recorder, card):
 
     with Phase(f"adaptive vs plain, three paths timed (streamed world, "
                f"{fmt})"):
-        adaptive_img = gsvo.render(p, W, H, beams=ctx)
+        with Held(("k9_shadow_cells", "kd_shadow")) as held:
+            adaptive_img = gsvo.render(p, W, H, beams=ctx)
         info = dict(gsvo.last_frame)
         da = max_abs(adaptive_img, plain_adaptive(gsvo, p, ctx))
+        out["held"] = held.check()
         paths = {}
         for path, kw in (("adaptive", {}), ("exact", dict(adaptive=False)),
                          ("fused", dict(mode="fused"))):
@@ -1178,6 +1345,12 @@ def check_game(game, recorder, card):
                                                        **kw))
     out["adaptive_game_err"], out["paths_ms"] = da, paths
     out["adaptive_game_ok"] = da <= K3_MAX_ABS and bool(info.get("adaptive"))
+    log(f"k9 shadow cells and kd_shadow vs their plain versions on every "
+        f"call of the final adaptive frame ({fmt}; bit for bit): "
+        f"{json.dumps(out['held'])}")
+    if not held_ok(out["held"]):
+        fail(f"K9's shadow cells or kd_shadow disagrees with its plain "
+             f"version in the {fmt} game's final adaptive frame")
     log(f"adaptive vs its plain version on the streamed {fmt} buffer (final "
         f"pose, {json.dumps(info)}): max |d| {da:.3g} (tolerance "
         f"{K3_MAX_ABS:g}); ok {out['adaptive_game_ok']}; one frame each, "
@@ -1292,9 +1465,16 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    if PARENT is not None:  # the parent's shadow stage and shadow cells
+        plog = PARENT.build_log.splitlines()
+        for i, line in enumerate(plog):
+            if "Compiling entry" in line and ("kd_shadow" in line
+                                              or "k9_shadow_cells" in line):
+                for pl in plog[i:i + 4]:  # to its "Used N registers"
+                    log(f"  the parent's ptxas: {pl.strip()}")
     sass = sass_widths()
-    log(f"K9 loads and stores in the SASS by width (cuobjdump -sass; "
-        f"instructions in the code): {json.dumps(sass)}")
+    log(f"K9's and kd_shadow's loads and stores in the SASS by width "
+        f"(cuobjdump -sass; instructions in the code): {json.dumps(sass)}")
     log(f"native serializers: loaded {libs}; g++ {' '.join(native.GXX_FLAGS)}"
         f", seconds {native.build_seconds}")
     if not all(libs.values()):
@@ -1394,9 +1574,9 @@ def main() -> int:
                f"{r['parent_launches']} {r['parent_ops']}"))
         if r["launches"] is not None and r["launches"] > 2:
             fail(f"K6 ran {r['launches']} card operations a call (at most 2)")
-    with Phase("k9 launches"):
-        k9l = k9_launch_phase(ae.pop("k9_args"))
-        ac.pop("k9_args")
+    with Phase("k9 and kd_shadow launches"):
+        k9l = launch_ops_phase(ae.pop("launch_args"))
+        ac.pop("launch_args")
     for name, r in k9l.items():
         log(f"{name} card operations a call (pose 0, esvo; torch.profiler): "
             f"{r['launches']} {r['ops']}"
@@ -1546,8 +1726,44 @@ def main() -> int:
              launches_game=ge["launches"]["k8"],
              launches_game_csvo=gc["launches"]["k8"]),
     ]
+    # every held call of kd_shadow and K9's shadow cells (the deferred,
+    # adaptive and judged phases' frames, the batch, the games' final
+    # adaptive frames), each equal to its plain version
+    held_runs = [d["held"] for d in (de, dc, ae, ac, je, jc, be, ce, cc)]
+
+    def held_sum(name):
+        hs = [h[name] for h in held_runs if name in h]
+        return dict(calls=sum(h["calls"] for h in hs),
+                    equal=all(h["equal"] for h in hs),
+                    err=max(h["err"] for h in hs))
+
+    shadow_held = held_sum("kd_shadow")
+    # the shadow stage: pose 0's exact frame call (kd_shadow_call) and the
+    # adaptive frame's passes with and without the sun map
+    shadow_extra = dict(
+        plain_ms=de["kd_shadow"]["plain_ms"],
+        plain_is="kd_shadow_plain on the same call's inputs",
+        plain_ms_csvo=dc["kd_shadow"]["plain_ms"],
+        ms_count0=de["kd_shadow"]["ms_count0"],
+        ms_count0_csvo=dc["kd_shadow"]["ms_count0"],
+        parent_ms=(de["kd_shadow"]["parent"] or {}).get("ms"),
+        parent_ms_csvo=(dc["kd_shadow"]["parent"] or {}).get("ms"),
+        exact_frame_call={k: v for k, v in de["kd_shadow"].items()
+                          if k != "bound"},
+        exact_frame_call_csvo={k: v for k, v in dc["kd_shadow"].items()
+                               if k != "bound"},
+        adaptive_passes={b: [{k: v for k, v in c.items() if k != "bound"}
+                             for c in calls]
+                         for b, calls in ae["kd_shadow"].items()},
+        adaptive_passes_csvo={b: [{k: v for k, v in c.items()
+                                   if k != "bound"} for c in calls]
+                              for b, calls in ac["kd_shadow"].items()},
+        calls_checked=shadow_held["calls"],
+        launches_per_call=k9l["kd_shadow"]["launches"],
+        launches_per_call_parent=k9l["kd_shadow"].get("parent_launches"))
     # the deferred frame's stages: held, together, to the plain deferred
-    # frame (their plain version) on every pose, variant and game buffer
+    # frame (their plain version) on every pose, variant and game buffer;
+    # the shadow stage also call by call to its own plain version
     for st in STAGES:
         kernels.append(dict(
             name=f"kd_{st}", route="cuda",
@@ -1569,6 +1785,11 @@ def main() -> int:
             bound_ms_csvo=dc["stages"]["bound"][st][0],
             launches_game=ge["launches"][f"kd_{st}"],
             launches_game_csvo=gc["launches"][f"kd_{st}"]))
+        if st == "shadow":
+            kernels[-1].update(
+                shadow_extra, ok=kernels[-1]["ok"] and shadow_held["equal"],
+                max_abs_err=max(kernels[-1]["max_abs_err"],
+                                shadow_held["err"]))
     # K9: held to its plain versions on pose 0's own inputs, the adaptive
     # frame to its plain version on every pose, variant and game buffer;
     # "ms" sums the kernel's launches in one frame (pose 0), alone
@@ -1609,6 +1830,17 @@ def main() -> int:
                 calls_checked_csvo=ac["held"][f"k9_{k}"]["calls"],
                 launches_per_call=k9l[f"k9_{k}"]["launches"],
                 launches_per_call_parent=k9l[f"k9_{k}"].get(
+                    "parent_launches"))),
+            **({} if k != "shadow_cells" else dict(
+                per_launch=[{f: c[f] for f in ("step", "hits", "ms",
+                                               "ms_count0", "parent")}
+                            for c in ae["k9"][k]["calls"]],
+                per_launch_csvo=[{f: c[f] for f in ("step", "hits", "ms",
+                                                    "ms_count0", "parent")}
+                                 for c in ac["k9"][k]["calls"]],
+                calls_checked=held_sum("k9_shadow_cells")["calls"],
+                launches_per_call=k9l["k9_shadow_cells"]["launches"],
+                launches_per_call_parent=k9l["k9_shadow_cells"].get(
                     "parent_launches"))),
             frame_vs_plain=max(*ae["vs_plain"].values(),
                                *ac["vs_plain"].values(),
@@ -2127,31 +2359,28 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
     with Phase(f"adaptive main path ({fmt})"):
         zero_deferred_counts()
         frames, infos, marks = [], [], []
-        held = {k: Spy(adaptive, k, K9_OUTS[k])
-                for k in ("k9_merge", "k9_finalize")}
-        for sp in held.values():
-            sp.__enter__()
-        try:
+        held = Held(("k9_merge", "k9_finalize", "k9_shadow_cells",
+                     "kd_shadow"))
+        with held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
                 infos.append(dict(svo.last_frame))
                 ab = svo._workspace.adaptive(W, H, levels)
                 marks.append((svo._workspace.hcount.clone(),
                               ab.dense.clone()))
-        finally:
-            for sp in held.values():
-                sp.__exit__()
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
-    with Phase(f"k9 merge and finalize vs plain, every call ({fmt})"):
-        out["held"] = {k: held_k9(sp) for k, sp in held.items()}
+    with Phase(f"k9 merge, finalize, shadow cells and kd_shadow vs plain, "
+               f"every call ({fmt})"):
+        out["held"] = held.check()
         del held
-    log(f"k9 merge and finalize vs their plain versions on every call of "
-        f"the {len(poses6)} frames ({fmt}; bit for bit, the sky within "
-        f"{K3_MAX_ABS:g}): {json.dumps(out['held'])}")
-    if not all(h["equal"] and h["calls"] for h in out["held"].values()):
-        fail(f"K9's merge or finalize disagrees with its plain version in "
-             f"the {fmt} adaptive frames")
+    log(f"k9 merge, finalize, shadow cells (both steps) and kd_shadow vs "
+        f"their plain versions on every call of the {len(poses6)} frames "
+        f"({fmt}; bit for bit, the finalize's sky within {K3_MAX_ABS:g}): "
+        f"{json.dumps(out['held'])}")
+    if not held_ok(out["held"]):
+        fail(f"K9's merge, finalize or shadow cells or kd_shadow disagrees "
+             f"with its plain version in the {fmt} adaptive frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -2296,7 +2525,7 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
             trace_bytes += (lanes.shape[0] * 32 + tf.numel() * 4
                             + (0 if idx is None else lanes.shape[0] * 4 + 4))
             wl, hl = adaptive.grid_dims(W, H, level)[level]
-            parent = parent_k9("k9_trace", args, kw, [outs[1]])
+            parent = parent_launch("k9_trace", args, kw, [outs[1]])
             note("trace", torch.equal(outs[0], outs[1])
                  and (parent is None or parent["equal"]),
                  max_abs(outs[0], outs[1]), kms, pms, level=level,
@@ -2333,7 +2562,7 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                 refined=int(kr.sum()) / nl)
             merge_bytes += lo.shape[0] * 32 + nl * 33
             merge_ops += int(all4.sum()) * (OPS_K9_RAY + OPS_K9_FILL)
-            parent = parent_k9("k9_merge", args, _kw, [po, pr])
+            parent = parent_launch("k9_merge", args, _kw, [po, pr])
             # the same launch on records that all miss: no lane fills
             lo0 = torch.zeros_like(lo)
             ms0 = kernel_ms(lambda: _build.launch_k9_merge(
@@ -2359,8 +2588,8 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                                                           *to))
         hits = int(ko[1].sum())
         img_err = max_abs(ko[2], po[2])
-        parent = parent_k9("k9_finalize", spies["finalize"].calls[0][0], _kw,
-                           po)
+        parent = parent_launch("k9_finalize", spies["finalize"].calls[0][0],
+                               _kw, po)
         # the same launch on records that all miss: every pixel its sky
         frec0 = torch.zeros_like(frec)
         ms0 = kernel_ms(lambda: _build.launch_k9_finalize(scale, fp, frec0,
@@ -2370,12 +2599,17 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
              and img_err <= K3_MAX_ABS
              and (parent is None or parent["equal"]), img_err, kms, pms,
              hits=hits, parent=parent, ms_no_hits=ms0)
-        out["k9_args"] = {k: spies[k].calls[0 if k == "finalize" else -1]
-                          for k in ("merge", "finalize")}
+        out["launch_args"] = {f"k9_{k}": spies[k].calls[
+            0 if k in ("finalize", "shadow_cells") else -1]
+            for k in ("merge", "finalize", "shadow_cells")}
         out["finalize_bound"] = bound(
             B * 32 + B * 36 + B + (B - hits) * 16 + 2 * B,
             B * OPS_K9_RAY + hits * OPS_K9_FINALIZE)
-        # shadow cells: both steps
+        # shadow cells: both steps; each launch also at a hit count of 0
+        # (its fixed cost: the grid and the mask's zero tail) and, with
+        # --parent, the parent's kernel. The bound reads each hit's index
+        # and need, writes the whole mask, in step 1 each hit's pixel need
+        # and the dense flag, in step 2 each hit's eight corner bytes.
         sc_bytes = 0
         for args, _kw in spies["shadow_cells"].calls:
             step, fp, rest = args[0], args[1], args[2:]
@@ -2387,8 +2621,15 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
             to = [t.clone() for t in rest]
             kms = kernel_ms(lambda: _build.launch_k9_shadow_cells(step, fp,
                                                                   *to))
+            idle = zero_count(to, 1)
+            ms0 = kernel_ms(lambda: _build.launch_k9_shadow_cells(step, fp,
+                                                                  *idle))
+            parent = parent_launch(
+                "k9_shadow_cells", args, _kw,
+                [po[i - 2] for i in LAUNCH_OUTS["k9_shadow_cells"]], 3)
             nh = int(rest[1])
-            sc_bytes += nh * (4 + 1 + 1 + 1) + (nh * 8 if step == 2 else 4)
+            sc_bytes += (nh * (4 + 1) + rest[0].shape[0]
+                         + (nh * 8 if step == 2 else nh + 4))
             if step == 2:
                 # the interior candidates and the share whose verdict the
                 # cells reused (the rest are the pass-2 mask)
@@ -2401,11 +2642,33 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                                     pass2=int(ko[5][:nh].sum()),
                                     reused_share=1 - int(ko[5][:nh].sum())
                                     / max(n_int, 1))
-            note("shadow_cells", all(bits_equal(a, b) for a, b in zip(ko, po)),
+            note("shadow_cells", all(bits_equal(a, b) for a, b in zip(ko, po))
+                 and (parent is None or parent["equal"]),
                  max(max_abs(a, b) for a, b in zip(ko, po)), kms, pms,
-                 step=step, hits=nh)
+                 step=step, hits=nh, ms_count0=ms0, parent=parent)
         out["shadow_cells_bound"] = bound(sc_bytes, 0)
         out["k6_calls"] = k6_calls(k6_spy.calls, dev)
+    with Phase(f"kd_shadow on the adaptive frame's passes, with and "
+               f"without the sun map ({fmt})"):
+        ksp = kd_shadow_passes(svo, poses[0])
+        out["launch_args"]["kd_shadow"] = ksp.pop("args")
+        out["kd_shadow"] = ksp
+    for branch, calls in ksp.items():
+        for i, c in enumerate(calls):
+            log(f"kd_shadow launch ({fmt}, pose 0's adaptive frame, "
+                f"{branch}, pass {i + 1}: {c['lanes']} traced, "
+                f"{'sub-list' if c['sublist'] else 'every candidate'}, "
+                f"{'floored' if c['floored'] else 'unfloored'}): "
+                f"{json.dumps(c['launch'])}; equal to its plain version "
+                f"{c['equal']}, hits vs {'k4' if csvo else 'k1'} differing "
+                f"{c['vs_k1']}; alone {c['ms']:.4f} ms, at count 0 "
+                f"{c['ms_count0']:.4f} ms, plain {c['plain_ms']:.2f} ms, "
+                f"bound {c['bound'][0]:.4g} ms ({c['bound'][1]}); the "
+                f"parent's kernel {json.dumps(c['parent'])} on {card}")
+    if not all(c["equal"] and not c["vs_k1"] for calls in ksp.values()
+               for c in calls) or not all(ksp.values()):
+        fail(f"kd_shadow disagrees with its plain version or "
+             f"{'K4' if csvo else 'K1'} on the {fmt} adaptive frame")
     out["k9"] = res
     out["k9_ok"] = all(r["equal"] for r in res.values()) and not any(
         out["trace_vs_k1"]["differing"].values())
@@ -2422,6 +2685,11 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                 + f"): alone {c['ms']:.4f} ms, on records that all miss "
                 f"{c['ms_no_hits']:.4f} ms; the parent's kernel "
                 f"{json.dumps(c['parent'])} on {card}")
+    for c in res["shadow_cells"]["calls"]:
+        log(f"k9_shadow_cells launch ({fmt}, pose 0, step {c['step']}, "
+            f"{c['hits']} hits): alone {c['ms']:.4f} ms, at a hit count of 0 "
+            f"{c['ms_count0']:.4f} ms; the parent's kernel "
+            f"{json.dumps(c['parent'])} on {card}")
     if not all(r["equal"] for r in out["k6_calls"]):
         fail(f"K6 disagrees with its plain version in the {fmt} adaptive "
              "frame")
@@ -2500,12 +2768,20 @@ def deferred_phase(svo, hf, poses, card) -> dict:
     out = {}
     with Phase(f"deferred main path ({fmt})"):
         zero_deferred_counts()
-        frames = [svo.render(p, W, H, adaptive=False) for p in poses]
+        with Held(("kd_shadow",)) as held:
+            frames = [svo.render(p, W, H, adaptive=False) for p in poses]
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
         info = dict(svo.last_frame)
+        out["held"] = held.check()
     log(f"deferred main path launches ({fmt}): {json.dumps(n)}; last frame "
         f"{json.dumps(info)}; sun map build {hf.sun_build_seconds} s host")
+    log(f"kd_shadow vs its plain version on every call of the "
+        f"{len(poses)} frames ({fmt}; bit for bit): "
+        f"{json.dumps(out['held'])}")
+    if not held_ok(out["held"]):
+        fail(f"kd_shadow disagrees with its plain version in the {fmt} "
+             "deferred frames")
     if not (n["k6"] and n["k7"] and n["k8"]
             and all(n[f"kd_{s}"] for s in STAGES)):
         fail(f"a kernel of the {fmt} deferred path was not launched")
@@ -2736,24 +3012,23 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         stage_ms = {s: kernel_ms(lambda sp=sp: sp.fn(*sp.calls[0][0],
                                                      **sp.calls[0][1]))
                     for s, sp in zip(STAGES, spies)}
-        # the shadow stage's traced rays (the uncertified candidates) and
-        # their traversal steps, from a traversal launch on the same rays
+        # the shadow stage's traced rays (the uncertified candidates):
+        # their traversal steps from a traversal launch on the same rays,
+        # the launch at count 0, its plain version and the parent's kernel
         ws = svo._workspace
-        sidx = ws.sidx[: int(ws.scount)].to(torch.int64)
-        tlanes = ws.tidx[: int(ws.tcount)].to(torch.int64)
-        sro = ws.sro[sidx[tlanes]].contiguous()
-        kw0 = svo.frame_kwargs(poses[0], W, H)
-        srd = (-torch.as_tensor(np.asarray(kw0["light_dir"], np.float32),
-                                device=dev)).expand(sro.shape).contiguous()
-        w = svo.world()
-        if csvo:
-            sres = traversal_csvo.intersect_octree_csvo(
-                w.words, float(svo.octree_scale), w.root_ptr, w.total_depth,
-                sro, srd, -1.0, False)
-        else:
-            sres = traversal.intersect_octree(w, float(svo.octree_scale), sro,
-                                              srd, -1.0, False)
-        shadow_steps = int(sres.steps.sum())
+        out["kd_shadow"] = kd_shadow_call(svo, spies[2].calls[0][0])
+        shadow_steps = out["kd_shadow"]["steps"]
+    ks = out["kd_shadow"]
+    log(f"kd_shadow launch ({fmt}, pose 0's exact frame, the sun map's "
+        f"sub-list: {ks['lanes']} traced): {json.dumps(ks['launch'])}; "
+        f"equal to its plain version {ks['equal']}, hits vs "
+        f"{'k4' if csvo else 'k1'} differing {ks['vs_k1']}; alone "
+        f"{ks['ms']:.4f} ms, at count 0 {ks['ms_count0']:.4f} ms, plain "
+        f"{ks['plain_ms']:.2f} ms; the parent's kernel "
+        f"{json.dumps(ks['parent'])} on {card}")
+    if not ks["equal"] or ks["vs_k1"]:
+        fail(f"kd_shadow disagrees with its plain version or "
+             f"{'K4' if csvo else 'K1'} on the {fmt} exact frame")
     B = W * H
     hits, cand, traced = int(ws.hcount), int(ws.scount), int(ws.tcount)
     world_bytes = svo.device_buf.numel() * 4
@@ -2960,13 +3235,21 @@ def judged_phase(svo, hf, poses, card) -> dict:
     with Phase(f"judged main path ({fmt})"):
         zero_judged_counts()
         frames, infos, marks = [], [], []
-        for p in poses6:
-            frames.append(svo.render(p, W, H))
-            infos.append(dict(svo.last_frame))
-            marks.append((svo._workspace.hcount.clone(),
-                           buffers().dense.clone()))
+        with Held(("k9_shadow_cells", "kd_shadow")) as held:
+            for p in poses6:
+                frames.append(svo.render(p, W, H))
+                infos.append(dict(svo.last_frame))
+                marks.append((svo._workspace.hcount.clone(),
+                               buffers().dense.clone()))
         torch.cuda.synchronize()
         n = out["launches"] = judged_counts()
+        out["held"] = held.check()
+    log(f"k9 shadow cells and kd_shadow (judged rays) vs their plain "
+        f"versions on every call of the {len(poses6)} judged frames ({fmt}; "
+        f"bit for bit): {json.dumps(out['held'])}")
+    if not held_ok(out["held"]):
+        fail(f"K9's shadow cells or kd_shadow disagrees with its plain "
+             f"version in the {fmt} judged frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -3357,7 +3640,9 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
     levels = adaptive.adaptive_levels(W, H)
     with Phase("batch main path (esvo)"):
         svo.render_batch(poses, W, H)  # warm-up: workspace, tables
-        imgs, nb = counted(lambda: svo.render_batch(poses, W, H))
+        held = Held(("k9_shadow_cells", "kd_shadow"))
+        with held:
+            imgs, nb = counted(lambda: svo.render_batch(poses, W, H))
         info = dict(svo.last_frame)
         ab = svo._batch_workspace._adaptive
         dense, hstart = ab.dense.tolist(), ab.hstart.tolist()
@@ -3366,12 +3651,21 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         os.environ["VOXELRS_ADAPTIVE"] = "0"
         try:
             svo.render_batch(poses, W, H)
-            imgs_e, nbe = counted(lambda: svo.render_batch(poses, W, H))
+            with held:
+                imgs_e, nbe = counted(lambda: svo.render_batch(poses, W, H))
             hits_total_e = int(svo._batch_workspace.hcount)
             _, n1e = counted(lambda: svo.render(poses[0], W, H))
         finally:
             del os.environ["VOXELRS_ADAPTIVE"]
         out["workspace_mb"] = workspace_mb(svo._batch_workspace)
+    with Phase("batch shadow stage vs plain, every call (esvo)"):
+        out["held"] = held.check()
+    log(f"k9 shadow cells and kd_shadow vs their plain versions on every "
+        f"call of the adaptive and the exact batch (esvo, {N} poses; bit "
+        f"for bit): {json.dumps(out['held'])}")
+    if not held_ok(out["held"]):
+        fail("K9's shadow cells or kd_shadow disagrees with its plain "
+             "version in the batch")
     hits = [(hstart + [hits_total])[q + 1] - hstart[q] for q in range(N)]
     out["launches"], out["launches_exact"] = nb, nbe
     out["launches_frame"], out["launches_frame_exact"] = n1, n1e
@@ -3457,7 +3751,7 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         spies["kd_primary"] = prim
         torch.cuda.synchronize()
         res = {}
-        runs = {name: [] for name in names if name in K9_OUTS}  # alone
+        runs = {name: [] for name in names if name in LAUNCH_OUTS}  # alone
         for name in names:
             r = res[name] = dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0,
                                  calls=len(spies[name].calls))
@@ -3481,14 +3775,15 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                                               and a.dtype == torch.float32
                                               and e <= K3_MAX_ABS)
                          for (a, b), e in zip(pairs, errs))
-                if name in K9_OUTS:
-                    parent = parent_k9(name, args, kw,
-                                       [pargs[i] for i in K9_OUTS[name]])
+                if name in LAUNCH_OUTS:
+                    parent = parent_launch(
+                        name, args, kw, [pargs[i] for i in LAUNCH_OUTS[name]])
                     runs[name].append(dict(
                         ms=kms, parent=parent,
-                        **({} if name == "k9_finalize"
-                           else dict(level=args[4 if name == "k9_trace"
-                                                else 2]))))
+                        **({"k9_finalize": {},
+                            "k9_shadow_cells": dict(step=args[0]),
+                            "k9_trace": dict(level=args[4])}.get(
+                                name, dict(level=args[2])))))
                     eq &= parent is None or parent["equal"]
                 r["equal"] &= eq
                 r["err"] = max(r["err"], *errs)
@@ -3501,12 +3796,25 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                          plain_ms=sm["plain_ms"], calls=sm["calls"],
                          parent_ms=sm["parent_ms"])
         out["k6_calls"] = k6_rows
-        # the stages alone (spied launch arguments replayed)
+        # the stages alone (spied launch arguments replayed); the shadow
+        # stage's launches also at count 0 and through the parent's kernel
         for s in STAGES:
             sp = spies[f"kd_{s}"]
             res[f"kd_{s}"] = dict(calls=len(sp.calls), ms=sum(
                 kernel_ms(lambda a=a, k=k: sp.fn(*a, **k))
                 for a, k in sp.calls))
+        runs["kd_shadow"] = []
+        for args, kw in spies["kd_shadow"].calls:
+            tr = args[11].clone()
+            shading.kd_shadow_plain(*args[:11], tr)
+            count_pos = 7 if args[8] is None else 9
+            idle = zero_count(args, count_pos)
+            runs["kd_shadow"].append(dict(
+                ms=kernel_ms(lambda: _build.launch_kd_shadow(*args, **kw)),
+                ms_count0=kernel_ms(lambda: _build.launch_kd_shadow(*idle,
+                                                                    **kw)),
+                parent=parent_launch("kd_shadow", args, kw, [tr],
+                                     count_pos)))
         # the stages' plain version: the plain frames of poses 0 and 3
         kws = [svo.frame_kwargs(p, W, H) for p in poses]
         tf = torch.stack([svo.beam_context(p, W, H).tile_floors
@@ -3630,12 +3938,16 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         log(f"k9_trace launch (batch, esvo, {N} poses, level {c['level']}):"
             f" {json.dumps(c['launch'])}; alone {c['ms']:.4f} ms; the "
             f"parent's kernel {json.dumps(c['parent'])} on {card}")
-    for name in ("k9_merge", "k9_finalize"):
+    for name in ("k9_merge", "k9_finalize", "k9_shadow_cells", "kd_shadow"):
         for c in runs[name]:
             log(f"{name} launch (batch, esvo, {N} poses"
                 + (f", level {c['level']}" if "level" in c else "")
-                + f"): alone {c['ms']:.4f} ms; the parent's kernel "
-                f"{json.dumps(c['parent'])} on {card}")
+                + (f", step {c['step']}" if "step" in c else "")
+                + f"): alone {c['ms']:.4f} ms"
+                + (f", at count 0 {c['ms_count0']:.4f} ms"
+                   if "ms_count0" in c else "")
+                + f"; the parent's kernel {json.dumps(c['parent'])} on "
+                f"{card}")
     out["ok"] = all(r.get("equal", True) for r in res.values()) \
         and stage_err <= K3_MAX_ABS
     for name, r in res.items():

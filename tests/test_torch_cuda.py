@@ -28,7 +28,12 @@ acosf), at grid and frame sizes that are not multiples of the merge's
 tile or the finalize's block, and refuse records off a 16-byte word; the adaptive frame is within max |d| 1e-6 of its plain version and
 within the thick-ray budget of K3's frame (mean |d| <
 0.002, under 2% of the pixels off by more than 1e-3, the traced grid's
-pixels equal). The crosshair
+pixels equal). The shadow stage (``kd_shadow``) equals
+``ops.shading.kd_shadow_plain`` and K9's shadow cells their plain version
+bit for bit: counts of 0, equal to the list's size and off a block or a
+thread's word, sub-lists, floors, opaque and judged rays, both formats,
+every launch of the frames and of a batch, odd frame sizes, 3 poses; the
+shadow cells refuse lanes off a 16-byte word. The crosshair
 equals the CPU's result bit for bit.
 """
 
@@ -1278,3 +1283,240 @@ def test_p0_equals_plain(dev, kind):
                 assert gp.launches == n0 + 1
                 want = gp.gather_probe_plain(tbl, seeds, kind, steps)
                 assert torch.equal(got, want), (rows, steps)
+
+
+# ---- the shadow stage: kd_shadow and K9's shadow cells ---------------------
+
+def _bits_equal(a, b):
+    """Equal bit for bit (floats as their words: the buffers' unwritten
+    tails may hold NaNs, equal in both copies)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _kd_shadow_check(args, kw=None):
+    """One ``launch_kd_shadow`` call (its arguments) through the kernel and
+    through ``kd_shadow_plain`` on copies of ``traced``: equal bit for
+    bit; the slots it traced."""
+    kw = kw or {}
+    *head, traced = args
+    k, p = traced.clone(), traced.clone()
+    n0 = shading.launches_shadow
+    _build.launch_kd_shadow(*head, k, **kw)
+    shading.kd_shadow_plain(*head, p, **kw)
+    torch.cuda.synchronize()
+    assert shading.launches_shadow == n0  # the launch wrapper counts nothing
+    assert torch.equal(k, p)
+    sidx, scount, tidx, tcount = head[6:10]
+    return min(int(scount if tidx is None else tcount), sidx.shape[0])
+
+
+def _shadow_lanes(s, p, dev):
+    """The exact deferred frame's hit lanes of pose ``p``: (FrameParams,
+    shadow origins of the hit lanes, their count)."""
+    s.render(p, TW, TH, adaptive=False)
+    ws = s._workspace
+    k = int(ws.hcount)
+    return _k9_fp(s, p, TW, TH), ws.sro[:k].clone(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("glass", [False, True])
+@pytest.mark.parametrize("case", ["count 0", "count = size", "off a block",
+                                  "sub-list", "floors"])
+def test_kd_shadow_equals_plain(terrains, dev, fmt, glass, case):
+    """The shadow stage's kernel (a resident grid looping over the slots
+    up to the count on the card, the stack in shared memory) against
+    ``kd_shadow_plain`` bit for bit: a count of 0, a count equal to the
+    list's size, a count off the 64-thread block, an uncertified sub-list
+    (``tidx``), K7's floors, opaque rays (alpha mode 0, the opaque
+    terrain) and judged ones (1, the glass terrain), both formats."""
+    s = terrains[(fmt, glass)]
+    p = _tparams("horizon")
+    fp, sro, k = _shadow_lanes(s, p, dev)
+    assert k > 4096
+    sidx = torch.arange(k, dtype=torch.int32, device=dev)
+    count = {"count 0": 0, "off a block": 64 * 37 + 29}.get(case, k)
+    scount = torch.tensor([count], dtype=torch.int32, device=dev)
+    tidx = tcount = floors = None
+    if case == "sub-list":
+        g = torch.Generator().manual_seed(5)
+        keep = torch.rand(k, generator=g) < 0.3
+        tidx = torch.zeros(k, dtype=torch.int32, device=dev)
+        sub = torch.nonzero(keep).flatten().to(torch.int32)
+        tidx[: sub.shape[0]] = sub.to(dev)
+        tcount = torch.tensor([sub.shape[0]], dtype=torch.int32, device=dev)
+    if case == "floors":
+        ctx = s.beam_context(p, TW, TH).without_sun()
+        floors = ctx.shadow_ray_floors(
+            sro, None, -np.asarray(p.light_dir, np.float32), idx=sidx,
+            count=scount)
+        assert bool(torch.isinf(floors).any()) or glass
+    traced = torch.full((k,), True, dtype=torch.bool, device=dev)
+    traced[::3] = False
+    n = _kd_shadow_check((s.world(), float(s.octree_scale),
+                          s.kernel_tables(), fp, int(glass), sro, sidx,
+                          scount, tidx, tcount, floors, traced))
+    assert n == (count if tidx is None else int(tcount))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,fmt", [
+    (path, fmt) for path in ("exact", "adaptive", "judged")
+    for fmt in ("esvo", "csvo")] + [("batch", "esvo")])
+def test_kd_shadow_calls_of_frames_equal_plain(terrains, judged_scenes, dev,
+                                               path, fmt, monkeypatch):
+    """Every shadow-stage launch of the frames (the exact frame with the sun
+    map's sub-list, with K7's floors and unfloored; the adaptive frame's
+    two passes; the judged adaptive frame's judged rays; a batch of 3
+    poses over the concatenated lanes, ESVO: ``Svo.render_batch`` renders
+    no other) held to ``kd_shadow_plain`` on the call's own inputs, bit
+    for bit."""
+    calls = []
+    launch = _build.launch_kd_shadow
+
+    def spy(*args, **kw):
+        keep = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+        calls.append([keep(a) for a in args])
+        return launch(*args, **kw)
+
+    monkeypatch.setattr(_build, "launch_kd_shadow", spy)
+    if path == "judged":
+        s = judged_scenes[fmt]
+        p = _jparams("overview")
+    else:
+        s = terrains[(fmt, False)]
+        p = _tparams("horizon")
+    ctx = s.beam_context(p, TW, TH)
+    if path == "batch":
+        monkeypatch.setenv("VOXELRS_ADAPTIVE", "1")
+        s.render_batch([_tparams(c) for c in BATCH_CAMS], TW, TH)
+    else:
+        for b in (ctx, ctx.without_sun(), None):
+            s.render(p, TW, TH, beams=b, adaptive=path != "exact")
+    torch.cuda.synchronize()
+    monkeypatch.setattr(_build, "launch_kd_shadow", launch)
+    assert len(calls) == {"exact": 3, "batch": 2}.get(path, 6)
+    traced = [_kd_shadow_check(args) for args in calls]
+    assert sum(traced) > 0
+    if path != "batch":
+        # with the sun map the uncertified sub-list, then K7's floors
+        assert calls[0][8] is not None and calls[-1][10] is None
+        assert calls[-1][8] is None
+
+
+def _cells_inputs(W, H, n_poses, share, seed, dev):
+    """Random inputs of K9's shadow cells for ``n_poses`` W x H poses whose
+    pixels hit with probability ``share``: hidx, hcount, need, needp,
+    blkp, mask, dense, color, ds, img, hstart (None for one pose); needp
+    and blkp in 2 x 2 patches, so that some cells agree."""
+    g = np.random.default_rng(seed)
+    B = W * H * n_poses
+    hit = torch.tensor(g.random(B) < share)
+    starts = (None if n_poses == 1
+              else torch.zeros(n_poses, dtype=torch.int32))
+    hidx, hcount = compact.compact_indices_plain(hit, B, starts=starts)
+
+    def patches(p_one):
+        y, x = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+        cell = (y // 2) * (W // 2 + 1) + x // 2
+        v = g.random((n_poses, cell.max() + 1)) < p_one
+        return torch.tensor(v[:, cell].reshape(-1))
+
+    t = lambda a: a.to(dev)  # noqa: E731
+    return dict(
+        hidx=t(hidx), hcount=t(hcount),
+        need=t(torch.tensor(g.random(B) < 0.8)), needp=t(patches(0.8)),
+        blkp=t(patches(0.5)), mask=t(torch.ones(B, dtype=torch.bool)),
+        dense=t(torch.full((n_poses,), 7, dtype=torch.int32)),
+        color=t(torch.tensor(g.random((B, 4)), dtype=torch.float32)),
+        ds=t(torch.tensor(g.random(B), dtype=torch.float32)),
+        img=t(torch.tensor(g.random((n_poses, H, W, 4)) if n_poses > 1
+                           else g.random((H, W, 4)), dtype=torch.float32)),
+        hstart=None if starts is None else t(starts))
+
+
+def _cells_check(fp, inputs, step, count=None):
+    """K9's shadow cells (step 1 or 2) against their plain version on
+    copies of ``inputs`` (``count`` overrides the hit count), bit for bit;
+    (hits, dense flags, mask lanes set)."""
+    if count is not None:
+        inputs = dict(inputs, hcount=torch.tensor(
+            [count], dtype=torch.int32, device=inputs["hidx"].device))
+    names = ("hidx", "hcount", "need", "needp", "blkp", "mask", "dense",
+             "color", "ds", "img")
+    k = [inputs[n].clone() for n in names]
+    p = [inputs[n].clone() for n in names]
+    hs = inputs["hstart"]
+    n0 = adaptive.launches_shadow_cells
+    adaptive.k9_shadow_cells(step, fp, *k, hstart=hs)
+    adaptive.k9_shadow_cells_plain(step, fp, *p, hstart=hs)
+    torch.cuda.synchronize()
+    assert adaptive.launches_shadow_cells == n0 + 1
+    for name, a, b in zip(names, k, p):
+        assert _bits_equal(a, b), (step, name)
+    return int(k[1]), k[6].tolist(), int(k[5].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 2])
+@pytest.mark.parametrize("size,share", [((37, 21), 0.7), ((64, 48), 0.5),
+                                        ((33, 1), 0.9), ((161, 93), 0.6),
+                                        ((37, 21), 1.0), ((1001, 427), 0.05)],
+                         ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple)
+                         else str(v))
+def test_k9_shadow_cells_equal_plain(terrains, dev, step, size, share):
+    """K9's shadow cells (a resident grid; a thread's 4 lanes moved as a
+    16-byte word of indices and 4-byte words of need and mask, the mask's
+    tail as 16-byte zero words) against their plain version bit for bit,
+    both steps: odd frame widths, hit counts that are not multiples of 4
+    or 16, a count of 0, every pixel a hit (the count is the lane array's
+    size), and a frame that is not dense (the single pass)."""
+    W, H = size
+    fp = _k9_fp(terrains[("esvo", False)], _tparams("horizon"), W, H)
+    inputs = _cells_inputs(W, H, 1, share, W * 7 + step, dev)
+    n = int(inputs["hcount"])
+    assert (n == W * H) == (share == 1.0)
+    hits, dense, _set = _cells_check(fp, inputs, step)
+    if step == 1:
+        assert dense == [int(adaptive.dense_frame(n, W * H))]
+        assert dense == [0 if size == (1001, 427) else 1]
+    for count in (0, n - n % 4 - 3, n - n % 16 - 3):
+        if count >= 0:
+            _cells_check(fp, inputs, step, count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 2])
+def test_k9_shadow_cells_of_a_batch_equal_plain(terrains, dev, step):
+    """K9's shadow cells over 3 poses' hit lanes (each pose's dense flag from
+    its own hits, ``hstart``) against their plain version, bit for bit."""
+    W, H = 45, 27
+    fp = _k9_fp(terrains[("esvo", False)], _tparams("horizon"), W, H)
+    inputs = _cells_inputs(W, H, 3, 0.6, 11 + step, dev)
+    _hits, dense, _set = _cells_check(fp, inputs, step)
+    assert dense == ([1, 1, 1] if step == 1 else [7, 7, 7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hidx", "need", "mask"])
+def test_k9_shadow_cells_refuse_lanes_off_a_16_byte_word(terrains, dev, name):
+    """A hit-index, need or mask tensor viewed off a 16-byte word is
+    refused by the wrapper (the kernel moves them as 16- and 4-byte words
+    from lane 0), before a launch."""
+    W, H = 37, 21
+    fp = _k9_fp(terrains[("esvo", False)], _tparams("horizon"), W, H)
+    inputs = _cells_inputs(W, H, 1, 0.5, 3, dev)
+    t = inputs[name]
+    buf = torch.zeros(t.shape[0] + 4, dtype=t.dtype, device=dev)
+    view = buf[1:1 + t.shape[0]]
+    view.copy_(t)
+    inputs[name] = view
+    n0 = adaptive.launches_shadow_cells
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        adaptive.k9_shadow_cells(1, fp, *(inputs[n] for n in (
+            "hidx", "hcount", "need", "needp", "blkp", "mask", "dense",
+            "color", "ds", "img")))
+    assert adaptive.launches_shadow_cells == n0

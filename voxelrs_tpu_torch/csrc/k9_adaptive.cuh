@@ -28,9 +28,9 @@
 // merge compares. The JAX record holds node pointers instead of the value
 // and refetches it; here the traversal hands the value out at its hit.
 //
-// Design: one thread per lane; counts stay in device memory (K6's), and
-// every kernel reads its count and exits past it, so a frame makes no host
-// round trip. The arithmetic is the plain version's
+// Design: one thread per lane (the shadow cells: a word of four); counts
+// stay in device memory (K6's), and every kernel reads its count and exits
+// or stops its loop past it, so a frame makes no host round trip. The arithmetic is the plain version's
 // operation for operation (-fmad=false): the fill's t_int == tcmin and
 // plane equalities decide which pixels are filled, and the mantissa
 // quantization of the leaf base is done on the bits.
@@ -543,24 +543,85 @@ k9_finalize_kernel(float octree_scale, FrameParams fp,
   }
 }
 
-// One thread per compacted hit lane j < size (pixel hidx[j], j < *hcount).
-// Step 1: the pixel-space need (needp), the dense flag of each pose's hit
-// count (dense[pose]), and the pass-1 shadow candidates (mask): on a dense
-// frame those on the half grid's sample pixels, else all of them (the
-// single pass). Step 2 (after pass 1 left its verdicts in blkp): on a
-// dense frame, an interior pixel whose four cell corners agree on need and
-// verdict and need a shadow reuses the corners' verdict (a blocked one is
-// composited here, with kd_finish's colour); the rest of its candidates
-// are the pass-2 mask. A batch's hit lanes are pose-major (the pose of
-// lane hidx[j] is hidx[j] / (W * H)); pose q's hits run from hstart[q] to
-// the next pose's start (hstart null: one frame, all the hits).
+// K9's shadow cells over the compacted hit lanes j < size (pixel
+// hidx[j], j < *hcount). Step 1: the pixel-space need (needp), the dense
+// flag of each pose's hit count (dense[pose]), and the pass-1 shadow
+// candidates (mask): on a dense frame those on the half grid's sample
+// pixels, else all of them (the single pass). Step 2 (after pass 1 left
+// its verdicts in blkp): on a dense frame, an interior pixel whose four
+// cell corners agree on need and verdict and need a shadow reuses the
+// corners' verdict (a blocked one is composited here, with kd_finish's
+// colour); the rest of its candidates are the pass-2 mask. A batch's hit
+// lanes are pose-major (the pose of lane hidx[j] is hidx[j] / (W * H));
+// pose q's hits run from hstart[q] to the next pose's start (hstart null:
+// one frame, all the hits).
+//
+// What bounds it on an H100: bytes (a lane's index and need in, its mask
+// byte out, in step 1 a scattered need byte, in step 2 eight corner bytes
+// where the lane needs a shadow) and, at a frame's ~700,000 hits of
+// 2,073,600 slots, the slots past the count. So a thread takes a word of
+// K9S_LANES consecutive lanes (their indices as one 16-byte load, need and
+// mask as 4-byte words) up to the count rounded up to K9S_TAIL lanes, and
+// the mask's tail past that as 16-byte zero stores; the grid is at most
+// the blocks the card holds at once (vx_k9_shadow_cells), each looping
+// over the words and tail words up to the count on the card; a block
+// decides each pose's dense flag once (for the first K9S_POSES poses; a
+// later pose's lanes decide their own). A lane that needs no shadow reads
+// no corner. need, mask and hidx start on a 16-byte word
+// (ops/adaptive.py checks).
+constexpr int K9S_THREADS = 128;
+constexpr int K9S_LANES = 4;
+constexpr int K9S_TAIL = 16;
+constexpr int K9S_POSES = 256;
+
 __device__ __forceinline__ int k9_pose_hits(const int* __restrict__ hstart,
                                             int n_poses, int n, int q) {
   if (!hstart) return n;
   return (q + 1 < n_poses ? hstart[q + 1] : n) - hstart[q];
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__device__ __forceinline__ bool k9_pose_dense(const int* __restrict__ hstart,
+                                              int n_poses, int n, int q,
+                                              int B) {
+  return k9_dense(k9_pose_hits(hstart, n_poses, n, q), B);
+}
+
+// Hit lane j (batch lane g = pose * B + pixel, need nd) of step 1 or 2:
+// its mask byte; step 1 also stores its need at its pixel, step 2
+// composites a reused blocked verdict.
+__device__ __forceinline__ uint32_t k9_cell_lane(
+    int step, const FrameParams& fp, int g, bool nd, bool dense,
+    uint8_t* __restrict__ needp, const uint8_t* __restrict__ blkp,
+    const float4* __restrict__ color, const float* __restrict__ ds,
+    float* __restrict__ img, int j) {
+  const int W = fp.width, H = fp.height, B = W * H;
+  const int base = g / B * B, p = g - base;
+  const int y = p / W, x = p - y * W;
+  const bool sample = k9_is_sample(y, x, W, H);
+  if (step == 1) {
+    needp[g] = nd ? 1 : 0;
+    return (nd && (!dense || sample)) ? 1u : 0u;
+  }
+  if (!nd || !dense || sample) return 0u;
+  // the cell corners: half-grid lanes and their pixels, in the same pose
+  const int hc = H / 2 + 1, wc = W / 2 + 1;
+  const int cy = y >> 1, cx = x >> 1;
+  const int cy1 = min(cy + 1, hc - 1), cx1 = min(cx + 1, wc - 1);
+  const int r0 = base + min(2 * cy, H - 1) * W;
+  const int r1 = base + min(2 * cy1, H - 1) * W;
+  const int c0 = min(2 * cx, W - 1), c1 = min(2 * cx1, W - 1);
+  const int q00 = r0 + c0, q01 = r0 + c1, q10 = r1 + c0, q11 = r1 + c1;
+  const uint8_t n00 = __ldg(needp + q00), b00 = __ldg(blkp + q00);
+  const bool reuse =
+      n00 && __ldg(needp + q01) == n00 && __ldg(needp + q10) == n00 &&
+      __ldg(needp + q11) == n00 && __ldg(blkp + q01) == b00 &&
+      __ldg(blkp + q10) == b00 && __ldg(blkp + q11) == b00;
+  if (!reuse) return 1u;
+  if (b00) composite(fp, color[j], ds[j], 0.f, img + 4 * (size_t)g);
+  return 0u;
+}
+
+__global__ void __launch_bounds__(K9S_THREADS)
 k9_shadow_cells_kernel(int step, FrameParams fp, const int* __restrict__ hidx,
                        const int* __restrict__ hcount,
                        const int* __restrict__ hstart, int n_poses, int size,
@@ -570,48 +631,71 @@ k9_shadow_cells_kernel(int step, FrameParams fp, const int* __restrict__ hidx,
                        uint8_t* __restrict__ mask, int* __restrict__ dense_out,
                        const float4* __restrict__ color,
                        const float* __restrict__ ds, float* __restrict__ img) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= size) return;
-  const int W = fp.width, H = fp.height, B = W * H;
+  __shared__ uint8_t s_dense[K9S_POSES];
+  const int B = fp.width * fp.height;
   const int n = count_of(hcount, size);
-  if (step == 1 && j < n_poses)
-    dense_out[j] = k9_dense(k9_pose_hits(hstart, n_poses, n, j), B) ? 1 : 0;
-  if (j >= n) {
-    mask[j] = 0;
-    return;
-  }
-  const int g = hidx[j];  // the lane: pose * B + pixel
-  const int pose = g / B, base = pose * B, p = g - base;
-  const bool dense = k9_dense(k9_pose_hits(hstart, n_poses, n, pose), B);
-  const bool nd = need[j] != 0;
-  const int y = p / W, x = p % W;
-  const bool sample = k9_is_sample(y, x, W, H);
-  if (step == 1) {
-    needp[g] = nd ? 1 : 0;
-    mask[j] = (nd && (!dense || sample)) ? 1 : 0;
-    return;
-  }
-  if (!dense || sample) {
-    mask[j] = 0;
-    return;
-  }
-  // the cell corners: half-grid lanes and their pixels, in the same pose
-  const int hc = H / 2 + 1, wc = W / 2 + 1;
-  const int cy = y >> 1, cx = x >> 1;
-  const int cy1 = min(cy + 1, hc - 1), cx1 = min(cx + 1, wc - 1);
-  const int r0 = base + min(2 * cy, H - 1) * W;
-  const int r1 = base + min(2 * cy1, H - 1) * W;
-  const int c0 = min(2 * cx, W - 1), c1 = min(2 * cx1, W - 1);
-  const int q00 = r0 + c0, q01 = r0 + c1, q10 = r1 + c0, q11 = r1 + c1;
-  const uint8_t n00 = needp[q00], b00 = blkp[q00];
-  const bool reuse = n00 && needp[q01] == n00 && needp[q10] == n00 &&
-                     needp[q11] == n00 && blkp[q01] == b00 &&
-                     blkp[q10] == b00 && blkp[q11] == b00;
-  if (reuse) {
-    if (nd && b00) composite(fp, color[j], ds[j], 0.f, img + 4 * (size_t)g);
-    mask[j] = 0;
-  } else {
-    mask[j] = nd ? 1 : 0;
+  const int cached = min(n_poses, K9S_POSES);
+  for (int q = threadIdx.x; q < cached; q += K9S_THREADS)
+    s_dense[q] = k9_pose_dense(hstart, n_poses, n, q, B) ? 1 : 0;
+  const int stride = gridDim.x * K9S_THREADS;
+  if (step == 1)
+    for (int q = blockIdx.x * K9S_THREADS + threadIdx.x; q < n_poses;
+         q += stride)
+      dense_out[q] = k9_pose_dense(hstart, n_poses, n, q, B) ? 1 : 0;
+  __syncthreads();
+  // words of the lanes below `live` (the count rounded up to K9S_TAIL
+  // lanes), then K9S_TAIL-lane tail words of zeros up to `size`
+  const int live = (int)min(((long long)n + K9S_TAIL - 1) / K9S_TAIL *
+                                K9S_TAIL,
+                            (long long)size);
+  const int words = (live + K9S_LANES - 1) / K9S_LANES;
+  const int items = words + (size - live + K9S_TAIL - 1) / K9S_TAIL;
+  for (int i = blockIdx.x * K9S_THREADS + threadIdx.x; i < items;
+       i += stride) {
+    if (i >= words) {
+      const int t0 = live + (i - words) * K9S_TAIL;
+      if (t0 + K9S_TAIL <= size) {
+        *reinterpret_cast<uint4*>(mask + t0) = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        for (int t = t0; t < size; ++t) mask[t] = 0;
+      }
+      continue;
+    }
+    const int j0 = i * K9S_LANES;
+    const bool whole = j0 + K9S_LANES <= size;
+    int g[K9S_LANES];
+    uint32_t nw = 0u;
+    if (whole) {
+      const int4 h = *reinterpret_cast<const int4*>(hidx + j0);
+      g[0] = h.x;
+      g[1] = h.y;
+      g[2] = h.z;
+      g[3] = h.w;
+      nw = *reinterpret_cast<const uint32_t*>(need + j0);
+    } else {
+      for (int l = 0; l < K9S_LANES; ++l) {
+        g[l] = j0 + l < size ? hidx[j0 + l] : 0;
+        nw |= (j0 + l < size ? (uint32_t)need[j0 + l] : 0u) << (8 * l);
+      }
+    }
+    uint32_t mw = 0u;
+#pragma unroll
+    for (int l = 0; l < K9S_LANES; ++l) {
+      const int j = j0 + l;
+      if (j >= n) break;
+      const int pose = g[l] / B;
+      const bool dense = pose < K9S_POSES
+                             ? s_dense[pose] != 0
+                             : k9_pose_dense(hstart, n_poses, n, pose, B);
+      mw |= k9_cell_lane(step, fp, g[l], ((nw >> (8 * l)) & 0xffu) != 0u,
+                         dense, needp, blkp, color, ds, img, j)
+            << (8 * l);
+    }
+    if (whole) {
+      *reinterpret_cast<uint32_t*>(mask + j0) = mw;
+    } else {
+      for (int l = 0; j0 + l < size; ++l) mask[j0 + l] = (mw >> (8 * l)) & 1u;
+    }
   }
 }
 

@@ -45,9 +45,9 @@
 // one traversal: kd_primary (raygen, the trace from the tile floor of K7,
 // the hit record, the sky), kd_shade (one thread per compacted hit lane:
 // surface shading, the lit colour, the shadow candidate flag and origin),
-// kd_shadow (one thread per compacted candidate: the shadow trace, floored
-// by K7/K8 where the branch floors) and kd_finish (the shadowed colour of
-// the blocked candidates). Between them K6 compacts on the card, and each
+// kd_shadow (the compacted candidates, a resident grid looping up to
+// their count: the shadow trace, floored by K7/K8 where the branch floors)
+// and kd_finish (the shadowed colour of the blocked candidates). Between them K6 compacts on the card, and each
 // stage reads the count K6 left in device memory. The adaptive frame
 // (k9_adaptive.cuh) replaces kd_primary with K9's grid traces, merges and
 // finalize, and runs the shadow stages twice around K9's shadow cells; its
@@ -67,8 +67,11 @@
 //
 // What bounds them on an H100: the traversal's dependent loads and branch
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
-// in, hit records or the frame out) are a small share. Speed is later work:
-// these are the simple, exact first versions.
+// in, hit records or the frame out) are a small share. Where a launch's
+// work is a count only the card knows (K6's), a grid sized by the list's
+// capacity is mostly empty blocks: K6, K9's trace, kd_shadow and K9's
+// shadow cells launch at most the blocks the card holds at once
+// (resident_grid), each looping up to the count.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (-fmad=false keeps the
@@ -504,29 +507,56 @@ kd_shade_kernel(TexTables tx, FrameParams fp, const float* __restrict__ cams,
   composite(fp, c, ds, 1.f, img + 4 * (size_t)px);
 }
 
-// One thread per shadow ray to trace: slot m < count of the candidate
-// list (sidx, *scount) or, with tidx, of its uncertified sub-list (tidx,
-// *tcount); floors (per candidate) null = unfloored. traced[c] = the
-// candidate's ray hit something. A shadow ray needs no camera, so a batch
-// (K10) runs the candidates of all its poses in one launch unchanged.
+// Threads of a kd_shadow block (kd_shadow_launch): two warps, as K9's
+// trace, so that a block's shared stacks take 6 KB.
+constexpr int KD_SHADOW_THREADS = 64;
+
+// The shadow trace of slot m < count of the candidate list (sidx,
+// *scount) or, with tidx, of its uncertified sub-list (tidx, *tcount);
+// floors (per candidate) null = unfloored; alpha_mode 0 casts opaque rays,
+// 1 judges texel alpha (the judged frames). traced[c] = the candidate's
+// ray hit something. A shadow ray needs no camera, so a batch (K10) runs
+// the candidates of all its poses in one launch unchanged.
+//
+// Replaces the shadow trace of voxelrs_tpu/ops/shading.py's opaque
+// two-pass shadow (:3912-4037: the uncertified candidates of each pass
+// after the sun map's verdicts, or every candidate from its floor) and
+// the judged frame's shadow rays (:3384-3474, certified :3424-3449).
+//
+// What bounds it on an H100: the traversal's chain of dependent loads (a
+// launch lasts as long as its slowest warp's steps), not its bytes (an
+// index, an origin and a floor in, a byte out), and, at the counts a frame
+// leaves (~25,600 uncertified rays of 2,073,600 slots), the blocks that
+// find no work. So the grid is at most the blocks the card holds at once
+// (kd_shadow_launch), each block looping over slots up to the count K6
+// left on the card, and the trace is K9's: the stack in shared memory and
+// ESVO's child pointer loaded beside its descriptor (World::trace_shared),
+// 64-thread blocks.
 template <class World>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(KD_SHADOW_THREADS)
 kd_shadow_kernel(World world, float octree_scale, TexTables tx,
                  FrameParams fp, int alpha_mode, const float* __restrict__ sro,
                  const int* __restrict__ sidx, const int* __restrict__ scount,
                  const int* __restrict__ tidx, const int* __restrict__ tcount,
                  const float* __restrict__ floors, int size,
                  uint8_t* __restrict__ traced) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= size || m >= count_of(tidx ? tcount : scount, size)) return;
-  const int c = tidx ? tidx[m] : m;
-  const size_t j = (size_t)sidx[c];
-  Hit s;
-  world.trace(octree_scale, sro[3 * j], sro[3 * j + 1], sro[3 * j + 2],
-              -fp.light_dir[0], -fp.light_dir[1], -fp.light_dir[2], -1.f,
-              fp.shadow_budget, alpha_mode, tx, s, floors != nullptr,
-              floors ? floors[c] : 0.f);
-  traced[c] = s.t < 0.f ? 0 : 1;
+  __shared__ uint32_t s_node[STACK_HEIGHT * KD_SHADOW_THREADS];
+  __shared__ float s_tmax[STACK_HEIGHT * KD_SHADOW_THREADS];
+  const SharedStack::Source stack{s_node + threadIdx.x, s_tmax + threadIdx.x,
+                                  KD_SHADOW_THREADS};
+  const int n = count_of(tidx ? tcount : scount, size);
+  for (int m = blockIdx.x * KD_SHADOW_THREADS + threadIdx.x; m < n;
+       m += gridDim.x * KD_SHADOW_THREADS) {
+    const int c = tidx ? tidx[m] : m;
+    const size_t j = (size_t)sidx[c];
+    Hit s;
+    world.trace_shared(octree_scale, sro[3 * j], sro[3 * j + 1],
+                       sro[3 * j + 2], -fp.light_dir[0], -fp.light_dir[1],
+                       -fp.light_dir[2], -1.f, fp.shadow_budget, alpha_mode,
+                       tx, s, floors != nullptr, floors ? floors[c] : 0.f,
+                       stack);
+    traced[c] = s.t < 0.f ? 0 : 1;
+  }
 }
 
 // One thread per candidate c < *scount: a blocked one gets its shadowed
@@ -577,6 +607,30 @@ k5_picker_kernel(World world, float octree_scale,
 
 inline int grid_for(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
 
+// The blocks of `threads` threads of `kernel` that the card holds at once
+// (at least 1), asked at the first call and kept in `cache` (a launcher's
+// own static: one card a process).
+template <class Kernel>
+int resident_blocks(Kernel kernel, int threads, int& cache) {
+  if (cache == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    cache = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  return cache;
+}
+
+// A grid for `items` work items, `per_block` to a block at a time, whose
+// blocks loop over them: at most `cap` blocks, at least 1.
+inline unsigned resident_grid(long long items, int per_block, long long cap) {
+  long long blocks = (items + per_block - 1) / per_block;
+  if (blocks > cap) blocks = cap;
+  return blocks < 1 ? 1u : (unsigned)blocks;
+}
+
 }  // namespace vx
 
 #include "k9_adaptive.cuh"
@@ -602,21 +656,35 @@ static int k9_trace_launch(const World& world, float octree_scale,
       idx ? size
           : (long long)n_poses * ((wl + 7) / 8) * ((hl + 3) / 4) * 32;
   static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                  0);
-    resident = sms * per_sm > 0 ? sms * per_sm : 1;
-  }
-  long long blocks = (items + threads - 1) / threads;
-  const long long cap = (long long)resident * (n_poses > 0 ? n_poses : 1);
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = vx::resident_grid(
+      items, threads,
+      (long long)vx::resident_blocks(kernel, threads, resident) *
+          (n_poses > 0 ? n_poses : 1));
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       world, octree_scale, *fp, cams, tf, ntx, level, idx, count, (int)items,
       (vx::K9Rec*)out);
+  return (int)cudaGetLastError();
+}
+
+// The shadow stage's launch (kd_shadow_kernel): a grid of at most the
+// blocks the card holds at once, each looping over the slots up to the
+// count on the card, so a launch schedules few blocks past that count,
+// which only the card knows; `size` (the list's capacity) caps it.
+template <class World>
+static int kd_shadow_launch(const World& world, float octree_scale,
+                            const vx::TexTables* tex, const vx::FrameParams* fp,
+                            int alpha_mode, const float* sro, const int* sidx,
+                            const int* scount, const int* tidx,
+                            const int* tcount, const float* floors, int size,
+                            uint8_t* traced, void* stream) {
+  const auto kernel = vx::kd_shadow_kernel<World>;
+  constexpr int threads = vx::KD_SHADOW_THREADS;
+  static int resident = 0;
+  kernel<<<vx::resident_grid(size, threads,
+                             vx::resident_blocks(kernel, threads, resident)),
+           threads, 0, (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, alpha_mode, sro, sidx, scount, tidx,
+      tcount, floors, size, traced);
   return (int)cudaGetLastError();
 }
 
@@ -716,20 +784,15 @@ int vx_k6_compact(const uint8_t* mask, int n, int size, int* out, int* count,
                   int* scratch, unsigned epoch, int seg, int* starts,
                   void* stream) {
   static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, vx::k6_compact_kernel, vx::K6_THREADS, 0);
-    resident = sms * per_sm > 0 ? sms * per_sm : 1;
-  }
   const int off = n > 0 ? (int)(reinterpret_cast<uintptr_t>(mask) & 15) : 0;
   const long long lanes = (long long)n + off;
   const int ntiles =
       lanes > 0 ? (int)((lanes + vx::K6_TILE - 1) / vx::K6_TILE) : 1;
-  const int grid = ntiles < resident ? ntiles : resident;
-  vx::k6_compact_kernel<<<grid, vx::K6_THREADS, 0, (cudaStream_t)stream>>>(
+  vx::k6_compact_kernel<<<vx::resident_grid(ntiles, 1,
+                                            vx::resident_blocks(
+                                                vx::k6_compact_kernel,
+                                                vx::K6_THREADS, resident)),
+                          vx::K6_THREADS, 0, (cudaStream_t)stream>>>(
       mask, n, off, ntiles, size, out, count, scratch, epoch, seg, starts);
   return (int)cudaGetLastError();
 }
@@ -813,11 +876,9 @@ int vx_kd_shadow(const uint32_t* desc, long long n_words, float octree_scale,
                  const float* floors, int size, uint8_t* traced,
                  void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
-  vx::kd_shadow_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, alpha_mode, sro, sidx, scount, tidx,
-      tcount, floors, size, traced);
-  return (int)cudaGetLastError();
+  return kd_shadow_launch(world, octree_scale, tex, fp, alpha_mode, sro,
+                          sidx, scount, tidx, tcount, floors, size, traced,
+                          stream);
 }
 
 int vx_kd_shadow_csvo(const uint32_t* words, long long n_words,
@@ -829,11 +890,9 @@ int vx_kd_shadow_csvo(const uint32_t* words, long long n_words,
                       void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
-  vx::kd_shadow_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, alpha_mode, sro, sidx, scount, tidx,
-      tcount, floors, size, traced);
-  return (int)cudaGetLastError();
+  return kd_shadow_launch(world, octree_scale, tex, fp, alpha_mode, sro,
+                          sidx, scount, tidx, tcount, floors, size, traced,
+                          stream);
 }
 
 int vx_kd_finish(const vx::FrameParams* fp, const int* hidx, const int* sidx,
@@ -911,15 +970,23 @@ int vx_k9_finalize(float octree_scale, const vx::FrameParams* fp,
 }
 
 // hstart: null (one frame) or the n_poses first hit lanes of each pose in
-// hidx (K6's segment starts).
+// hidx (K6's segment starts); hidx, need and mask start on a 16-byte word.
+// A grid of at most the blocks the card holds at once, capped by the
+// words of `size` lanes (every lane a hit), each block looping over the
+// words and tail words up to the count on the card.
 int vx_k9_shadow_cells(int step, const vx::FrameParams* fp, const int* hidx,
                        const int* hcount, const int* hstart, int n_poses,
                        int size, const uint8_t* need, uint8_t* needp,
                        const uint8_t* blkp, uint8_t* mask, int* dense,
                        const float* color, const float* ds, float* img,
                        void* stream) {
-  vx::k9_shadow_cells_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                               (cudaStream_t)stream>>>(
+  static int resident = 0;
+  vx::k9_shadow_cells_kernel<<<
+      vx::resident_grid(((long long)size + vx::K9S_LANES - 1) / vx::K9S_LANES,
+                        vx::K9S_THREADS,
+                        vx::resident_blocks(vx::k9_shadow_cells_kernel,
+                                            vx::K9S_THREADS, resident)),
+      vx::K9S_THREADS, 0, (cudaStream_t)stream>>>(
       step, *fp, hidx, hcount, hstart, n_poses, size, need, needp, blkp, mask,
       dense, (const float4*)color, ds, img);
   return (int)cudaGetLastError();

@@ -576,6 +576,18 @@ def _check_rec(name, t, n=None):
     _check_aligned(name, t)
 
 
+def _check_lanes(name, t, n, dtype):
+    """Refuse what K9's shadow cells cannot take as a lane array: they move
+    a thread's hit indices as one 16-byte word and its need and mask bytes
+    as 4-byte words from a 16-byte word at lane 0, which fault on the card
+    or miss lanes at an address that is not a multiple of 16."""
+    if t.dtype != dtype or t.dim() != 1 or t.shape[0] != n \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous ({n},) {dtype} "
+                         "tensor")
+    _check_aligned(name, t)
+
+
 def _check_aligned(name, t):
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: expected a 16-byte aligned tensor (a view "
@@ -689,10 +701,12 @@ def k9_shadow_cells(step: int, fp: _build.FrameParams, hidx, hcount, need,
         raise ValueError("hstart: expected (N,) int32 on the hits' device "
                          "and N dense flags")
     B = fp.width * fp.height * N
-    for name, t in (("need", need), ("needp", needp), ("blkp", blkp),
-                    ("mask", mask)):
+    for name, t in (("needp", needp), ("blkp", blkp)):
         if t.dtype != torch.bool or t.shape[0] != B:
             raise ValueError(f"{name}: expected ({B},) bool")
+    _check_lanes("hidx", hidx, hidx.shape[0], i32)
+    for name, t in (("need", need), ("mask", mask)):
+        _check_lanes(name, t, B, torch.bool)
     _build.launch_k9_shadow_cells(step, fp, hidx, hcount, need, needp, blkp,
                                   mask, dense, color, ds, img, hstart)
     launches_shadow_cells += 1

@@ -882,6 +882,36 @@ def shadow_pass(world, scale, tables, params, alpha_mode, beams, light_dir,
     launches_finish += 1
 
 
+def kd_shadow_plain(world, octree_scale, tables, params, alpha_mode, sro,
+                    sidx, scount, tidx, tcount, floors, traced):
+    """``_build.launch_kd_shadow``'s function, on its arguments: for each
+    slot m < count of the candidate list (``sidx``, ``scount``) or, with
+    ``tidx``, of its uncertified sub-list (``tidx``, ``tcount``), the
+    shadow ray of candidate c (``tidx[m]``, else m) from ``sro[sidx[c]]``
+    toward the light of ``params``, from ``floors[c]`` where given, with
+    the frame's shadow budget, judged by ``tables.alpha_fn`` unless
+    ``alpha_mode`` is 0; ``traced[c]`` = it hit. The other entries of
+    ``traced`` keep their values."""
+    if alpha_mode not in (0, 1):
+        raise ValueError(f"kd_shadow_plain: alpha mode {alpha_mode}")
+    n = min(int((scount if tidx is None else tcount).reshape(-1)[0]),
+            sidx.shape[0])
+    if n <= 0:
+        return traced
+    dev = sro.device
+    c = (torch.arange(n, device=dev) if tidx is None
+         else tidx[:n].to(torch.int64))
+    ro = sro[sidx[c].to(torch.int64)]
+    rd = (-torch.tensor(list(params.light_dir), dtype=torch.float32,
+                        device=dev)).expand(n, 3).contiguous()
+    res = trace_plain(world, octree_scale, ro, rd, -1.0, alpha_mode != 0,
+                      None if alpha_mode == 0 else tables.alpha_fn,
+                      params.shadow_budget,
+                      None if floors is None else floors[c])
+    traced[c] = (~(res.t < 0)).to(traced.dtype)
+    return traced
+
+
 # ---------------------------------------------------------------------------
 # K10: a batch of poses (the JAX package's render_frames_opaque_batch)
 # ---------------------------------------------------------------------------
