@@ -99,12 +99,23 @@ adaptive frame; each is timed alone on pose 0's own inputs and at a
 count of 0, ``kd_shadow`` also on the adaptive frame's two passes with
 the sun map and under ``VOXELRS_SUN=0`` (K7's floors, the games' branch)
 with its traced slots' steps, slowest warp and SIMD efficiency, and the
-card operations of one call of each are counted. With ``--parent DIR``
+card operations of one call of each are counted. The finishing stage
+(``kd_finish``) and K7's shadow floors are held to their plain versions
+(``ops.shading.kd_finish_plain``, ``ops.beams.k7_shadow_plain``) on every
+call of the same frames (the deferred phases' three variants, K7's floors
+where no sun map is attached, and each game's final frames rendered once
+more without the sun map); each is timed alone and at a count of 0 on
+pose 0's exact frame, on the adaptive frame's passes with the sun map and
+under ``VOXELRS_SUN=0`` and (``kd_finish``) on the batch's launches; the
+profiler counts the kernels and reads the grid of one call of each, which
+must not exceed the blocks the card holds at once; K5's fixed cost is
+timed on one task outside the world. With ``--parent DIR``
 (the parent commit's ``voxelrs_tpu_torch``, e.g. from ``git archive``,
 unpacked in DIR) the parent's kernels build in a second ``nvcc`` beside
 this tree's, its K6 and K9 trace, merge and finalize are timed on the
 same inputs (each K9 launch held to the plain outputs), so are its
-shadow stage and shadow cells, and its renderer's frames (adaptive,
+shadow stage, shadow cells, finishing stage and K7 shadow floors, and its
+renderer's frames (adaptive,
 exact and fused in both formats, the ESVO batch) are timed in turns with
 this tree's and compared with them.
 Every phase prints its seconds.
@@ -128,9 +139,10 @@ than 1e-3); K9-judged's kernels against their plain versions — equal (the
 finalize's sky within 1e-6), its traces against K1 / K4 judged — every
 field equal; the judged adaptive frame against its plain version — max
 |d| <= 1e-6, against the exact judged frame — the same thick-ray budget;
-``kd_shadow`` and K9's shadow cells against their plain versions on
-every held call — bit for bit (``kd_shadow``'s hits also equal K1's / K4's
-on the same rays); each pose of a batch against its own frame — max |d|
+``kd_shadow``, ``kd_finish``, K7's shadow floors and K9's shadow cells
+against their plain versions on every held call — bit for bit
+(``kd_shadow``'s hits also equal K1's / K4's on the same rays); each
+pose of a batch against its own frame — max |d|
 0, the exact batch
 against K3's — max |d| <= 1e-6; the batched K9 kernels and K6 against
 their plain versions — equal (the finalize's sky within 1e-6), the
@@ -446,40 +458,66 @@ def k6_calls(calls, dev) -> list:
 
 
 # the arguments a held launch writes (by position: of K9's wrappers, and
-# of _build.launch_kd_shadow), for parent_launch and held_calls; the
-# finalize's image (position 5) is the sky, within K3_MAX_ABS
+# of _build.launch_kd_shadow, launch_kd_finish (the image, the pixel
+# verdicts or None) and launch_k7_shadow), for parent_launch and
+# held_calls; the finalize's image (position 5) is the sky, within
+# K3_MAX_ABS
+# the shadow pass's held launches: the shadow stage, the finishing stage
+# and K7's shadow floors (where no sun map is attached)
+SHADOW_HELD = ("kd_shadow", "kd_finish", "k7_shadow")
 LAUNCH_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5),
                "k9_finalize": (3, 4, 5, 6, 7),
-               "k9_shadow_cells": (5, 7, 8, 11), "kd_shadow": (11,)}
+               "k9_shadow_cells": (5, 7, 8, 11), "kd_shadow": (11,),
+               "kd_finish": (9, 10), "k7_shadow": (8,)}
+# the launches spied in _build (the others are K9's wrappers in
+# ops.adaptive), the position of each one's count, and its plain version
+RAW_LAUNCHES = {"kd_shadow": 7, "kd_finish": 3, "k7_shadow": 7}
+
+
+def copy_outs(name, args) -> list:
+    """``args`` of launch ``name`` with copies of the tensors it writes."""
+    return [x.clone() if i in LAUNCH_OUTS[name] and x is not None else x
+            for i, x in enumerate(args)]
+
+
+def outs_of(name, args) -> list:
+    """The tensors launch ``name`` writes, of its arguments ``args``."""
+    return [args[i] if i < len(args) else None for i in LAUNCH_OUTS[name]]
 
 
 def launch_outputs_equal(name, outs, ref) -> tuple:
-    """(equal, max |d|) of a launch's outputs against the plain version's:
-    bit for bit, K9's finalize's image within K3_MAX_ABS."""
-    errs = [max_abs(a, b) for a, b in zip(outs, ref)]
+    """(equal, max |d|) of a launch's outputs against the plain version's
+    (outputs that are None on both sides skipped): bit for bit, K9's
+    finalize's image within K3_MAX_ABS."""
+    pairs = [(a, b) for a, b in zip(outs, ref)
+             if a is not None or b is not None]
+    errs = [max_abs(a, b) for a, b in pairs]
     eq = all(bits_equal(a, b) or (name == "k9_finalize"
                                   and a.dtype.is_floating_point
                                   and e <= K3_MAX_ABS)
-             for a, b, e in zip(outs, ref, errs))
+             for (a, b), e in zip(pairs, errs))
     return eq, max(errs)
 
 
 def spied(name):
     """(module, attribute) of the function a held launch is spied on: K9's
-    wrappers, the shadow stage's launch function."""
+    wrappers, the launch functions of the shadow stage, the finishing
+    stage and K7's shadow floors."""
     from voxelrs_tpu_torch import _build
     from voxelrs_tpu_torch.ops import adaptive
 
-    return (_build, "launch_kd_shadow") if name == "kd_shadow" \
+    return (_build, f"launch_{name}") if name in RAW_LAUNCHES \
         else (adaptive, name)
 
 
 def plain_of(name):
     """The plain version of a held launch."""
-    from voxelrs_tpu_torch.ops import adaptive, shading
+    from voxelrs_tpu_torch.ops import adaptive, beams, shading
 
-    return (shading.kd_shadow_plain if name == "kd_shadow"
-            else getattr(adaptive, f"{name}_plain"))
+    return {"kd_shadow": shading.kd_shadow_plain,
+            "kd_finish": shading.kd_finish_plain,
+            "k7_shadow": beams.k7_shadow_plain}.get(name) \
+        or getattr(adaptive, f"{name}_plain")
 
 
 class Held:
@@ -514,14 +552,29 @@ def held_calls(spy, name) -> dict:
     eq, err = True, 0.0
     for (args, kw), outs in zip(spy.calls, spy.outs):
         plain(*args, **kw)  # into the spy's own copies
-        e, d = launch_outputs_equal(name, outs,
-                                [args[i] for i in spy.out_pos])
+        e, d = launch_outputs_equal(name, outs, outs_of(name, args))
         eq, err = eq and e, max(err, d)
     return dict(calls=len(spy.calls), equal=eq, err=err)
 
 
-def held_ok(held) -> bool:
-    return all(h["equal"] and h["calls"] for h in held.values())
+def held_ok(held, branch=("k7_shadow",)) -> bool:
+    """Every held launch equal to its plain version, and launched at least
+    once but those of ``branch`` (K7's shadow floors run only where no sun
+    map is attached)."""
+    return all(h["equal"] and (h["calls"] or n in branch)
+               for n, h in held.items())
+
+
+def held_merge(*helds) -> dict:
+    """Held results of several runs, summed a launch."""
+    out = {}
+    for h in helds:
+        for n, r in h.items():
+            o = out.setdefault(n, dict(calls=0, equal=True, err=0.0))
+            o.update(calls=o["calls"] + r["calls"],
+                     equal=o["equal"] and r["equal"],
+                     err=max(o["err"], r["err"]))
+    return out
 
 
 def parent_launch(name, args, kw, ref, count_pos=None):
@@ -535,10 +588,9 @@ def parent_launch(name, args, kw, ref, count_pos=None):
     import torch
 
     launch = getattr(PARENT, f"launch_{name}")
-    a = [x.clone() if i in LAUNCH_OUTS[name] else x
-         for i, x in enumerate(args)]
+    a = copy_outs(name, args)
     launch(*a, **kw)
-    eq, err = launch_outputs_equal(name, [a[i] for i in LAUNCH_OUTS[name]], ref)
+    eq, err = launch_outputs_equal(name, outs_of(name, a), ref)
     torch.cuda.synchronize()
     r = dict(equal=eq, err=err, ms=kernel_ms(lambda: launch(*a, **kw)))
     if count_pos is not None:
@@ -555,6 +607,69 @@ def zero_count(args, pos):
     a = list(args)
     a[pos] = torch.zeros_like(args[pos])
     return a
+
+
+def launch_call(name, args, kw) -> dict:
+    """One spied launch of the finishing stage or of K7's shadow floors
+    (``name`` kd_finish / k7_shadow: its ``_build`` launch function's
+    arguments): the kernel on copies of the arguments it writes against
+    the plain version on copies (bit for bit), the launch alone and at
+    count 0 (where it has a count), the plain version's time and, with
+    --parent, the parent's kernel held to the same plain outputs; its
+    candidates or rays and the bound. kd_finish's bound counts each
+    candidate's index and flags, and each candidate whose pixel it
+    touches (blocked, or every one with the pixel verdicts) its hit
+    lane's pixel index, colour and light and its pixel written (or its
+    verdict byte); K7's the pyramids, each ray's index, origin and limit,
+    every lane written, and the march's operations (its steps from the
+    plain version)."""
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import beams
+
+    launch = getattr(_build, f"launch_{name}")
+    pos = RAW_LAUNCHES[name]
+    ka = copy_outs(name, args)
+    launch(*ka, **kw)
+    pa = copy_outs(name, args)
+    plain_ms = event_ms(lambda: plain_of(name)(*pa, **kw))
+    ref = outs_of(name, pa)
+    eq, err = launch_outputs_equal(name, outs_of(name, ka), ref)
+    ta = copy_outs(name, args)
+    r = dict(equal=eq, err=err, plain_ms=plain_ms,
+             ms=kernel_ms(lambda: launch(*ta, **kw)))
+    counted = args[pos] is not None
+    if counted:
+        idle = zero_count(ta, pos)
+        r["ms_count0"] = kernel_ms(lambda: launch(*idle, **kw))
+    r["parent"] = parent_launch(name, args, kw, ref,
+                                pos if counted else None)
+    if r["parent"] is not None:
+        r["equal"] = r["equal"] and r["parent"]["equal"]
+    if name == "kd_finish":
+        (_fp, _hidx, sidx, scount, _c, _ds, blk, todo, traced, _img,
+         blkp) = list(args) + [None] * (11 - len(args))
+        n = min(int(scount), sidx.shape[0])
+        hit = traced[:n].bool()
+        blocked = hit if blk is None else blk[:n].bool() | (
+            todo[:n].bool() & hit)
+        nb = int(blocked.sum())
+        touched = n if blkp is not None else nb
+        r.update(candidates=n, blocked=nb, bound=bound(
+            n * (4 + (1 if blk is None else 3)) + touched * 4
+            + nb * (16 + 4 + 16) + (n if blkp is not None else 0),
+            n * 4 + nb * 8))
+    else:
+        levels_e, h3d0, _b, _p, _ro, md, idx, count, out = args
+        k = out.shape[0]
+        n = k if count is None else max(0, min(int(count), k))
+        r.update(rays=n, lanes=k, march_steps=beams.last_march_steps,
+                 bound=bound(levels_e.numel() * 4 + h3d0.numel() * 4 + 16
+                             + n * ((4 if idx is not None else 0) + 12
+                                    + (4 if md is not None else 0))
+                             + k * 4,
+                             n * OPS_SHADOW_SETUP
+                             + beams.last_march_steps * OPS_MARCH_STEP))
+    return r
 
 
 def kd_shadow_call(svo, args) -> dict:
@@ -613,26 +728,35 @@ def kd_shadow_call(svo, args) -> dict:
                     st["lane_sum"] * OPS_PER_STEP))
 
 
-def kd_shadow_passes(svo, p) -> dict:
-    """The shadow-stage launches of pose ``p``'s adaptive frame (its two
-    passes on a dense frame) with the sun map, the renderer's branch
-    (certificates, the uncertified sub-list traced unfloored), and under
-    VOXELRS_SUN=0, the games' branch (every candidate traced from K7's
-    shadow floors): ``kd_shadow_call`` of each; the first call's
-    arguments with the sun map, for the profiler count."""
+def shadow_passes(svo, p) -> dict:
+    """The shadow passes of pose ``p``'s adaptive frame (two on a dense
+    frame) with the sun map, the renderer's branch (certificates, the
+    uncertified sub-list traced unfloored), and under VOXELRS_SUN=0, the
+    games' branch (every candidate traced from K7's shadow floors): each
+    shadow-stage launch (``kd_shadow_call``), each finishing-stage and K7
+    shadow launch (``launch_call``), by branch; and under "args" a call of
+    each (kd_shadow and kd_finish with the sun map, K7 without) for the
+    profiler count."""
     import torch
 
     from voxelrs_tpu_torch import _build
 
-    out = {}
+    out = {n: {} for n in SHADOW_HELD}
+    out["args"] = {}
     for branch, sun in (("sun_map", True), ("no_sun_map", False)):
         old = os.environ.get("VOXELRS_SUN")
         if not sun:
             os.environ["VOXELRS_SUN"] = "0"
         try:
             ctx = svo.beam_context(p, W, H)
-            with Spy(_build, "launch_kd_shadow") as sp:
+            spies = {n: Spy(_build, f"launch_{n}") for n in SHADOW_HELD}
+            for sp in spies.values():
+                sp.__enter__()
+            try:
                 svo.render(p, W, H, beams=ctx)
+            finally:
+                for sp in spies.values():
+                    sp.__exit__()
         finally:
             if old is None:
                 os.environ.pop("VOXELRS_SUN", None)
@@ -641,9 +765,13 @@ def kd_shadow_passes(svo, p) -> dict:
         torch.cuda.synchronize()
         if ctx.has_sun() != sun or not svo.last_frame.get("adaptive"):
             fail(f"the adaptive frame's {branch} branch did not run")
-        out[branch] = [kd_shadow_call(svo, args) for args, _kw in sp.calls]
-        if sun:
-            out["args"] = sp.calls[0]
+        out["kd_shadow"][branch] = [kd_shadow_call(svo, a)
+                                    for a, _kw in spies["kd_shadow"].calls]
+        for n in ("kd_finish", "k7_shadow"):
+            out[n][branch] = [launch_call(n, a, kw)
+                              for a, kw in spies[n].calls]
+        for n in (("kd_shadow", "kd_finish") if sun else ("k7_shadow",)):
+            out["args"][n] = spies[n].calls[0]
     return out
 
 
@@ -666,21 +794,42 @@ def k6_fixed_ms(dev) -> dict:
     return out
 
 
-def device_ops(fn) -> list | None:
+def device_ops(fn, grids=None, traces: int = 3) -> list | None:
     """The names of the operations the card ran for one call of ``fn``
     (kernels, copies, memsets), from a ``torch.profiler`` trace of the
-    call; None where the trace holds no device activity."""
+    call: the first of up to ``traces`` traces (one call each) that holds
+    device activity (a trace has come back without any), else None.
+    ``grids`` None, or a list that receives each kernel's grid and block
+    sizes ([x, y, z] each) from that trace's chrome export (nothing where
+    it has none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        for _ in range(traces):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        if grids is not None and names:
+            from voxelrs_tpu_torch import _build
+
+            # beside the built kernels, a directory .gitignore lists
+            path = os.path.join(_build._HERE, "_build", "launch_trace.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+            os.remove(path)
+            grids += [dict(grid=e["args"]["grid"], block=e["args"]["block"])
+                      for e in trace.get("traceEvents", [])
+                      if e.get("cat") == "kernel"
+                      and "grid" in e.get("args", {})]
     except Exception as exc:  # reported as not measured
         log(f"torch.profiler: {type(exc).__name__}: {exc}")
         return None
@@ -731,22 +880,25 @@ def launch_ops_phase(calls) -> dict:
     libs = [("", _build)] + ([] if PARENT is None else [("parent_", PARENT)])
     out = {}
     for name, (args, kw) in calls.items():
-        a = [x.clone() if i in LAUNCH_OUTS[name] else x
-             for i, x in enumerate(args)]
+        a = copy_outs(name, args)
         r = out[name] = {}
         for key, lib in libs:
             launch = getattr(lib, f"launch_{name}")
             launch(*a, **kw)  # warm-up
-            ops = device_ops(lambda: launch(*a, **kw))
+            grids = []
+            ops = device_ops(lambda: launch(*a, **kw), grids)
             r[key + "ops"] = ops
             r[key + "launches"] = None if ops is None else len(ops)
+            r[key + "grids"] = grids or None
     return out
 
 
 def sass_widths(names=("k9_trace", "k9_merge", "k9_finalize",
-                       "k9_shadow_cells", "kd_shadow")) -> dict:
-    """The global and shared loads and stores of the K9 kernels and the
-    shadow stage in the built library's SASS (``cuobjdump -sass``), counted
+                       "k9_shadow_cells", "kd_shadow", "kd_finish",
+                       "k7_shadow")) -> dict:
+    """The global and shared loads and stores of the K9 kernels, the
+    shadow and finishing stages and K7's shadow floors in the built
+    library's SASS (``cuobjdump -sass``), counted
     by width (.128 = 16-byte words, .64, and 32 bits and less): per kernel,
     instruction counts in the code, not executions. None where the toolkit
     has no cuobjdump."""
@@ -1315,11 +1467,13 @@ def check_game(game, recorder, card):
         f"{waited} more frames ({out['sun_wait_s']:.1f} s); builds "
         f"{out['sun_build_s']} s on its thread; table {out['sun_shape']}, "
         f"{out['sun_mb']:.1f} MB on the card")
+    held = Held(("k9_shadow_cells",) + SHADOW_HELD)
     with Phase(f"deferred vs k3 and vs plain (streamed world, {fmt})"):
         p = world.world_svo.svo_params(world.render_params(W / H))
         fused = gsvo.render(p, W, H, mode="fused")
         ctx = gsvo.beam_context(p, W, H)
-        deferred = gsvo.render(p, W, H, beams=ctx, adaptive=False)
+        with held:
+            deferred = gsvo.render(p, W, H, beams=ctx, adaptive=False)
         info = dict(gsvo.last_frame)
         d = max_abs(deferred, fused)
         dp = max_abs(deferred, plain_deferred(gsvo, p, ctx))
@@ -1332,9 +1486,11 @@ def check_game(game, recorder, card):
 
     with Phase(f"adaptive vs plain, three paths timed (streamed world, "
                f"{fmt})"):
-        with Held(("k9_shadow_cells", "kd_shadow")) as held:
+        with held:
             adaptive_img = gsvo.render(p, W, H, beams=ctx)
-        info = dict(gsvo.last_frame)
+            info = dict(gsvo.last_frame)
+            # the games' branch while no sun map is attached: K7's floors
+            gsvo.render(p, W, H, beams=ctx.without_sun())
         da = max_abs(adaptive_img, plain_adaptive(gsvo, p, ctx))
         out["held"] = held.check()
         paths = {}
@@ -1345,12 +1501,14 @@ def check_game(game, recorder, card):
                                                        **kw))
     out["adaptive_game_err"], out["paths_ms"] = da, paths
     out["adaptive_game_ok"] = da <= K3_MAX_ABS and bool(info.get("adaptive"))
-    log(f"k9 shadow cells and kd_shadow vs their plain versions on every "
-        f"call of the final adaptive frame ({fmt}; bit for bit): "
-        f"{json.dumps(out['held'])}")
-    if not held_ok(out["held"]):
-        fail(f"K9's shadow cells or kd_shadow disagrees with its plain "
-             f"version in the {fmt} game's final adaptive frame")
+    log(f"k9 shadow cells, kd_shadow, kd_finish and k7_shadow vs their "
+        f"plain versions on every call of the final exact frame and the "
+        f"final adaptive frame, with the sun map and without ({fmt}; bit "
+        f"for bit): {json.dumps(out['held'])}")
+    if not held_ok(out["held"], branch=()):
+        fail(f"K9's shadow cells, kd_shadow, kd_finish or K7's shadow floors "
+             f"disagree with their plain versions in the {fmt} game's final "
+             "frames")
     log(f"adaptive vs its plain version on the streamed {fmt} buffer (final "
         f"pose, {json.dumps(info)}): max |d| {da:.3g} (tolerance "
         f"{K3_MAX_ABS:g}); ok {out['adaptive_game_ok']}; one frame each, "
@@ -1370,6 +1528,16 @@ def check_game(game, recorder, card):
         k5_steps = int(steps.sum())
         k5_ms = kernel_ms(lambda: _build.launch_k5(desc, scale, tasks,
                                                    budget, rows))
+        # the launch's fixed cost: one task that starts outside the world
+        # and leaves it
+        one = torch.tensor([[1.0, -1e4, -1e4, -1e4, -1.0, 0.0, 0.0]],
+                           device=dev)
+        one_rows = torch.empty((1, 8), dtype=torch.float32, device=dev)
+        one_steps = torch.empty(1, dtype=torch.int32, device=dev)
+        _build.launch_k5(desc, scale, one, budget, one_rows, one_steps)
+        k5_fixed_steps = int(one_steps)
+        k5_fixed_ms = kernel_ms(lambda: _build.launch_k5(desc, scale, one,
+                                                         budget, one_rows))
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1400,9 +1568,12 @@ def check_game(game, recorder, card):
     k5_bound = bound(k5_bytes, k5_steps * OPS_PER_STEP)
     out.update(k5_ms=k5_ms, k5_plain_ms=k5_plain_ms, k5_host_us=k5_host,
                k5_round_trip_us=round_trip_us, k5_bound=k5_bound,
-               k5_steps=k5_steps, k5_n=n)
+               k5_steps=k5_steps, k5_n=n, k5_fixed_ms=k5_fixed_ms,
+               k5_fixed_steps=k5_fixed_steps)
     log(f"k5 alone ({fmt}; {n} tasks, {k5_steps} steps, {KERNEL_REPS} back-to-back "
-        f"launches): {k5_ms:.4f} ms; plain {k5_plain_ms:.1f} ms; wrapper "
+        f"launches): {k5_ms:.4f} ms; its fixed cost (one task outside the "
+        f"world, {k5_fixed_steps} steps) {k5_fixed_ms:.4f} ms; plain "
+        f"{k5_plain_ms:.1f} ms; wrapper "
         f"host time {k5_host:.1f} us; Svo.raycast round trip (upload, "
         f"launch, copy back) {round_trip_us:.1f} us; bound "
         f"{k5_bound[0]:.3g} ms ({k5_bound[1]}) on {card}")
@@ -1465,15 +1636,17 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
-    if PARENT is not None:  # the parent's shadow stage and shadow cells
+    if PARENT is not None:  # the parent's shadow-pass kernels
         plog = PARENT.build_log.splitlines()
         for i, line in enumerate(plog):
-            if "Compiling entry" in line and ("kd_shadow" in line
-                                              or "k9_shadow_cells" in line):
+            if "Compiling entry" in line and any(
+                    k in line for k in ("kd_shadow", "k9_shadow_cells",
+                                        "kd_finish", "k7_shadow")):
                 for pl in plog[i:i + 4]:  # to its "Used N registers"
                     log(f"  the parent's ptxas: {pl.strip()}")
     sass = sass_widths()
-    log(f"K9's and kd_shadow's loads and stores in the SASS by width "
+    log(f"K9's, kd_shadow's, kd_finish's and k7_shadow's loads and stores "
+        f"in the SASS by width "
         f"(cuobjdump -sass; instructions in the code): {json.dumps(sass)}")
     log(f"native serializers: loaded {libs}; g++ {' '.join(native.GXX_FLAGS)}"
         f", seconds {native.build_seconds}")
@@ -1574,16 +1747,25 @@ def main() -> int:
                f"{r['parent_launches']} {r['parent_ops']}"))
         if r["launches"] is not None and r["launches"] > 2:
             fail(f"K6 ran {r['launches']} card operations a call (at most 2)")
-    with Phase("k9 and kd_shadow launches"):
+    with Phase("k9, kd_shadow, kd_finish and k7_shadow launches"):
         k9l = launch_ops_phase(ae.pop("launch_args"))
         ac.pop("launch_args")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, r in k9l.items():
         log(f"{name} card operations a call (pose 0, esvo; torch.profiler): "
-            f"{r['launches']} {r['ops']}"
+            f"{r['launches']} {r['ops']}, grids {json.dumps(r['grids'])}"
             + ("" if PARENT is None else f"; the parent's "
-               f"{r['parent_launches']} {r['parent_ops']}"))
+               f"{r['parent_launches']} {r['parent_ops']}, grids "
+               f"{json.dumps(r['parent_grids'])}"))
         if r["launches"] is not None and r["launches"] > 1:
             fail(f"{name} ran {r['launches']} card operations a call")
+        # a resident grid: at most the blocks the card's SMs hold at once
+        # by their 2,048 threads each (occupancy may hold fewer)
+        for g in (r["grids"] or []) if name in RAW_LAUNCHES else []:
+            cap = sms * (2048 // (g["block"][0] * g["block"][1]))
+            if g["grid"][0] * g["grid"][1] > cap:
+                fail(f"{name} launched {g['grid']} blocks of {g['block']}, "
+                     f"more than the card holds at once ({cap})")
 
     # ---- bounds: the least time the card could take for the same work -----
     B = W * H
@@ -1602,6 +1784,26 @@ def main() -> int:
         log(f"{name}: traversal steps {r['trav_steps']} "
             f"({r['trav_steps'] / B:.1f}/ray), k3 steps {r['k3_steps']} "
             f"({r['k3_steps'] / B:.1f}/pixel, primary + shadow)")
+    held_runs = [d["held"] for d in (de, dc, ae, ac, je, jc, be, ce, cc)]
+
+    def held_sum(name):
+        hs = [h[name] for h in held_runs if name in h]
+        return dict(calls=sum(h["calls"] for h in hs),
+                    equal=all(h["equal"] for h in hs),
+                    err=max(h["err"] for h in hs))
+
+    def call_row(c):  # a launch_call / kd_shadow_call row, its bound in ms
+        return {**{k: v for k, v in c.items() if k != "bound"},
+                "bound_ms": c["bound"][0]}
+
+    finish_held, k7_held = held_sum("kd_finish"), held_sum("k7_shadow")
+    log(f"kd_finish and k7_shadow held to their plain versions on every "
+        f"call of the deferred, adaptive and judged frames, the batch and "
+        f"the games' final frames: {json.dumps(finish_held)}; "
+        f"{json.dumps(k7_held)}")
+    if not (finish_held["calls"] and k7_held["calls"]
+            and finish_held["equal"] and k7_held["equal"]):
+        fail("kd_finish or K7's shadow floors was not held on every path")
     kernels = [
         dict(name="k1_traversal", route="cuda",
              source="voxelrs_tpu_torch/csrc/k1_traversal.cuh",
@@ -1654,6 +1856,9 @@ def main() -> int:
              launches_per_frame=ge["k5_per_frame"],
              wrapper_host_us=ce["k5_host_us"],
              svo_raycast_round_trip_us=ce["k5_round_trip_us"],
+             fixed_ms=ce["k5_fixed_ms"], fixed_steps=ce["k5_fixed_steps"],
+             fixed_ms_csvo=cc["k5_fixed_ms"],
+             fixed_is="one task that starts outside the world and leaves it",
              launches_csvo=gc["launches"]["k5_csvo"],
              ms_csvo=cc["k5_ms"], plain_ms_csvo=cc["k5_plain_ms"],
              bound_ms_csvo=cc["k5_bound"][0], bound_by_csvo=cc["k5_bound"][1],
@@ -1695,7 +1900,8 @@ def main() -> int:
              bound_ms=de["k7_tile_bound"][0], bound_by=de["k7_tile_bound"][1],
              library_ms=None,
              ok=all(d[k] for d in (de, dc) for k in ("k7_tile_ok",
-                                                     "k7_shadow_ok")),
+                                                     "k7_shadow_ok"))
+             and k7_held["equal"],
              tiles_march_steps=de["k7_tile_steps"],
              tile_inf_share=de["tile_inf_share"],
              shadow_replaces="voxelrs_tpu/ops/beams.py:309",
@@ -1710,7 +1916,26 @@ def main() -> int:
              launches_csvo=dc["launches"]["k7"],
              ms_csvo=dc["k7_tile_ms"], ms_shadow_csvo=dc["k7_shadow_ms"],
              launches_game=ge["launches"]["k7"],
-             launches_game_csvo=gc["launches"]["k7"]),
+             launches_game_csvo=gc["launches"]["k7"],
+             launches_shadow_game=ge["launches"]["k7_shadow"],
+             launches_shadow_game_csvo=gc["launches"]["k7_shadow"],
+             ms_shadow_count0=de["k7_shadow"]["ms_count0"],
+             ms_shadow_count0_csvo=dc["k7_shadow"]["ms_count0"],
+             parent_ms_shadow=(de["k7_shadow"]["parent"] or {}).get("ms"),
+             parent_ms_shadow_count0=(de["k7_shadow"]["parent"]
+                                      or {}).get("ms_count0"),
+             shadow_exact_frame_call=call_row(de["k7_shadow"]),
+             shadow_exact_frame_call_csvo=call_row(dc["k7_shadow"]),
+             shadow_adaptive_passes=[call_row(c) for c in
+                                     ae["k7_shadow"]["no_sun_map"]],
+             shadow_adaptive_passes_csvo=[call_row(c) for c in
+                                          ac["k7_shadow"]["no_sun_map"]],
+             shadow_calls_checked=k7_held["calls"],
+             shadow_launches_per_call=k9l["k7_shadow"]["launches"],
+             shadow_launches_per_call_parent=k9l["k7_shadow"].get(
+                 "parent_launches"),
+             shadow_grids=k9l["k7_shadow"]["grids"],
+             shadow_grids_parent=k9l["k7_shadow"].get("parent_grids")),
         dict(name="k8_sun", route="cuda",
              source="voxelrs_tpu_torch/csrc/k8_sun.cuh",
              replaces="voxelrs_tpu/ops/beams.py:379",
@@ -1726,17 +1951,9 @@ def main() -> int:
              launches_game=ge["launches"]["k8"],
              launches_game_csvo=gc["launches"]["k8"]),
     ]
-    # every held call of kd_shadow and K9's shadow cells (the deferred,
-    # adaptive and judged phases' frames, the batch, the games' final
-    # adaptive frames), each equal to its plain version
-    held_runs = [d["held"] for d in (de, dc, ae, ac, je, jc, be, ce, cc)]
-
-    def held_sum(name):
-        hs = [h[name] for h in held_runs if name in h]
-        return dict(calls=sum(h["calls"] for h in hs),
-                    equal=all(h["equal"] for h in hs),
-                    err=max(h["err"] for h in hs))
-
+    # every held call of kd_shadow, kd_finish, K7's shadow floors and K9's
+    # shadow cells (the deferred, adaptive and judged phases' frames, the
+    # batch, the games' final frames), each equal to its plain version
     shadow_held = held_sum("kd_shadow")
     # the shadow stage: pose 0's exact frame call (kd_shadow_call) and the
     # adaptive frame's passes with and without the sun map
@@ -1761,6 +1978,30 @@ def main() -> int:
         calls_checked=shadow_held["calls"],
         launches_per_call=k9l["kd_shadow"]["launches"],
         launches_per_call_parent=k9l["kd_shadow"].get("parent_launches"))
+    # the finishing stage: pose 0's exact frame call, the adaptive frame's
+    # passes with and without the sun map, the batch's launches
+    finish_extra = dict(
+        replaces="voxelrs_tpu/ops/shading.py:2781",
+        plain_ms=de["kd_finish"]["plain_ms"],
+        plain_is="kd_finish_plain on the same call's inputs",
+        plain_ms_csvo=dc["kd_finish"]["plain_ms"],
+        ms_count0=de["kd_finish"]["ms_count0"],
+        ms_count0_csvo=dc["kd_finish"]["ms_count0"],
+        parent_ms=(de["kd_finish"]["parent"] or {}).get("ms"),
+        parent_ms_count0=(de["kd_finish"]["parent"] or {}).get("ms_count0"),
+        parent_ms_csvo=(dc["kd_finish"]["parent"] or {}).get("ms"),
+        exact_frame_call=call_row(de["kd_finish"]),
+        exact_frame_call_csvo=call_row(dc["kd_finish"]),
+        adaptive_passes={b: [call_row(c) for c in calls]
+                         for b, calls in ae["kd_finish"].items()},
+        adaptive_passes_csvo={b: [call_row(c) for c in calls]
+                              for b, calls in ac["kd_finish"].items()},
+        batch=[call_row(c) for c in be["launch_runs"]["kd_finish"]],
+        calls_checked=finish_held["calls"],
+        launches_per_call=k9l["kd_finish"]["launches"],
+        launches_per_call_parent=k9l["kd_finish"].get("parent_launches"),
+        grids=k9l["kd_finish"]["grids"],
+        grids_parent=k9l["kd_finish"].get("parent_grids"))
     # the deferred frame's stages: held, together, to the plain deferred
     # frame (their plain version) on every pose, variant and game buffer;
     # the shadow stage also call by call to its own plain version
@@ -1785,11 +2026,12 @@ def main() -> int:
             bound_ms_csvo=dc["stages"]["bound"][st][0],
             launches_game=ge["launches"][f"kd_{st}"],
             launches_game_csvo=gc["launches"][f"kd_{st}"]))
-        if st == "shadow":
+        if st in ("shadow", "finish"):
+            held = shadow_held if st == "shadow" else finish_held
             kernels[-1].update(
-                shadow_extra, ok=kernels[-1]["ok"] and shadow_held["equal"],
-                max_abs_err=max(kernels[-1]["max_abs_err"],
-                                shadow_held["err"]))
+                shadow_extra if st == "shadow" else finish_extra,
+                ok=kernels[-1]["ok"] and held["equal"],
+                max_abs_err=max(kernels[-1]["max_abs_err"], held["err"]))
     # K9: held to its plain versions on pose 0's own inputs, the adaptive
     # frame to its plain version on every pose, variant and game buffer;
     # "ms" sums the kernel's launches in one frame (pose 0), alone
@@ -2179,7 +2421,8 @@ class Spy:
                                {k: keep(v) for k, v in kw.items()}))
             r = self.fn(*args, **kw)
             if self.out_pos:
-                self.outs.append([args[i].clone() for i in self.out_pos])
+                self.outs.append([keep(args[i]) if i < len(args) else None
+                                  for i in self.out_pos])
             return r
 
         setattr(self.module, self.name, run)
@@ -2359,8 +2602,8 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
     with Phase(f"adaptive main path ({fmt})"):
         zero_deferred_counts()
         frames, infos, marks = [], [], []
-        held = Held(("k9_merge", "k9_finalize", "k9_shadow_cells",
-                     "kd_shadow"))
+        held = Held(("k9_merge", "k9_finalize", "k9_shadow_cells")
+                    + SHADOW_HELD)
         with held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
@@ -2370,17 +2613,18 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                               ab.dense.clone()))
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
-    with Phase(f"k9 merge, finalize, shadow cells and kd_shadow vs plain, "
-               f"every call ({fmt})"):
+    with Phase(f"k9 merge, finalize, shadow cells, kd_shadow, kd_finish "
+               f"and k7_shadow vs plain, every call ({fmt})"):
         out["held"] = held.check()
         del held
-    log(f"k9 merge, finalize, shadow cells (both steps) and kd_shadow vs "
-        f"their plain versions on every call of the {len(poses6)} frames "
-        f"({fmt}; bit for bit, the finalize's sky within {K3_MAX_ABS:g}): "
-        f"{json.dumps(out['held'])}")
+    log(f"k9 merge, finalize, shadow cells (both steps), kd_shadow, "
+        f"kd_finish and k7_shadow vs their plain versions on every call of "
+        f"the {len(poses6)} frames ({fmt}; bit for bit, the finalize's sky "
+        f"within {K3_MAX_ABS:g}): {json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"K9's merge, finalize or shadow cells or kd_shadow disagrees "
-             f"with its plain version in the {fmt} adaptive frames")
+        fail(f"K9's merge, finalize or shadow cells, kd_shadow, kd_finish or "
+             f"K7's shadow floors disagree with their plain versions in the "
+             f"{fmt} adaptive frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -2648,11 +2892,34 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
                  step=step, hits=nh, ms_count0=ms0, parent=parent)
         out["shadow_cells_bound"] = bound(sc_bytes, 0)
         out["k6_calls"] = k6_calls(k6_spy.calls, dev)
-    with Phase(f"kd_shadow on the adaptive frame's passes, with and "
-               f"without the sun map ({fmt})"):
-        ksp = kd_shadow_passes(svo, poses[0])
-        out["launch_args"]["kd_shadow"] = ksp.pop("args")
-        out["kd_shadow"] = ksp
+    with Phase(f"kd_shadow, kd_finish and k7_shadow on the adaptive "
+               f"frame's passes, with and without the sun map ({fmt})"):
+        passes = shadow_passes(svo, poses[0])
+        out["launch_args"].update(passes.pop("args"))
+        out.update(passes)
+        ksp = passes["kd_shadow"]
+    for name in ("kd_finish", "k7_shadow"):
+        for branch, calls in passes[name].items():
+            for i, c in enumerate(calls):
+                what = (f"{c['candidates']} candidates, {c['blocked']} "
+                        "blocked" if name == "kd_finish" else
+                        f"{c['rays']} rays of {c['lanes']} lanes, "
+                        f"{c['march_steps']} march steps")
+                log(f"{name} launch ({fmt}, pose 0's adaptive frame, "
+                    f"{branch}, pass {i + 1}: {what}): equal to its plain "
+                    f"version {c['equal']}; alone {c['ms']:.4f} ms, at "
+                    f"count 0 {c['ms_count0']:.4f} ms, plain "
+                    f"{c['plain_ms']:.2f} ms, bound {c['bound'][0]:.4g} ms "
+                    f"({c['bound'][1]}); the parent's kernel "
+                    f"{json.dumps(c['parent'])} on {card}")
+    if not all(c["equal"] for n in ("kd_finish", "k7_shadow")
+               for calls in passes[n].values() for c in calls) \
+            or not all(passes["kd_finish"].values()) \
+            or passes["k7_shadow"]["sun_map"] \
+            or not passes["k7_shadow"]["no_sun_map"]:
+        fail(f"kd_finish or K7's shadow floors disagree with their plain "
+             f"versions, or ran on another branch, on the {fmt} adaptive "
+             "frame's passes")
     for branch, calls in ksp.items():
         for i, c in enumerate(calls):
             log(f"kd_shadow launch ({fmt}, pose 0's adaptive frame, "
@@ -2768,7 +3035,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
     out = {}
     with Phase(f"deferred main path ({fmt})"):
         zero_deferred_counts()
-        with Held(("kd_shadow",)) as held:
+        with Held(SHADOW_HELD) as held:
             frames = [svo.render(p, W, H, adaptive=False) for p in poses]
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
@@ -2776,12 +3043,12 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         out["held"] = held.check()
     log(f"deferred main path launches ({fmt}): {json.dumps(n)}; last frame "
         f"{json.dumps(info)}; sun map build {hf.sun_build_seconds} s host")
-    log(f"kd_shadow vs its plain version on every call of the "
-        f"{len(poses)} frames ({fmt}; bit for bit): "
+    log(f"kd_shadow, kd_finish and k7_shadow vs their plain versions on "
+        f"every call of the {len(poses)} frames ({fmt}; bit for bit): "
         f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"kd_shadow disagrees with its plain version in the {fmt} "
-             "deferred frames")
+        fail(f"kd_shadow, kd_finish or K7's shadow floors disagree with "
+             f"their plain versions in the {fmt} deferred frames")
     if not (n["k6"] and n["k7"] and n["k8"]
             and all(n[f"kd_{s}"] for s in STAGES)):
         fail(f"a kernel of the {fmt} deferred path was not launched")
@@ -2800,18 +3067,28 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         variants = ("beams_sun", "beams", "no_heightfield")
         errs = dict.fromkeys(variants, 0.0)
         plain_errs = dict.fromkeys(variants, 0.0)
+        held = Held(SHADOW_HELD)
         for i, p in enumerate(poses):
             fused = svo.render(p, W, H, mode="fused")
             ctx = svo.beam_context(p, W, H)
             for name, b in zip(variants, (ctx, ctx.without_sun(), None)):
-                img = svo.render(p, W, H, beams=b, adaptive=False)
+                with held:
+                    img = svo.render(p, W, H, beams=b, adaptive=False)
                 ref = []
                 ms = event_ms(lambda: ref.append(plain_deferred(svo, p, b)))
                 if i == 0 and name == "beams_sun":
                     out["plain_ms"] = ms
                 errs[name] = max(errs[name], max_abs(img, fused))
                 plain_errs[name] = max(plain_errs[name], max_abs(img, ref[0]))
+        variants_held = held.check()
+        out["held"] = held_merge(out["held"], variants_held)
     out["vs_k3"], out["vs_plain"] = errs, plain_errs
+    log(f"kd_shadow, kd_finish and k7_shadow vs their plain versions on "
+        f"every call of the {len(poses)} poses' three variants ({fmt}; bit "
+        f"for bit): {json.dumps(variants_held)}")
+    if not held_ok(variants_held, branch=()):
+        fail(f"kd_shadow, kd_finish or K7's shadow floors disagree with "
+             f"their plain versions in the {fmt} deferred variants")
     out["vs_k3_ok"] = all(v <= K3_MAX_ABS for v in errs.values())
     out["vs_plain_ok"] = all(v <= K3_MAX_ABS for v in plain_errs.values())
     log(f"deferred vs k3 ({fmt}, {len(poses)} poses): max |d| "
@@ -2831,7 +3108,8 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         with Spy(compact, "compact_indices") as k6s, \
                 Spy(beams, "sun_verdict_masks") as k8s:
             svo.render(p0, W, H, beams=ctx, adaptive=False)
-        with Spy(beams, "shadow_ray_floors") as k7s:
+        with Spy(beams, "shadow_ray_floors") as k7s, \
+                Spy(_build, "launch_k7_shadow") as k7l:
             svo.render(p0, W, H, beams=ctx.without_sun(),
                        adaptive=False)
         torch.cuda.synchronize()
@@ -2882,23 +3160,15 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         kf = beams.shadow_ray_floors(levels_e, levels[: nn * nn], offsets,
                                      nn, hmax, bounds, sro, light_to, smd,
                                      idx=sidx, count=scount)
-        sh_plain_ms = event_ms(lambda: beams.shadow_ray_floors_plain(
-            levels_e, levels[: nn * nn], offsets, nn, hmax, bounds, sro,
-            light_to, smd, idx=sidx, count=scount))
-        sh_steps = beams.last_march_steps
         pf = beams.shadow_ray_floors_plain(
             levels_e, levels[: nn * nn], offsets, nn, hmax, bounds, sro,
             light_to, smd, idx=sidx, count=scount)
         sh_ok, sh_err = bool(torch.equal(kf, pf)), max_abs(kf, pf)
-        sparams = beams.shadow_params(offsets, nn, hmax, light_to)
-        sh_out = torch.empty_like(kf)
-        sh_ms = kernel_ms(lambda: _build.launch_k7_shadow(
-            levels_e, levels[: nn * nn], bounds, sparams, sro, smd, sidx,
-            scount, sh_out))
-        k_cand = int(scount)
-        sh_bound = bound(levels_e.numel() * 4 + nn * nn * 4 + 16
-                         + k_cand * (4 + 12 + 4) + sidx.shape[0] * 4,
-                         k_cand * OPS_SHADOW_SETUP + sh_steps * OPS_MARCH_STEP)
+        # the frame's own launch: alone, at count 0, the parent's kernel
+        k7c = out["k7_shadow"] = launch_call("k7_shadow", *k7l.calls[0])
+        sh_ok = sh_ok and k7c["equal"]
+        sh_ms, sh_plain_ms, sh_bound = k7c["ms"], k7c["plain_ms"], k7c["bound"]
+        sh_steps, k_cand = k7c["march_steps"], k7c["rays"]
 
         # K8 verdicts and lit floors on the frame's candidates (sun map)
         vargs, vkw = k8s.calls[0]
@@ -2956,10 +3226,13 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         f"; {ntiles} tiles, {tile_steps} march steps, +inf share "
         f"{out['tile_inf_share']:.4f}; alone {tf_ms:.4f} ms, plain "
         f"{tf_plain_ms:.2f} ms, bound {tf_bound[0]:.4g} ms ({tf_bound[1]})")
-    log(f"k7 shadow floors vs plain ({fmt}, {k_cand} candidates): equal "
-        f"{sh_ok} (max |d| {sh_err:.3g}); {sh_steps} march steps, +inf share "
-        f"{out['shadow_inf_share']:.4f}; alone {sh_ms:.4f} ms, plain "
-        f"{sh_plain_ms:.2f} ms, bound {sh_bound[0]:.4g} ms ({sh_bound[1]})")
+    log(f"k7 shadow floors vs plain ({fmt}, {k_cand} candidates of "
+        f"{k7c['lanes']} lanes): equal {sh_ok} (max |d| {sh_err:.3g}); "
+        f"{sh_steps} march steps, +inf share "
+        f"{out['shadow_inf_share']:.4f}; alone {sh_ms:.4f} ms, at count 0 "
+        f"{k7c['ms_count0']:.4f} ms, plain {sh_plain_ms:.2f} ms, bound "
+        f"{sh_bound[0]:.4g} ms ({sh_bound[1]}); the parent's kernel "
+        f"{json.dumps(k7c['parent'])} on {card}")
     log(f"k8 vs plain ({fmt}, {v_cand} candidates, table "
         f"{tuple(sb.shape)} = {sb.numel() * 2 / 1e6:.2f} MB): verdicts "
         f"equal {v_ok}, lit floors equal {lf_ok}; certified share "
@@ -3018,7 +3291,19 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         ws = svo._workspace
         out["kd_shadow"] = kd_shadow_call(svo, spies[2].calls[0][0])
         shadow_steps = out["kd_shadow"]["steps"]
-    ks = out["kd_shadow"]
+        # the finishing stage's launch: alone, at count 0, its plain
+        # version and the parent's kernel
+        out["kd_finish"] = launch_call("kd_finish", *spies[3].calls[0])
+    ks, kfin = out["kd_shadow"], out["kd_finish"]
+    log(f"kd_finish launch ({fmt}, pose 0's exact frame: {kfin['candidates']} "
+        f"candidates, {kfin['blocked']} blocked): equal to its plain version "
+        f"{kfin['equal']}; alone {kfin['ms']:.4f} ms, at count 0 "
+        f"{kfin['ms_count0']:.4f} ms, plain {kfin['plain_ms']:.2f} ms, bound "
+        f"{kfin['bound'][0]:.4g} ms ({kfin['bound'][1]}); the parent's kernel "
+        f"{json.dumps(kfin['parent'])} on {card}")
+    if not kfin["equal"]:
+        fail(f"kd_finish disagrees with its plain version on the {fmt} exact "
+             "frame")
     log(f"kd_shadow launch ({fmt}, pose 0's exact frame, the sun map's "
         f"sub-list: {ks['lanes']} traced): {json.dumps(ks['launch'])}; "
         f"equal to its plain version {ks['equal']}, hits vs "
@@ -3048,8 +3333,9 @@ def deferred_phase(svo, hf, poses, card) -> dict:
             # the traced lanes' indices and origins in, their verdicts out
             shadow=bound(world_bytes + traced * (4 + 4 + 12 + 1),
                          shadow_steps * OPS_PER_STEP),
-            # candidates' indices, verdicts, colour and light in, pixels out
-            finish=bound(cand * (4 + 4 + 3 + 16 + 4 + 16), cand * 10)))
+            # candidates' indices and verdicts in; the blocked ones' pixel
+            # index, colour and light in, their pixels out (launch_call)
+            finish=out["kd_finish"]["bound"]))
     log(f"deferred stages alone ({fmt}, pose 0; {hits} hits, {cand} shadow "
         f"candidates, {traced} traced, {shadow_steps} shadow steps): "
         + ", ".join(f"{s} {stage_ms[s]:.4f} ms (bound "
@@ -3235,7 +3521,7 @@ def judged_phase(svo, hf, poses, card) -> dict:
     with Phase(f"judged main path ({fmt})"):
         zero_judged_counts()
         frames, infos, marks = [], [], []
-        with Held(("k9_shadow_cells", "kd_shadow")) as held:
+        with Held(("k9_shadow_cells",) + SHADOW_HELD) as held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
                 infos.append(dict(svo.last_frame))
@@ -3244,12 +3530,13 @@ def judged_phase(svo, hf, poses, card) -> dict:
         torch.cuda.synchronize()
         n = out["launches"] = judged_counts()
         out["held"] = held.check()
-    log(f"k9 shadow cells and kd_shadow (judged rays) vs their plain "
-        f"versions on every call of the {len(poses6)} judged frames ({fmt}; "
-        f"bit for bit): {json.dumps(out['held'])}")
+    log(f"k9 shadow cells, kd_shadow (judged rays), kd_finish and "
+        f"k7_shadow vs their plain versions on every call of the "
+        f"{len(poses6)} judged frames ({fmt}; bit for bit): "
+        f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"K9's shadow cells or kd_shadow disagrees with its plain "
-             f"version in the {fmt} judged frames")
+        fail(f"K9's shadow cells, kd_shadow, kd_finish or K7's shadow floors "
+             f"disagree with their plain versions in the {fmt} judged frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -3640,7 +3927,7 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
     levels = adaptive.adaptive_levels(W, H)
     with Phase("batch main path (esvo)"):
         svo.render_batch(poses, W, H)  # warm-up: workspace, tables
-        held = Held(("k9_shadow_cells", "kd_shadow"))
+        held = Held(("k9_shadow_cells",) + SHADOW_HELD)
         with held:
             imgs, nb = counted(lambda: svo.render_batch(poses, W, H))
         info = dict(svo.last_frame)
@@ -3660,12 +3947,13 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         out["workspace_mb"] = workspace_mb(svo._batch_workspace)
     with Phase("batch shadow stage vs plain, every call (esvo)"):
         out["held"] = held.check()
-    log(f"k9 shadow cells and kd_shadow vs their plain versions on every "
-        f"call of the adaptive and the exact batch (esvo, {N} poses; bit "
-        f"for bit): {json.dumps(out['held'])}")
+    log(f"k9 shadow cells, kd_shadow, kd_finish and k7_shadow vs their "
+        f"plain versions on every call of the adaptive and the exact batch "
+        f"(esvo, {N} poses, pose 0's sun map; bit for bit): "
+        f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail("K9's shadow cells or kd_shadow disagrees with its plain "
-             "version in the batch")
+        fail("K9's shadow cells, kd_shadow, kd_finish or K7's shadow floors "
+             "disagree with their plain versions in the batch")
     hits = [(hstart + [hits_total])[q + 1] - hstart[q] for q in range(N)]
     out["launches"], out["launches_exact"] = nb, nbe
     out["launches_frame"], out["launches_frame_exact"] = n1, n1e
@@ -3815,6 +4103,8 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                                                                     **kw)),
                 parent=parent_launch("kd_shadow", args, kw, [tr],
                                      count_pos)))
+        runs["kd_finish"] = [launch_call("kd_finish", a, kw)
+                             for a, kw in spies["kd_finish"].calls]
         # the stages' plain version: the plain frames of poses 0 and 3
         kws = [svo.frame_kwargs(p, W, H) for p in poses]
         tf = torch.stack([svo.beam_context(p, W, H).tile_floors
@@ -3883,8 +4173,8 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                        + (4 * N if k.get("starts") is not None else 0)
                        for a, k in spies["k6"].calls)
         # the shadow stage's traced rays and their steps (K1 from the same
-        # origins and floors), and its candidates
-        sh_bytes, sh_ops, cand = 0, 0, 0
+        # origins and floors)
+        sh_bytes, sh_ops = 0, 0
         light = None
         for args, _kw in spies["kd_shadow"].calls:
             (_w, _s, _t, _fp, _am, sro, sidx, scount, tidx, tcount, floors,
@@ -3901,7 +4191,6 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                 False, t_floor=None if floors is None else floors[c])
             sh_ops += int(st.steps.sum()) * OPS_PER_STEP
             sh_bytes += world_bytes + c.shape[0] * (4 + 4 + 12 + 1)
-            cand += int(scount)
         # the exact branch's primary: every pixel of every pose from its
         # tile floors
         pr_ops = 0
@@ -3926,7 +4215,9 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
             kd_shade=bound(fin_hits * (4 + 36 + 16 + 4 + 1 + 12 + 16),
                            fin_hits * OPS_PER_PIXEL),
             kd_shadow=bound(sh_bytes, sh_ops),
-            kd_finish=bound(cand * (4 + 4 + 3 + 16 + 4 + 16), cand * 10))
+            # each launch's own (launch_call)
+            kd_finish=(sum(r["bound"][0] for r in runs["kd_finish"]),
+                       "bytes"))
         # K6's library yardstick: torch.nonzero plus the pad on each of the
         # batch's masks, timed as the kernel is, summed
         out["k6_library_ms"] = sm["library_ms"]
@@ -3938,7 +4229,8 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         log(f"k9_trace launch (batch, esvo, {N} poses, level {c['level']}):"
             f" {json.dumps(c['launch'])}; alone {c['ms']:.4f} ms; the "
             f"parent's kernel {json.dumps(c['parent'])} on {card}")
-    for name in ("k9_merge", "k9_finalize", "k9_shadow_cells", "kd_shadow"):
+    for name in ("k9_merge", "k9_finalize", "k9_shadow_cells", "kd_shadow",
+                 "kd_finish"):
         for c in runs[name]:
             log(f"{name} launch (batch, esvo, {N} poses"
                 + (f", level {c['level']}" if "level" in c else "")

@@ -33,7 +33,12 @@ pixels equal). The shadow stage (``kd_shadow``) equals
 bit for bit: counts of 0, equal to the list's size and off a block or a
 thread's word, sub-lists, floors, opaque and judged rays, both formats,
 every launch of the frames and of a batch, odd frame sizes, 3 poses; the
-shadow cells refuse lanes off a 16-byte word. The crosshair
+shadow cells refuse lanes off a 16-byte word. The finishing stage
+(``kd_finish``) equals ``ops.shading.kd_finish_plain`` and K7's shadow
+floors ``ops.beams.shadow_ray_floors_plain`` bit for bit: counts of 0,
+equal to the list's size and off a word or a block, with and without
+certificates and pixel verdicts, no list, per-lane limits, pads 0, 3
+poses, every launch of the frames and of a batch. The crosshair
 equals the CPU's result bit for bit.
 """
 
@@ -511,6 +516,23 @@ def terrains(dev):
                                ("csvo", False), ("csvo", True))}
 
 
+def _k7_origins(s, p, dev):
+    """Shadow origins of pose ``p``'s primary hits (0.001 off the hit
+    face), the hit lanes' list and count as K6 leaves them."""
+    kw = s.frame_kwargs(p, TW, TH)
+    ro, rd = shading.generate_rays(
+        TW, TH, *(torch.tensor(kw[k], device=dev) for k in
+                  ("cam_pos", "cam_right", "cam_up", "cam_fwd")),
+        shading.tan_half_fov(p.fov_y_rad), float(np.float32(p.aspect_ratio)))
+    res = traversal.intersect_octree(s.device_buf, s.octree_scale, ro, rd,
+                                     -1.0, False)
+    hit = res.t >= 0
+    normal = shading.FACE_NORMALS.to(dev)[res.face_id.long().clamp(0, 5)]
+    sro = (res.pos + normal * 0.001).contiguous()
+    idx, count = compact.compact_indices(hit, hit.shape[0])
+    return sro, idx, count
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cam", sorted(TCAMS))
 def test_k7_k8_equal_plain(terrains, dev, cam):
@@ -534,18 +556,9 @@ def test_k7_k8_equal_plain(terrains, dev, cam):
         p.aspect_ratio, -1.0, width=TW, height=TH)
     assert torch.equal(ctx.tile_floors, plain)
 
-    ro, rd = shading.generate_rays(
-        TW, TH, *(torch.tensor(kw[k], device=dev) for k in
-                  ("cam_pos", "cam_right", "cam_up", "cam_fwd")),
-        shading.tan_half_fov(p.fov_y_rad), float(np.float32(p.aspect_ratio)))
-    res = traversal.intersect_octree(s.device_buf, s.octree_scale, ro, rd,
-                                     -1.0, False)
-    hit = res.t >= 0
-    normal = shading.FACE_NORMALS.to(dev)[res.face_id.long().clamp(0, 5)]
-    sro = (res.pos + normal * 0.001).contiguous()
+    sro, idx, count = _k7_origins(s, p, dev)
     light = -np.asarray(p.light_dir, np.float32)
-    idx, count = compact.compact_indices(hit, hit.shape[0])
-    md = torch.full((hit.shape[0],), -1.0, device=dev)
+    md = torch.full((sro.shape[0],), -1.0, device=dev)
     sb, n1, d_len, d, origin = ctx._sun
     for gather in ((None, None, 0.0), (idx, count, ctx.sun_margin)):
         g = dict(idx=gather[0], count=gather[1])
@@ -1520,3 +1533,212 @@ def test_k9_shadow_cells_refuse_lanes_off_a_16_byte_word(terrains, dev, name):
             "hidx", "hcount", "need", "needp", "blkp", "mask", "dense",
             "color", "ds", "img")))
     assert adaptive.launches_shadow_cells == n0
+
+
+# ---- the finishing stage (kd_finish) and K7's shadow floors ----------------
+
+FINISH_CASES = {  # candidate count of the list: 0, every slot, a partial word
+    "count 0": lambda m: 0, "count = size": lambda m: m,
+    "off a block": lambda m: 512 * 5 + 129, "candidates": lambda m: m}
+
+
+def _finish_inputs(fp, n_poses, case, certified, blkp, seed, dev):
+    """``launch_kd_finish``'s arguments for ``n_poses`` poses of ``fp``'s
+    W x H, from a seed: half the pixels hit (``hidx``, in order), a third
+    of the hit lanes are candidates (``sidx``, in order, cut at the case's
+    count),
+    colours, lights and flags random. The list holds the frame's every
+    lane ("count = size": exactly its candidates, an odd number), its
+    slots past the count other hit lanes, all flagged blocked; ``blkp``
+    random verdicts or None."""
+    g = np.random.default_rng(seed)
+    W, H = fp.width, fp.height
+    B = W * H * n_poses
+    hit = np.flatnonzero(g.random(B) < 0.5)
+    k = hit.shape[0]
+    cand = np.flatnonzero(g.random(k) < 1 / 3)
+    if cand.shape[0] % 2 == 0:
+        cand = cand[:-1]
+    m = cand.shape[0]
+    count = FINISH_CASES[case](m)
+    assert count <= m
+    size = m if case == "count = size" else B
+    hidx = g.integers(0, B, B).astype(np.int32)
+    hidx[:k] = hit
+    sidx = g.integers(0, k, size).astype(np.int32)
+    sidx[:count] = cand[:count]
+    flags = [g.random(size) < p for p in (0.5, 0.3, 0.4)]
+    for f in flags:
+        f[count:] = True
+
+    def t(a, dtype=None):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    traced, blk, todo = (t(f) for f in flags)
+    return (fp, t(hidx),
+            t(sidx), t([count], torch.int32),
+            t(g.random((B, 4)).astype(np.float32)),
+            t(g.random(B).astype(np.float32)),
+            blk if certified else None, todo if certified else None, traced,
+            t(g.random((n_poses, H, W, 4)).astype(np.float32)),
+            t(g.random(B) < 0.5) if blkp else None)
+
+
+def _kd_finish_check(args):
+    """One ``launch_kd_finish`` call (its arguments) through the kernel and
+    through ``kd_finish_plain`` on copies of ``img`` and ``blkp``: equal
+    bit for bit; the number of pixels it changed."""
+    *head, img, blkp = args
+    ki, pi = img.clone(), img.clone()
+    kb = None if blkp is None else blkp.clone()
+    pb = None if blkp is None else blkp.clone()
+    n0 = shading.launches_finish
+    _build.launch_kd_finish(*head, ki, kb)
+    shading.kd_finish_plain(*head, pi, pb)
+    torch.cuda.synchronize()
+    assert shading.launches_finish == n0  # the launch wrapper counts nothing
+    assert _bits_equal(ki, pi)
+    if blkp is not None:
+        assert torch.equal(kb, pb)
+    return int((ki != img).any(-1).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blkp", [False, True])
+@pytest.mark.parametrize("certified", [False, True])
+@pytest.mark.parametrize("case", sorted(FINISH_CASES) + ["batch"])
+def test_kd_finish_equals_plain(terrains, dev, case, certified, blkp):
+    """The finishing stage's kernel (a resident grid looping over words of
+    4 candidate slots up to the count on the card: the indices as a
+    16-byte word, each flag array as a 4-byte word, a pixel as a 16-byte
+    store) against ``kd_finish_plain`` bit for bit: a count of 0, a count
+    equal to the list's size (odd: a partial last word), a count off a
+    block's 512 slots and off a word, every candidate of a 1080p-like
+    list; with and without K8's certificates and the pixel-space
+    verdicts; 3 poses of a batch. Slots past the count (flagged blocked)
+    change nothing."""
+    fp = _k9_fp(terrains[("esvo", False)], _tparams("horizon"), 321, 187)
+    n_poses = 3 if case == "batch" else 1
+    args = _finish_inputs(fp, n_poses,
+                          "candidates" if case == "batch" else case,
+                          certified, blkp, 7, dev)
+    changed = _kd_finish_check(args)
+    assert (changed == 0) == (int(args[3]) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["count 0", "count = size", "off a word",
+                                  "hits", "idx None", "max_dst"])
+def test_k7_shadow_floors_equal_plain(terrains, dev, case):
+    """K7's shadow kernel (a resident grid looping over the rays up to the
+    count on the card, then the pads as 16-byte zero words) against
+    ``shadow_ray_floors_plain`` (and ``k7_shadow_plain`` on the launch's
+    own arguments) bit for bit, on pose "horizon"'s shadow origins: a
+    count of 0, a count equal to the list's size, an odd count (its last
+    ray with a floor) of an odd-sized list, the frame's hits of a list of
+    every lane, no list (every ray, count None), per-lane limits; every
+    lane written, the pads 0."""
+    s = terrains[("esvo", False)]
+    p = _tparams("horizon")
+    ctx = s.beam_context(p, TW, TH).without_sun()
+    levels, offsets, n, hmax, bounds, levels_e = ctx._dev
+    bounds = bounds.to(device=dev, dtype=torch.float32).contiguous()
+    sro, idx, count = _k7_origins(s, p, dev)
+    hits = int(count)
+    assert hits > 4096
+    md = None
+    if case == "count 0":
+        count = torch.zeros_like(count)
+    elif case == "count = size":
+        idx = idx[:hits].clone()
+    elif case == "off a word":
+        # an odd list size, an odd count whose last ray has a floor
+        idx = idx[: (hits - 1) | 1].clone()
+        full = beams.shadow_ray_floors_plain(levels_e, levels[: n * n],
+                                             offsets, n, hmax, bounds, sro,
+                                             -np.asarray(p.light_dir,
+                                                         np.float32), None,
+                                             idx=idx)
+        lit = torch.nonzero(full[: hits - 2:2]).flatten() * 2
+        c = int(lit[lit.shape[0] // 2]) + 1
+        count = torch.tensor([c], dtype=torch.int32, device=dev)
+    elif case == "idx None":
+        idx = count = None
+    lanes = sro.shape[0] if idx is None else idx.shape[0]
+    if case == "max_dst":
+        g = np.random.default_rng(9)
+        md = torch.tensor(g.uniform(-1.0, 60.0, lanes).astype(np.float32),
+                          device=dev)
+    light = -np.asarray(p.light_dir, np.float32)
+    params = beams.shadow_params(offsets, n, hmax, light)
+    out = torch.full((lanes,), 7.0, device=dev)
+    n0 = beams.launches_shadow
+    _build.launch_k7_shadow(levels_e, levels[: n * n], bounds, params, sro, md,
+                            idx, count, out)
+    plain = beams.shadow_ray_floors_plain(levels_e, levels[: n * n], offsets,
+                                          n, hmax, bounds, sro, light, md,
+                                          idx=idx, count=count)
+    again = beams.k7_shadow_plain(levels_e, levels[: n * n], bounds, params,
+                                  sro, md, idx, count, torch.empty_like(out))
+    torch.cuda.synchronize()
+    assert beams.launches_shadow == n0  # the launch wrapper counts nothing
+    assert _bits_equal(out, plain) and _bits_equal(again, plain)
+    rays = lanes if count is None else min(int(count), lanes)
+    assert bool((out[rays:] == 0).all())
+    assert bool(torch.isinf(out[:rays]).any()) == (rays > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,fmt", [
+    (path, fmt) for path in ("exact", "adaptive", "judged")
+    for fmt in ("esvo", "csvo")] + [("batch", "esvo")])
+def test_kd_finish_and_k7_shadow_calls_of_frames_equal_plain(
+        terrains, judged_scenes, dev, path, fmt, monkeypatch):
+    """Every finishing-stage launch and every K7 shadow launch of the frames
+    (the exact frame with the sun map's certificates, with K7's floors and
+    unfloored; the adaptive frame's two passes, the first writing the
+    pixel-space verdicts; the judged adaptive frame; a batch of 3 poses,
+    ESVO) held to ``kd_finish_plain`` / ``k7_shadow_plain`` on the call's
+    own inputs, bit for bit."""
+    calls = {"launch_kd_finish": [], "launch_k7_shadow": []}
+    launch = {name: getattr(_build, name) for name in calls}
+
+    def spy(name):
+        def run(*args, **kw):
+            keep = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
+            calls[name].append([keep(a) for a in args])
+            return launch[name](*args, **kw)
+        return run
+
+    for name in calls:
+        monkeypatch.setattr(_build, name, spy(name))
+    if path == "judged":
+        s = judged_scenes[fmt]
+        p = _jparams("overview")
+    else:
+        s = terrains[(fmt, False)]
+        p = _tparams("horizon")
+    ctx = s.beam_context(p, TW, TH)
+    if path == "batch":
+        monkeypatch.setenv("VOXELRS_ADAPTIVE", "1")
+        s.render_batch([_tparams(c) for c in BATCH_CAMS], TW, TH)
+    else:
+        for b in (ctx, ctx.without_sun(), None):
+            s.render(p, TW, TH, beams=b, adaptive=path != "exact")
+    torch.cuda.synchronize()
+    for name in calls:
+        monkeypatch.setattr(_build, name, launch[name])
+    fin, k7 = calls["launch_kd_finish"], calls["launch_k7_shadow"]
+    assert len(fin) == {"exact": 3, "batch": 2}.get(path, 6)
+    assert sum(_kd_finish_check(args) for args in fin) > 0
+    if path != "batch":
+        # the sun map's certificates first, the pixel verdicts in pass 1
+        assert fin[0][6] is not None and fin[-1][6] is None
+        assert (fin[0][10] is not None) == (path != "exact")
+    assert len(k7) == {"exact": 1, "batch": 0}.get(path, 2)
+    for args in k7:
+        out = args[8].clone()
+        _build.launch_k7_shadow(*args[:8], out)
+        ref = beams.k7_shadow_plain(*args[:8], args[8].clone())
+        torch.cuda.synchronize()
+        assert _bits_equal(out, ref)

@@ -14,6 +14,16 @@ but for rays that graze a voxel edge, which XLA's CPU FMAs can send into
 the voxel in one package and past it in the other: at most GRAZE_SHARE of
 the rays (measured on these rays: none). Slots outside the count keep
 their values.
+
+The finishing stage's plain version (``ops.shading.kd_finish_plain``, the
+function of the ``kd_finish`` kernel on the same arguments), fed the plain
+deferred stages' own intermediates (``deferred_stages_plain``) in the
+card's layout — lists of the frame's size whose slots past the count hold
+other candidates, all of them blocked — turns the shading stage's image
+into ``render_frame_deferred_plain``'s bit for bit (that frame is held to
+the JAX frame by tests/test_torch_deferred.py), on the opaque terrain
+with every candidate traced from K7's floors, and with the sun map's
+certificates (``blk``/``todo``) and the pixel-space verdicts (``blkp``).
 """
 
 import numpy as np
@@ -101,3 +111,66 @@ def test_kd_shadow_plain_matches_jax_hits(scene):
         shading.kd_shadow_plain(*args[:4], 0, *args[5:], None, None, None,
                                 cast)
         assert ((cast.numpy() == 1) != jhit).any()
+
+
+@pytest.mark.parametrize("case", ["traced", "certified"])
+def test_kd_finish_plain_reproduces_the_plain_frame(case):
+    _jsvo, tsvo, _jh, th = _get("opaque")
+    tp = _params(RenderParams, "horizon")
+    tsvo.set_heightfield(th)
+    try:
+        ctx = tsvo.beam_context(tp, W, H)
+    finally:
+        tsvo.set_heightfield(None)
+    certified = case == "certified"
+    assert ctx.has_sun()
+    kw = dict(tsvo.frame_kwargs(tp, W, H), opaque=True, mip_mode="nearest",
+              beams=ctx if certified else ctx.without_sun())
+    args = (tsvo.world(), float(tsvo.octree_scale), tsvo.mips,
+            tsvo.mat_params, tsvo.mat_tex)
+    st = shading.deferred_stages_plain(*args, **kw)
+    ref = shading.render_frame_deferred_plain(*args, **kw)
+    assert (st.blk is not None) == certified
+    B, k, m = W * H, st.hidx.shape[0], st.sidx.shape[0]
+    blocked = (st.traced if st.blk is None
+               else st.blk | (st.todo & st.traced))
+    assert 0 < int(blocked.sum()) < m < k
+    fp = shading.frame_params(mip_mode="nearest", deferred=True,
+                              **tsvo.frame_kwargs(tp, W, H))
+    # the card's layout: B slots a list; past the counts other lanes
+    g = np.random.default_rng(11)
+    hidx = torch.from_numpy(g.integers(0, B, B).astype(np.int32))
+    hidx[:k] = st.hidx.to(torch.int32)
+    color = torch.from_numpy(g.random((B, 4), np.float32))
+    color[:k] = st.color
+    ds = torch.from_numpy(g.random(B, np.float32))
+    ds[:k] = st.ds
+    sidx = torch.from_numpy(g.integers(0, k, B).astype(np.int32))
+    sidx[:m] = st.sidx.to(torch.int32)
+    scount = torch.tensor([m], dtype=torch.int32)
+    flags = [torch.ones(B, dtype=torch.bool) for _ in range(3)]
+    for f, v in zip(flags, (st.traced, st.blk, st.todo)):
+        if v is not None:
+            f[:m] = v
+    traced, blk, todo = flags
+    if not certified:
+        blk = todo = None
+    # the shading stage's image: the sky, each hit lane in full light
+    light = torch.clamp(fp.ambient + st.ds, 0.0, 1.0)
+    img = shading.sky_color(st.rd)
+    img[st.hidx] = torch.cat([st.color[:, :3] * light[:, None],
+                              st.color[:, 3:4]], dim=-1)
+    img = img.reshape(H, W, 4)
+    blkp = None
+    if certified:
+        blkp = torch.full((B,), 7, dtype=torch.uint8)
+    out = shading.kd_finish_plain(fp, hidx, sidx, scount, color, ds, blk,
+                                  todo, traced, img, blkp)
+    assert out is img
+    assert torch.equal(img.view(torch.int32), ref.view(torch.int32))
+    if certified:
+        px = st.hidx[st.sidx]
+        assert torch.equal(blkp[px], blocked.to(torch.uint8))
+        rest = torch.ones(B, dtype=torch.bool)
+        rest[px] = False
+        assert bool((blkp[rest] == 7).all())

@@ -233,6 +233,56 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def check_aligned(name, t, nbytes: int = 16):
+    """Refuse a tensor that a kernel moves in ``nbytes``-byte words from
+    its first element: at an address that is not a multiple of ``nbytes``
+    the words fault on the card or miss lanes."""
+    off = t.data_ptr() % nbytes
+    if off:
+        raise ValueError(f"{name}: expected a {nbytes}-byte aligned tensor "
+                         f"(a view at byte {off} of a {nbytes}-byte word)")
+
+
+_FLAGS = (torch.bool, torch.uint8)
+
+
+def _check_words(name, t, dtypes, lanes: int, nbytes: int):
+    """Refuse a 1-d array that a kernel reads in ``nbytes``-byte words
+    from lane 0 over ``lanes`` lanes."""
+    if t.dtype not in dtypes or t.dim() != 1 or t.shape[0] < lanes \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous 1-d "
+                         f"{'/'.join(map(str, dtypes))} tensor of >= {lanes} "
+                         "lanes")
+    check_aligned(name, t, nbytes)
+
+
+def _check_pixels(name, t):
+    """Refuse what a kernel cannot move as 4-float pixels (16-byte
+    words)."""
+    if t.dtype != torch.float32 or not t.is_contiguous() or t.numel() % 4:
+        raise ValueError(f"{name}: expected a contiguous float32 tensor of "
+                         "4-float pixels")
+    check_aligned(name, t)
+
+
+def check_kd_finish(sidx, color, blk, todo, traced, img):
+    """Refuse what ``kd_finish``'s kernel cannot take: it reads a
+    thread's 4 candidate slots of the list's ``sidx.shape[0]`` as one
+    16-byte word of ``sidx`` and one 4-byte word of each flag array
+    (``traced``, and ``blk`` and ``todo`` where given), gathers a colour
+    and writes a pixel of ``img`` as 16-byte words."""
+    size = sidx.shape[0]
+    _check_words("sidx", sidx, (torch.int32,), size, 16)
+    if (blk is None) != (todo is None):
+        raise ValueError("blk, todo: expected both or neither")
+    for name, t in (("traced", traced), ("blk", blk), ("todo", todo)):
+        if t is not None:
+            _check_words(name, t, _FLAGS, size, 4)
+    _check_pixels("color", color)
+    _check_pixels("img", img)
+
+
 def launch_k1(desc, octree_scale, ro, rd, max_dst, budget, alpha_mode,
               tables, t, value, face, pos, uv, lod, inside, steps,
               t_floor=None):
@@ -337,10 +387,21 @@ def launch_k7_tiles(levels, bounds, params: BeamParams, out):
     _raise_on(err, "K7 (vx_k7_tiles)")
 
 
+def check_k7_shadow(out):
+    """Refuse an output K7's shadow kernel cannot take: it writes the
+    pads of ``out`` as 16-byte words from lane 0."""
+    if out.dtype != torch.float32 or out.dim() != 1 \
+            or not out.is_contiguous():
+        raise ValueError("out: expected a contiguous (k,) float32 tensor")
+    check_aligned("out", out)
+
+
 def launch_k7_shadow(levels_e, h3d0, bounds, params: BeamParams, ro, max_dst,
                      idx, count, out):
-    """Launch K7's shadow kernel: ``out`` (k,) float32 (its lanes);
-    ``max_dst`` None = all unbounded."""
+    """Launch K7's shadow kernel: ``out`` (k,) float32 (its lanes),
+    whose pads it writes as 16-byte words; ``max_dst`` None = all
+    unbounded."""
+    check_k7_shadow(out)
     err = library().vx_k7_shadow(
         _ptr(levels_e), _ptr(h3d0), _ptr(bounds), ctypes.byref(params),
         _ptr(ro), _ptr(max_dst), _ptr(idx), _ptr(count), out.shape[0],
@@ -423,7 +484,9 @@ def launch_kd_finish(params: FrameParams, hidx, sidx, scount, color, ds, blk,
     """The deferred frame's last stage: the blocked candidates' colour
     (``blk``/``todo``: K8's certificates and the lanes left to trace, or
     None when every candidate was traced); ``blkp`` None or the (H*W,)
-    bool pixel-space verdicts it writes (K9's first shadow pass)."""
+    bool pixel-space verdicts it writes (K9's first shadow pass). Refuses
+    views its kernel's words cannot take (``check_kd_finish``)."""
+    check_kd_finish(sidx, color, blk, todo, traced, img)
     err = library().vx_kd_finish(
         ctypes.byref(params), _ptr(hidx), _ptr(sidx), _ptr(scount),
         sidx.shape[0], _ptr(color), _ptr(ds), _ptr(blk), _ptr(todo),

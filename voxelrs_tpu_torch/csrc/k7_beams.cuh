@@ -19,9 +19,9 @@
 // threads at 1080p (a quarter of one wave of the card's 132 SMs) run up to
 // 96 dependent iterations, each one load from the ~100 KB pyramid (L2- and
 // L1-resident) and ~30 float operations; the kernel's time is the longest
-// beam's chain of dependent loads. The shadow kernel has one thread per
-// candidate ray (up to 48 iterations) and is the same shape at larger
-// width.
+// beam's chain of dependent loads. The shadow kernel marches one candidate
+// ray a thread (up to 48 iterations), the same shape at larger width, on a
+// grid of at most the blocks the card holds at once (k7_shadow_kernel).
 
 #pragma once
 #include <cstdint>
@@ -224,22 +224,16 @@ k7_tile_kernel(const int* __restrict__ levels,
   out[i] = floor_finish(fminf(beam, t_near));
 }
 
-// One thread per shadow ray: +inf = certainly reaches the light, 0 = no
-// claim. Output lane i reads ray idx[i] (or i); lanes at or past *count
-// are pads (0).
-__global__ void __launch_bounds__(128)
-k7_shadow_kernel(const int* __restrict__ levels_e,
-                 const int* __restrict__ h3d0,
-                 const float* __restrict__ bounds, BeamParams bp,
-                 const float* __restrict__ ro, const float* __restrict__ max_dst,
-                 const int* __restrict__ idx, const int* __restrict__ count,
-                 int k, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  if (count && i >= *count) {
-    out[i] = 0.f;
-    return;
-  }
+// Threads of a shadow-floor block (k7_shadow_kernel).
+constexpr int K7_SHADOW_THREADS = 128;
+
+// The floor of output lane i's shadow ray (ray r = idx[i], or i): +inf =
+// certainly reaches the light, 0 = no claim.
+__device__ __forceinline__ float k7_shadow_floor(
+    const int* __restrict__ levels_e, const int* __restrict__ h3d0,
+    const float* __restrict__ bounds, const BeamParams& bp,
+    const float* __restrict__ ro, const float* __restrict__ max_dst,
+    const int* __restrict__ idx, int i) {
   const size_t r = idx ? (size_t)idx[i] : (size_t)i;
   const float rox = ro[3 * r], roy = ro[3 * r + 1], roz = ro[3 * r + 2];
   const float dx = eps_dir(bp.fwd[0]), dy = bp.fwd[1], dz = eps_dir(bp.fwd[2]);
@@ -267,7 +261,48 @@ k7_shadow_kernel(const int* __restrict__ levels_e,
 
   const float beam = envelope_march(levels_e, bp, rox, roy, roz, dx, dy, dz,
                                     inv_x, inv_z, 0.f, 0.05f, t_ring, t_hard);
-  out[i] = gate ? floor_finish(beam) : 0.f;
+  return gate ? floor_finish(beam) : 0.f;
+}
+
+// The k output lanes' shadow floors: lanes below *count (count null: all
+// k) get their ray's floor, the lanes at or past it are pads (0).
+//
+// What bounds it on an H100: the longest ray's chain of dependent pyramid
+// loads (up to bp.max_iters = 48 iterations of the march), and, at the
+// counts a frame leaves of the list's 2,073,600 lanes at 1080p, the blocks
+// that find no ray and the pads' bytes (up to 8.3 MB). So the grid is at
+// most the blocks the card holds at once (vx_k7_shadow), each block
+// looping over the rays up to the count on the card, one ray a thread at a
+// time (a march is long and its length varies), then over the pads in
+// 4-lane words: a 16-byte zero store each, scalar stores where a word
+// holds a ray or runs past k. out starts on a 16-byte word
+// (_build.launch_k7_shadow checks).
+__global__ void __launch_bounds__(K7_SHADOW_THREADS)
+k7_shadow_kernel(const int* __restrict__ levels_e,
+                 const int* __restrict__ h3d0,
+                 const float* __restrict__ bounds, BeamParams bp,
+                 const float* __restrict__ ro, const float* __restrict__ max_dst,
+                 const int* __restrict__ idx, const int* __restrict__ count,
+                 int k, float* __restrict__ out) {
+  const int c = count ? *count : k;
+  const int rays = c < 0 ? 0 : (c < k ? c : k);
+  const int w0 = rays / 4;  // the word of the first pad
+  const int items = rays + (rays < k ? (k + 3) / 4 - w0 : 0);
+  for (int i = blockIdx.x * K7_SHADOW_THREADS + threadIdx.x; i < items;
+       i += gridDim.x * K7_SHADOW_THREADS) {
+    if (i < rays) {
+      out[i] = k7_shadow_floor(levels_e, h3d0, bounds, bp, ro, max_dst, idx,
+                               i);
+      continue;
+    }
+    const int t0 = (w0 + (i - rays)) * 4;
+    if (t0 >= rays && t0 + 4 <= k) {
+      *reinterpret_cast<float4*>(out + t0) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      for (int t = t0 < rays ? rays : t0; t < t0 + 4 && t < k; ++t)
+        out[t] = 0.f;
+    }
+  }
 }
 
 }  // namespace vx

@@ -69,9 +69,9 @@
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
 // in, hit records or the frame out) are a small share. Where a launch's
 // work is a count only the card knows (K6's), a grid sized by the list's
-// capacity is mostly empty blocks: K6, K9's trace, kd_shadow and K9's
-// shadow cells launch at most the blocks the card holds at once
-// (resident_grid), each looping up to the count.
+// capacity is mostly empty blocks: K6, K9's trace, kd_shadow, kd_finish,
+// K7's shadow floors and K9's shadow cells launch at most the blocks the
+// card holds at once (resident_grid), each looping up to the count.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (-fmad=false keeps the
@@ -365,13 +365,20 @@ __device__ void shade_surface(const TexTables& tx, const FrameParams& fp,
 }
 
 // The shaded pixel: colour times the clamped light.
+__device__ __forceinline__ float4 shaded(const FrameParams& fp, float4 color,
+                                         float ds, float shadow) {
+  const float light = clampf(fp.ambient + ds * shadow, 0.f, 1.f);
+  return make_float4(color.x * light, color.y * light, color.z * light,
+                     color.w);
+}
+
 __device__ __forceinline__ void composite(const FrameParams& fp, float4 color,
                                           float ds, float shadow, float* out) {
-  const float light = clampf(fp.ambient + ds * shadow, 0.f, 1.f);
-  out[0] = color.x * light;
-  out[1] = color.y * light;
-  out[2] = color.z * light;
-  out[3] = color.w;
+  const float4 c = shaded(fp, color, ds, shadow);
+  out[0] = c.x;
+  out[1] = c.y;
+  out[2] = c.z;
+  out[3] = c.w;
 }
 
 template <class World>
@@ -559,26 +566,86 @@ kd_shadow_kernel(World world, float octree_scale, TexTables tx,
   }
 }
 
-// One thread per candidate c < *scount: a blocked one gets its shadowed
+// Threads of a kd_finish block, and the consecutive candidate slots a
+// thread takes at a time (kd_finish_kernel).
+constexpr int KD_FINISH_THREADS = 128;
+constexpr int KD_FINISH_SLOTS = 4;
+
+// Each candidate c < *scount whose shadow ray is blocked gets its shadowed
 // colour. Without certificates (blk null) every candidate was traced; with
 // them, a candidate is blocked when K8 certified it so or it was left to
 // trace (todo) and its trace hit. blkp (K9's first shadow pass) null, or
-// the pixel-space verdicts, written at each candidate's pixel.
-__global__ void __launch_bounds__(BLOCK)
+// the pixel-space verdicts, written at each candidate's pixel. Nothing at
+// or past the count is written. A candidate needs no camera, so a batch
+// (K10) runs the candidates of all its poses in one launch unchanged.
+//
+// Replaces, for the blocked lanes, voxelrs_tpu/ops/shading.py::
+// finish_light (:2781; called at :3166, :3483, :4042) with the verdicts'
+// _or_scatter of the certificates and the traces (:3466-3473,
+// :4024-4036): the shadow factor 0 in the composite's light.
+//
+// What bounds it on an H100: bytes (a candidate's index and flags in, its
+// hit lane's pixel index, colour and light gathered, a blocked pixel
+// written) and, at the counts a frame leaves (~200,000 candidates of
+// 2,073,600 slots at 1080p), the blocks that find no work. So the grid is
+// at most the blocks the card holds at once (vx_kd_finish), each looping
+// over words of KD_FINISH_SLOTS consecutive slots up to the count K6 left
+// on the card: a word's indices as one 16-byte load, each of its flag
+// arrays as one 4-byte load, a blocked pixel as one 16-byte store. sidx
+// and img start on a 16-byte word, the flags on a 4-byte word
+// (_build.launch_kd_finish checks).
+__global__ void __launch_bounds__(KD_FINISH_THREADS)
 kd_finish_kernel(FrameParams fp, const int* __restrict__ hidx,
                  const int* __restrict__ sidx, const int* __restrict__ scount,
                  int size, const float4* __restrict__ color,
                  const float* __restrict__ ds, const uint8_t* __restrict__ blk,
                  const uint8_t* __restrict__ todo,
-                 const uint8_t* __restrict__ traced, float* __restrict__ img,
+                 const uint8_t* __restrict__ traced, float4* __restrict__ img,
                  uint8_t* __restrict__ blkp) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= size || c >= count_of(scount, size)) return;
-  const bool blocked = blk ? (blk[c] || (todo[c] && traced[c])) : traced[c];
-  const int j = sidx[c];
-  if (blkp) blkp[hidx[j]] = blocked ? 1 : 0;
-  if (!blocked) return;
-  composite(fp, color[j], ds[j], 0.f, img + 4 * (size_t)hidx[j]);
+  const int n = count_of(scount, size);
+  const int words = (n + KD_FINISH_SLOTS - 1) / KD_FINISH_SLOTS;
+  for (int i = blockIdx.x * KD_FINISH_THREADS + threadIdx.x; i < words;
+       i += gridDim.x * KD_FINISH_THREADS) {
+    const int c0 = i * KD_FINISH_SLOTS;
+    int j[KD_FINISH_SLOTS];
+    uint32_t tw = 0u, bw = 0u, dw = 0u;  // a flag byte a slot
+    if (c0 + KD_FINISH_SLOTS <= size) {  // slots past the count unused
+      const int4 s = *reinterpret_cast<const int4*>(sidx + c0);
+      j[0] = s.x;
+      j[1] = s.y;
+      j[2] = s.z;
+      j[3] = s.w;
+      tw = *reinterpret_cast<const uint32_t*>(traced + c0);
+      if (blk) {
+        bw = *reinterpret_cast<const uint32_t*>(blk + c0);
+        dw = *reinterpret_cast<const uint32_t*>(todo + c0);
+      }
+    } else {  // the list's last, partial word
+      for (int l = 0; l < KD_FINISH_SLOTS; ++l) {
+        const int c = c0 + l;
+        j[l] = c < n ? sidx[c] : 0;
+        if (c >= n) continue;
+        tw |= (uint32_t)traced[c] << (8 * l);
+        if (blk) {
+          bw |= (uint32_t)blk[c] << (8 * l);
+          dw |= (uint32_t)todo[c] << (8 * l);
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < KD_FINISH_SLOTS; ++l) {
+      if (c0 + l >= n) break;
+      const bool hit = ((tw >> (8 * l)) & 0xffu) != 0u;
+      const bool blocked =
+          blk ? (((bw >> (8 * l)) & 0xffu) != 0u
+                 || (((dw >> (8 * l)) & 0xffu) != 0u && hit))
+              : hit;
+      if (!blocked && !blkp) continue;
+      const int px = hidx[j[l]];
+      if (blkp) blkp[px] = blocked ? 1 : 0;
+      if (blocked) img[px] = shaded(fp, color[j[l]], ds[j[l]], 0.f);
+    }
+  }
 }
 
 template <class World>
@@ -805,11 +872,19 @@ int vx_k7_tiles(const int* levels, const float* bounds,
   return (int)cudaGetLastError();
 }
 
+// out starts on a 16-byte word. A grid of at most the blocks the card
+// holds at once, capped by the k lanes, each block looping over the rays
+// up to the count on the card, then over the pads.
 int vx_k7_shadow(const int* levels_e, const int* h3d0, const float* bounds,
                  const vx::BeamParams* bp, const float* ro,
                  const float* max_dst, const int* idx, const int* count, int k,
                  float* out, void* stream) {
-  vx::k7_shadow_kernel<<<vx::grid_for(k), 128, 0, (cudaStream_t)stream>>>(
+  static int resident = 0;
+  vx::k7_shadow_kernel<<<
+      vx::resident_grid(k, vx::K7_SHADOW_THREADS,
+                        vx::resident_blocks(vx::k7_shadow_kernel,
+                                            vx::K7_SHADOW_THREADS, resident)),
+      vx::K7_SHADOW_THREADS, 0, (cudaStream_t)stream>>>(
       levels_e, h3d0, bounds, *bp, ro, max_dst, idx, count, k, out);
   return (int)cudaGetLastError();
 }
@@ -895,15 +970,25 @@ int vx_kd_shadow_csvo(const uint32_t* words, long long n_words,
                           stream);
 }
 
+// img (the frame's pixels, 4 floats each) and sidx start on a 16-byte
+// word, traced, blk and todo on a 4-byte word. A grid of at most the
+// blocks the card holds at once, capped by the words of `size` slots,
+// each block looping over the words up to the count on the card.
 int vx_kd_finish(const vx::FrameParams* fp, const int* hidx, const int* sidx,
                  const int* scount, int size, const float* color,
                  const float* ds, const uint8_t* blk, const uint8_t* todo,
                  const uint8_t* traced, float* img, uint8_t* blkp,
                  void* stream) {
-  vx::kd_finish_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(
+  static int resident = 0;
+  vx::kd_finish_kernel<<<
+      vx::resident_grid(
+          ((long long)size + vx::KD_FINISH_SLOTS - 1) / vx::KD_FINISH_SLOTS,
+          vx::KD_FINISH_THREADS,
+          vx::resident_blocks(vx::kd_finish_kernel, vx::KD_FINISH_THREADS,
+                              resident)),
+      vx::KD_FINISH_THREADS, 0, (cudaStream_t)stream>>>(
       *fp, hidx, sidx, scount, size, (const float4*)color, ds, blk, todo,
-      traced, img, blkp);
+      traced, (float4*)img, blkp);
   return (int)cudaGetLastError();
 }
 

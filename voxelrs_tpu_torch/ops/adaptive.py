@@ -573,7 +573,7 @@ def _check_rec(name, t, n=None):
             or not t.is_contiguous() or (n is not None and t.shape[0] != n):
         raise ValueError(f"{name}: expected contiguous ({n}, {REC_WORDS}) "
                          "int32 records")
-    _check_aligned(name, t)
+    _build.check_aligned(name, t)
 
 
 def _check_lanes(name, t, n, dtype):
@@ -585,13 +585,7 @@ def _check_lanes(name, t, n, dtype):
             or not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous ({n},) {dtype} "
                          "tensor")
-    _check_aligned(name, t)
-
-
-def _check_aligned(name, t):
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: expected a 16-byte aligned tensor (a view "
-                         f"at byte {t.data_ptr() % 16} of a 16-byte word)")
+    _build.check_aligned(name, t)
 
 
 def _poses(cams, fp: _build.FrameParams, dev) -> int:
@@ -675,7 +669,7 @@ def k9_finalize(octree_scale, fp: _build.FrameParams, frec, rec, hit, img,
                 or t.device != frec.device:
             raise ValueError(f"{name}: expected a contiguous {dt} tensor on "
                              f"{frec.device}")
-        _check_aligned(name, t)
+        _build.check_aligned(name, t)
     _build.launch_k9_finalize(float(octree_scale), fp, frec, rec, hit, img,
                               needp, blkp, cams)
     launches_finalize += 1

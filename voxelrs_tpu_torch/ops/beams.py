@@ -605,9 +605,10 @@ def shadow_ray_floors(levels_e, h3d0, offsets, n, hmax, bounds, ro,
                       light_to, max_dst, *, idx=None, count=None,
                       out=None):
     """``shadow_ray_floors_plain``'s function: the plain version on the
-    CPU, K7 (one thread per ray) on the card. ``h3d0`` must be the first
-    ``n*n`` words of the dilated pyramid tensor; ``out`` optionally the
-    caller's (k,) float32 tensor to fill."""
+    CPU, K7 (a ray a thread on a grid of at most the blocks the card
+    holds) on the card. ``h3d0`` must be the first ``n*n`` words of the
+    dilated pyramid tensor; ``out`` optionally the caller's (k,) float32
+    tensor to fill, on a 16-byte word (``_build.check_k7_shadow``)."""
     if not ro.is_cuda:
         return shadow_ray_floors_plain(levels_e, h3d0, offsets, n, hmax,
                                        bounds, ro, light_to, max_dst,
@@ -625,6 +626,19 @@ def shadow_ray_floors(levels_e, h3d0, offsets, n, hmax, bounds, ro,
         _build.launch_k7_shadow(levels_e, h3d0, bounds, p, ro, max_dst, idx,
                                 count, out)
         launches_shadow += 1
+    return out
+
+
+def k7_shadow_plain(levels_e, h3d0, bounds, params: _build.BeamParams, ro,
+                    max_dst, idx, count, out):
+    """``_build.launch_k7_shadow``'s function, on its arguments: the floors
+    of ``shadow_ray_floors_plain`` (the pyramid levels, ``n``, ``hmax``
+    and the direction toward the light read from ``params``) written into
+    ``out``, every lane (pads at or past the count 0)."""
+    out.copy_(shadow_ray_floors_plain(
+        levels_e, h3d0, list(params.offsets[: params.n_levels]), params.n,
+        params.hmax, bounds, ro, list(params.fwd), max_dst, idx=idx,
+        count=count))
     return out
 
 

@@ -38,6 +38,7 @@ each pose's image equal to its own deferred frame.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -601,16 +602,20 @@ class DeferredWorkspace:
         return self._adaptive
 
 
-def shadow_blocked_plain(world, octree_scale, sro, light_dir, beams, opaque,
-                         alpha_fn, max_steps, certify: bool):
-    """The plain deferred frame's shadow verdicts: (k,) bool, the rays from
-    the origins ``sro`` toward the light blocked (judged by ``alpha_fn``
-    unless ``opaque``). ``certify`` with a sun map: certify what it can
-    (K8's plain version), trace the rest unfloored; otherwise trace, from
-    the floors of ``beams`` where given."""
+def shadow_verdicts_plain(world, octree_scale, sro, light_dir, beams, opaque,
+                          alpha_fn, max_steps, certify: bool):
+    """The plain deferred frame's shadow verdicts of the rays from the
+    origins ``sro`` ((k, 3)) toward the light, judged by ``alpha_fn``
+    unless ``opaque``, as the finishing stage takes them: (blk, todo,
+    traced), each (k,) bool. ``certify`` with a sun map: K8's plain
+    version certifies what it can (``blk``: certainly blocked) and the rest
+    (``todo``) is traced unfloored; otherwise ``blk`` and ``todo`` are None
+    and every ray is traced, from the floors of ``beams`` where given.
+    ``traced`` = the ray was traced and hit."""
     dev = sro.device
     if sro.shape[0] == 0:
-        return torch.zeros(0, dtype=torch.bool, device=dev)
+        none = torch.zeros(0, dtype=torch.bool, device=dev)
+        return None, None, none
     md = torch.full((sro.shape[0],), -1.0, dtype=torch.float32, device=dev)
     neg_light = -light_dir
     srd = neg_light[None, :].expand(sro.shape).contiguous()
@@ -618,31 +623,61 @@ def shadow_blocked_plain(world, octree_scale, sro, light_dir, beams, opaque,
         sb, n1, d_len, d, origin = beams._sun
         lit, blk = sun_verdict_masks_plain(sb, n1, sro, md, d_len, d, origin,
                                            margin=beams.sun_margin)
-        tidx, tcount = compact.compact_indices_plain(~lit & ~blk,
-                                                     sro.shape[0])
-        todo = tidx[: int(tcount)].to(torch.int64)
-        sres = trace_plain(world, octree_scale, sro[todo], srd[todo], -1.0,
+        todo = ~lit & ~blk
+        tidx, tcount = compact.compact_indices_plain(todo, sro.shape[0])
+        lanes = tidx[: int(tcount)].to(torch.int64)
+        sres = trace_plain(world, octree_scale, sro[lanes], srd[lanes], -1.0,
                            not opaque, alpha_fn, max_steps)
-        cblk = blk.clone()
-        cblk[todo] = sres.t >= 0
-        return cblk
+        traced = torch.zeros_like(blk)
+        traced[lanes] = sres.t >= 0
+        return blk, todo, traced
     floors = (None if beams is None else beams.shadow_ray_floors_plain(
         sro, md, neg_light.cpu().numpy()))
     sres = trace_plain(world, octree_scale, sro, srd, -1.0, not opaque,
                        alpha_fn, max_steps, floors)
-    return ~(sres.t < 0)
+    return None, None, ~(sres.t < 0)
 
 
-def render_frame_deferred_plain(world, octree_scale, mips, mat_params,
-                                mat_tex, *, width: int, height: int,
-                                render_shadows: bool, cam_pos, cam_right,
-                                cam_up, cam_fwd, fov_y_rad, aspect, ambient,
-                                light_dir, shadow_distance, highlight_pos,
-                                max_steps: int = 1000, opaque: bool = False,
-                                beams=None, mip_mode: str | None = None):
-    """The plain PyTorch deferred frame (``render_frame_deferred``), every
-    stage in torch ops and the plain versions of K6, K7 and K8."""
+def shadow_blocked_plain(world, octree_scale, sro, light_dir, beams, opaque,
+                         alpha_fn, max_steps, certify: bool):
+    """The plain deferred frame's shadow verdicts: (k,) bool, the rays from
+    the origins ``sro`` toward the light blocked (``shadow_verdicts_plain``
+    combined: certified blocked, or left to trace and hit)."""
+    blk, todo, traced = shadow_verdicts_plain(world, octree_scale, sro,
+                                              light_dir, beams, opaque,
+                                              alpha_fn, max_steps, certify)
+    return traced if blk is None else blk | (todo & traced)
 
+
+class DeferredStagesPlain(NamedTuple):
+    """The plain deferred frame's intermediates: the primary rays'
+    directions ``rd`` ((B, 3), the sky of a miss); the hit lanes' pixels
+    ``hidx`` ((k,) int64), colour ``color`` ((k, 4)), light ``ds``
+    (diffuse + specular, (k,)) and shadow need ``need`` ((k,) bool); the
+    shadow candidates' hit lanes ``sidx`` ((m,) int64) and their verdicts
+    ``blk``, ``todo``, ``traced`` (``shadow_verdicts_plain``)."""
+
+    rd: torch.Tensor
+    hidx: torch.Tensor
+    color: torch.Tensor
+    ds: torch.Tensor
+    need: torch.Tensor
+    sidx: torch.Tensor
+    blk: torch.Tensor | None
+    todo: torch.Tensor | None
+    traced: torch.Tensor
+
+
+def deferred_stages_plain(world, octree_scale, mips, mat_params, mat_tex, *,
+                          width: int, height: int, render_shadows: bool,
+                          cam_pos, cam_right, cam_up, cam_fwd, fov_y_rad,
+                          aspect, ambient, light_dir, shadow_distance,
+                          highlight_pos, max_steps: int = 1000,
+                          opaque: bool = False, beams=None,
+                          mip_mode: str | None = None) -> DeferredStagesPlain:
+    """``render_frame_deferred_plain``'s stages up to the shadow verdicts
+    (its arguments), in torch ops and the plain versions of K6, K7 and
+    K8."""
     dev = world_tensor(world).device
     mip_mode = mip_mode or mip_mode_from_env()
     cam_pos, light_dir = _vec3(cam_pos, dev), _vec3(light_dir, dev)
@@ -667,19 +702,41 @@ def render_frame_deferred_plain(world, octree_scale, mips, mat_params,
     need = (res_k.t < float(np.float32(shadow_distance))) & (ds > 0)
     if not render_shadows:
         need = torch.zeros_like(need)
-    blocked = torch.zeros_like(need)
-    if render_shadows:
-        k = lane.shape[0]
-        sidx, scount = compact.compact_indices_plain(need, k)
-        cand = sidx[: int(scount)].to(torch.int64)
-        blocked[cand] = shadow_blocked_plain(
-            world, octree_scale, res_k.pos[cand] + normal[cand] * 0.001,
-            light_dir, beams, opaque, alpha_fn, max_steps, certify=opaque)
-    shadow = torch.where(need, torch.where(blocked, 0.0, 1.0), 1.0)
-    light = torch.clamp(float(np.float32(ambient)) + ds * shadow, 0.0, 1.0)
-    rgb = color[:, :3] * light[:, None]
-    img = sky_color(rd)
-    img[lane] = torch.cat([rgb, color[:, 3:4]], dim=-1)
+    sidx, scount = compact.compact_indices_plain(need, lane.shape[0])
+    cand = sidx[: int(scount)].to(torch.int64)
+    blk, todo, traced = shadow_verdicts_plain(
+        world, octree_scale, res_k.pos[cand] + normal[cand] * 0.001,
+        light_dir, beams, opaque, alpha_fn, max_steps, certify=opaque)
+    return DeferredStagesPlain(rd, lane, color, ds, need, cand, blk, todo,
+                               traced)
+
+
+def render_frame_deferred_plain(world, octree_scale, mips, mat_params,
+                                mat_tex, *, width: int, height: int,
+                                render_shadows: bool, cam_pos, cam_right,
+                                cam_up, cam_fwd, fov_y_rad, aspect, ambient,
+                                light_dir, shadow_distance, highlight_pos,
+                                max_steps: int = 1000, opaque: bool = False,
+                                beams=None, mip_mode: str | None = None):
+    """The plain PyTorch deferred frame (``render_frame_deferred``), every
+    stage in torch ops and the plain versions of K6, K7 and K8
+    (``deferred_stages_plain``), then the light and the image."""
+    st = deferred_stages_plain(
+        world, octree_scale, mips, mat_params, mat_tex, width=width,
+        height=height, render_shadows=render_shadows, cam_pos=cam_pos,
+        cam_right=cam_right, cam_up=cam_up, cam_fwd=cam_fwd,
+        fov_y_rad=fov_y_rad, aspect=aspect, ambient=ambient,
+        light_dir=light_dir, shadow_distance=shadow_distance,
+        highlight_pos=highlight_pos, max_steps=max_steps, opaque=opaque,
+        beams=beams, mip_mode=mip_mode)
+    blocked = torch.zeros_like(st.need)
+    blocked[st.sidx] = (st.traced if st.blk is None
+                        else st.blk | (st.todo & st.traced))
+    shadow = torch.where(st.need, torch.where(blocked, 0.0, 1.0), 1.0)
+    light = torch.clamp(float(np.float32(ambient)) + st.ds * shadow, 0.0, 1.0)
+    rgb = st.color[:, :3] * light[:, None]
+    img = sky_color(st.rd)
+    img[st.hidx] = torch.cat([rgb, st.color[:, 3:4]], dim=-1)
     return img.reshape(height, width, 4)
 
 
@@ -910,6 +967,35 @@ def kd_shadow_plain(world, octree_scale, tables, params, alpha_mode, sro,
                       None if floors is None else floors[c])
     traced[c] = (~(res.t < 0)).to(traced.dtype)
     return traced
+
+
+def kd_finish_plain(params, hidx, sidx, scount, color, ds, blk, todo,
+                    traced, img, blkp=None):
+    """``_build.launch_kd_finish``'s function, on its arguments: candidate
+    c < count of the list (``sidx``, ``scount``) is blocked when it was
+    traced and hit (``traced[c]``), or with certificates (``blk`` and
+    ``todo`` given) when K8 certified it so or it was left to trace and
+    hit; a blocked candidate's pixel ``hidx[sidx[c]]`` of ``img`` gets its
+    hit lane's colour in the ambient light alone (the shadow factor 0), and
+    ``blkp`` (None, or the pixel-space verdicts) its verdict at every
+    candidate's pixel. Every other entry of ``img`` and ``blkp`` keeps its
+    value."""
+    n = min(int(scount.reshape(-1)[0]), sidx.shape[0])
+    if n <= 0:
+        return img
+    blocked = traced[:n].bool()
+    if blk is not None:
+        blocked = blk[:n].bool() | (todo[:n].bool() & blocked)
+    j = sidx[:n].to(torch.int64)
+    px = hidx[j].to(torch.int64)
+    if blkp is not None:
+        blkp[px] = blocked.to(blkp.dtype)
+    jb, pb = j[blocked], px[blocked]
+    light = torch.clamp(params.ambient + ds[jb] * 0.0, 0.0, 1.0)
+    c = color[jb]
+    img.view(-1, 4)[pb] = torch.cat([c[:, :3] * light[:, None], c[:, 3:4]],
+                                    dim=-1)
+    return img
 
 
 # ---------------------------------------------------------------------------
