@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of voxelrs_tpu_torch on one CUDA card (an H100).
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--renderer-only]
 
 Builds the kernels (one nvcc call) and the native chunk serializers (g++;
 the run fails if they do not load), builds the procedural scene of
@@ -117,7 +117,26 @@ same inputs (each K9 launch held to the plain outputs), so are its
 shadow stage, shadow cells, finishing stage and K7 shadow floors, and its
 renderer's frames (adaptive,
 exact and fused in both formats, the ESVO batch) are timed in turns with
-this tree's and compared with them.
+this tree's and compared with them, each path's difference set beside the
+opaque adaptive frame's (whose kernels K3's and K9-judged's redesign left
+alone: the noise). K3 is held to the plain frame on the 5 bench poses and
+pose 0 trilinear in both formats; its steps are split into the primary
+ray's (K1 / K4 on the pixel's ray) and the shadow ray's, with each
+phase's SIMD efficiency in warps of 32 pixels of a row and in K3's 4x8
+tiles and the shadow share of the slowest warps (``k3_split``).
+K9-judged's trace is held to ``k9j_trace_plain`` on every call of the
+judged phases' frames (the 6 poses and the hole fill, both formats), each
+launch of pose 0's frame is timed alone, at a count of 0 (its refine
+lists) and, with --parent, against the parent's kernel, with its lanes'
+steps and SIMD efficiency (rows and, on the whole grid, 4x8 tiles). Both
+kernels' card operations a call and grid come from the profiler (one
+kernel, a grid within the blocks the card holds), their registers and
+spills from ptxas (the build's log, kept beside the library) and their
+stores by width from the SASS. ``--renderer-only`` stops after the
+renderer phases (the build, K1 / K4 and K3 in both formats, with --parent
+the parent's K3 on the same inputs) and prints no result: a quick
+comparison of K3's shapes, with --parent pointing at a copy of the tree
+with another shape.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -301,8 +320,11 @@ def parent_frames_phase(worlds, hf, poses, card) -> dict:
     worlds and envelope: per format the adaptive, exact deferred and fused
     frames, and the ESVO batch, one frame a sample, the sides in turns
     (parent, this tree, this tree, parent) on each pose, AB_ROUNDS times;
-    each side's median and quartiles. The fused frame (K3, the same code
-    on both sides) shows the noise."""
+    each side's median and quartiles, and each path's difference of the
+    medians (this tree less the parent). The opaque adaptive frame (K9's
+    kernels and the deferred stages, which K3's and K9-judged's redesign
+    leaves alone: the same code on both sides) shows the noise: its
+    difference is set beside every path's."""
     import importlib
 
     import numpy as np
@@ -360,9 +382,18 @@ def parent_frames_phase(worlds, hf, poses, card) -> dict:
         f"{json.dumps(out)}; max |d| "
         f"of the two sides' images "
         f"(pose 0, the batch's 5): {json.dumps(diff)} on {card}")
+    delta = {k: v["this tree"][0] - v["parent"][0] for k, v in out.items()}
+    for fmt in worlds:
+        noise = delta[f"{fmt} adaptive"]
+        log(f"frames ({fmt}), this tree less the parent (medians, ms): "
+            + ", ".join(f"{k.split()[1]} {d:+.4f}" for k, d in delta.items()
+                        if k.startswith(fmt))
+            + f"; the noise, the opaque adaptive frame's (the same code on "
+            f"both sides): {noise:+.4f} on {card}")
     if not all(d <= K3_MAX_ABS for d in diff.values()):
         fail("this tree's frames differ from the parent's")
-    return dict(ms=out, max_abs=diff)
+    return dict(ms=out, max_abs=diff, delta=delta,
+                noise_is="the opaque adaptive frame's delta, per format")
 
 
 def warp_stats(steps, wid) -> dict:
@@ -468,10 +499,14 @@ SHADOW_HELD = ("kd_shadow", "kd_finish", "k7_shadow")
 LAUNCH_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5),
                "k9_finalize": (3, 4, 5, 6, 7),
                "k9_shadow_cells": (5, 7, 8, 11), "kd_shadow": (11,),
-               "kd_finish": (9, 10), "k7_shadow": (8,)}
+               "kd_finish": (9, 10), "k7_shadow": (8,), "k9j_trace": (6,),
+               "k3": (4,)}
 # the launches spied in _build (the others are K9's wrappers in
-# ops.adaptive), the position of each one's count, and its plain version
+# ops.adaptive and K9-judged's in ops.adaptive_judged), the position of
+# each one's count, and its plain version
 RAW_LAUNCHES = {"kd_shadow": 7, "kd_finish": 3, "k7_shadow": 7}
+# the launches whose grid is at most the blocks the card holds at once
+RESIDENT_LAUNCHES = (*RAW_LAUNCHES, "k3", "k9j_trace")
 
 
 def copy_outs(name, args) -> list:
@@ -501,13 +536,14 @@ def launch_outputs_equal(name, outs, ref) -> tuple:
 
 def spied(name):
     """(module, attribute) of the function a held launch is spied on: K9's
-    wrappers, the launch functions of the shadow stage, the finishing
-    stage and K7's shadow floors."""
+    and K9-judged's wrappers, the launch functions of the shadow stage,
+    the finishing stage and K7's shadow floors."""
     from voxelrs_tpu_torch import _build
-    from voxelrs_tpu_torch.ops import adaptive
+    from voxelrs_tpu_torch.ops import adaptive, adaptive_judged
 
-    return (_build, f"launch_{name}") if name in RAW_LAUNCHES \
-        else (adaptive, name)
+    if name in RAW_LAUNCHES:
+        return _build, f"launch_{name}"
+    return (adaptive_judged if name.startswith("k9j_") else adaptive), name
 
 
 def plain_of(name):
@@ -517,7 +553,7 @@ def plain_of(name):
     return {"kd_shadow": shading.kd_shadow_plain,
             "kd_finish": shading.kd_finish_plain,
             "k7_shadow": beams.k7_shadow_plain}.get(name) \
-        or getattr(adaptive, f"{name}_plain")
+        or getattr(spied(name)[0], f"{name}_plain")
 
 
 class Held:
@@ -893,12 +929,54 @@ def launch_ops_phase(calls) -> dict:
     return out
 
 
+# the kernels whose ptxas lines the build reports (this tree's and, with
+# --parent, the parent's): K3 and K9-judged's trace in both formats, the
+# shadow pass's kernels
+PTXAS_KERNELS = {"k3_frame": "k3_frame_kernel", "k9j_trace": "k9j_trace_kernel",
+                 "kd_shadow": "kd_shadow_kernel",
+                 "k9_shadow_cells": "k9_shadow_cells_kernel",
+                 "kd_finish": "kd_finish_kernel",
+                 "k7_shadow": "k7_shadow_kernel"}
+
+
+def ptxas_of(build_log: str) -> dict:
+    """The ptxas summary (registers, spill stores and loads, shared and
+    stack bytes) of each kernel of PTXAS_KERNELS in an ``-Xptxas -v`` build
+    log, by instantiation (``k3_frame_esvo``, ``k3_frame_csvo`` ...; a
+    kernel of no world format by its name): the lines from its "Compiling
+    entry" to its "Used N registers"."""
+    import re
+
+    out, key = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            key = None
+            for name, fn in PTXAS_KERNELS.items():
+                if fn in line:
+                    key = name + ("_csvo" if "CsvoWorld" in line else
+                                  "_esvo" if "EsvoWorld" in line else "")
+            continue
+        if key is None:
+            continue
+        for field, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                           ("spill_stores", r"(\d+) bytes spill stores"),
+                           ("spill_loads", r"(\d+) bytes spill loads"),
+                           ("registers", r"Used (\d+) registers"),
+                           ("shared_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out.setdefault(key, {})[field] = int(m.group(1))
+        if "registers" in line:
+            key = None
+    return out
+
+
 def sass_widths(names=("k9_trace", "k9_merge", "k9_finalize",
                        "k9_shadow_cells", "kd_shadow", "kd_finish",
-                       "k7_shadow")) -> dict:
+                       "k7_shadow", "k3_frame", "k9j_trace")) -> dict:
     """The global and shared loads and stores of the K9 kernels, the
-    shadow and finishing stages and K7's shadow floors in the built
-    library's SASS (``cuobjdump -sass``), counted
+    shadow and finishing stages, K7's shadow floors, K3 and K9-judged's
+    trace in the built library's SASS (``cuobjdump -sass``), counted
     by width (.128 = 16-byte words, .64, and 32 bits and less): per kernel,
     instruction counts in the code, not executions. None where the toolkit
     has no cuobjdump."""
@@ -1636,17 +1714,15 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
-    if PARENT is not None:  # the parent's shadow-pass kernels
-        plog = PARENT.build_log.splitlines()
-        for i, line in enumerate(plog):
-            if "Compiling entry" in line and any(
-                    k in line for k in ("kd_shadow", "k9_shadow_cells",
-                                        "kd_finish", "k7_shadow")):
-                for pl in plog[i:i + 4]:  # to its "Used N registers"
-                    log(f"  the parent's ptxas: {pl.strip()}")
+    ptx = {"this tree": ptxas_of(_build.build_log)}
+    if PARENT is not None:
+        ptx["parent"] = ptxas_of(PARENT.build_log)
+    for side, kernels_ptx in ptx.items():
+        for name, info in kernels_ptx.items():
+            log(f"ptxas {name} ({side}): {info}")
     sass = sass_widths()
-    log(f"K9's, kd_shadow's, kd_finish's and k7_shadow's loads and stores "
-        f"in the SASS by width "
+    log(f"K9's, kd_shadow's, kd_finish's, k7_shadow's, K3's and k9j_trace's "
+        f"loads and stores in the SASS by width "
         f"(cuobjdump -sass; instructions in the code): {json.dumps(sass)}")
     log(f"native serializers: loaded {libs}; g++ {' '.join(native.GXX_FLAGS)}"
         f", seconds {native.build_seconds}")
@@ -1699,6 +1775,10 @@ def main() -> int:
         fail("K4 disagrees with K1 on the same scene")
     if not vs_frame < IMAGE_BUDGET:
         fail("the CSVO frame disagrees with the ESVO frame")
+    if "--renderer-only" in sys.argv:  # a quick comparison of K3's shapes
+        log("--renderer-only: the build and the renderer phases ran; no "
+            "result")
+        return 3
 
     # ---- 8. the deferred frame per format: K6, K7, K8 --------------------
     de = deferred_phase(svo, hf, poses, card)
@@ -1747,9 +1827,12 @@ def main() -> int:
                f"{r['parent_launches']} {r['parent_ops']}"))
         if r["launches"] is not None and r["launches"] > 2:
             fail(f"K6 ran {r['launches']} card operations a call (at most 2)")
-    with Phase("k9, kd_shadow, kd_finish and k7_shadow launches"):
-        k9l = launch_ops_phase(ae.pop("launch_args"))
+    with Phase("k9, kd_shadow, kd_finish, k7_shadow, k3 and k9j_trace "
+               "launches"):
+        k9l = launch_ops_phase({**ae.pop("launch_args"), "k3": e["k3_call"],
+                                **je.pop("launch_args")})
         ac.pop("launch_args")
+        jc.pop("launch_args")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, r in k9l.items():
         log(f"{name} card operations a call (pose 0, esvo; torch.profiler): "
@@ -1761,7 +1844,7 @@ def main() -> int:
             fail(f"{name} ran {r['launches']} card operations a call")
         # a resident grid: at most the blocks the card's SMs hold at once
         # by their 2,048 threads each (occupancy may hold fewer)
-        for g in (r["grids"] or []) if name in RAW_LAUNCHES else []:
+        for g in (r["grids"] or []) if name in RESIDENT_LAUNCHES else []:
             cap = sms * (2048 // (g["block"][0] * g["block"][1]))
             if g["grid"][0] * g["grid"][1] > cap:
                 fail(f"{name} launched {g['grid']} blocks of {g['block']}, "
@@ -1833,7 +1916,17 @@ def main() -> int:
              mean_abs_csvo_vs_esvo=vs_frame, frame_ms_csvo=c["frame_ms"],
              deferred_vs_k3=de["vs_k3"], deferred_vs_k3_csvo=dc["vs_k3"],
              deferred_vs_k3_game=ce["deferred_game_err"],
-             deferred_vs_k3_game_csvo=cc["deferred_game_err"]),
+             deferred_vs_k3_game_csvo=cc["deferred_game_err"],
+             poses_checked=e["k3_poses"], poses_checked_csvo=c["k3_poses"],
+             parent_ms=(e.get("k3_parent") or {}).get("ms"),
+             parent_ms_csvo=(c.get("k3_parent") or {}).get("ms"),
+             steps_split=e["k3_split"], steps_split_csvo=c["k3_split"],
+             ptxas={k: v.get("k3_frame_esvo") for k, v in ptx.items()},
+             ptxas_csvo={k: v.get("k3_frame_csvo") for k, v in ptx.items()},
+             launches_per_call=k9l["k3"]["launches"],
+             launches_per_call_parent=k9l["k3"].get("parent_launches"),
+             grids=k9l["k3"]["grids"],
+             grids_parent=k9l["k3"].get("parent_grids")),
         dict(name="k4_csvo_traversal", route="cuda",
              source="voxelrs_tpu_torch/csrc/k4_csvo_traversal.cuh",
              replaces="voxelrs_tpu/ops/traversal_csvo.py:151",
@@ -2100,13 +2193,29 @@ def main() -> int:
             ms=je["k9j"][k]["ms"], plain_ms=je["k9j"][k]["plain_ms"],
             bound_ms=je[f"{k}_bound"][0], bound_by=je[f"{k}_bound"][1],
             library_ms=None,
-            ok=je["k9j"][k]["equal"] and jc["k9j"][k]["equal"],
+            ok=je["k9j"][k]["equal"] and jc["k9j"][k]["equal"]
+            and (k != "trace" or held_sum("k9j_trace")["equal"]),
             launches_per_frame=len(je["k9j"][k]["calls"]),
             ms_per_launch=[c["ms"] for c in je["k9j"][k]["calls"]],
             launches_csvo=jc["launches"][f"k9j_{k}"],
             ms_csvo=jc["k9j"][k]["ms"], plain_ms_csvo=jc["k9j"][k]["plain_ms"],
             bound_ms_csvo=jc[f"{k}_bound"][0],
-            frame_vs_plain=max(je["vs_plain"], jc["vs_plain"])))
+            frame_vs_plain=max(je["vs_plain"], jc["vs_plain"]),
+            **({} if k != "trace" else dict(
+                calls_checked=held_sum("k9j_trace")["calls"],
+                per_launch=[{f: v for f, v in c.items() if f != "equal"}
+                            for c in je["k9j"][k]["calls"]],
+                per_launch_csvo=[{f: v for f, v in c.items()
+                                  if f != "equal"}
+                                 for c in jc["k9j"][k]["calls"]],
+                ptxas={s_: v.get("k9j_trace_esvo") for s_, v in ptx.items()},
+                ptxas_csvo={s_: v.get("k9j_trace_csvo")
+                            for s_, v in ptx.items()},
+                launches_per_call=k9l["k9j_trace"]["launches"],
+                launches_per_call_parent=k9l["k9j_trace"].get(
+                    "parent_launches"),
+                grids=k9l["k9j_trace"]["grids"],
+                grids_parent=k9l["k9j_trace"].get("parent_grids")))))
     # K10: the opaque frame's stages with a pose dimension, each launched
     # once for the batch; K9's and K6's held to their plain versions on the
     # batch's own inputs, the stages (whose plain version is the plain
@@ -2337,25 +2446,36 @@ def renderer_phase(svo, poses, card) -> dict:
         fail(f"{kname.upper()} disagrees with its plain version")
 
     with Phase(f"k3 vs plain ({fmt})"):
-        p = poses[0]
-        img = svo.render(p, W, H, max_steps=1000, mode="fused")
-        kw = svo.frame_kwargs(p, W, H, max_steps=1000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        ref_img = shading.render_frame_plain(
-            world, svo.octree_scale, svo.mips, svo.mat_params, svo.mat_tex,
-            **kw)
-        b.record()
-        b.synchronize()
-        out["k3_plain_ms"] = a.elapsed_time(b)
-    d = (img - ref_img).abs()
-    out.update(k3_err=float(d.max()), k3_mean_err=float(d.mean()), img=img)
+        # every bench pose, and pose 0 trilinear (VOXELRS_TRILINEAR=1)
+        errs, bits = [], []
+        for i, (p, tri) in enumerate([(p, False) for p in poses]
+                                     + [(poses[0], True)]):
+            os.environ["VOXELRS_TRILINEAR"] = "1" if tri else "0"
+            try:
+                k_img = svo.render(p, W, H, max_steps=1000, mode="fused")
+                kw = svo.frame_kwargs(p, W, H, max_steps=1000)
+                ms = event_ms(lambda: bits.append(shading.render_frame_plain(
+                    world, svo.octree_scale, svo.mips, svo.mat_params,
+                    svo.mat_tex, mip_mode=shading.mip_mode_from_env(),
+                    **kw)))
+            finally:
+                os.environ.pop("VOXELRS_TRILINEAR", None)
+            ref_img = bits.pop()
+            errs.append(dict(pose=i if not tri else 0, trilinear=tri,
+                             max_abs=max_abs(k_img, ref_img),
+                             equal=bits_equal(k_img, ref_img)))
+            if i == 0:
+                img, d = k_img, (k_img - ref_img).abs()
+                out["k3_plain_ms"] = ms
+    out.update(k3_err=max(r["max_abs"] for r in errs),
+               k3_mean_err=float(d.mean()), img=img, k3_poses=errs)
     out["k3_ok"] = out["k3_err"] <= K3_MAX_ABS
-    log(f"k3 vs plain ({fmt}): mean |d| {out['k3_mean_err']:.3g}, max |d| "
-        f"{out['k3_err']:.3g} (tolerance {K3_MAX_ABS:g}), pixels > 1e-3: "
-        f"{int((d.amax(-1) > 1e-3).sum())}; plain {out['k3_plain_ms']:.1f} "
-        f"ms; ok {out['k3_ok']}")
+    log(f"k3 vs plain ({fmt}; the {len(poses)} bench poses and pose 0 "
+        f"trilinear): {json.dumps(errs)}; pose 0 mean |d| "
+        f"{out['k3_mean_err']:.3g}, pixels > 1e-3: "
+        f"{int((d.amax(-1) > 1e-3).sum())}; max |d| {out['k3_err']:.3g} "
+        f"(tolerance {K3_MAX_ABS:g}); plain {out['k3_plain_ms']:.1f} ms; "
+        f"ok {out['k3_ok']}")
     if not out["k3_ok"]:
         fail(f"K3 disagrees with the plain frame ({fmt})")
 
@@ -2385,6 +2505,14 @@ def renderer_phase(svo, poses, card) -> dict:
         steps3 = torch.empty(W * H, dtype=torch.int32, device=dev)
         _build.launch_k3(world, scale, tables, fp, k3_img, steps3)
         out["k3_steps"] = int(steps3.sum())
+        out["k3_call"] = ((world, scale, tables, fp, k3_img), {})
+        if PARENT is not None:  # the parent's K3 on the same inputs
+            p_img = torch.empty_like(k3_img)
+            PARENT.launch_k3(world, scale, tables, fp, p_img)
+            out["k3_parent"] = dict(
+                equal=bits_equal(p_img, k3_img),
+                ms=kernel_ms(lambda: PARENT.launch_k3(world, scale, tables,
+                                                      fp, p_img)))
         # the wrappers' host time around those launches
         out["trav_host_us"] = host_us(lambda: query(ro, rd))
         out["k3_host_us"] = host_us(lambda: svo.render(poses[0], W, H,
@@ -2394,11 +2522,121 @@ def renderer_phase(svo, poses, card) -> dict:
         f"{len(poses)} poses x {REPS} runs, per-pose medians "
         f"{[round(x, 3) for x in frame_ms]}; {out['mrays']:.2f} Mrays/s "
         f"(primary + shadow, W*H*2/dt) on {card}")
+    par = out.get("k3_parent")
     log(f"kernels alone ({fmt}, pose 0, {KERNEL_REPS} back-to-back "
         f"launches): {kname} {out['trav_ms']:.4f} ms, k3 {out['k3_ms']:.4f} "
-        f"ms; wrapper host time (median of {HOST_REPS} calls): query "
-        f"{out['trav_host_us']:.1f} us, Svo.render {out['k3_host_us']:.1f} us")
+        f"ms" + ("" if par is None else f" (the parent's K3 {par['ms']:.4f} "
+                 f"ms, its frame equal {par['equal']})")
+        + f"; wrapper host time (median of {HOST_REPS} calls): query "
+        f"{out['trav_host_us']:.1f} us, Svo.render {out['k3_host_us']:.1f} us"
+        f" on {card}")
+    if par is not None and not par["equal"]:
+        fail(f"the parent's K3 draws another frame ({fmt})")
+
+    with Phase(f"k3 steps, primary and shadow ({fmt})"):
+        out["k3_split"] = k3_split(svo, poses, launch_fn, head)
+    sp = out["k3_split"]
+    log(f"k3 steps ({fmt}; a pixel's primary steps from {kname} on its ray, "
+        f"its shadow steps the rest of K3's; warps of 32 pixels of a row "
+        f"against K3's 4x8 tiles; the {len(poses)} bench poses): SIMD "
+        f"efficiency {json.dumps(sp['simd_eff'])}, the shadow share of the "
+        f"slowest 1% of tile warps' steps (the largest pose's) "
+        f"{sp['shadow_share_slowest_warps_max']:.4f}; regroup the shadow "
+        f"rays (shadow tiles under 0.6 or that share 0.3 or more): "
+        f"{sp['regroup_rule']}; per pose " + json.dumps([dict(
+            mean_primary=r["primary"]["tiles"]["mean"],
+            mean_shadow=r["shadow"]["tiles"]["mean"],
+            simd_eff={f"{ph}_{g}": r[ph][g]["simd_eff"]
+                      for ph in ("primary", "shadow", "total")
+                      for g in ("rows", "tiles")},
+            shadow_share_slowest_warps=r["shadow_share_slowest_warps"],
+            shadow_share_all_warps=r["shadow_share_all_warps"],
+            slowest_warp_steps=r["slowest_warp_steps"])
+            for r in sp["poses"]]) + f" on {card}")
+    if not sp["split_ok"]:
+        fail(f"K3's primary steps differ from {kname}'s on the same rays "
+             f"({fmt})")
     return out
+
+
+def k3_split(svo, poses, launch_fn, head) -> dict:
+    """K3's traversal steps on each bench pose split into the primary ray's
+    (K1 / K4 on the pixel's ray with K3's primary budget and judge) and the
+    shadow ray's (K3's steps less those), grouped into warps two ways:
+    32 pixels of a row (K3 before the tiles) and the 4x8 tiles K3 runs
+    (``_build.tile_lanes``); per pose and summed over the poses, the
+    primary and shadow phases' SIMD efficiency (``warp_stats``) and the
+    shadow share of the slowest warps' steps: over the tile warps, a warp's
+    longest primary plus its longest shadow ray (its two phases one after
+    the other), the slowest 1% of warps by that sum. The rule of this
+    kernel's design: regroup the shadow rays into full warps if the shadow
+    phase's SIMD efficiency in tiles is under 0.6 or the shadow steps are
+    0.3 or more of the slowest warps' steps."""
+    import numpy as np
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import shading
+
+    dev = svo.device_buf.device
+    B = W * H
+    tables = svo.kernel_tables()
+    lanes = _build.tile_lanes(W, H, dev)
+    on = lanes >= 0
+    tile_wid = torch.empty(B, dtype=torch.long, device=dev)
+    tile_wid[lanes[on]] = (torch.arange(lanes.shape[0], device=dev) // 32)[on]
+    row_wid = torch.arange(B, device=dev) // 32
+    md = torch.full((B,), -1.0, dtype=torch.float32, device=dev)
+    sums = {}
+    per_pose = []
+    split_ok = True
+    for p in poses:
+        fp = shading.frame_params(mip_mode=shading.mip_mode_from_env(),
+                                  csvo=svo.buffer_dtype == np.uint8,
+                                  **svo.frame_kwargs(p, W, H))
+        img = torch.empty((H, W, 4), dtype=torch.float32, device=dev)
+        total = torch.empty(B, dtype=torch.int32, device=dev)
+        _build.launch_k3(svo.world(), float(svo.octree_scale), tables, fp, img,
+                         total)
+        ro, rd = primary_rays(svo, p)
+        t_out = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
+            (B, torch.float32), (B, torch.int32), (B, torch.int32),
+            ((B, 3), torch.float32), ((B, 2), torch.float32),
+            (B, torch.float32), (B, torch.bool), (B, torch.int32))]
+        launch_fn(*head, ro, rd, md, fp.primary_budget, 1, tables, *t_out)
+        prim = t_out[7]
+        shadow = total - prim
+        split_ok &= bool((shadow >= 0).all()) and not bool(
+            (shadow[t_out[0] < 0] != 0).any())
+        r = {}
+        for phase, st in (("primary", prim), ("shadow", shadow),
+                          ("total", total)):
+            r[phase] = dict(rows=warp_stats(st, row_wid),
+                            tiles=warp_stats(st, tile_wid))
+        nw = int(tile_wid.max()) + 1
+        wmax = {ph: torch.zeros(nw, dtype=torch.long, device=dev)
+                .scatter_reduce_(0, tile_wid, st.long(), "amax")
+                for ph, st in (("primary", prim), ("shadow", shadow))}
+        both = wmax["primary"] + wmax["shadow"]
+        slow = torch.topk(both, max(1, nw // 100)).indices
+        r["shadow_share_slowest_warps"] = float(
+            wmax["shadow"][slow].sum() / both[slow].sum())
+        r["shadow_share_all_warps"] = float(wmax["shadow"].sum()
+                                            / both.sum())
+        r["slowest_warp_steps"] = int(both.max())
+        per_pose.append(r)
+        for k in ("primary", "shadow"):
+            for g in ("rows", "tiles"):
+                a = sums.setdefault((k, g), [0, 0])
+                a[0] += r[k][g]["lane_sum"]
+                a[1] += r[k][g]["warp_max_sum"]
+    eff = {f"{k}_{g}": v[0] / (32 * v[1]) if v[1] else None
+           for (k, g), v in sums.items()}
+    slow_share = max(r["shadow_share_slowest_warps"] for r in per_pose)
+    regroup = (eff["shadow_tiles"] is not None and eff["shadow_tiles"] < 0.6
+               ) or slow_share >= 0.3
+    return dict(simd_eff=eff, shadow_share_slowest_warps_max=slow_share,
+                regroup_rule=regroup, split_ok=split_ok, poses=per_pose)
 
 
 class Spy:
@@ -3521,7 +3759,7 @@ def judged_phase(svo, hf, poses, card) -> dict:
     with Phase(f"judged main path ({fmt})"):
         zero_judged_counts()
         frames, infos, marks = [], [], []
-        with Held(("k9_shadow_cells",) + SHADOW_HELD) as held:
+        with Held(("k9j_trace", "k9_shadow_cells") + SHADOW_HELD) as held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
                 infos.append(dict(svo.last_frame))
@@ -3530,13 +3768,14 @@ def judged_phase(svo, hf, poses, card) -> dict:
         torch.cuda.synchronize()
         n = out["launches"] = judged_counts()
         out["held"] = held.check()
-    log(f"k9 shadow cells, kd_shadow (judged rays), kd_finish and "
-        f"k7_shadow vs their plain versions on every call of the "
+    log(f"k9j trace, k9 shadow cells, kd_shadow (judged rays), kd_finish "
+        f"and k7_shadow vs their plain versions on every call of the "
         f"{len(poses6)} judged frames ({fmt}; bit for bit): "
         f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"K9's shadow cells, kd_shadow, kd_finish or K7's shadow floors "
-             f"disagree with their plain versions in the {fmt} judged frames")
+        fail(f"K9-judged's trace, K9's shadow cells, kd_shadow, kd_finish or "
+             f"K7's shadow floors disagree with their plain versions in the "
+             f"{fmt} judged frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -3592,11 +3831,14 @@ def judged_phase(svo, hf, poses, card) -> dict:
             right = ~(img != exact).any(-1) | ~(floored != exact).any(-1)
             cert.append(dict(pixels=int(diff.sum()),
                              on_exact_pixels=int((diff & right).sum())))
-        # one pose with the hole fill (VOXELRS_HOLE_FILL=1)
+        # one pose with the hole fill (VOXELRS_HOLE_FILL=1), K9-judged's
+        # trace held on its every call
         os.environ["VOXELRS_HOLE_FILL"] = "1"
         try:
             ctx = svo.beam_context(poses[0], W, H)
-            fill = svo.render(poses[0], W, H, beams=ctx)
+            with Held(("k9j_trace",)) as fill_held:
+                fill = svo.render(poses[0], W, H, beams=ctx)
+            out["held"] = held_merge(out["held"], fill_held.check())
             fill_ref = plain_judged(svo, poses[0], ctx, hole_fill=True)
             fused = svo.render(poses[0], W, H, mode="fused")
             exact = svo.render(poses[0], W, H, adaptive=False)
@@ -3606,7 +3848,8 @@ def judged_phase(svo, hf, poses, card) -> dict:
         fill_stats = thick_ray(fill, fused, exact, levels)
         fill_changed = int((fill != frames[0]).any(-1).sum())
     out["vs_plain"] = max(err, fill_err)
-    out["vs_plain_ok"] = out["vs_plain"] <= K3_MAX_ABS
+    out["vs_plain_ok"] = out["vs_plain"] <= K3_MAX_ABS and out["held"][
+        "k9j_trace"]["equal"]
     out["vs_exact"], out["vs_exact_hole_fill"] = stats, fill_stats
     out["exact_vs_k3"] = exact_vs_k3
     out["vs_exact_ok"] = exact_vs_k3 <= K3_MAX_ABS and all(
@@ -3614,8 +3857,10 @@ def judged_phase(svo, hf, poses, card) -> dict:
     out["certificates_vs_traces"] = cert
     log(f"judged vs its plain version ({fmt}, {len(poses6)} poses and pose "
         f"0 with the hole fill): max |d| {err:.3g} / {fill_err:.3g} "
-        f"(tolerance {K3_MAX_ABS:g}); ok {out['vs_plain_ok']}; plain frame "
-        f"(pose 0) {out['plain_ms']:.1f} ms")
+        f"(tolerance {K3_MAX_ABS:g}); k9j trace held on every call of the "
+        f"{len(poses6) + 1} frames {json.dumps(out['held']['k9j_trace'])}; "
+        f"ok {out['vs_plain_ok']}; plain frame (pose 0) "
+        f"{out['plain_ms']:.1f} ms")
     log(f"judged vs the exact judged frame ({fmt}; the traced grid's pixels "
         f"equal to the exact frame's and within {K3_MAX_ABS:g} of K3's, "
         f"mean |d| < 0.002, under 2% of pixels off by 1e-3; the exact "
@@ -3648,6 +3893,9 @@ def judged_phase(svo, hf, poses, card) -> dict:
         if ncalls != dict(trace=levels + 1, merge=levels, finalize=1):
             fail(f"the {fmt} judged frame ran K9-judged another way: "
                  f"{ncalls}")
+        # the profiler's call: the pixels' refine list (its count on the
+        # card, its size the grid's lanes)
+        out["launch_args"] = {"k9j_trace": spies["trace"].calls[-1]}
         res = {k: dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0, calls=[])
                for k in K9J}
 
@@ -3675,6 +3923,27 @@ def judged_phase(svo, hf, poses, card) -> dict:
                 world, scale, tables, fp, tf, level, outs[1], idx, cnt))
             kms = kernel_ms(lambda: _build.launch_k9j_trace(
                 world, scale, tables, fp, tf, level, outs[2], idx, cnt))
+            # a refine list's launch at a count of 0 (its fixed cost), and
+            # the parent's kernel on the same inputs, held to the plain
+            # records
+            zero = None if cnt is None else torch.zeros_like(cnt)
+            ms0 = None if zero is None else kernel_ms(
+                lambda: _build.launch_k9j_trace(world, scale, tables, fp, tf,
+                                                level, outs[2], idx, zero))
+            par = None
+            if PARENT is not None:
+                po = rec0.clone()
+                PARENT.launch_k9j_trace(world, scale, tables, fp, tf, level,
+                                        po, idx, cnt)
+                par = dict(equal=bool(torch.equal(po, outs[1])),
+                           ms=kernel_ms(lambda: PARENT.launch_k9j_trace(
+                               world, scale, tables, fp, tf, level, po, idx,
+                               cnt)))
+                if zero is not None:
+                    par["ms_count0"] = kernel_ms(
+                        lambda: PARENT.launch_k9j_trace(
+                            world, scale, tables, fp, tf, level, po, idx,
+                            zero))
             lanes = (torch.arange(rec0.shape[0], device=dev) if idx is None
                      else idx[: int(cnt)].long())
             ids = adaptive.grid_pixel_ids(W, H, level, dev)[lanes]
@@ -3703,9 +3972,13 @@ def judged_phase(svo, hf, poses, card) -> dict:
             trace_bytes += (lanes.shape[0] * aj.REC_WORDS * 4
                             + tf.numel() * 4
                             + (0 if idx is None else lanes.shape[0] * 4 + 4))
-            note("trace", torch.equal(outs[0], outs[1]),
+            wl, hl = adaptive.grid_dims(W, H, level)[level]
+            note("trace", torch.equal(outs[0], outs[1])
+                 and (par is None or par["equal"]),
                  max_abs(outs[0], outs[1]), kms, pms, level=level,
-                 lanes=lanes.shape[0], steps=steps)
+                 lanes=lanes.shape[0], steps=steps, ms_count0=ms0,
+                 parent=par, grid=idx is None,
+                 launch=trace_launch_stats(k1.steps, lanes, idx, wl, hl))
         out["trace_vs_k1"] = dict(lanes=trace_lanes, differing=vs_k1,
                                   steps=trace_steps)
         out["trace_bound"] = bound(trace_bytes, trace_steps * OPS_PER_STEP
@@ -3779,6 +4052,17 @@ def judged_phase(svo, hf, poses, card) -> dict:
             f"({json.dumps([round(c['ms'], 4) for c in r['calls']])}), "
             f"plain {r['plain_ms']:.2f} ms, bound {bd[0]:.4g} ms ({bd[1]}) "
             f"on {card}")
+    for c in res["trace"]["calls"]:
+        log(f"k9j trace launch ({fmt}, pose 0, level {c['level']}, "
+            f"{'the whole grid' if c['grid'] else 'a refine list'}): "
+            f"{c['lanes']} lanes, alone {c['ms']:.4f} ms"
+            + ("" if c["ms_count0"] is None
+               else f", at count 0 {c['ms_count0']:.4f} ms")
+            + ("" if c["parent"] is None else
+               f"; the parent's {json.dumps(c['parent'])}")
+            + f"; steps and warps (K1 / K4 on the same rays; warps of 32 "
+            f"items, and of 4x8 tiles on the whole grid) "
+            f"{json.dumps(c['launch'])} on {card}")
     log(f"judged grids ({fmt}, pose 0; per level: lanes, sample share, "
         f"filled share, refined = re-traced share): {json.dumps(shares)}")
     if not out["k9j_ok"]:

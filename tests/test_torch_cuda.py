@@ -38,8 +38,14 @@ shadow cells refuse lanes off a 16-byte word. The finishing stage
 floors ``ops.beams.shadow_ray_floors_plain`` bit for bit: counts of 0,
 equal to the list's size and off a word or a block, with and without
 certificates and pixel verdicts, no list, per-lane limits, pads 0, 3
-poses, every launch of the frames and of a batch. The crosshair
-equals the CPU's result bit for bit.
+poses, every launch of the frames and of a batch. K3 in 4x8 tiles
+equals the plain frame bit for bit at 1x1, 15x12, 33x17 and 1920x1080,
+with and without shadows, trilinear and at the CSVO budget of 40, both
+formats, its tile counters back at 0 after each launch, and refuses a
+frame off a 16-byte word; K9-judged's trace equals ``k9j_trace_plain``
+bit for bit on each grid level of the judged frame, the whole grid and
+refine lists at counts 0, 1, odd, the list's size and past it. The
+crosshair equals the CPU's result bit for bit.
 """
 
 import numpy as np
@@ -1742,3 +1748,110 @@ def test_kd_finish_and_k7_shadow_calls_of_frames_equal_plain(
         ref = beams.k7_shadow_plain(*args[:8], args[8].clone())
         torch.cuda.synchronize()
         assert _bits_equal(out, ref)
+
+
+# ---- K3 and K9-judged's trace in 4x8 tiles on a resident grid ---------------
+
+# K3's variants: (render_shadows, VOXELRS_TRILINEAR, max_steps); at 40 steps
+# the CSVO shadow rays run out of the frame's budget, as in the JAX CSVO
+# frame (the ESVO ones get MAX_STEPS)
+K3_VARIANTS = {"shadows": (True, False, 300), "no shadows": (False, False,
+                                                             1000),
+               "trilinear": (True, True, 1000), "budget 40": (True, False, 40)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("variant", sorted(K3_VARIANTS))
+@pytest.mark.parametrize("size", [(1, 1), (15, 12), (33, 17), (1920, 1080)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k3_tiles_equal_plain(svo, csvo, dev, fmt, variant, size,
+                              monkeypatch):
+    """K3 (a warp a 4x8 pixel tile, both rays through the block's shared
+    stacks, a pixel a 16-byte store, a grid of at most the blocks the card
+    holds, whose warps take the tiles from the stream's counters) against
+    the plain frame bit for bit, with a highlighted block, at frame sizes
+    that are not multiples of a tile and at 1080p; its steps a pixel from
+    ``steps``, the counters back at 0 after each launch."""
+    shadows, trilinear, max_steps = K3_VARIANTS[variant]
+    monkeypatch.setenv("VOXELRS_TRILINEAR", "1" if trilinear else "0")
+    s = svo if fmt == "esvo" else csvo
+    W, H = size
+    fwd = np.array([0.5, -0.5, 0.7], np.float32)
+    p = RenderParams(cam_pos=np.array([2.0, 20.0, -4.0], np.float32),
+                     cam_fwd=fwd / np.linalg.norm(fwd), aspect_ratio=W / H,
+                     fov_y_rad=np.radians(70.0), render_shadows=shadows,
+                     shadow_distance=100.0,
+                     selected_voxel=np.array([12.0, 11.0, 10.0], np.float32))
+    n0 = shading.launches
+    img = s.render(p, W, H, max_steps=max_steps, mode="fused")
+    kw = s.frame_kwargs(p, W, H, max_steps=max_steps)
+    ref = shading.render_frame_plain(s.world(), s.octree_scale, s.mips,
+                                     s.mat_params, s.mat_tex, **kw)
+    fp = shading.frame_params(mip_mode=shading.mip_mode_from_env(),
+                              csvo=fmt == "csvo", **kw)
+    again = torch.full_like(img, 7.0)
+    steps = torch.full((W * H,), -1, dtype=torch.int32, device=dev)
+    _build.launch_k3(s.world(), float(s.octree_scale), s.kernel_tables(), fp,
+                     again, steps)
+    torch.cuda.synchronize()
+    assert shading.launches == n0 + 1
+    assert _bits_equal(img, ref) and _bits_equal(again, ref)
+    assert bool((steps >= 1).all())
+    # each launch leaves the stream's tile counters at 0 for the next
+    assert not bool(_build.k3_tiles(dev).any())
+
+
+@pytest.mark.cuda
+def test_k3_refuses_a_frame_off_a_16_byte_word(svo, dev):
+    fp = shading.frame_params(mip_mode="nearest", **svo.frame_kwargs(
+        _tparams("horizon"), 8, 4))
+    buf = torch.zeros(8 * 4 * 4 + 4, device=dev)
+    with pytest.raises(ValueError, match="img: expected a 16-byte aligned"):
+        _build.launch_k3(svo.world(), float(svo.octree_scale),
+                         svo.kernel_tables(), fp, buf[1:1 + 128].view(4, 8, 4))
+
+
+# a refine list's count against its size: 0, 1, an odd count, the size and
+# past the size (the kernel stops at the size)
+K9J_COUNTS = ("count 0", "count 1", "odd count", "count = size",
+              "count > size")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("case", ("grid",) + K9J_COUNTS)
+def test_k9j_trace_tiles_equal_plain(judged_scenes, dev, fmt, level, case):
+    """K9-judged's trace (K9's shape: 4x8 tiles a warp on the whole grid,
+    the stack in shared memory, a resident grid looping up to the refine
+    list's count on the card, a record as four 16-byte words) against
+    ``k9j_trace_plain`` bit for bit on each grid level of the judged
+    frame, the whole grid or a refine list, every other record
+    untouched."""
+    from voxelrs_tpu_torch.ops import adaptive_judged as aj
+
+    s = judged_scenes[fmt]
+    world, scale, fp, tf = _k9_inputs(s, _jparams("canopy"), dev)
+    tables = s.kernel_tables()
+    w, h = adaptive.grid_dims(TW, TH, 2)[level]
+    n = w * h
+    idx = count = None
+    if case != "grid":
+        g = torch.Generator(device=dev).manual_seed(level)
+        idx = torch.nonzero(torch.rand(n, generator=g, device=dev)
+                            < 0.37).flatten().to(torch.int32)
+        size = idx.shape[0]
+        c = {"count 0": 0, "count 1": 1, "odd count": (size // 2) | 1,
+             "count = size": size, "count > size": size + 5}[case]
+        count = torch.tensor([c], dtype=torch.int32, device=dev)
+    rec = torch.full((n, aj.REC_WORDS), 9, dtype=torch.int32, device=dev)
+    ref = rec.clone()
+    n0 = aj.launches_trace
+    aj.k9j_trace(world, scale, tables, fp, tf, level, rec, idx, count)
+    aj.k9j_trace_plain(world, scale, tables, fp, tf, level, ref, idx, count)
+    torch.cuda.synchronize()
+    assert aj.launches_trace == n0 + 1
+    assert torch.equal(rec, ref)
+    traced = int((rec != 9).any(1).sum())
+    assert traced == (n if idx is None else min(int(count), idx.shape[0]))

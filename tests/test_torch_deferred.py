@@ -22,6 +22,10 @@ replays the previous view's compaction buckets and may drop hit pixels
 until the counts land (voxelrs_tpu/ops/shading.py:3904-3909). Within the
 port: the floored frame equals the unfloored one, and the deferred frame
 equals the fused frame, bit for bit.
+
+Three of test_deferred_matches_jax's cases (GLASS_FILE_CASES) run in
+tests/test_torch_deferred_glass.py, on the same scenes and checks, so that
+two workers share the cases.
 """
 
 import numpy as np
@@ -158,13 +162,24 @@ def _jax_deferred(jsvo, p):
 CASES = ([("glass", c) for c in CAMS] + [("opaque", "horizon"),
                                           ("opaque", "down"),
                                           ("csvo", "horizon")])
+# the cases of test_deferred_matches_jax that run in
+# tests/test_torch_deferred_glass.py: the slowest glass views, so that the
+# tier-1 run's workers share the two files
+GLASS_FILE_CASES = [("glass", "down"), ("glass", "on-ground"),
+                    ("csvo", "horizon")]
 
 
-@pytest.mark.parametrize("scene,cam", CASES)
+@pytest.mark.parametrize("scene,cam", [c for c in CASES
+                                       if c not in GLASS_FILE_CASES])
 def test_deferred_matches_jax(scene, cam):
     """The port's frame with and without the heightfield against the JAX
     deferred frame (the JAX package's own tests hold its floored frame
     equal to its unfloored one, test_beams.py:282-336 and :488)."""
+    check_deferred_matches_jax(scene, cam)
+
+
+def check_deferred_matches_jax(scene, cam):
+    """test_deferred_matches_jax's checks of one scene and camera."""
     jsvo, tsvo, _jh, th = _get(scene)
     jp, tp = _params(JRenderParams, cam), _params(RenderParams, cam)
     jimg = _jax_deferred(jsvo, jp)

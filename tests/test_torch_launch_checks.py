@@ -1,18 +1,23 @@
-"""The launch checks of the finishing stage's kernel (``kd_finish``) and of
-K7's shadow floors. ``kd_finish`` reads a thread's 4 candidate slots as one
-16-byte word of ``sidx`` and one 4-byte word of each flag array
-(``traced``, ``blk``, ``todo``) from slot 0, and gathers colours and
-writes pixels as 16-byte words; K7's shadow kernel writes its pads as
-16-byte words from lane 0. On the card a view off those words faults or
-misses lanes, so ``_build.launch_kd_finish`` and ``_build.launch_k7_shadow``
-refuse it before they touch the kernel library, and ``_build.
-check_kd_finish`` / ``check_k7_shadow`` take the aligned views. CPU
-tensors only; no JAX, no card."""
+"""The launch checks of the finishing stage's kernel (``kd_finish``), of
+K7's shadow floors, of K3 and of K9-judged's trace, and the work items of
+the launches in 4x8 pixel tiles. ``kd_finish`` reads a thread's 4
+candidate slots as one 16-byte word of ``sidx`` and one 4-byte word of
+each flag array (``traced``, ``blk``, ``todo``) from slot 0, and gathers
+colours and writes pixels as 16-byte words; K7's shadow kernel writes its
+pads as 16-byte words from lane 0; K3 writes each pixel, and K9-judged's
+trace each record, as 16-byte words. On the card a view off those words
+faults or misses lanes, so the ``_build`` launch functions refuse it
+before they touch the kernel library, and ``_build.check_kd_finish`` /
+``check_k7_shadow`` / ``check_k3`` take the aligned views. K3 and K9's and
+K9-judged's grid traces give a warp a 4x8 tile of a grid
+(``csrc/kernels.cu::tile_lane``, mirrored by ``_build.tile_lanes``): every
+lane is one item's, once. CPU tensors only; no JAX, no card."""
 
 import pytest
 import torch
 
 from voxelrs_tpu_torch import _build
+from voxelrs_tpu_torch.ops import adaptive
 
 N = 37  # candidate slots: a partial last word of 4
 
@@ -120,3 +125,76 @@ def test_k7_shadow_refuses_an_output_off_a_16_byte_word(offset):
         _build.launch_k7_shadow(None, None, None, _build.BeamParams(), None,
                                 None, None, None,
                                 _view(2 * N, torch.float32, 0)[::2])
+
+
+@pytest.mark.parametrize("size", [(1, 1), (15, 12), (33, 17), (127, 95),
+                                  (1920, 1080)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k3_tiles_cover_every_pixel_once(size):
+    """K3's items (4x8 tiles a warp over the frame): each pixel is one
+    item's, and a warp's 32 items lie in one 4-row, 8-column patch."""
+    W, H = size
+    lanes = _build.tile_lanes(W, H)
+    assert lanes.shape[0] == -(-W // 8) * -(-H // 4) * 32
+    on = lanes[lanes >= 0]
+    assert torch.equal(torch.sort(on).values, torch.arange(W * H))
+    warps = lanes.view(-1, 32)
+    y = torch.where(warps >= 0, warps // W, -1)
+    x = torch.where(warps >= 0, warps % W, -1)
+    for v, span in ((y, 4), (x, 8)):
+        lo = torch.where(v >= 0, v, 1 << 30).amin(1)
+        hi = v.amax(1)
+        assert bool((hi - lo < span).all())
+
+
+@pytest.mark.parametrize("size", [(1920, 1080), (640, 360), (127, 95)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_judged_grid_tiles_cover_every_lane_once(size):
+    """K9-judged's (and K9's) whole-grid trace on each grid level of the
+    judged frame (the quarter grid's levels): every lane of the level is
+    one item's."""
+    W, H = size
+    dims = adaptive.grid_dims(W, H, 2)
+    assert len(dims) == 3
+    for w, h in dims:
+        lanes = _build.tile_lanes(w, h)
+        on = lanes[lanes >= 0]
+        assert torch.equal(torch.sort(on).values, torch.arange(w * h))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_k3_refuses_a_frame_off_a_16_byte_word(offset):
+    img = _view(8 * 4, torch.float32, offset, 4).view(4, 8, 4)
+    fp = _build.FrameParams()
+    if offset % 4 == 0:
+        _build.check_k3(img)
+    else:
+        with pytest.raises(ValueError, match="img: expected a 16-byte aligned"):
+            _build.launch_k3(None, 1.0, None, fp, img)
+
+
+def test_k3_refuses_what_its_stores_cannot_take():
+    img = torch.zeros((4, 8, 4))
+    fp = _build.FrameParams()
+    for bad, match in (
+            (dict(img=img.transpose(0, 1)), "img: expected a contiguous"),
+            (dict(img=img.double()), "img: expected a contiguous"),
+            (dict(steps=torch.zeros(32, dtype=torch.int64)), "steps"),
+            (dict(steps=torch.zeros(31, dtype=torch.int32)), "steps"),
+            (dict(steps=torch.zeros(64, dtype=torch.int32)[::2]), "steps")):
+        a = dict(img=img, steps=None)
+        a.update(bad)
+        with pytest.raises(ValueError, match=match):
+            _build.launch_k3(None, 1.0, None, fp, a["img"], a["steps"])
+    _build.check_k3(img, torch.zeros(32, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_k9j_trace_refuses_records_off_a_16_byte_word(offset):
+    out = _view(N, torch.int32, offset, 16)
+    if offset % 4 == 0:
+        _build.check_aligned("out", out)
+    else:
+        with pytest.raises(ValueError, match="out: expected a 16-byte aligned"):
+            _build.launch_k9j_trace(None, 1.0, None, _build.FrameParams(),
+                                    None, 0, out)

@@ -49,7 +49,10 @@ BUILD_TIMEOUT_S = 180
 LIB_NAME = "libvoxelrs_kernels.so"
 
 _lib = None
-build_log = ""  # nvcc's output (with the -Xptxas -v register/spill lines)
+# nvcc's output (with the -Xptxas -v register/spill lines), kept beside the
+# library as build.log, and read from there when a finished library is
+# reused
+build_log = ""
 build_seconds = 0.0  # 0.0 when a finished library was reused
 
 MAX_LEVELS = 8
@@ -149,6 +152,10 @@ def library() -> ctypes.CDLL:
         return _lib
     out_dir = os.path.join(_HERE, "_build", source_digest())
     lib_path = os.path.join(out_dir, LIB_NAME)
+    log_path = os.path.join(out_dir, "build.log")
+    if os.path.exists(lib_path) and os.path.exists(log_path):
+        with open(log_path) as f:  # the reused library's own build
+            build_log = f.read()
     if not os.path.exists(lib_path):
         os.makedirs(out_dir, exist_ok=True)
         tmp = os.path.join(out_dir, f".{LIB_NAME}.{os.getpid()}.tmp")
@@ -161,6 +168,9 @@ def library() -> ctypes.CDLL:
         build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        with open(tmp + ".log", "w") as f:
+            f.write(build_log)
+        os.replace(tmp + ".log", log_path)
         os.replace(tmp, lib_path)
     # PyDLL: a launch is a microseconds-long enqueue, so the calls keep the
     # interpreter lock; a CDLL call releases it, and under the game's busy
@@ -176,7 +186,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vx_k1_traverse.argtypes = [P, LL, F, P, P, P, I, I, I, P,
                                    P, P, P, P, P, P, P, P, P, P]
     lib.vx_k1_traverse.restype = I
-    lib.vx_k3_frame.argtypes = [P, LL, F, P, P, P, P, P]
+    lib.vx_k3_frame.argtypes = [P, LL, F, P, P, P, P, P, P]
     lib.vx_k3_frame.restype = I
     lib.vx_k5_picker.argtypes = [P, LL, F, P, I, I, P, P, P]
     lib.vx_k5_picker.restype = I
@@ -184,7 +194,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vx_k4_traverse.argtypes = [P, LL, F, U, I, P, P, P, I, I, I, P,
                                    P, P, P, P, P, P, P, P, P, P]
     lib.vx_k4_traverse.restype = I
-    lib.vx_k3_frame_csvo.argtypes = [P, LL, F, U, I, P, P, P, P, P]
+    lib.vx_k3_frame_csvo.argtypes = [P, LL, F, U, I, P, P, P, P, P, P]
     lib.vx_k3_frame_csvo.restype = I
     lib.vx_k5_picker_csvo.argtypes = [P, LL, F, U, I, P, I, I, P, P, P]
     lib.vx_k5_picker_csvo.restype = I
@@ -298,15 +308,59 @@ def launch_k1(desc, octree_scale, ro, rd, max_dst, budget, alpha_mode,
     _raise_on(err, "K1 (vx_k1_traverse)")
 
 
+def tile_lanes(width: int, height: int, device=None):
+    """The lane of each work item of a launch over a ``width`` x ``height``
+    grid in 4x8 tiles a warp (csrc/kernels.cu ``tile_lane`` with no list:
+    K3's pixels, K9's and K9-judged's grid traces), -1 past the grid's last
+    row or column; item m runs in warp m // 32. Its length is the launch's
+    item count (csrc/kernels.cu ``tile_items``)."""
+    tx, ty = -(-width // 8), -(-height // 4)
+    m = torch.arange(tx * ty * 32, device=device)
+    t, lane = m // 32, m % 32
+    y = t // tx * 4 + lane // 8
+    x = t % tx * 8 + lane % 8
+    return torch.where((y < height) & (x < width), y * width + x,
+                       torch.full_like(m, -1))
+
+
+def check_k3(img, steps=None):
+    """Refuse what K3 cannot write: it stores each pixel of ``img`` as one
+    16-byte word from pixel 0, and each pixel's steps into ``steps`` (None,
+    or a contiguous int32 tensor of a lane a pixel)."""
+    _check_pixels("img", img)
+    if steps is not None and (steps.dtype != torch.int32
+                              or not steps.is_contiguous()
+                              or steps.numel() * 4 != img.numel()):
+        raise ValueError("steps: expected a contiguous int32 tensor of a "
+                         "lane a pixel")
+
+
+_k3_tiles = {}  # (device, stream) -> K3's tile counters
+
+
+def k3_tiles(device) -> torch.Tensor:
+    """K3's tile counters for the current stream of ``device``: 2 int32,
+    zeroed when allocated. A launch's warps take their tiles from them and
+    its last warp sets them back to 0; a stream runs its launches one after
+    another, so each stream has its own."""
+    key = (device, _stream(device).value)
+    if key not in _k3_tiles:
+        _k3_tiles[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _k3_tiles[key]
+
+
 def launch_k3(world, octree_scale, tables, params: FrameParams, img,
               steps=None):
-    """Launch K3 on the current stream (inputs checked by the caller), the
-    ESVO or the CSVO instantiation by ``world``. ``steps``, a diagnostic no
-    wrapper passes, is None or a contiguous (H*W,) int32 tensor that
-    receives each pixel's traversal steps, primary plus shadow."""
+    """Launch K3 on the current stream, the ESVO or the CSVO instantiation
+    by ``world`` (the world and tables checked by the caller; ``img``, its
+    (H, W, 4) float32 frame, here: ``check_k3``), its tiles taken from the
+    stream's counters (``k3_tiles``). ``steps``, a diagnostic no wrapper
+    passes, is None or a contiguous (H*W,) int32 tensor that receives each
+    pixel's traversal steps, primary plus shadow."""
+    check_k3(img, steps)
     lib = library()
-    tail = (ctypes.byref(tables.struct), ctypes.byref(params), _ptr(img),
-            _ptr(steps))
+    tail = (ctypes.byref(tables.struct), ctypes.byref(params),
+            _ptr(k3_tiles(img.device)), _ptr(img), _ptr(steps))
     if isinstance(world, torch.Tensor):
         err = lib.vx_k3_frame(_ptr(world), world.shape[0], octree_scale,
                               *tail, _stream(world.device))
@@ -559,9 +613,11 @@ def launch_k9_shadow_cells(step, params: FrameParams, hidx, hcount, need,
 def launch_k9j_trace(world, octree_scale, tables, params: FrameParams, tf,
                      level, out, idx=None, count=None):
     """K9-judged's trace of grid level ``level`` into its (n, 16) int32
-    records ``out``: every lane, or the refine list ``idx`` ((size,)
-    int32) up to its device ``count``; ``tf`` None or the (nty, ntx) tile
-    floors; ``tables`` the texture tables the alpha judge reads."""
+    records ``out``, which it stores as 16-byte words (refused off one):
+    every lane, or the refine list ``idx`` ((size,) int32) up to its device
+    ``count``; ``tf`` None or the (nty, ntx) tile floors; ``tables`` the
+    texture tables the alpha judge reads."""
+    check_aligned("out", out)
     lib = library()
     size = out.shape[0] if idx is None else idx.shape[0]
     ntx = 0 if tf is None else tf.shape[1]

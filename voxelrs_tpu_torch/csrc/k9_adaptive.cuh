@@ -172,26 +172,12 @@ __device__ __forceinline__ bool k9_dense(long long hits, long long B) {
 }
 
 // Threads of a K9 trace block (kernels.cu k9_trace_launch).
-constexpr int K9_TRACE_THREADS = 64;
+constexpr int K9_TRACE_THREADS = TILE_THREADS;
 
-// Work item m of a trace launch -> its lane, or -1. A refine list: lane
-// idx[m]. The whole grid: item m is lane (l >> 3, l & 7) of 4x8 tile
-// m / 32 (row-major tiles of each pose's (wl, hl) grid, poses one after
-// another), so a warp's rays leave from a compact patch of pixels.
-__device__ __forceinline__ int k9_trace_lane(int m, const int* __restrict__ idx,
-                                             int wl, int hl) {
-  if (idx) return idx[m];
-  const int tx = (wl + 7) >> 3, ty = (hl + 3) >> 2;
-  const int t = m >> 5, l = m & 31;
-  const int pose = t / (tx * ty), tp = t - pose * tx * ty;
-  const int y = (tp / tx) * 4 + (l >> 3), x = (tp % tx) * 8 + (l & 7);
-  return y < hl && x < wl ? pose * wl * hl + y * wl + x : -1;
-}
-
-// One thread per work item of grid level `level` (k9_trace_lane: idx null,
-// items m < size; else the refine list's entries m < *count), a block
-// looping over items gridDim.x * K9_TRACE_THREADS apart: the opaque trace
-// of the lane's pixel ray from the pixel's tile floor (tf null =
+// One thread per work item of grid level `level` (kernels.cu tile_lane:
+// idx null, items m < size; else the refine list's entries m < *count), a
+// block looping over items gridDim.x * K9_TRACE_THREADS apart: the opaque
+// trace of the lane's pixel ray from the pixel's tile floor (tf null =
 // unfloored), its record into out[lane]. A lane's pose is lane / (the
 // level's lane count). The traversal stack lives in the block's shared
 // memory (World::trace_shared).
@@ -209,7 +195,7 @@ k9_trace_kernel(World world, float octree_scale, FrameParams fp,
   const int items = idx ? count_of(count, size) : size;
   for (int m = blockIdx.x * K9_TRACE_THREADS + threadIdx.x; m < items;
        m += gridDim.x * K9_TRACE_THREADS) {
-    const int lane = k9_trace_lane(m, idx, wl, hl);
+    const int lane = tile_lane(m, idx, wl, hl);
     if (lane < 0) continue;
     const int pose = lane / (wl * hl);
     const FrameParams f = pose_params(fp, cams, pose);

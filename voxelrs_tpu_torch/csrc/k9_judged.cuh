@@ -1,7 +1,8 @@
 // K9-judged, the adaptive thick-ray frame of a translucent world: its three
 // kernels. Included by kernels.cu after k9_adaptive.cuh (it uses
-// FrameParams, HitRec, gen_ray and write_sky from kernels.cu, and K9's grid
-// geometry k9_dims, k9_pixel, k9_is_sample, k9_octant and k9_quant).
+// FrameParams, HitRec, gen_ray, write_sky, tile_lane and TILE_THREADS from
+// kernels.cu, and K9's grid geometry k9_dims, k9_pixel, k9_is_sample,
+// k9_octant and k9_quant).
 //
 // Replaces (JAX package, voxelrs_tpu/ops/shading.py):
 // _render_frame_judged_adaptive (:3183) -> _judged_frame_body (:3259):
@@ -37,18 +38,26 @@
 // carries the finalized hit itself: the merge finalizes the synthesized leaf
 // through the traversal's finalize_hit.
 //
-// Design: one thread per lane, no shared memory; counts stay in device
-// memory (K6's), so the frame makes no host round trip. The arithmetic is
-// the plain version's operation for operation (-fmad=false): the fill's
-// t_int == tcmin and the equalities of plane and scale decide which pixels
-// fill, the leaf base is quantized on the bits, and dl_cell rounds half to
-// even (rintf, as jnp.round and torch.round do).
+// Design: the merge and the finalize take one thread a lane; the trace has
+// K9's trace's shape (k9_adaptive.cuh): 4x8 pixel tiles a warp on the
+// whole grid, 64-thread blocks, the traversal stack in shared memory, the
+// ESVO child pointer loaded beside its descriptor, a grid no larger than
+// the card holds at once (kernels.cu k9j_trace_launch), each block looping
+// up to the refine list's count, and a record stored as four 16-byte
+// words. Counts stay in device memory (K6's), so the frame makes no host
+// round trip. The arithmetic is the plain version's operation for
+// operation (-fmad=false): the fill's t_int == tcmin and the equalities of
+// plane and scale decide which pixels fill, the leaf base is quantized on
+// the bits, and dl_cell rounds half to even (rintf, as jnp.round and
+// torch.round do).
 //
 // What bounds them on an H100: k9j_trace is the traversal with its alpha
-// judge (K1 / K4, dependent loads); the merge reads four 64-byte records and
-// writes one (bytes bound; a fill adds some hundred float operations and a
-// texel fetch); the finalize moves 64 bytes in and 38 out a pixel (bytes
-// bound). Speed is later work: the records are twice the opaque frame's.
+// judge (K1 / K4, dependent loads: a launch lasts as long as its slowest
+// warp's chain of steps); the merge reads four 64-byte records and writes
+// one (bytes bound; a fill adds some hundred float operations and a texel
+// fetch); the finalize moves 64 bytes in and 38 out a pixel (bytes bound).
+// The merge and the finalize keep their first shape: the records are
+// twice the opaque frame's.
 
 #pragma once
 
@@ -79,43 +88,74 @@ __device__ __forceinline__ float k9j_plane(const Hit& p, int octant) {
   return ((octant >> axis) & 1) ? 3.f - pm : pm;
 }
 
-// One thread per lane of grid level `level` (idx null: lane m < size) or per
-// entry of its refine list (lane idx[m], m < *count): the judged trace of
-// the lane's pixel ray from the pixel's tile floor (tf null = unfloored),
-// its record into out[lane].
+// Threads of a K9-judged trace block (kernels.cu k9j_trace_launch).
+constexpr int K9J_TRACE_THREADS = TILE_THREADS;
+
+union K9JWords {
+  K9JRec r;
+  uint4 q[4];
+};
+
+// A record stored as four 16-byte words (p starts on one).
+__device__ __forceinline__ void k9j_store(K9JRec* __restrict__ p,
+                                          const K9JRec& r) {
+  K9JWords u;
+  u.r = r;
+  uint4* w = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w[k] = u.q[k];
+}
+
+// One thread per work item of grid level `level` (kernels.cu tile_lane:
+// idx null, the grid's lanes in 4x8 tiles a warp, items m < size; else the
+// refine list's entries m < *count), a block looping over items gridDim.x
+// * K9J_TRACE_THREADS apart: the judged trace of the lane's pixel ray from
+// the pixel's tile floor (tf null = unfloored), its record into out[lane]
+// as four 16-byte words. The traversal stack lives in the block's shared
+// memory (World::trace_shared), as K9's trace keeps it.
 template <class World>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(K9J_TRACE_THREADS)
 k9j_trace_kernel(World world, float octree_scale, TexTables tx,
                  FrameParams fp, const float* __restrict__ tf, int ntx,
                  int level, const int* __restrict__ idx,
                  const int* __restrict__ count, int size,
                  K9JRec* __restrict__ out) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= size || (idx && m >= count_of(count, size))) return;
-  const int lane = idx ? idx[m] : m;
-  const int px = k9_pixel(fp, level, lane);
-  float rd[3];
-  gen_ray(fp, px, rd);
-  const float t_floor =
-      tf ? tf[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)] : 0.f;
-  Hit p;
-  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
-              rd[1], rd[2], -1.f, fp.primary_budget, K9J_ALPHA_MODE, tx, p,
-              tf != nullptr, t_floor);
-  const bool hit = p.t != -1.f;
-  K9JRec r = {};
-  r.h.t = p.t;
-  r.h.value = p.value;
-  r.h.face = p.face;
-  for (int k = 0; k < 3; ++k) r.h.pos[k] = p.pos[k];
-  r.h.u = p.u;
-  r.h.v = p.v;
-  r.h.lod = p.lod;
-  r.inside = p.inside ? 1u : 0u;
-  r.scale = hit ? p.scale : 0;
-  r.plane = hit ? k9j_plane(p, k9_octant(rd)) : 0.f;
-  r.passed = p.passed ? 1u : 0u;
-  out[lane] = r;
+  __shared__ uint32_t s_node[STACK_HEIGHT * K9J_TRACE_THREADS];
+  __shared__ float s_tmax[STACK_HEIGHT * K9J_TRACE_THREADS];
+  const SharedStack::Source stack{s_node + threadIdx.x, s_tmax + threadIdx.x,
+                                  K9J_TRACE_THREADS};
+  int wl, hl;
+  k9_dims(fp.width, fp.height, level, wl, hl);
+  const int items = idx ? count_of(count, size) : size;
+  for (int m = blockIdx.x * K9J_TRACE_THREADS + threadIdx.x; m < items;
+       m += gridDim.x * K9J_TRACE_THREADS) {
+    const int lane = tile_lane(m, idx, wl, hl);
+    if (lane < 0) continue;
+    const int px = k9_pixel(fp, level, lane);
+    float rd[3];
+    gen_ray(fp, px, rd);
+    const float t_floor =
+        tf ? tf[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)] : 0.f;
+    Hit p;
+    world.trace_shared(octree_scale, fp.cam_pos[0], fp.cam_pos[1],
+                       fp.cam_pos[2], rd[0], rd[1], rd[2], -1.f,
+                       fp.primary_budget, K9J_ALPHA_MODE, tx, p,
+                       tf != nullptr, t_floor, stack);
+    const bool hit = p.t != -1.f;
+    K9JRec r = {};
+    r.h.t = p.t;
+    r.h.value = p.value;
+    r.h.face = p.face;
+    for (int k = 0; k < 3; ++k) r.h.pos[k] = p.pos[k];
+    r.h.u = p.u;
+    r.h.v = p.v;
+    r.h.lod = p.lod;
+    r.inside = p.inside ? 1u : 0u;
+    r.scale = hit ? p.scale : 0;
+    r.plane = hit ? k9j_plane(p, k9_octant(rd)) : 0.f;
+    r.passed = p.passed ? 1u : 0u;
+    k9j_store(out + lane, r);
+  }
 }
 
 // One thread per lane i of grid level `level` (the hi grid) from the

@@ -19,10 +19,13 @@
 // generate_rays :119, the primary intersect_octree, surface_shading :153
 // (with texture.py::sample_texture_lod :23 and the paired-atlas branch
 // :199-214), shade_hits :259 (shadow ray) and sky_color :142: one thread per
-// pixel runs raygen, the primary trace, shading, the shadow trace and the
-// composite, writing the (H, W, 4) frame once; its CSVO instantiation is
-// the JAX Svo.render of a CSVO buffer (graphics/svo.py:292-331), whose
-// shadow rays get the frame's step budget. The small-table lookups that
+// pixel (4x8 pixel tiles a warp, which the warps of a resident grid of
+// 64-thread blocks take from a counter) runs raygen, the primary trace,
+// shading, the shadow trace and the composite through one shared-memory
+// stack, writing the (H, W, 4) frame once, a pixel a 16-byte store; its
+// CSVO instantiation is the JAX Svo.render of a CSVO buffer
+// (graphics/svo.py:292-331), whose shadow rays get the frame's step
+// budget. The small-table lookups that
 // the TPU version turns into one-hot reductions (ops/smalltab.py) are plain
 // indexed loads here.
 //
@@ -67,11 +70,16 @@
 //
 // What bounds them on an H100: the traversal's dependent loads and branch
 // divergence (see k1_traversal.cuh); the bytes each kernel must move (rays
-// in, hit records or the frame out) are a small share. Where a launch's
-// work is a count only the card knows (K6's), a grid sized by the list's
-// capacity is mostly empty blocks: K6, K9's trace, kd_shadow, kd_finish,
-// K7's shadow floors and K9's shadow cells launch at most the blocks the
-// card holds at once (resident_grid), each looping up to the count.
+// in, hit records or the frame out) are a small share. A launch that
+// traces lasts as long as its slowest warp's chain of steps, so K3 and
+// K9's and K9-judged's traces give a warp a 4x8 pixel tile (its rays leave
+// from one patch and take like paths) and keep the stack in shared memory
+// (World::trace_shared). Where a launch's work is a count only the card
+// knows (K6's), a grid sized by the list's capacity is mostly empty
+// blocks: K6, K9's and K9-judged's traces, kd_shadow, kd_finish, K7's
+// shadow floors and K9's shadow cells launch at most the blocks the card
+// holds at once (resident_grid), each looping up to the count; K3's
+// warps take the frame's tiles from a counter on such a grid.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (-fmad=false keeps the
@@ -133,7 +141,8 @@ struct EsvoWorld {
   }
 
   // trace with the stack in shared memory and the cursor's pointer
-  // prefetch (EsvoCursorT<true>): K9's trace
+  // prefetch (EsvoCursorT<true>): K3, K9's and K9-judged's traces and the
+  // shadow stage
   __device__ __forceinline__ void trace_shared(
       float octree_scale, float ox, float oy, float oz, float dx, float dy,
       float dz, float max_dst, int budget, int alpha_mode,
@@ -163,8 +172,8 @@ struct CsvoWorld {
                   floored, t_floor);
   }
 
-  // trace with the stack in shared memory (K9's trace; the CSVO cursor's
-  // pointer follows its header, so it has no prefetch)
+  // trace with the stack in shared memory (as EsvoWorld's; the CSVO
+  // cursor's pointer follows its header, so it has no prefetch)
   __device__ __forceinline__ void trace_shared(
       float octree_scale, float ox, float oy, float oz, float dx, float dy,
       float dz, float max_dst, int budget, int alpha_mode,
@@ -381,42 +390,102 @@ __device__ __forceinline__ void composite(const FrameParams& fp, float4 color,
   out[3] = c.w;
 }
 
+// Threads of a block of the kernels that trace pixel rays in 4x8 tiles
+// (K3, K9's and K9-judged's traces): two warps, so that a block's shared
+// stacks (STACK_HEIGHT x 8 bytes a thread) take 6 KB.
+constexpr int TILE_THREADS = 64;
+
+// Work item m of a launch over grids of wl x hl lanes -> its lane, or -1.
+// A list: lane idx[m]. The whole grid (idx null): item m is lane (l >> 3,
+// l & 7) of 4x8 tile m / 32 (row-major tiles of each pose's grid, poses
+// one after another; lanes pose-major), so a warp's rays leave from a
+// compact patch of pixels. Items past a grid's last row or column are -1.
+// _build.tile_lanes mirrors it.
+__device__ __forceinline__ int tile_lane(int m, const int* __restrict__ idx,
+                                         int wl, int hl) {
+  if (idx) return idx[m];
+  const int tx = (wl + 7) >> 3, ty = (hl + 3) >> 2;
+  const int t = m >> 5, l = m & 31;
+  const int pose = t / (tx * ty), tp = t - pose * tx * ty;
+  const int y = (tp / tx) * 4 + (l >> 3), x = (tp % tx) * 8 + (l & 7);
+  return y < hl && x < wl ? pose * wl * hl + y * wl + x : -1;
+}
+
+// K3: a warp takes the frame's 4x8 pixel tiles one at a time from the
+// launch's tile counter (tiles[0]; a tile is the 32 items m of tile_lane,
+// items m < items); a lane runs its pixel's raygen, primary trace,
+// shading, shadow trace and composite, and writes the pixel once as one
+// 16-byte word (img starts on one: _build.check_k3). Both rays trace
+// through the block's shared stacks (World::trace_shared), one column a
+// thread. The grid is at most the blocks the card holds at once
+// (k3_frame_launch); taking tiles from a counter keeps its warps busy to
+// the end, where a fixed share of the tiles a warp (a block looping over
+// every gridDim-th tile) left the warps whose tiles trace short idle while
+// the others ran on (13-16% slower on an H100 on the bench poses,
+// chip_smoke.py --renderer-only). tiles[1] counts the warps that found no
+// tile left; the last one sets both back to 0, so the counters are 0 at
+// every launch's start (zeroed when allocated; one launch at a time uses
+// them). steps_out null, or each pixel's steps, primary plus shadow.
 template <class World>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(TILE_THREADS)
 k3_frame_kernel(World world, float octree_scale, TexTables tx, FrameParams fp,
-                float* __restrict__ img, int* __restrict__ steps_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= fp.width * fp.height) return;
-  float* out = img + 4 * (size_t)i;
-  float rd[3];
-  gen_ray(fp, i, rd);
+                int items, int* __restrict__ tiles, float4* __restrict__ img,
+                int* __restrict__ steps_out) {
+  __shared__ uint32_t s_node[STACK_HEIGHT * TILE_THREADS];
+  __shared__ float s_tmax[STACK_HEIGHT * TILE_THREADS];
+  const SharedStack::Source stack{s_node + threadIdx.x, s_tmax + threadIdx.x,
+                                  TILE_THREADS};
+  const int lane = threadIdx.x & 31;
+  const int ntiles = items >> 5;
+  for (;;) {
+    int t = lane == 0 ? atomicAdd(tiles, 1) : 0;
+    t = __shfl_sync(0xffffffffu, t, 0);
+    if (t >= ntiles) break;
+    const int i = tile_lane(t * 32 + lane, nullptr, fp.width, fp.height);
+    if (i >= 0) {
+      float rd[3];
+      gen_ray(fp, i, rd);
 
-  Hit p;
-  world.trace(octree_scale, fp.cam_pos[0], fp.cam_pos[1], fp.cam_pos[2], rd[0],
-              rd[1], rd[2], -1.f, fp.primary_budget, 1, tx, p);
-  int steps = p.steps;
-  if (p.t == -1.f) {
-    write_sky(fp, rd, out);
-    if (steps_out) steps_out[i] = steps;
-    return;
-  }
-  float4 color;
-  float n[3], ds;
-  shade_surface(tx, fp, p, color, n, ds);
+      Hit p;
+      world.trace_shared(octree_scale, fp.cam_pos[0], fp.cam_pos[1],
+                         fp.cam_pos[2], rd[0], rd[1], rd[2], -1.f,
+                         fp.primary_budget, 1, tx, p, false, 0.f, stack);
+      int steps = p.steps;
+      float4 c;
+      if (p.t == -1.f) {
+        float rgb[3];
+        sky_color(fp, rd[0], rd[2], rgb);
+        c = make_float4(rgb[0], rgb[1], rgb[2], 1.f);
+      } else {
+        float4 color;
+        float n[3], ds;
+        shade_surface(tx, fp, p, color, n, ds);
 
-  // ---- shade_hits: shadow ray -----------------------------------------
-  float shadow = 1.f;
-  if (fp.render_shadows && p.t < fp.shadow_distance) {
-    Hit s;
-    world.trace(octree_scale, p.pos[0] + n[0] * 0.001f,
-                p.pos[1] + n[1] * 0.001f, p.pos[2] + n[2] * 0.001f,
-                -fp.light_dir[0], -fp.light_dir[1], -fp.light_dir[2], -1.f,
-                fp.shadow_budget, 1, tx, s);
-    steps += s.steps;
-    shadow = s.t < 0.f ? 1.f : 0.f;
+        // ---- shade_hits: shadow ray -------------------------------------
+        float shadow = 1.f;
+        if (fp.render_shadows && p.t < fp.shadow_distance) {
+          Hit s;
+          world.trace_shared(octree_scale, p.pos[0] + n[0] * 0.001f,
+                             p.pos[1] + n[1] * 0.001f,
+                             p.pos[2] + n[2] * 0.001f, -fp.light_dir[0],
+                             -fp.light_dir[1], -fp.light_dir[2], -1.f,
+                             fp.shadow_budget, 1, tx, s, false, 0.f, stack);
+          steps += s.steps;
+          shadow = s.t < 0.f ? 1.f : 0.f;
+        }
+        c = shaded(fp, color, ds, shadow);
+      }
+      img[i] = c;
+      if (steps_out) steps_out[i] = steps;
+    }
   }
-  composite(fp, color, ds, shadow, out);
-  if (steps_out) steps_out[i] = steps;
+  if (lane == 0) {
+    __threadfence();  // this warp's takes before its count
+    if (atomicAdd(tiles + 1, 1) == (int)(gridDim.x * (TILE_THREADS / 32)) - 1) {
+      tiles[0] = 0;
+      tiles[1] = 0;
+    }
+  }
 }
 
 // ---- the deferred frame's stages ---------------------------------------
@@ -698,6 +767,12 @@ inline unsigned resident_grid(long long items, int per_block, long long cap) {
   return blocks < 1 ? 1u : (unsigned)blocks;
 }
 
+// The items of a launch over a wl x hl grid in 4x8 tiles a warp
+// (tile_lane with idx null): 32 a tile.
+inline long long tile_items(int wl, int hl) {
+  return (long long)((wl + 7) / 8) * ((hl + 3) / 4) * 32;
+}
+
 }  // namespace vx
 
 #include "k9_adaptive.cuh"
@@ -719,9 +794,7 @@ static int k9_trace_launch(const World& world, float octree_scale,
   constexpr int threads = vx::K9_TRACE_THREADS;
   int wl, hl;
   vx::k9_dims(fp->width, fp->height, level, wl, hl);
-  const long long items =
-      idx ? size
-          : (long long)n_poses * ((wl + 7) / 8) * ((hl + 3) / 4) * 32;
+  const long long items = idx ? size : n_poses * vx::tile_items(wl, hl);
   static int resident = 0;
   const unsigned blocks = vx::resident_grid(
       items, threads,
@@ -730,6 +803,51 @@ static int k9_trace_launch(const World& world, float octree_scale,
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       world, octree_scale, *fp, cams, tf, ntx, level, idx, count, (int)items,
       (vx::K9Rec*)out);
+  return (int)cudaGetLastError();
+}
+
+// K3's launch (k3_frame_kernel): the frame's pixels in 4x8 tiles a warp, a
+// grid of at most the blocks the card holds at once, whose warps take the
+// tiles from the counters `tiles` (2 ints, 0 between launches). img starts
+// on a 16-byte word (_build.check_k3).
+template <class World>
+static int k3_frame_launch(const World& world, float octree_scale,
+                           const vx::TexTables* tex, const vx::FrameParams* fp,
+                           int* tiles, float* img, int* steps, void* stream) {
+  const auto kernel = vx::k3_frame_kernel<World>;
+  constexpr int threads = vx::TILE_THREADS;
+  const long long items = vx::tile_items(fp->width, fp->height);
+  static int resident = 0;
+  kernel<<<vx::resident_grid(items, threads,
+                             vx::resident_blocks(kernel, threads, resident)),
+           threads, 0, (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, (int)items, tiles, (float4*)img, steps);
+  return (int)cudaGetLastError();
+}
+
+// K9-judged's trace launch (k9_judged.cuh k9j_trace_kernel), K9's shape
+// for one pose: the whole grid in 4x8 tiles a warp, or the refine list's
+// entries up to the count on the card; a grid of at most the blocks the
+// card holds at once, each block looping over its items. out starts on a
+// 16-byte word (_build.launch_k9j_trace checks).
+template <class World>
+static int k9j_trace_launch(const World& world, float octree_scale,
+                            const vx::TexTables* tex,
+                            const vx::FrameParams* fp, const float* tf,
+                            int ntx, int level, const int* idx,
+                            const int* count, int size, void* out,
+                            void* stream) {
+  const auto kernel = vx::k9j_trace_kernel<World>;
+  constexpr int threads = vx::K9J_TRACE_THREADS;
+  int wl, hl;
+  vx::k9_dims(fp->width, fp->height, level, wl, hl);
+  const long long items = idx ? size : vx::tile_items(wl, hl);
+  static int resident = 0;
+  kernel<<<vx::resident_grid(items, threads,
+                             vx::resident_blocks(kernel, threads, resident)),
+           threads, 0, (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, tf, ntx, level, idx, count, (int)items,
+      (vx::K9JRec*)out);
   return (int)cudaGetLastError();
 }
 
@@ -775,14 +893,14 @@ int vx_k1_traverse(const uint32_t* desc, long long n_words, float octree_scale,
   return (int)cudaGetLastError();
 }
 
+// tiles: K3's 2 tile counters of the stream, 0 (zeroed when allocated;
+// each launch leaves them 0).
 int vx_k3_frame(const uint32_t* desc, long long n_words, float octree_scale,
-                const vx::TexTables* tex, const vx::FrameParams* fp, float* img,
-                int* steps, void* stream) {
+                const vx::TexTables* tex, const vx::FrameParams* fp,
+                int* tiles, float* img, int* steps, void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
-  vx::k3_frame_kernel<<<vx::grid_for((long long)fp->width * fp->height),
-                        vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, img, steps);
-  return (int)cudaGetLastError();
+  return k3_frame_launch(world, octree_scale, tex, fp, tiles, img, steps,
+                         stream);
 }
 
 int vx_k5_picker(const uint32_t* desc, long long n_words, float octree_scale,
@@ -818,13 +936,11 @@ int vx_k4_traverse(const uint32_t* words, long long n_words,
 int vx_k3_frame_csvo(const uint32_t* words, long long n_words,
                      float octree_scale, unsigned root_ptr, int total_depth,
                      const vx::TexTables* tex, const vx::FrameParams* fp,
-                     float* img, int* steps, void* stream) {
+                     int* tiles, float* img, int* steps, void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
-  vx::k3_frame_kernel<<<vx::grid_for((long long)fp->width * fp->height),
-                        vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, img, steps);
-  return (int)cudaGetLastError();
+  return k3_frame_launch(world, octree_scale, tex, fp, tiles, img, steps,
+                         stream);
 }
 
 int vx_k5_picker_csvo(const uint32_t* words, long long n_words,
@@ -1087,11 +1203,8 @@ int vx_k9j_trace(const uint32_t* desc, long long n_words, float octree_scale,
                  const float* tf, int ntx, int level, const int* idx,
                  const int* count, int size, void* out, void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
-  vx::k9j_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, tf, ntx, level, idx, count, size,
-      (vx::K9JRec*)out);
-  return (int)cudaGetLastError();
+  return k9j_trace_launch(world, octree_scale, tex, fp, tf, ntx, level, idx,
+                          count, size, out, stream);
 }
 
 int vx_k9j_trace_csvo(const uint32_t* words, long long n_words,
@@ -1101,11 +1214,8 @@ int vx_k9j_trace_csvo(const uint32_t* words, long long n_words,
                       const int* count, int size, void* out, void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
-  vx::k9j_trace_kernel<<<vx::grid_for(size), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, tf, ntx, level, idx, count, size,
-      (vx::K9JRec*)out);
-  return (int)cudaGetLastError();
+  return k9j_trace_launch(world, octree_scale, tex, fp, tf, ntx, level, idx,
+                          count, size, out, stream);
 }
 
 // lo: the records of level + 1; hi, refine: the n lanes of level `level`;
