@@ -132,11 +132,18 @@ steps and SIMD efficiency (rows and, on the whole grid, 4x8 tiles). Both
 kernels' card operations a call and grid come from the profiler (one
 kernel, a grid within the blocks the card holds), their registers and
 spills from ptxas (the build's log, kept beside the library) and their
-stores by width from the SASS. ``--renderer-only`` stops after the
+stores by width from the SASS. K9-judged's finalize is held to its plain
+version on every call of the judged phases' frames (both formats), its
+card operations a call counted from the profiler, and with --parent the
+parent's finalize and the parent's K1 / K4 are timed on the same inputs;
+K4's and K1's microseconds a step on the same rays are printed, and the
+ptxas lines of K1, K4 and every CSVO instantiation (this tree's and the
+parent's) and the SASS loads of K4 and both finalizes by width.
+``--renderer-only`` stops after the
 renderer phases (the build, K1 / K4 and K3 in both formats, with --parent
-the parent's K3 on the same inputs) and prints no result: a quick
-comparison of K3's shapes, with --parent pointing at a copy of the tree
-with another shape.
+the parent's K1 / K4 and K3 on the same inputs) and prints no result: a
+quick comparison of K3's or the CSVO cursor's shapes, with --parent
+pointing at a copy of the tree with another shape.
 Every phase prints its seconds.
 
 Tolerances: K1 and K4 against their plain versions — every field of every
@@ -500,7 +507,7 @@ LAUNCH_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5),
                "k9_finalize": (3, 4, 5, 6, 7),
                "k9_shadow_cells": (5, 7, 8, 11), "kd_shadow": (11,),
                "kd_finish": (9, 10), "k7_shadow": (8,), "k9j_trace": (6,),
-               "k3": (4,)}
+               "k9j_finalize": (2, 3, 4, 5, 6), "k3": (4,)}
 # the launches spied in _build (the others are K9's wrappers in
 # ops.adaptive and K9-judged's in ops.adaptive_judged), the position of
 # each one's count, and its plain version
@@ -522,12 +529,12 @@ def outs_of(name, args) -> list:
 
 def launch_outputs_equal(name, outs, ref) -> tuple:
     """(equal, max |d|) of a launch's outputs against the plain version's
-    (outputs that are None on both sides skipped): bit for bit, K9's
-    finalize's image within K3_MAX_ABS."""
+    (outputs that are None on both sides skipped): bit for bit, K9's and
+    K9-judged's finalize's image within K3_MAX_ABS."""
     pairs = [(a, b) for a, b in zip(outs, ref)
              if a is not None or b is not None]
     errs = [max_abs(a, b) for a, b in pairs]
-    eq = all(bits_equal(a, b) or (name == "k9_finalize"
+    eq = all(bits_equal(a, b) or (name in ("k9_finalize", "k9j_finalize")
                                   and a.dtype.is_floating_point
                                   and e <= K3_MAX_ABS)
              for (a, b), e in zip(pairs, errs))
@@ -930,9 +937,17 @@ def launch_ops_phase(calls) -> dict:
 
 
 # the kernels whose ptxas lines the build reports (this tree's and, with
-# --parent, the parent's): K3 and K9-judged's trace in both formats, the
-# shadow pass's kernels
-PTXAS_KERNELS = {"k3_frame": "k3_frame_kernel", "k9j_trace": "k9j_trace_kernel",
+# --parent, the parent's): K1, K4 and every kernel with a CSVO
+# instantiation in both formats (K3, K5, kd_primary, kd_shadow, K9's and
+# K9-judged's traces), the shadow pass's kernels and both finalizes
+PTXAS_KERNELS = {"k1_traverse": "k1_traverse_kernel",
+                 "k4_traverse": "k4_traverse_kernel",
+                 "k5_picker": "k5_picker_kernel",
+                 "kd_primary": "kd_primary_kernel",
+                 "k9_trace": "k9_trace_kernel",
+                 "k9_finalize": "k9_finalize_kernel",
+                 "k9j_finalize": "k9j_finalize_kernel",
+                 "k3_frame": "k3_frame_kernel", "k9j_trace": "k9j_trace_kernel",
                  "kd_shadow": "kd_shadow_kernel",
                  "k9_shadow_cells": "k9_shadow_cells_kernel",
                  "kd_finish": "kd_finish_kernel",
@@ -973,10 +988,12 @@ def ptxas_of(build_log: str) -> dict:
 
 def sass_widths(names=("k9_trace", "k9_merge", "k9_finalize",
                        "k9_shadow_cells", "kd_shadow", "kd_finish",
-                       "k7_shadow", "k3_frame", "k9j_trace")) -> dict:
+                       "k7_shadow", "k3_frame", "k9j_trace", "k9j_finalize",
+                       "k4_traverse", "k1_traverse")) -> dict:
     """The global and shared loads and stores of the K9 kernels, the
-    shadow and finishing stages, K7's shadow floors, K3 and K9-judged's
-    trace in the built library's SASS (``cuobjdump -sass``), counted
+    shadow and finishing stages, K7's shadow floors, K3, K9-judged's trace
+    and finalize, K4 and K1 in the built library's SASS (``cuobjdump
+    -sass``), counted
     by width (.128 = 16-byte words, .64, and 32 bits and less): per kernel,
     instruction counts in the code, not executions. None where the toolkit
     has no cuobjdump."""
@@ -1721,8 +1738,8 @@ def main() -> int:
         for name, info in kernels_ptx.items():
             log(f"ptxas {name} ({side}): {info}")
     sass = sass_widths()
-    log(f"K9's, kd_shadow's, kd_finish's, k7_shadow's, K3's and k9j_trace's "
-        f"loads and stores in the SASS by width "
+    log(f"K9's, kd_shadow's, kd_finish's, k7_shadow's, K3's, k9j_trace's, "
+        f"k9j_finalize's, K4's and K1's loads and stores in the SASS by width "
         f"(cuobjdump -sass; instructions in the code): {json.dumps(sass)}")
     log(f"native serializers: loaded {libs}; g++ {' '.join(native.GXX_FLAGS)}"
         f", seconds {native.build_seconds}")
@@ -1775,6 +1792,24 @@ def main() -> int:
         fail("K4 disagrees with K1 on the same scene")
     if not vs_frame < IMAGE_BUDGET:
         fail("the CSVO frame disagrees with the ESVO frame")
+    # K4's and K1's time a step on the same rays (pose 0's primary rays,
+    # judged; both take the same steps): the kernel's microseconds over
+    # the mean ray's steps
+    per_step = {}
+    for key, r in (("k1", e), ("k4", c)):
+        steps = r["trav_steps"] / (W * H)
+        per_step[key] = r["trav_ms"] * 1e3 / steps
+        if "trav_parent" in r:
+            per_step[key + "_parent"] = r["trav_parent"]["ms"] * 1e3 / steps
+    per_step["k4_over_k1"] = per_step["k4"] / per_step["k1"]
+    if "k4_parent" in per_step:
+        per_step["k4_over_k1_parent"] = (per_step["k4_parent"]
+                                         / per_step["k1_parent"])
+    c["us_per_step"] = per_step
+    log(f"k4 and k1 a step on the same rays (pose 0's {W * H} judged "
+        f"primary rays; steps {e['trav_steps']} / {c['trav_steps']}, "
+        f"{e['trav_steps'] / (W * H):.2f} / {c['trav_steps'] / (W * H):.2f} "
+        f"a ray): us a step of the mean ray {json.dumps(per_step)} on {card}")
     if "--renderer-only" in sys.argv:  # a quick comparison of K3's shapes
         log("--renderer-only: the build and the renderer phases ran; no "
             "result")
@@ -1895,7 +1930,10 @@ def main() -> int:
              ms=e["trav_ms"], plain_ms=e["trav_plain_ms"],
              bound_ms=k1_bound[0], bound_by=k1_bound[1], library_ms=None,
              ok=e["trav_ok"], rays_differing=e["trav_diff"],
-             wrapper_host_us=e["trav_host_us"]),
+             wrapper_host_us=e["trav_host_us"],
+             parent_ms=(e.get("trav_parent") or {}).get("ms"),
+             steps=e["trav_steps"],
+             ptxas={k: v.get("k1_traverse") for k, v in ptx.items()}),
         dict(name="k3_frame", route="cuda",
              source="voxelrs_tpu_torch/csrc/kernels.cu",
              replaces="voxelrs_tpu/ops/shading.py:4067",
@@ -1935,6 +1973,9 @@ def main() -> int:
              bound_ms=k4_bound[0], bound_by=k4_bound[1], library_ms=None,
              ok=c["trav_ok"], rays_differing=c["trav_diff"], vs_k1=vs,
              wrapper_host_us=c["trav_host_us"],
+             parent_ms=(c.get("trav_parent") or {}).get("ms"),
+             us_per_step=c["us_per_step"], steps=c["trav_steps"],
+             ptxas={k: v.get("k4_traverse_csvo") for k, v in ptx.items()},
              launches_inside_k3_k5_csvo_game=(gc["launches"]["k3_csvo"]
                                               + gc["launches"]["k5_csvo"])),
         dict(name="k5_picker", route="cuda",
@@ -2194,13 +2235,23 @@ def main() -> int:
             bound_ms=je[f"{k}_bound"][0], bound_by=je[f"{k}_bound"][1],
             library_ms=None,
             ok=je["k9j"][k]["equal"] and jc["k9j"][k]["equal"]
-            and (k != "trace" or held_sum("k9j_trace")["equal"]),
+            and (k not in ("trace", "finalize")
+                 or held_sum(f"k9j_{k}")["equal"]),
             launches_per_frame=len(je["k9j"][k]["calls"]),
             ms_per_launch=[c["ms"] for c in je["k9j"][k]["calls"]],
             launches_csvo=jc["launches"][f"k9j_{k}"],
             ms_csvo=jc["k9j"][k]["ms"], plain_ms_csvo=jc["k9j"][k]["plain_ms"],
             bound_ms_csvo=jc[f"{k}_bound"][0],
             frame_vs_plain=max(je["vs_plain"], jc["vs_plain"]),
+            **({} if k != "finalize" else dict(
+                calls_checked=held_sum("k9j_finalize")["calls"],
+                parent=je["k9j"][k]["calls"][0]["parent"],
+                parent_csvo=jc["k9j"][k]["calls"][0]["parent"],
+                ptxas={s_: v.get("k9j_finalize") for s_, v in ptx.items()},
+                launches_per_call=k9l["k9j_finalize"]["launches"],
+                launches_per_call_parent=k9l["k9j_finalize"].get(
+                    "parent_launches"),
+                grids=k9l["k9j_finalize"]["grids"])),
             **({} if k != "trace" else dict(
                 calls_checked=held_sum("k9j_trace")["calls"],
                 per_launch=[{f: v for f, v in c.items() if f != "equal"}
@@ -2496,6 +2547,14 @@ def renderer_phase(svo, poses, card) -> dict:
         budget = trav.step_budget(MAX_STEPS)
         out["trav_ms"] = kernel_ms(lambda: launch_fn(
             *head, ro, rd, md, budget, 1, alpha.tables, *trav_out))
+        if PARENT is not None:  # the parent's K1 / K4 on the same inputs
+            p_out = [torch.empty_like(x) for x in trav_out]
+            p_launch = getattr(PARENT, "launch_k4" if csvo else "launch_k1")
+            p_launch(*head, ro, rd, md, budget, 1, alpha.tables, *p_out)
+            out["trav_parent"] = dict(
+                equal=all(bits_equal(a, b) for a, b in zip(p_out, trav_out)),
+                ms=kernel_ms(lambda: p_launch(*head, ro, rd, md, budget, 1,
+                                              alpha.tables, *p_out)))
         fp = shading.frame_params(mip_mode=shading.mip_mode_from_env(),
                                   csvo=csvo, **svo.frame_kwargs(poses[0], W, H))
         tables = svo.kernel_tables()
@@ -2522,9 +2581,12 @@ def renderer_phase(svo, poses, card) -> dict:
         f"{len(poses)} poses x {REPS} runs, per-pose medians "
         f"{[round(x, 3) for x in frame_ms]}; {out['mrays']:.2f} Mrays/s "
         f"(primary + shadow, W*H*2/dt) on {card}")
-    par = out.get("k3_parent")
+    par, tpar = out.get("k3_parent"), out.get("trav_parent")
     log(f"kernels alone ({fmt}, pose 0, {KERNEL_REPS} back-to-back "
-        f"launches): {kname} {out['trav_ms']:.4f} ms, k3 {out['k3_ms']:.4f} "
+        f"launches): {kname} {out['trav_ms']:.4f} ms"
+        + ("" if tpar is None else f" (the parent's {kname.upper()} "
+           f"{tpar['ms']:.4f} ms, its hits equal {tpar['equal']})")
+        + f", k3 {out['k3_ms']:.4f} "
         f"ms" + ("" if par is None else f" (the parent's K3 {par['ms']:.4f} "
                  f"ms, its frame equal {par['equal']})")
         + f"; wrapper host time (median of {HOST_REPS} calls): query "
@@ -2532,6 +2594,8 @@ def renderer_phase(svo, poses, card) -> dict:
         f" on {card}")
     if par is not None and not par["equal"]:
         fail(f"the parent's K3 draws another frame ({fmt})")
+    if tpar is not None and not tpar["equal"]:
+        fail(f"the parent's {kname.upper()} gives other hits ({fmt})")
 
     with Phase(f"k3 steps, primary and shadow ({fmt})"):
         out["k3_split"] = k3_split(svo, poses, launch_fn, head)
@@ -3759,7 +3823,8 @@ def judged_phase(svo, hf, poses, card) -> dict:
     with Phase(f"judged main path ({fmt})"):
         zero_judged_counts()
         frames, infos, marks = [], [], []
-        with Held(("k9j_trace", "k9_shadow_cells") + SHADOW_HELD) as held:
+        with Held(("k9j_trace", "k9j_finalize", "k9_shadow_cells")
+                  + SHADOW_HELD) as held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
                 infos.append(dict(svo.last_frame))
@@ -3768,14 +3833,15 @@ def judged_phase(svo, hf, poses, card) -> dict:
         torch.cuda.synchronize()
         n = out["launches"] = judged_counts()
         out["held"] = held.check()
-    log(f"k9j trace, k9 shadow cells, kd_shadow (judged rays), kd_finish "
-        f"and k7_shadow vs their plain versions on every call of the "
+    log(f"k9j trace, k9j finalize, k9 shadow cells, kd_shadow (judged "
+        f"rays), kd_finish and k7_shadow vs their plain versions on every "
+        f"call of the "
         f"{len(poses6)} judged frames ({fmt}; bit for bit): "
         f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"K9-judged's trace, K9's shadow cells, kd_shadow, kd_finish or "
-             f"K7's shadow floors disagree with their plain versions in the "
-             f"{fmt} judged frames")
+        fail(f"K9-judged's trace or finalize, K9's shadow cells, kd_shadow, "
+             f"kd_finish or K7's shadow floors disagree with their plain "
+             f"versions in the {fmt} judged frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -3836,7 +3902,7 @@ def judged_phase(svo, hf, poses, card) -> dict:
         os.environ["VOXELRS_HOLE_FILL"] = "1"
         try:
             ctx = svo.beam_context(poses[0], W, H)
-            with Held(("k9j_trace",)) as fill_held:
+            with Held(("k9j_trace", "k9j_finalize")) as fill_held:
                 fill = svo.render(poses[0], W, H, beams=ctx)
             out["held"] = held_merge(out["held"], fill_held.check())
             fill_ref = plain_judged(svo, poses[0], ctx, hole_fill=True)
@@ -3848,8 +3914,8 @@ def judged_phase(svo, hf, poses, card) -> dict:
         fill_stats = thick_ray(fill, fused, exact, levels)
         fill_changed = int((fill != frames[0]).any(-1).sum())
     out["vs_plain"] = max(err, fill_err)
-    out["vs_plain_ok"] = out["vs_plain"] <= K3_MAX_ABS and out["held"][
-        "k9j_trace"]["equal"]
+    out["vs_plain_ok"] = out["vs_plain"] <= K3_MAX_ABS and all(
+        out["held"][k]["equal"] for k in ("k9j_trace", "k9j_finalize"))
     out["vs_exact"], out["vs_exact_hole_fill"] = stats, fill_stats
     out["exact_vs_k3"] = exact_vs_k3
     out["vs_exact_ok"] = exact_vs_k3 <= K3_MAX_ABS and all(
@@ -3857,8 +3923,10 @@ def judged_phase(svo, hf, poses, card) -> dict:
     out["certificates_vs_traces"] = cert
     log(f"judged vs its plain version ({fmt}, {len(poses6)} poses and pose "
         f"0 with the hole fill): max |d| {err:.3g} / {fill_err:.3g} "
-        f"(tolerance {K3_MAX_ABS:g}); k9j trace held on every call of the "
-        f"{len(poses6) + 1} frames {json.dumps(out['held']['k9j_trace'])}; "
+        f"(tolerance {K3_MAX_ABS:g}); k9j trace and finalize held on every "
+        f"call of the {len(poses6) + 1} frames "
+        f"{json.dumps(out['held']['k9j_trace'])}, "
+        f"{json.dumps(out['held']['k9j_finalize'])}; "
         f"ok {out['vs_plain_ok']}; plain frame (pose 0) "
         f"{out['plain_ms']:.1f} ms")
     log(f"judged vs the exact judged frame ({fmt}; the traced grid's pixels "
@@ -3895,7 +3963,8 @@ def judged_phase(svo, hf, poses, card) -> dict:
                  f"{ncalls}")
         # the profiler's call: the pixels' refine list (its count on the
         # card, its size the grid's lanes)
-        out["launch_args"] = {"k9j_trace": spies["trace"].calls[-1]}
+        out["launch_args"] = {"k9j_trace": spies["trace"].calls[-1],
+                              "k9j_finalize": spies["finalize"].calls[0]}
         res = {k: dict(equal=True, err=0.0, ms=0.0, plain_ms=0.0, calls=[])
                for k in K9J}
 
@@ -4029,9 +4098,14 @@ def judged_phase(svo, hf, poses, card) -> dict:
         kms = kernel_ms(lambda: _build.launch_k9j_finalize(fp, frec, *to))
         hits = int(ko[1].sum())
         img_err = max_abs(ko[2], po[2])
+        # with --parent, the parent's kernel on the same inputs, held to
+        # the plain outputs
+        par = parent_launch("k9j_finalize", (fp, frec, rec0, hit0, img0, np0,
+                                             bp0), {}, po)
         note("finalize", all(bits_equal(a, b) for i, (a, b) in
                              enumerate(zip(ko, po)) if i != 2)
-             and img_err <= K3_MAX_ABS, img_err, kms, pms, hits=hits)
+             and img_err <= K3_MAX_ABS and (par is None or par["equal"]),
+             img_err, kms, pms, hits=hits, parent=par)
         out["finalize_bound"] = bound(
             B * 36 * 2 + B + (B - hits) * 16 + 2 * B,
             (B - hits) * (OPS_K9_RAY + OPS_SKY))
@@ -4052,6 +4126,11 @@ def judged_phase(svo, hf, poses, card) -> dict:
             f"({json.dumps([round(c['ms'], 4) for c in r['calls']])}), "
             f"plain {r['plain_ms']:.2f} ms, bound {bd[0]:.4g} ms ({bd[1]}) "
             f"on {card}")
+    fin = res["finalize"]["calls"][0]
+    log(f"k9j finalize launch ({fmt}, pose 0, {fin['hits']} hit pixels): "
+        f"alone {fin['ms']:.4f} ms"
+        + ("" if fin["parent"] is None
+           else f"; the parent's {json.dumps(fin['parent'])}") + f" on {card}")
     for c in res["trace"]["calls"]:
         log(f"k9j trace launch ({fmt}, pose 0, level {c['level']}, "
             f"{'the whole grid' if c['grid'] else 'a refine list'}): "

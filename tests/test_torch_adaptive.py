@@ -292,8 +292,22 @@ FRAME_CONFIGS = {
 }
 
 
-@pytest.mark.parametrize("config", FRAME_CONFIGS)
+# test_adaptive_frame_matches_jax's case run in
+# tests/test_torch_adaptive_budget.py (with
+# test_adaptive_frame_within_the_thick_ray_budget), on the same scenes and
+# checks, so that two workers share this file's JAX compiles
+BUDGET_FILE_CONFIGS = ["csvo-quarter-beams"]
+
+
+@pytest.mark.parametrize("config", [c for c in FRAME_CONFIGS
+                                    if c not in BUDGET_FILE_CONFIGS])
 def test_adaptive_frame_matches_jax(config, scenes, jax_frames, monkeypatch):
+    check_adaptive_frame_matches_jax(config, scenes, jax_frames, monkeypatch)
+
+
+def check_adaptive_frame_matches_jax(config, scenes, jax_frames,
+                                     monkeypatch):
+    """test_adaptive_frame_matches_jax's checks of one configuration."""
     fmt, hierarchy, beams, sun = FRAME_CONFIGS[config]
     jsvo, tsvo, jh, th = scenes(fmt)
     monkeypatch.setenv("VOXELRS_HIERARCHY", hierarchy)
@@ -384,32 +398,8 @@ def _rays(kw, w, h):
 
 
 # ---- the port against itself ------------------------------------------
-
-@pytest.mark.parametrize("levels", [1, 2, 3])
-def test_adaptive_frame_within_the_thick_ray_budget(levels, scenes):
-    """The adaptive frame against the port's exact frame, at each depth of
-    grids (1 the half grid, 2 the quarter grid, 3 the eighth grid), with
-    the beams and the sun map; the three beam variants give one frame."""
-    _jsvo, tsvo, _jh, th = scenes("esvo")
-    from voxelrs_tpu_torch.ops.adaptive import render_frame_adaptive_plain
-
-    for cam in ("horizon", "down", "on-ground"):
-        tp = _params(RenderParams, cam)
-        exact = tsvo.render(tp, W, H, adaptive=False).numpy()
-        tsvo.set_heightfield(th)
-        try:
-            ctx = tsvo.beam_context(tp, W, H)
-        finally:
-            tsvo.set_heightfield(None)
-        kw = tsvo.frame_kwargs(tp, W, H)
-        frames = [render_frame_adaptive_plain(
-            tsvo.world(), tsvo.octree_scale, tsvo.mips, tsvo.mat_params,
-            tsvo.mat_tex, beams=b, levels=levels, **kw).numpy()
-            for b in (ctx, ctx.without_sun(), None)]
-        for f in frames[1:]:
-            np.testing.assert_array_equal(f, frames[0])
-        assert_thick_ray_budget(frames[0], exact, levels)
-
+# (test_adaptive_frame_within_the_thick_ray_budget: in
+# tests/test_torch_adaptive_budget.py)
 
 def test_adaptive_frame_without_shadows(scenes):
     """Without shadows the adaptive frame skips both shadow passes and

@@ -44,7 +44,15 @@ with and without shadows, trilinear and at the CSVO budget of 40, both
 formats, its tile counters back at 0 after each launch, and refuses a
 frame off a 16-byte word; K9-judged's trace equals ``k9j_trace_plain``
 bit for bit on each grid level of the judged frame, the whole grid and
-refine lists at counts 0, 1, odd, the list's size and past it. The
+refine lists at counts 0, 1, odd, the list's size and past it. K4 equals
+its plain version bit for bit, and K3-CSVO the plain frame within 1e-6,
+on hand-built CSVO streams (``CSVO_STREAMS``: every pointer width and all
+eight children, nodes of eight 4-byte pointers, crossings,
+the stream's last word and word counts off a multiple of 4); every CSVO
+launch path refuses words off a 16-byte word. K9-judged's finalize
+equals its plain version bit for bit (the sky within 1e-6) at 1x1,
+127x1, 129x1, 37x21 and 1080p on records from a seed whose words 9-15
+are never 0, and refuses each of its tensors off a 16-byte word. The
 crosshair equals the CPU's result bit for bit.
 """
 
@@ -348,6 +356,232 @@ def test_k4_equals_plain(csvo, dev, translucent, exact, max_steps, n):
     for f in ("t", "value", "face_id", "pos", "uv", "lod", "inside_voxel",
               "steps"):
         assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+# ---- hand-built CSVO streams ---------------------------------------------
+# Streams whose bytes exercise every way K4's cursor reads a node: internal
+# pointers of every tag width (1, 2 and 4 bytes, chosen at random above the
+# width an offset needs, so with junk between child blobs) and of all eight
+# children, nodes of eight 4-byte pointers (34 bytes: a pointer read there
+# reaches 32 bytes past the node's first word), crossings into chunk blobs of lod 5 and 4 (the root's
+# absolute pointers), a node in the stream's last word, and word counts
+# 1, 2 and 3 past a multiple of 4, so that the clamped reads run. The CPU
+# tests hold ops.traversal_csvo.intersect_octree_csvo_plain to the JAX
+# traversal on the same streams (tests/test_torch_csvo_streams.py).
+
+def _csvo_internal(children, rng, stats):
+    """An internal node: a u16 header of 2-bit tags, each child's offset in
+    a tag of at least its width (1, 2 or 4 bytes at random; a third of
+    the nodes of eight children all 4 bytes, 34 bytes in all, so their
+    last pointers lie 30 bytes past the header), 0-40 junk bytes before a
+    child's blob at random, then the blobs."""
+    wide = len(children) == 8 and rng.random() < 0.33
+    blobs, offs = bytearray(), []
+    for _idx, data in children:
+        if rng.random() < 0.3:
+            blobs += rng.integers(0, 256, int(rng.integers(1, 41)),
+                                  dtype=np.uint8).tobytes()
+        offs.append(len(blobs))
+        blobs += data
+    header, ptrs = 0, bytearray()
+    for (idx, _), off in zip(children, offs):
+        tag = 3 if wide else max((max(off, 1).bit_length() - 1) // 8 + 1,
+                                 int(rng.integers(1, 4)))
+        header |= tag << (2 * idx)
+        ptrs += off.to_bytes((1 << tag) >> 1, "little")
+        stats["widths"].add((1 << tag) >> 1)
+    if len(children) == 8:
+        stats["eight"] += 1
+        if len(ptrs) == 32:
+            stats["eight_wide"] += 1
+    return header.to_bytes(2, "little") + bytes(ptrs) + bytes(blobs)
+
+
+def _csvo_chunk_blob(vox, lod, rng, stats):
+    """A chunk blob, [lod u8][material bytes u32][materials][nodes], its
+    nodes as the serializer encodes them at ``lod`` but for the internal
+    nodes' tags and junk (world/csvo.py serialize_dense_csvo)."""
+    from voxelrs_tpu_torch.world.csvo import _pyramids
+
+    occ, rep = _pyramids(vox)
+    materials = []
+
+    def node(lvl, m):
+        depth = lod - lvl
+        kids = [c for c in range(8) if occ[lvl + 1][8 * m + c]]
+        mask = sum(1 << c for c in kids)
+        if depth == 1:
+            materials.extend(int(rep[lvl + 1][8 * m + c]) for c in kids)
+            return bytes([mask])
+        if depth == 2:
+            off = len(materials)
+            out = bytearray([mask])
+            if mask:
+                out += off.to_bytes(2, "little")
+            for c in kids:
+                out += node(lvl + 1, 8 * m + c)
+            return bytes(out)
+        children = [(c, node(lvl + 1, 8 * m + c)) for c in kids]
+        if depth == 3:
+            out, run = bytearray([mask]), 0
+            for _c, data in children:
+                out.append(run)
+                run += len(data)
+            for _c, data in children:
+                out += data
+            return bytes(out)
+        return _csvo_internal(children, rng, stats)
+
+    nodes = node(0, 0)
+    return (bytes([lod]) + (4 * len(materials)).to_bytes(4, "little")
+            + np.asarray(materials, "<u4").tobytes() + nodes)
+
+
+def _csvo_root(blob_at, R, rng, stats):
+    """The root tree over R levels of chunks (``blob_at``: chunk (x, y, z)
+    -> its blob's byte offset): internal nodes down to the chunks' level,
+    whose children are 4-byte absolute pointers with bit 31 set."""
+    def rec(level, base):
+        children = []
+        for idx in range(8):
+            c = tuple(2 * b + ((idx >> a) & 1) for a, b in enumerate(base))
+            if level == 1:
+                if c in blob_at:
+                    children.append((idx, blob_at[c]))
+                continue
+            span = 1 << (level - 1)
+            if any(all(c[a] * span <= k[a] < (c[a] + 1) * span
+                       for a in range(3)) for k in blob_at):
+                children.append((idx, rec(level - 1, c)))
+        if level > 1:
+            return _csvo_internal(children, rng, stats)
+        header = sum(3 << (2 * idx) for idx, _ in children)
+        stats["crossings"] += len(children)
+        return header.to_bytes(2, "little") + b"".join(
+            (off | 1 << 31).to_bytes(4, "little") for _, off in children)
+
+    return rec(R, (0, 0, 0))
+
+
+# name: (seed, root levels, chunks {(x, y, z): lod}, root first, words % 4,
+# bytes cut off the end)
+CSVO_STREAMS = {
+    "root-last-1": (3, 1, {(0, 0, 0): 5, (1, 0, 1): 4}, False, 1, 0),
+    "root-first-2": (4, 1, {(0, 0, 0): 5, (1, 1, 0): 5}, True, 2, 0),
+    "two-levels-3": (5, 2, {(0, 0, 0): 5, (2, 1, 3): 4, (3, 0, 0): 5},
+                     False, 3, 0),
+    # the root's last pointer cut short: its missing bytes read the last
+    # word again, as the clamped gather reads them
+    "root-cut-1": (6, 1, {(0, 0, 0): 5, (1, 1, 1): 5}, False, 1, 3),
+}
+
+
+def csvo_stream(name):
+    """(words as uint32, root_ptr, total_depth, stats) of a hand-built
+    stream of CSVO_STREAMS: junk first (so the word count takes its
+    class), the chunk blobs and the root in either order, the last node
+    ending in the last word (or cut short there)."""
+    seed, R, chunks, root_first, mod, cut = CSVO_STREAMS[name]
+    stats = dict(widths=set(), eight=0, eight_wide=0, crossings=0)
+    rng = np.random.default_rng(seed)
+    blobs = {}
+    for k, lod in chunks.items():
+        vox = np.where(rng.random((32, 32, 32)) < 0.25,
+                       rng.integers(1, 13, (32, 32, 32)), 0).astype(np.uint32)
+        vox[8:24, 4:20, 8:24] = rng.integers(1, 13, (16, 16, 16))
+        vox[rng.random((32, 32, 32)) < 0.02] = 7
+        blobs[k] = _csvo_chunk_blob(vox, lod, rng, stats)
+
+    def layout(lead, root_seed_stats):
+        # the root's size does not depend on the blobs' offsets (4-byte
+        # crossings), so lay it out once with a copy of its generator
+        root_len = len(_csvo_root({k: 0 for k in blobs}, R,
+                                  np.random.default_rng(seed + 100),
+                                  dict(widths=set(), eight=0, eight_wide=0,
+                                       crossings=0)))
+        at, pos = {}, lead + (root_len if root_first else 0)
+        for k, b in blobs.items():
+            at[k] = pos
+            pos += len(b)
+        root = _csvo_root(at, R, np.random.default_rng(seed + 100),
+                          root_seed_stats)
+        body = b"".join(blobs.values())
+        junk = rng.integers(0, 256, lead, dtype=np.uint8).tobytes()
+        data = junk + (root + body if root_first else body + root)
+        return data[:len(data) - cut], lead if root_first else lead + len(
+            body)
+
+    base = len(layout(0, dict(widths=set(), eight=0, eight_wide=0,
+                              crossings=0))[0])
+    lead = next(p for p in range(16) if -(-(base + p) // 4) % 4 == mod)
+    data, root_ptr = layout(lead, stats)
+    words = np.frombuffer(data + bytes(-len(data) % 4), "<u4").copy()
+    stats["last_node_in_last_word"] = (len(data) - 1) // 4 == len(words) - 1
+    return words, root_ptr, R + max(chunks.values()), stats
+
+
+def _stream_rays(n, depth, seed):
+    """Rays from around and inside the stream's world at its chunks."""
+    rng = np.random.default_rng(seed)
+    size = float(1 << depth)
+    ro = rng.uniform(-0.2 * size, 1.2 * size, (n, 3))
+    ro[: n // 4] = rng.uniform(0.0, size, (n // 4, 3))  # inside
+    rd = rng.uniform(0.2 * size, 0.8 * size, (n, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return ro.astype(np.float32), rd.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("judged", [False, True])
+@pytest.mark.parametrize("name", sorted(CSVO_STREAMS))
+def test_k4_on_hand_built_streams(csvo, dev, name, judged):
+    """K4 against intersect_octree_csvo_plain on the hand-built streams
+    (every pointer width, nodes of eight 4-byte pointers, crossings, the last
+    word, word counts off a multiple of 4): every field of every ray
+    equal, opaque and judged (the scene's texel alpha)."""
+    words, root_ptr, depth, _stats = csvo_stream(name)
+    w = torch.tensor(words.view(np.int32), device=dev)
+    ro, rd = _stream_rays(4096, depth, 17)
+    args = (w, 2.0 ** -depth, root_ptr, depth,
+            torch.tensor(ro, device=dev), torch.tensor(rd, device=dev),
+            -1.0, judged)
+    alpha = shading.make_alpha_fn(csvo.mips, csvo.mat_tex)
+    n0 = traversal_csvo.launches
+    k = traversal_csvo.intersect_octree_csvo(*args, alpha_fn=alpha)
+    p = traversal_csvo.intersect_octree_csvo_plain(*args, alpha)
+    torch.cuda.synchronize()
+    assert traversal_csvo.launches == n0 + 1
+    assert 400 < int((k.t >= 0).sum()) < 4000
+    for f in ("t", "value", "face_id", "pos", "uv", "lod", "inside_voxel",
+              "steps"):
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CSVO_STREAMS))
+def test_k3_csvo_on_hand_built_streams(csvo, dev, name):
+    """K3's CSVO instantiation on the hand-built streams against the plain
+    frame (the scene's textures; 96x64, with shadows): max |d| <= 1e-6."""
+    words, root_ptr, depth, _stats = csvo_stream(name)
+    world = traversal_csvo.CsvoBuffer(
+        torch.tensor(words.view(np.int32), device=dev), root_ptr, depth)
+    size = float(1 << depth)
+    W, H = 96, 64
+    fwd = np.array([0.45, -0.35, 0.8], np.float32)
+    p = RenderParams(cam_pos=np.array([-0.1, 0.9, -0.2], np.float32) * size,
+                     cam_fwd=fwd / np.linalg.norm(fwd), aspect_ratio=W / H,
+                     fov_y_rad=np.radians(70.0), render_shadows=True,
+                     shadow_distance=4.0 * size)
+    kw = csvo.frame_kwargs(p, W, H)
+    n0 = shading.launches_csvo
+    img = shading.render_frame(world, 2.0 ** -depth, csvo.mips,
+                               csvo.mat_params, csvo.mat_tex, **kw)
+    ref = shading.render_frame_plain(world, 2.0 ** -depth, csvo.mips,
+                                     csvo.mat_params, csvo.mat_tex, **kw)
+    torch.cuda.synchronize()
+    assert shading.launches_csvo == n0 + 1
+    assert img.shape == (H, W, 4) and bool(torch.isfinite(img).all())
+    assert float((img - ref).abs().max()) <= K3_MAX_ABS
 
 
 @pytest.mark.cuda
@@ -1094,6 +1328,142 @@ def test_k9j_trace_merge_finalize_equal_plain(judged_scenes, dev, fmt,
     assert torch.equal(outs[0][1], outs[1][1]) and not outs[0][3].any()
     assert (aj.launches_trace - n0[0], aj.launches_merge - n0[1],
             aj.launches_finalize - n0[2]) == (levels + 1, levels, 1)
+
+
+def _k9j_records(B, kind, seed):
+    """(B, 16) int32 judged records from a seed: t = -1 on a miss, words
+    1-15 random and never 0 (a miss's too), so that a finalize which
+    copies words past the HitRec's 9, or skips a miss's words, differs."""
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(1, 1 << 31, (B, 16)).astype(np.int32)
+    hit = {"hit": np.ones(B, bool), "miss": np.zeros(B, bool)}.get(
+        kind, rng.random(B) < 0.5)
+    t = np.where(hit, rng.uniform(0.5, 300.0, B), -1.0).astype(np.float32)
+    rec[:, 0] = t.view(np.int32)
+    return rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "hit", "miss"])
+@pytest.mark.parametrize("size", [(1, 1), (127, 1), (129, 1), (37, 21),
+                                  (1920, 1080)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k9j_finalize_equals_plain(csvo, dev, size, kind):
+    """K9-judged's finalize (K9's finalize body: a block's 128 records'
+    first three 16-byte words loaded and its HitRecs and flags stored as
+    16-byte words through shared memory, a last block of fewer pixels
+    word by word) against its plain version on records made from a seed:
+    every HitRec, flag and cleared mask bit for bit, the sky within 1e-6,
+    pixels that hit untouched, at sizes off 128 and 1080p."""
+    from voxelrs_tpu_torch.ops import adaptive_judged as aj
+
+    W, H = size
+    B = W * H
+    fp = _k9_fp(csvo, _k9_pose("mixed"), W, H)
+    frec = torch.tensor(_k9j_records(B, kind, B), device=dev)
+    outs = [(torch.full((B, 9), 5, dtype=torch.int32, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.full((H, W, 4), 3.0, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev)) for _ in range(2)]
+    n0 = aj.launches_finalize
+    aj.k9j_finalize(fp, frec, *outs[0])
+    aj.k9j_finalize_plain(fp, frec, *outs[1])
+    torch.cuda.synchronize()
+    assert aj.launches_finalize == n0 + 1
+    for i, (a, b) in enumerate(zip(*outs)):
+        if i == 2:  # the sky: within 1e-6 (acosf)
+            assert float((a - b).abs().max()) <= K3_MAX_ABS
+        else:
+            assert torch.equal(a, b), i
+    hits = frec.view(torch.float32)[:, 0] != -1.0
+    assert int(outs[0][1].sum()) == int(hits.sum())
+    assert bool((outs[0][2].view(B, 4)[hits] == 3.0).all())
+    assert not outs[0][3].any() and not outs[0][4].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["frec", "rec", "hit", "img", "needp",
+                                  "blkp"])
+def test_k9j_finalize_refuses_views_off_a_16_byte_word(csvo, dev, name):
+    """Each of K9-judged's finalize's tensors viewed one element off a
+    16-byte word is refused by the wrapper, before a launch."""
+    from voxelrs_tpu_torch.ops import adaptive_judged as aj
+
+    W, H = 37, 21
+    B = W * H
+
+    def view(shape, dtype, off):
+        n = int(np.prod(shape))
+        return torch.zeros(n + 16, dtype=dtype, device=dev)[
+            off:off + n].view(shape)
+
+    shapes = dict(frec=((B, 16), torch.int32), rec=((B, 9), torch.int32),
+                  hit=((B,), torch.bool), img=((H, W, 4), torch.float32),
+                  needp=((B,), torch.bool), blkp=((B,), torch.bool))
+    args = [view(*shapes[k], 1 if k == name else 0) for k in shapes]
+    fp = _k9_fp(csvo, _k9_pose("mixed"), W, H)
+    n0 = aj.launches_finalize
+    with pytest.raises(ValueError, match=f"{name}: expected a 16-byte"):
+        aj.k9j_finalize(fp, *args)
+    assert aj.launches_finalize == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["k4", "k3", "k5", "kd_primary",
+                                  "kd_shadow", "k9_trace", "k9j_trace"])
+def test_csvo_paths_refuse_words_off_a_16_byte_word(csvo, dev, path):
+    """A CSVO world whose words start one word off a 16-byte word (the
+    CSVO kernels' launch contract) is refused with a
+    ValueError by every CSVO launch path, before a launch."""
+    from voxelrs_tpu_torch.ops import adaptive_judged as aj
+
+    w = csvo.world()
+    buf = torch.zeros(w.words.shape[0] + 4, dtype=torch.int32, device=dev)
+    buf[1:1 + w.words.shape[0]].copy_(w.words)
+    world = traversal_csvo.CsvoBuffer(buf[1:1 + w.words.shape[0]],
+                                      w.root_ptr, w.total_depth)
+    scale = float(csvo.octree_scale)
+    W, H = 37, 21
+    p = _k9_pose("mixed")
+    fp = _k9_fp(csvo, p, W, H)
+    tables = csvo.kernel_tables()
+    rays = torch.zeros((5, 3), device=dev)
+    counts = (traversal_csvo.launches, shading.launches, picker.launches,
+              adaptive.launches_trace, aj.launches_trace)
+    with pytest.raises(ValueError, match="words"):
+        if path == "k4":
+            traversal_csvo.intersect_octree_csvo(
+                world.words, scale, world.root_ptr, world.total_depth, rays,
+                rays + 1.0, -1.0, False)
+        elif path == "k3":
+            shading.render_frame(world, scale, csvo.mips, csvo.mat_params,
+                                 csvo.mat_tex, **csvo.frame_kwargs(p, W, H))
+        elif path == "k5":
+            picker.raycast(world, scale, torch.zeros((5, 7), device=dev))
+        elif path == "kd_primary":
+            _build.launch_kd_primary(
+                world, scale, tables, fp, 1, None,
+                torch.empty((W * H, 9), dtype=torch.int32, device=dev),
+                torch.empty(W * H, dtype=torch.bool, device=dev),
+                torch.empty((H, W, 4), device=dev))
+        elif path == "kd_shadow":
+            idx = torch.zeros(16, dtype=torch.int32, device=dev)
+            _build.launch_kd_shadow(
+                world, scale, tables, fp, 1, torch.zeros((16, 3), device=dev),
+                idx, idx[:1], None, None, None,
+                torch.zeros(16, dtype=torch.bool, device=dev))
+        elif path == "k9_trace":
+            n = adaptive.grid_dims(W, H, 1)[1]
+            adaptive.k9_trace(world, scale, fp, None, 1, torch.zeros(
+                (n[0] * n[1], 8), dtype=torch.int32, device=dev))
+        else:
+            n = adaptive.grid_dims(W, H, 1)[1]
+            aj.k9j_trace(world, scale, tables, fp, None, 1, torch.zeros(
+                (n[0] * n[1], 16), dtype=torch.int32, device=dev))
+    assert counts == (traversal_csvo.launches, shading.launches,
+                      picker.launches, adaptive.launches_trace,
+                      aj.launches_trace)
 
 
 @pytest.mark.cuda

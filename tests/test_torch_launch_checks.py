@@ -1,6 +1,7 @@
 """The launch checks of the finishing stage's kernel (``kd_finish``), of
-K7's shadow floors, of K3 and of K9-judged's trace, and the work items of
-the launches in 4x8 pixel tiles. ``kd_finish`` reads a thread's 4
+K7's shadow floors, of K3, of K9-judged's trace and finalize and of every
+CSVO launch (words on a 16-byte word, the CSVO kernels' launch contract),
+and the work items of the launches in 4x8 pixel tiles. ``kd_finish`` reads a thread's 4
 candidate slots as one 16-byte word of ``sidx`` and one 4-byte word of
 each flag array (``traced``, ``blk``, ``todo``) from slot 0, and gathers
 colours and writes pixels as 16-byte words; K7's shadow kernel writes its
@@ -198,3 +199,97 @@ def test_k9j_trace_refuses_records_off_a_16_byte_word(offset):
         with pytest.raises(ValueError, match="out: expected a 16-byte aligned"):
             _build.launch_k9j_trace(None, 1.0, None, _build.FrameParams(),
                                     None, 0, out)
+
+
+@pytest.mark.parametrize("name", ["frec", "rec", "hit", "img", "needp",
+                                  "blkp"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_k9j_finalize_refuses_views_off_a_16_byte_word(name, offset):
+    """K9-judged's finalize moves its records, HitRecs, flags and a miss's
+    pixel as 16-byte words: each view off one is refused, by name."""
+    B = N
+    views = dict(frec=_view(B, torch.int32, 0, 16),
+                 rec=_view(B, torch.int32, 0, 9),
+                 hit=_view(B, torch.bool, 0), img=_view(B, torch.float32, 0, 4),
+                 needp=_view(B, torch.bool, 0), blkp=_view(B, torch.bool, 0))
+    dtype, cols = {"frec": (torch.int32, 16), "rec": (torch.int32, 9),
+                   "img": (torch.float32, 4)}.get(name, (torch.bool, None))
+    # offset 4-byte words into the buffer (4 flags to a word)
+    views[name] = _view(B, dtype, offset * (4 if dtype == torch.bool else 1),
+                        cols)
+    if views[name].data_ptr() % 16 == 0:
+        for n, t in views.items():
+            _build.check_aligned(n, t)
+    else:
+        with pytest.raises(ValueError,
+                           match=f"{name}: expected a 16-byte aligned"):
+            _build.launch_k9j_finalize(_build.FrameParams(), *views.values())
+
+
+def _csvo_world(offset):
+    """A CSVO world whose words start ``offset`` words into a buffer that
+    starts on a 16-byte word."""
+    from voxelrs_tpu_torch.ops.traversal_csvo import CsvoBuffer
+
+    return CsvoBuffer(_view(64, torch.int32, offset), 0, 8)
+
+
+CSVO_LAUNCHES = ["k3", "k4", "k5", "kd_primary", "kd_shadow", "k9_trace",
+                 "k9j_trace"]
+
+
+def _launch_csvo(name, world):
+    """``_build.launch_<name>`` on ``world`` with arguments that pass every
+    check before the world's."""
+    fp = _build.FrameParams()
+    img = _view(8 * 4, torch.float32, 0, 4).view(4, 8, 4)
+    rays = torch.zeros((4, 3))
+    if name == "k3":
+        _build.launch_k3(world, 1.0, None, fp, img)
+    elif name == "k4":
+        _build.launch_k4(world.words, 1.0, world.root_ptr, world.total_depth,
+                         rays, rays, torch.zeros(4), 2, 0, None,
+                         *(None,) * 8)
+    elif name == "k5":
+        _build.launch_k5(world, 1.0, torch.zeros((4, 7)), 2,
+                         torch.zeros((4, 8)))
+    elif name == "kd_primary":
+        _build.launch_kd_primary(world, 1.0, None, fp, 1, None, None, None,
+                                 img)
+    elif name == "kd_shadow":
+        idx = _view(16, torch.int32, 0)
+        _build.launch_kd_shadow(world, 1.0, None, fp, 1, rays, idx, idx[:1],
+                                None, None, None, _view(16, torch.bool, 0))
+    elif name == "k9_trace":
+        _build.launch_k9_trace(world, 1.0, fp, None, 1,
+                               _view(N, torch.int32, 0, 8))
+    else:
+        _build.launch_k9j_trace(world, 1.0, None, fp, None, 1,
+                                _view(N, torch.int32, 0, 16))
+
+
+@pytest.mark.parametrize("name", CSVO_LAUNCHES)
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+def test_csvo_launches_refuse_words_off_a_16_byte_word(name, offset):
+    """Every CSVO launch refuses a words view one to three words off a
+    16-byte word, before it touches the kernel library (there is none
+    here: a launch that got past the check would fail otherwise)."""
+    with pytest.raises(ValueError, match="words: expected a 16-byte aligned"):
+        _launch_csvo(name, _csvo_world(offset))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_check_words_refuses_words_off_a_16_byte_word(offset):
+    """``ops.traversal_csvo.check_words``, which every CSVO wrapper runs,
+    takes words on a 16-byte word and refuses the others."""
+    from voxelrs_tpu_torch.ops.traversal_csvo import check_words
+
+    world = _csvo_world(offset)
+    if offset % 4 == 0:
+        check_words(*world)
+        assert _build.csvo_words(world) == tuple(world)
+    else:
+        with pytest.raises(ValueError,
+                           match="words: expected a 16-byte aligned"):
+            check_words(*world)
+

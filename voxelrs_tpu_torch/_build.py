@@ -19,7 +19,8 @@ them synchronises. K3 and K5 take the world as an ESVO buffer (an int32
 tensor) or a CSVO world (``(words, root_ptr, total_depth)``, as
 ``ops.traversal_csvo.CsvoBuffer``) and launch that format's instantiation;
 so do the deferred stages that trace (``launch_kd_primary``,
-``launch_kd_shadow``, ``launch_k9_trace``, ``launch_k9j_trace``). Optional
+``launch_kd_shadow``, ``launch_k9_trace``, ``launch_k9j_trace``); each
+refuses CSVO words off a 16-byte word (``csvo_words``). Optional
 pointers (a floor, an index list, a count) cross as None for "absent".
 The opaque frame's stages take ``cams`` — None for one frame, or the (N,
 12) float32 cameras of a pose batch (K10), whose lanes are pose-major —
@@ -256,6 +257,17 @@ def check_aligned(name, t, nbytes: int = 16):
 _FLAGS = (torch.bool, torch.uint8)
 
 
+def csvo_words(world):
+    """None for an ESVO buffer; for a CSVO world its ``(words, root_ptr,
+    total_depth)``, refusing ``words`` off a 16-byte word, the launch
+    contract of the CSVO kernels (``ops.traversal_csvo.check_words``)."""
+    if isinstance(world, torch.Tensor):
+        return None
+    words, root_ptr, depth = world
+    check_aligned("words", words)
+    return words, root_ptr, depth
+
+
 def _check_words(name, t, dtypes, lanes: int, nbytes: int):
     """Refuse a 1-d array that a kernel reads in ``nbytes``-byte words
     from lane 0 over ``lanes`` lanes."""
@@ -358,14 +370,15 @@ def launch_k3(world, octree_scale, tables, params: FrameParams, img,
     passes, is None or a contiguous (H*W,) int32 tensor that receives each
     pixel's traversal steps, primary plus shadow."""
     check_k3(img, steps)
+    csvo = csvo_words(world)
     lib = library()
     tail = (ctypes.byref(tables.struct), ctypes.byref(params),
             _ptr(k3_tiles(img.device)), _ptr(img), _ptr(steps))
-    if isinstance(world, torch.Tensor):
+    if csvo is None:
         err = lib.vx_k3_frame(_ptr(world), world.shape[0], octree_scale,
                               *tail, _stream(world.device))
     else:
-        words, root_ptr, depth = world
+        words, root_ptr, depth = csvo
         err = lib.vx_k3_frame_csvo(_ptr(words), words.shape[0], octree_scale,
                                    root_ptr, depth, *tail,
                                    _stream(words.device))
@@ -375,8 +388,10 @@ def launch_k3(world, octree_scale, tables, params: FrameParams, img,
 def launch_k4(words, octree_scale, root_ptr, total_depth, ro, rd, max_dst,
               budget, alpha_mode, tables, t, value, face, pos, uv, lod,
               inside, steps, t_floor=None):
-    """Launch K4 on the current stream (inputs checked by the caller);
+    """Launch K4 on the current stream (inputs checked by the caller;
+    ``words`` refused off a 16-byte word, as ``csvo_words`` refuses it);
     ``t_floor`` None or the (B,) float32 entry floors."""
+    check_aligned("words", words)
     lib = library()
     tex = None if tables is None else ctypes.byref(tables.struct)
     err = lib.vx_k4_traverse(
@@ -393,13 +408,14 @@ def launch_k5(world, octree_scale, tasks, budget, out, steps=None):
     ``out`` (n, 8) float32. ``steps``, a diagnostic no wrapper passes, is
     None or a contiguous (n,) int32 tensor that receives each task's
     traversal steps."""
+    csvo = csvo_words(world)
     lib = library()
     tail = (_ptr(tasks), tasks.shape[0], budget, _ptr(out), _ptr(steps))
-    if isinstance(world, torch.Tensor):
+    if csvo is None:
         err = lib.vx_k5_picker(_ptr(world), world.shape[0], octree_scale,
                                *tail, _stream(world.device))
     else:
-        words, root_ptr, depth = world
+        words, root_ptr, depth = csvo
         err = lib.vx_k5_picker_csvo(_ptr(words), words.shape[0],
                                     octree_scale, root_ptr, depth, *tail,
                                     _stream(words.device))
@@ -485,16 +501,17 @@ def launch_kd_primary(world, octree_scale, tables, params: FrameParams,
     tile floors ((N, nty, ntx) for a batch), ``rec`` (N*H*W, 9) int32 hit
     records, ``hit`` (N*H*W,) bool, ``img`` (N, H, W, 4) float32 (its sky
     pixels); N = 1 and ``cams`` None for one frame."""
+    csvo = csvo_words(world)
     lib = library()
     ntx = 0 if tf is None else tf.shape[-1]
     tail = (ctypes.byref(tables.struct), ctypes.byref(params), _ptr(cams),
             _poses(cams), alpha_mode, _ptr(tf), ntx, _ptr(rec), _ptr(hit),
             _ptr(img))
-    if isinstance(world, torch.Tensor):
+    if csvo is None:
         err = lib.vx_kd_primary(_ptr(world), world.shape[0], octree_scale,
                                 *tail, _stream(world.device))
     else:
-        words, root_ptr, depth = world
+        words, root_ptr, depth = csvo
         err = lib.vx_kd_primary_csvo(_ptr(words), words.shape[0],
                                      octree_scale, root_ptr, depth, *tail,
                                      _stream(words.device))
@@ -518,15 +535,16 @@ def launch_kd_shadow(world, octree_scale, tables, params: FrameParams,
     """The deferred frame's shadow trace over the candidates (or, with
     ``tidx``, their uncertified sub-list); ``floors`` None or per
     candidate."""
+    csvo = csvo_words(world)
     lib = library()
     tail = (ctypes.byref(tables.struct), ctypes.byref(params), alpha_mode,
             _ptr(sro), _ptr(sidx), _ptr(scount), _ptr(tidx), _ptr(tcount),
             _ptr(floors), sidx.shape[0], _ptr(traced))
-    if isinstance(world, torch.Tensor):
+    if csvo is None:
         err = lib.vx_kd_shadow(_ptr(world), world.shape[0], octree_scale,
                                *tail, _stream(world.device))
     else:
-        words, root_ptr, depth = world
+        words, root_ptr, depth = csvo
         err = lib.vx_kd_shadow_csvo(_ptr(words), words.shape[0],
                                     octree_scale, root_ptr, depth, *tail,
                                     _stream(words.device))
@@ -555,17 +573,18 @@ def launch_k9_trace(world, octree_scale, params: FrameParams, tf, level, out,
     ``idx`` ((size,) int32) up to its device ``count``; ``tf`` None or the
     (nty, ntx) tile floors ((N, nty, ntx) for a batch); ``cams`` None
     (one pose) or the (N, ...) cameras of a batch."""
+    csvo = csvo_words(world)
     lib = library()
     size = out.shape[0] if idx is None else idx.shape[0]
     ntx = 0 if tf is None else tf.shape[-1]
     n_poses = 1 if cams is None else cams.shape[0]
     tail = (ctypes.byref(params), _ptr(cams), _ptr(tf), ntx, level,
             _ptr(idx), _ptr(count), size, n_poses, _ptr(out))
-    if isinstance(world, torch.Tensor):
+    if csvo is None:
         err = lib.vx_k9_trace(_ptr(world), world.shape[0], octree_scale,
                               *tail, _stream(world.device))
     else:
-        words, root_ptr, depth = world
+        words, root_ptr, depth = csvo
         err = lib.vx_k9_trace_csvo(_ptr(words), words.shape[0], octree_scale,
                                    root_ptr, depth, *tail,
                                    _stream(words.device))
@@ -618,16 +637,17 @@ def launch_k9j_trace(world, octree_scale, tables, params: FrameParams, tf,
     ``count``; ``tf`` None or the (nty, ntx) tile floors; ``tables`` the
     texture tables the alpha judge reads."""
     check_aligned("out", out)
+    csvo = csvo_words(world)
     lib = library()
     size = out.shape[0] if idx is None else idx.shape[0]
     ntx = 0 if tf is None else tf.shape[1]
     tail = (ctypes.byref(tables.struct), ctypes.byref(params), _ptr(tf), ntx,
             level, _ptr(idx), _ptr(count), size, _ptr(out))
-    if isinstance(world, torch.Tensor):
+    if csvo is None:
         err = lib.vx_k9j_trace(_ptr(world), world.shape[0], octree_scale,
                                *tail, _stream(world.device))
     else:
-        words, root_ptr, depth = world
+        words, root_ptr, depth = csvo
         err = lib.vx_k9j_trace_csvo(_ptr(words), words.shape[0],
                                     octree_scale, root_ptr, depth, *tail,
                                     _stream(words.device))
@@ -650,7 +670,11 @@ def launch_k9j_finalize(params: FrameParams, frec, rec, hit, img, needp,
                         blkp):
     """K9-judged's finalize of the pixel records ``frec`` into the deferred
     hit records ``rec`` (H*W, 9), ``hit`` and the sky of ``img``; clears
-    ``needp``/``blkp`` ((H*W,) bool)."""
+    ``needp``/``blkp`` ((H*W,) bool). Its kernel moves each of them as
+    16-byte words from its first element, so a view off one is refused."""
+    for name, t in (("frec", frec), ("rec", rec), ("hit", hit), ("img", img),
+                    ("needp", needp), ("blkp", blkp)):
+        check_aligned(name, t)
     err = library().vx_k9j_finalize(ctypes.byref(params), _ptr(frec),
                                     _ptr(rec), _ptr(hit), _ptr(img),
                                     _ptr(needp), _ptr(blkp),

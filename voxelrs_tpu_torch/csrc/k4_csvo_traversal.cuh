@@ -23,9 +23,24 @@
 // material section; the last lnode visited (pre_leaf) and that section
 // resolve a leaf's value.
 //
-// What bounds it on an H100: dependent loads, as K1 — each step reads about
-// two unaligned u32 words (the node header and one pointer) where K1 reads
-// one, plus a leaf hit's material lookup; the stream (a few MB) stays in L2.
+// What bounds it on an H100: instruction issue, more than the dependent
+// loads (chip_smoke.py --renderer-only and --parent on an H100, PERF.md
+// §6): a launch of ~2M rays at full occupancy hides the L2 round trips,
+// and a node window of 16-byte loads, which brings a child pointer with
+// its header, made K4 8-14% slower for the instructions that pick the
+// bytes out of it. So the step is cut to few instructions: the probe
+// branches on the node's header alone (is_child and is_leaf are its tag
+// or mask bit; a pointer never equals INVALID_PTR, so the pointer is
+// consumed only by push and leaf_value), and the pointer widths before
+// and up to the child are sums of the header's 2-bit tags by popcounts,
+// not a loop over the eight tags. The reads stay unconditional, as the
+// plain version's: loading a pointer only where there is a child, and
+// only the words its bytes lie in, made K4 and K3-CSVO 3% faster still
+// but K9's and K9-judged's CSVO traces, whose warps diverge more, 3-7%
+// slower than before; keeping an lnode's material offset and leaf masks
+// in registers for its leaves' probes made K4 3% and K3-CSVO 6% slower.
+// The reads clamp as the JAX gather does, so the hits stay bit for bit
+// those of ops.traversal_csvo.CsvoReader.
 
 #pragma once
 #include <cstdint>
@@ -38,13 +53,20 @@ constexpr uint32_t CSVO_DEPTH_SHIFT = 27;
 constexpr uint32_t CSVO_PTR_MASK = (1u << CSVO_DEPTH_SHIFT) - 1u;
 constexpr uint32_t INVALID_PTR = 0xFFFFFFFFu;
 
+// The bytes of the 2-bit pointer tags of a header h (widths 0, 1, 2, 4
+// for tags 0-3: a tag's value, plus one for a 3).
+__device__ __forceinline__ uint32_t tag_widths(uint32_t h) {
+  return __popc(h & 0x5555u) + 2u * __popc(h & 0xAAAAu) +
+         __popc(h & (h >> 1) & 0x5555u);
+}
+
 struct CsvoCursor {
   const uint32_t* __restrict__ words;
   uint32_t last;      // index of the stream's last word
   uint32_t node;      // ptr | depth << 27
   uint32_t mat_ptr;   // the current chunk's material section
   uint32_t pre_leaf;  // the last lnode (depth 2) visited
-  uint32_t next;      // probe's child pointer (INVALID_PTR = none)
+  uint32_t next;      // probe's child pointer (where it found a child)
   bool crossed;       // probe's pointer crosses into a chunk blob
 
   __device__ CsvoCursor(const uint32_t* __restrict__ w, uint32_t n_words,
@@ -68,8 +90,9 @@ struct CsvoCursor {
     return (word(bp >> 2) >> ((bp & 3u) * 8u)) & 0xFFu;
   }
 
-  // child pointer of child `oct` of the current node, by its depth
-  // (read_next_ptr, svo.csvo.glsl:53-116)
+  // child `oct` of the current node, by its depth (read_next_ptr,
+  // svo.csvo.glsl:53-116): is_child / is_leaf from the header alone, the
+  // pointer into `next` (and `crossed`) for push
   __device__ __forceinline__ void probe(int oct, bool& is_child,
                                         bool& is_leaf) {
     const uint32_t ptr = node & CSVO_PTR_MASK;
@@ -78,32 +101,23 @@ struct CsvoCursor {
     crossed = false;
     if (depth > 3u) {  // internal: u16 header of 2-bit pointer widths
       const uint32_t header = read_u32(ptr) & 0xFFFFu;
-      uint32_t off = 0u, total = 0u;
-#pragma unroll
-      for (uint32_t k = 0; k < 8u; ++k) {
-        const uint32_t width = (1u << ((header >> (2u * k)) & 3u)) >> 1;
-        if (k < idx) off += width;
-        total += width;
-      }
       const uint32_t tag = (header >> (idx * 2u)) & 3u;
+      const uint32_t off = tag_widths(header & ((1u << (idx * 2u)) - 1u));
       uint32_t raw = read_u32(ptr + 2u + off);
       if (tag < 3u) raw &= (1u << (((1u << tag) >> 1) * 8u)) - 1u;
       crossed = tag == 3u && (raw & 0x80000000u) != 0u;
-      const uint32_t p = crossed ? raw ^ 0x80000000u : ptr + 2u + total + raw;
-      next = tag != 0u ? p : INVALID_PTR;
-    } else {  // pre-leaf (3) and lnode (2, 1): u8 child mask
-      const uint32_t header = read_byte(ptr);
-      const uint32_t rank = __popc(header & ((1u << idx) - 1u));
-      uint32_t p;
-      if (depth == 3u) {
-        p = ptr + 1u + __popc(header) + read_byte(ptr + 1u + rank);
-      } else {
-        p = ptr + 3u + rank;
-      }
-      next = ((header >> idx) & 1u) ? p : INVALID_PTR;
+      next = crossed ? raw ^ 0x80000000u : ptr + 2u + tag_widths(header) + raw;
+      is_child = tag != 0u;
+      is_leaf = false;
+      return;
     }
+    // pre-leaf (3) and lnode (2, 1): u8 child mask
+    const uint32_t header = read_byte(ptr);
+    const uint32_t rank = __popc(header & ((1u << idx) - 1u));
+    next = depth == 3u ? ptr + 1u + __popc(header) + read_byte(ptr + 1u + rank)
+                       : ptr + 3u + rank;
     if (depth == 2u) pre_leaf = ptr;
-    is_child = next != INVALID_PTR;
+    is_child = ((header >> idx) & 1u) != 0u;
     is_leaf = is_child && depth < 2u;
   }
 

@@ -72,7 +72,9 @@
 // HitRecs (4,608 bytes) and stores them as coalesced 16-byte words, its
 // byte flags as 16-byte words and a miss's sky as one. Shared words are
 // read and written at positions k9_swz, so a quarter warp's 16-byte
-// accesses hit distinct banks.
+// accesses hit distinct banks. K9-judged's finalize runs the same body
+// (k9_finalize_block) on its 64-byte records, of which it loads the
+// first three 16-byte words (the HitRec's 9 words).
 
 #pragma once
 
@@ -439,31 +441,48 @@ k9_merge_kernel(float octree_scale, FrameParams fp,
 // Threads of a K9 finalize block, one pixel each.
 constexpr int K9F_THREADS = 128;
 
-// One thread per pixel of each pose (block b: pixels 128b ...): the
-// record's hit (its ray's finalize, through the traversal's own device
-// functions) as the deferred frame's HitRec and hit flag, or a miss and
-// its sky; clears the pixel-space shadow masks (needp, blkp) the shadow
-// cells read. The block's records, HitRecs and flags move through shared
-// memory as 16-byte words; a last block of fewer than 128 pixels stores
-// its tail words and its flags one by one.
-__global__ void __launch_bounds__(K9F_THREADS)
-k9_finalize_kernel(float octree_scale, FrameParams fp,
-                   const float* __restrict__ cams, int n_poses,
-                   const K9Rec* __restrict__ frec, HitRec* __restrict__ rec,
-                   uint8_t* __restrict__ hit, float* __restrict__ img,
-                   uint8_t* __restrict__ needp, uint8_t* __restrict__ blkp) {
+// The shared-memory position of staged 16-byte word p of a finalize block
+// whose records are staged QW words each: k9_swz for an even QW (the
+// opaque record's 2); an odd QW (K9-judged's 3) already puts the 8
+// threads of a quarter warp, reading word QW * l + k of their record l,
+// on 8 distinct groups of 4 banks.
+template <int QW>
+__device__ __forceinline__ int k9f_swz(int p) {
+  return (QW & 1) ? p : k9_swz(p);
+}
+
+// The body of K9's and K9-judged's finalize, one thread per pixel of each
+// pose (block b: pixels 128b ...): the record's hit as the deferred frame's
+// HitRec and hit flag, or a miss and its sky; clears the pixel-space shadow
+// masks (needp, blkp) the shadow cells read. `Fin` is how a record becomes
+// a HitRec, the one thing the two differ in: a record is Fin::RW 16-byte
+// words, of which the first Fin::QW hold what fin reads; fin(q, f, rd, w)
+// writes the HitRec's 9 words to w from the record's staged words q and
+// returns the hit flag (rd is the pixel's ray where Fin::NEEDS_RAY, and
+// is made here only for a miss's sky otherwise). The block's records
+// (their first QW words), HitRecs and flags move through shared memory as
+// 16-byte words; a last block of fewer than 128 pixels stores its tail
+// words and its flags one by one.
+template <class Fin>
+__device__ __forceinline__ void k9_finalize_block(
+    const Fin& fin, const FrameParams& fp, const float* __restrict__ cams,
+    int n_poses, const uint4* __restrict__ frec, HitRec* __restrict__ rec,
+    uint8_t* __restrict__ hit, float* __restrict__ img,
+    uint8_t* __restrict__ needp, uint8_t* __restrict__ blkp) {
   constexpr int HW = sizeof(HitRec) / 4;  // 9 words
   static_assert(sizeof(HitRec) == 36, "HitRec: t, value, face, pos, u, v, lod");
-  __shared__ uint4 s_rec[2 * K9F_THREADS];
+  constexpr int RW = Fin::RW, QW = Fin::QW;
+  __shared__ uint4 s_rec[QW * K9F_THREADS];
   __shared__ uint4 s_out[HW * K9F_THREADS / 4];
   __shared__ uint4 s_hit[K9F_THREADS / 16];
   const int B = fp.width * fp.height;
   const long long total = (long long)B * n_poses;
   const long long base = (long long)blockIdx.x * K9F_THREADS;
   const int cnt = (int)min((long long)K9F_THREADS, total - base);
-  const uint4* src = reinterpret_cast<const uint4*>(frec + base);
-  for (int q = threadIdx.x; q < 2 * cnt; q += K9F_THREADS)
-    s_rec[k9_swz(q)] = __ldg(src + q);
+  const uint4* src = frec + base * RW;
+  for (int q = threadIdx.x; q < QW * cnt; q += K9F_THREADS)
+    s_rec[k9f_swz<QW>(q)] =
+        __ldg(src + (RW == QW ? q : q / QW * RW + q % QW));
   __syncthreads();
   const int t = threadIdx.x;
   uint8_t* s_hitb = reinterpret_cast<uint8_t*>(s_hit);
@@ -471,39 +490,22 @@ k9_finalize_kernel(float octree_scale, FrameParams fp,
     const int i = (int)(base + t);
     const int pose = i / B;
     const FrameParams f = pose_params(fp, cams, pose);
-    K9Words u;
-    u.q[0] = s_rec[k9_swz(2 * t)];
-    u.q[1] = s_rec[k9_swz(2 * t + 1)];
-    const K9Rec& r = u.r;
+    uint4 q[QW];
+#pragma unroll
+    for (int k = 0; k < QW; ++k) q[k] = s_rec[k9f_swz<QW>(QW * t + k)];
     float rd[3];
-    gen_ray(f, i - pose * B, rd);
-    // HitRec t, word by word, at word HW * t of the staged span (an odd
+    if (Fin::NEEDS_RAY) gen_ray(f, i - pose * B, rd);
+    // the HitRec, word by word, at word HW * t of the staged span (an odd
     // stride: the 32 lanes of a warp meet 32 banks)
-    uint32_t* w = reinterpret_cast<uint32_t*>(s_out) + HW * t;
-    if (r.flags & 1u) {
-      const RayConsts c = ray_consts(octree_scale, f.cam_pos[0],
-                                     f.cam_pos[1], f.cam_pos[2], rd[0],
-                                     rd[1], rd[2]);
-      const HitGeom g = hit_geometry(c, octree_scale, (int)(r.idxscale >> 8),
-                                     r.pos[0], r.pos[1], r.pos[2], r.t);
-      Hit h;
-      finalize_hit(c, octree_scale, g, r.t, r.value, h);
-      w[0] = __float_as_uint(h.t);
-      w[1] = h.value;
-      w[2] = (uint32_t)h.face;
-      for (int k = 0; k < 3; ++k) w[3 + k] = __float_as_uint(h.pos[k]);
-      w[6] = __float_as_uint(h.u);
-      w[7] = __float_as_uint(h.v);
-      w[8] = __float_as_uint(h.lod);
-    } else {
-      w[0] = __float_as_uint(-1.f);  // a miss: t = -1, the rest 0
-      for (int k = 1; k < HW; ++k) w[k] = 0u;
+    const bool h = fin(q, f, rd, reinterpret_cast<uint32_t*>(s_out) + HW * t);
+    if (!h) {
+      if (!Fin::NEEDS_RAY) gen_ray(f, i - pose * B, rd);
       float rgb[3];
       sky_color(f, rd[0], rd[2], rgb);
       reinterpret_cast<float4*>(img)[i] =
           make_float4(rgb[0], rgb[1], rgb[2], 1.f);
     }
-    s_hitb[t] = (r.flags & 1u) ? 1 : 0;
+    s_hitb[t] = h ? 1 : 0;
   }
   __syncthreads();
   const int words = HW * cnt;  // of the block's HitRec span
@@ -527,6 +529,56 @@ k9_finalize_kernel(float octree_scale, FrameParams fp,
       blkp[base + t] = 0;
     }
   }
+}
+
+// K9's record as a HitRec: a hit is its ray's finalize from the frozen
+// state, through the traversal's own device functions; a miss is t = -1,
+// the other words 0.
+struct K9FinalizeOpaque {
+  static constexpr int RW = 2, QW = 2;
+  static constexpr bool NEEDS_RAY = true;
+  float octree_scale;
+
+  __device__ __forceinline__ bool operator()(const uint4* q,
+                                             const FrameParams& f,
+                                             const float* rd,
+                                             uint32_t* w) const {
+    K9Words u;
+    u.q[0] = q[0];
+    u.q[1] = q[1];
+    const K9Rec& r = u.r;
+    if (!(r.flags & 1u)) {
+      w[0] = __float_as_uint(-1.f);
+      for (int k = 1; k < 9; ++k) w[k] = 0u;
+      return false;
+    }
+    const RayConsts c = ray_consts(octree_scale, f.cam_pos[0], f.cam_pos[1],
+                                   f.cam_pos[2], rd[0], rd[1], rd[2]);
+    const HitGeom g = hit_geometry(c, octree_scale, (int)(r.idxscale >> 8),
+                                   r.pos[0], r.pos[1], r.pos[2], r.t);
+    Hit h;
+    finalize_hit(c, octree_scale, g, r.t, r.value, h);
+    w[0] = __float_as_uint(h.t);
+    w[1] = h.value;
+    w[2] = (uint32_t)h.face;
+    for (int k = 0; k < 3; ++k) w[3 + k] = __float_as_uint(h.pos[k]);
+    w[6] = __float_as_uint(h.u);
+    w[7] = __float_as_uint(h.v);
+    w[8] = __float_as_uint(h.lod);
+    return true;
+  }
+};
+
+// One thread per pixel of each pose: K9's finalize (k9_finalize_block).
+__global__ void __launch_bounds__(K9F_THREADS)
+k9_finalize_kernel(float octree_scale, FrameParams fp,
+                   const float* __restrict__ cams, int n_poses,
+                   const K9Rec* __restrict__ frec, HitRec* __restrict__ rec,
+                   uint8_t* __restrict__ hit, float* __restrict__ img,
+                   uint8_t* __restrict__ needp, uint8_t* __restrict__ blkp) {
+  k9_finalize_block(K9FinalizeOpaque{octree_scale}, fp, cams, n_poses,
+                    reinterpret_cast<const uint4*>(frec), rec, hit, img,
+                    needp, blkp);
 }
 
 // K9's shadow cells over the compacted hit lanes j < size (pixel

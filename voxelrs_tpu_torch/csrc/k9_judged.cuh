@@ -38,7 +38,10 @@
 // carries the finalized hit itself: the merge finalizes the synthesized leaf
 // through the traversal's finalize_hit.
 //
-// Design: the merge and the finalize take one thread a lane; the trace has
+// Design: the merge takes one thread a lane, the finalize is K9's
+// (k9_finalize_block: a block's records, HitRecs and flags as 16-byte words
+// through shared memory, only the first three 16-byte words of a record
+// read); the trace has
 // K9's trace's shape (k9_adaptive.cuh): 4x8 pixel tiles a warp on the
 // whole grid, 64-thread blocks, the traversal stack in shared memory, the
 // ESVO child pointer loaded beside its descriptor, a grid no larger than
@@ -55,9 +58,9 @@
 // judge (K1 / K4, dependent loads: a launch lasts as long as its slowest
 // warp's chain of steps); the merge reads four 64-byte records and writes
 // one (bytes bound; a fill adds some hundred float operations and a texel
-// fetch); the finalize moves 64 bytes in and 38 out a pixel (bytes bound).
-// The merge and the finalize keep their first shape: the records are
-// twice the opaque frame's.
+// fetch); the finalize moves a record's two 32-byte sectors in and 38
+// bytes out a pixel (bytes bound). The merge keeps its first shape: the
+// records are twice the opaque frame's.
 
 #pragma once
 
@@ -279,27 +282,41 @@ k9j_merge_kernel(float octree_scale, TexTables tx, FrameParams fp, int level,
   refine[i] = (!smooth && !miss4) ? 1 : 0;
 }
 
+// K9-judged's record as a HitRec: its words 0-8, hit or miss (a miss
+// record holds t = -1); the hit flag is t != -1.
+struct K9JFinalize {
+  static constexpr int RW = 4, QW = 3;  // the HitRec: words 0-8 of 16
+  static constexpr bool NEEDS_RAY = false;
+
+  __device__ __forceinline__ bool operator()(const uint4* q,
+                                             const FrameParams&,
+                                             const float*, uint32_t* w) const {
+    w[0] = q[0].x;
+    w[1] = q[0].y;
+    w[2] = q[0].z;
+    w[3] = q[0].w;
+    w[4] = q[1].x;
+    w[5] = q[1].y;
+    w[6] = q[1].z;
+    w[7] = q[1].w;
+    w[8] = q[2].x;
+    return __uint_as_float(q[0].x) != -1.f;
+  }
+};
+
 // One thread per pixel: the record's hit as the deferred frame's HitRec and
 // hit flag, or a miss and its sky; clears the pixel-space shadow masks
-// (needp, blkp) the shadow cells read.
-__global__ void __launch_bounds__(BLOCK)
+// (needp, blkp) the shadow cells read. K9's finalize body on one pose
+// (k9_finalize_block): records, HitRecs and flags as 16-byte words
+// through shared memory.
+__global__ void __launch_bounds__(K9F_THREADS)
 k9j_finalize_kernel(FrameParams fp, const K9JRec* __restrict__ frec,
                     HitRec* __restrict__ rec, uint8_t* __restrict__ hit,
                     float* __restrict__ img, uint8_t* __restrict__ needp,
                     uint8_t* __restrict__ blkp) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= fp.width * fp.height) return;
-  const HitRec h = frec[i].h;
-  rec[i] = h;
-  needp[i] = 0;
-  blkp[i] = 0;
-  const bool ht = h.t != -1.f;
-  hit[i] = ht ? 1 : 0;
-  if (!ht) {
-    float rd[3];
-    gen_ray(fp, i, rd);
-    write_sky(fp, rd, img + 4 * (size_t)i);
-  }
+  k9_finalize_block(K9JFinalize{}, fp, nullptr, 1,
+                    reinterpret_cast<const uint4*>(frec), rec, hit, img,
+                    needp, blkp);
 }
 
 }  // namespace vx

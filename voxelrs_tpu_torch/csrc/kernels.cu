@@ -913,7 +913,9 @@ int vx_k5_picker(const uint32_t* desc, long long n_words, float octree_scale,
   return (int)cudaGetLastError();
 }
 
-// words: the CSVO node stream after its 4-byte prefix, n_words >= 1.
+// words: the CSVO node stream after its 4-byte prefix, n_words >= 1,
+// starting on a 16-byte word (every CSVO entry; _build refuses another
+// view).
 int vx_k4_traverse(const uint32_t* words, long long n_words,
                    float octree_scale, unsigned root_ptr, int total_depth,
                    const float* ro, const float* rd, const float* max_dst,
@@ -1231,11 +1233,15 @@ int vx_k9j_merge(float octree_scale, const vx::TexTables* tex,
   return (int)cudaGetLastError();
 }
 
+// frec, rec, hit, img, needp and blkp start on a 16-byte word
+// (ops/adaptive_judged.py and _build.launch_k9j_finalize check).
 int vx_k9j_finalize(const vx::FrameParams* fp, const void* frec, void* rec,
                     uint8_t* hit, float* img, uint8_t* needp, uint8_t* blkp,
                     void* stream) {
-  vx::k9j_finalize_kernel<<<vx::grid_for((long long)fp->width * fp->height),
-                            vx::BLOCK, 0, (cudaStream_t)stream>>>(
+  const long long n = (long long)fp->width * fp->height;
+  vx::k9j_finalize_kernel<<<(unsigned)((n + vx::K9F_THREADS - 1) /
+                                       vx::K9F_THREADS),
+                            vx::K9F_THREADS, 0, (cudaStream_t)stream>>>(
       *fp, (const vx::K9JRec*)frec, (vx::HitRec*)rec, hit, img, needp, blkp);
   return (int)cudaGetLastError();
 }

@@ -71,7 +71,7 @@ from .bits import U32_MASK, bits_f32, f32_bits, fdiv, u32_to_i32
 from .traversal import (EsvoReader, TraversalResult, _exp2_scale,
                         _hit_geometry, finalize_fields, make_ray_consts,
                         trace_state)
-from .traversal_csvo import CsvoBuffer, CsvoReader
+from .traversal_csvo import CsvoBuffer, CsvoReader, check_words
 
 f32, i64, i32 = torch.float32, torch.int64, torch.int32
 
@@ -608,6 +608,8 @@ def k9_trace(world, octree_scale, fp: _build.FrameParams, tf, level: int, out,
         return k9_trace_plain(world, octree_scale, fp, tf, level, out, idx,
                               count, cams)
     global launches_trace
+    if isinstance(world, CsvoBuffer):
+        check_words(*world)
     n = _level_lanes(fp, level) * _poses(cams, fp, out.device)
     _check_rec("out", out, n)
     if shading.world_tensor(world).device != out.device or (

@@ -59,7 +59,7 @@ from .beams import pixel_floors_at
 from .bits import U32_MASK, bits_f32, f32_bits, u32_to_i32
 from .traversal import (_exp2_scale, _hit_geometry, finalize,
                         finalize_fields, make_ray_consts, trace_state)
-from .traversal_csvo import CsvoBuffer
+from .traversal_csvo import CsvoBuffer, check_words
 
 f32, i64, i32 = torch.float32, torch.int64, torch.int32
 
@@ -288,6 +288,8 @@ def k9j_trace(world, octree_scale, tables, fp: _build.FrameParams, tf,
         return k9j_trace_plain(world, octree_scale, tables, fp, tf, level,
                                out, idx, count)
     global launches_trace
+    if isinstance(world, CsvoBuffer):
+        check_words(*world)
     w, h = grid_dims(fp.width, fp.height, level)[level]
     _check_rec("out", out, w * h)
     _check_tables(tables, out.device)
@@ -343,11 +345,20 @@ def k9j_finalize(fp: _build.FrameParams, frec, rec, hit, img, needp, blkp):
     B = fp.width * fp.height
     _check_rec("frec", frec, B)
     if tuple(rec.shape) != (B, _build.HIT_WORDS) or hit.shape[0] != B \
-            or img.numel() != 4 * B:
+            or img.numel() != 4 * B or needp.shape[0] != B \
+            or blkp.shape[0] != B:
         raise ValueError("k9j_finalize: outputs of another frame size")
-    for name, t in (("needp", needp), ("blkp", blkp)):
-        if t.dtype != torch.bool or t.shape[0] != B:
-            raise ValueError(f"{name}: expected ({B},) bool")
+    # the kernel moves records, HitRecs, flags and a miss's pixel as
+    # 16-byte words
+    for name, t, dt in (("frec", frec, i32), ("rec", rec, i32),
+                        ("hit", hit, torch.bool), ("img", img, f32),
+                        ("needp", needp, torch.bool),
+                        ("blkp", blkp, torch.bool)):
+        if t.dtype != dt or not t.is_contiguous() \
+                or t.device != frec.device:
+            raise ValueError(f"{name}: expected a contiguous {dt} tensor on "
+                             f"{frec.device}")
+        _build.check_aligned(name, t)
     _build.launch_k9j_finalize(fp, frec, rec, hit, img, needp, blkp)
     launches_finalize += 1
     return rec, hit

@@ -915,6 +915,8 @@ def shadow_pass(world, scale, tables, params, alpha_mode, beams, light_dir,
     (judged unless ``alpha_mode`` is 0); the finishing stage (``blkp``:
     None, or the pixel-space verdicts it writes)."""
     global launches_shadow, launches_finish
+    if isinstance(world, CsvoBuffer):
+        check_words(*world)
     B = mask.shape[0]
     sidx, scount = compact.compact_indices(mask, B, out=ws.sidx,
                                            count=ws.scount, scratch=ws.scratch)

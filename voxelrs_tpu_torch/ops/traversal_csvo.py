@@ -223,11 +223,16 @@ launches = 0  # K4 launches by intersect_octree_csvo (the wrapper below)
 
 
 def check_words(words: torch.Tensor, root_ptr: int, total_depth: int):
-    """Raise unless ``words`` is a contiguous 1-d int32 word buffer and
-    the root pointer and depth fit the stack's ``ptr | depth << 27``."""
+    """Raise unless ``words`` is a contiguous 1-d int32 word buffer that
+    starts on a 16-byte word and the root pointer and depth fit the
+    stack's ``ptr | depth << 27``. Every CSVO launch path runs it. The
+    16-byte start is the launch contract of the CSVO kernels
+    (``_build.csvo_words``); ``Svo.device_buf``, a fresh allocation,
+    meets it."""
     if words.dtype != torch.int32 or words.dim() != 1 \
             or words.shape[0] < 1 or not words.is_contiguous():
         raise ValueError("words: expected a contiguous 1-d int32 buffer")
+    _build.check_aligned("words", words)
     if not 0 <= int(root_ptr) < MAX_STREAM_BYTES or \
             not 0 <= int(total_depth) < 32:
         raise ValueError(f"root_ptr {root_ptr} / total_depth {total_depth}"
