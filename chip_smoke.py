@@ -116,10 +116,12 @@ this tree's, its K6 and K9 trace, merge and finalize are timed on the
 same inputs (each K9 launch held to the plain outputs), so are its
 shadow stage, shadow cells, finishing stage and K7 shadow floors, and its
 renderer's frames (adaptive,
-exact and fused in both formats, the ESVO batch) are timed in turns with
+exact and fused in both formats, the judged adaptive and exact judged
+frames of the translucent world, the ESVO batch on both branches) are
+timed in turns with
 this tree's and compared with them, each path's difference set beside the
-opaque adaptive frame's (whose kernels K3's and K9-judged's redesign left
-alone: the noise). K3 is held to the plain frame on the 5 bench poses and
+opaque adaptive frame's (whose kernels this slice left alone: the
+noise). K3 is held to the plain frame on the 5 bench poses and
 pose 0 trilinear in both formats; its steps are split into the primary
 ray's (K1 / K4 on the pixel's ray) and the shadow ray's, with each
 phase's SIMD efficiency in warps of 32 pixels of a row and in K3's 4x8
@@ -138,7 +140,22 @@ card operations a call counted from the profiler, and with --parent the
 parent's finalize and the parent's K1 / K4 are timed on the same inputs;
 K4's and K1's microseconds a step on the same rays are printed, and the
 ptxas lines of K1, K4 and every CSVO instantiation (this tree's and the
-parent's) and the SASS loads of K4 and both finalizes by width.
+parent's) and the SASS loads of K4 and both finalizes by width. The
+primary stage (``kd_primary``) is held to ``kd_primary_plain`` on every
+call of the exact frames (the deferred phases' frames and variants, the
+judged phases' exact judged frames, the exact batch and its single
+frame), and its launch on pose 0's exact frame (both formats) and the
+batch's is timed alone, against the plain version and, with --parent,
+the parent's kernel, with its rays' steps from the floors (mean, max,
+SIMD efficiency in rows and in 4x8 tiles, K1 / K4 on the same rays) and
+the picoseconds a step of it and of K1 / K4 unfloored; K9-judged's merge
+is held to ``k9j_merge_plain`` on every call of the judged phases'
+frames, the hole-fill frame too, and timed against the parent's.
+``--kernels-only`` stops after the build and the worlds and times the
+launches this slice redesigned (kd_primary of the exact frames and
+batch, K9-judged's merge with the hole fill off and on) against the
+parent's kernel in turns: a quick comparison of shapes, with --parent a
+copy of the tree with another shape.
 ``--renderer-only`` stops after the
 renderer phases (the build, K1 / K4 and K3 in both formats, with --parent
 the parent's K1 / K4 and K3 on the same inputs) and prints no result: a
@@ -163,7 +180,8 @@ tests/test_render.py:162-182 (coarse-sample pixels equal to the exact
 deferred frame's, mean |d| < 0.002, under 2% of the pixels off by more
 than 1e-3); K9-judged's kernels against their plain versions — equal (the
 finalize's sky within 1e-6), its traces against K1 / K4 judged — every
-field equal; the judged adaptive frame against its plain version — max
+field equal; ``kd_primary`` against ``kd_primary_plain`` — records and
+hit flags equal, the sky within 1e-6 (its max |d| is printed); the judged adaptive frame against its plain version — max
 |d| <= 1e-6, against the exact judged frame — the same thick-ray budget;
 ``kd_shadow``, ``kd_finish``, K7's shadow floors and K9's shadow cells
 against their plain versions on every held call — bit for bit
@@ -322,16 +340,18 @@ class FullWorld:
         return [(0, self.world.write_to(dst))]
 
 
-def parent_frames_phase(worlds, hf, poses, card) -> dict:
+def parent_frames_phase(worlds, hf, tworlds, thf, poses, card) -> dict:
     """The renderer's frames of this tree against the parent's on the same
-    worlds and envelope: per format the adaptive, exact deferred and fused
-    frames, and the ESVO batch, one frame a sample, the sides in turns
-    (parent, this tree, this tree, parent) on each pose, AB_ROUNDS times;
-    each side's median and quartiles, and each path's difference of the
-    medians (this tree less the parent). The opaque adaptive frame (K9's
-    kernels and the deferred stages, which K3's and K9-judged's redesign
-    leaves alone: the same code on both sides) shows the noise: its
-    difference is set beside every path's."""
+    worlds and envelopes: per format the adaptive, exact deferred and fused
+    frames, the judged adaptive and exact judged frames of the translucent
+    world (``tworlds``, envelope ``thf``), and the ESVO batch on both
+    branches (adaptive and, under ``VOXELRS_ADAPTIVE=0``, exact), one frame
+    a sample, the sides in turns (parent, this tree, this tree, parent) on
+    each pose, AB_ROUNDS times; each side's median and quartiles, and each
+    path's difference of the medians (this tree less the parent). The
+    opaque adaptive frame (K9's kernels and the deferred stages, which
+    this slice leaves alone: the same code on both sides) shows the noise:
+    its difference is set beside every path's."""
     import importlib
 
     import numpy as np
@@ -342,31 +362,35 @@ def parent_frames_phase(worlds, hf, poses, card) -> dict:
     PSvo = importlib.import_module("parent_vx.graphics.svo").Svo
     preg = importlib.import_module("parent_vx.gamelogic.content").new_registry
     out, diff = {}, {}
+    adaptive = ("adaptive", lambda sv, p: sv.render(p, W, H))
+    exact = ("exact", lambda sv, p: sv.render(p, W, H, adaptive=False))
+    fused = ("fused", lambda sv, p: sv.render(p, W, H, mode="fused"))
+    cells = [(fmt, w, hf, [adaptive, exact, fused]
+              + ([("batch", None), ("batch exact", None)]
+                 if fmt == "esvo" else []))
+             for fmt, w in worlds.items()]
+    cells += [(f"{fmt} judged", w, thf, [adaptive, exact])
+              for fmt, w in tworlds.items()]
     with Phase("frames, this tree against the parent"):
-        for fmt, world in worlds.items():
-            dt = np.uint32 if fmt == "esvo" else np.uint8
+        for cell, world, field, paths in cells:
+            dt = np.uint32 if cell.startswith("esvo") else np.uint8
             sides = {"this tree": Svo(new_registry(), capacity_mb=64,
                                       buffer_dtype=dt, device="cuda"),
                      "parent": PSvo(preg(), capacity_mb=64, buffer_dtype=dt,
                                     device="cuda")}
             for sv in sides.values():
                 sv.update(FullWorld(world))
-                sv.set_heightfield(hf)
-            paths = [("adaptive", lambda sv, p: sv.render(p, W, H)),
-                     ("exact", lambda sv, p: sv.render(p, W, H,
-                                                       adaptive=False)),
-                     ("fused", lambda sv, p: sv.render(p, W, H,
-                                                       mode="fused"))]
-            if fmt == "esvo":
-                paths.append(("batch", None))
+                sv.set_heightfield(field)
             for path, fn in paths:
+                if path == "batch exact":
+                    os.environ["VOXELRS_ADAPTIVE"] = "0"
                 got = {k: [] for k in sides}
                 for sv in sides.values():  # warm-up
                     for p in poses:
                         fn(sv, p) if fn else sv.render_batch(poses, W, H)
                 imgs = [fn(sv, poses[0]) if fn else sv.render_batch(
                     poses, W, H) for sv in sides.values()]
-                diff[f"{fmt} {path}"] = max_abs(*imgs)
+                diff[f"{cell} {path}"] = max_abs(*imgs)
                 # one frame (or batch) a sample, the sides in turns on
                 # each pose, so that a slow spell of the host falls on both
                 for _ in range(AB_ROUNDS):
@@ -378,8 +402,9 @@ def parent_frames_phase(worlds, hf, poses, card) -> dict:
                                 cuda_ms(lambda: fn(sv, p), 1) if fn else
                                 cuda_ms(lambda: sv.render_batch(poses, W, H),
                                         1) / len(poses))
+                os.environ.pop("VOXELRS_ADAPTIVE", None)
                 # each side's median and quartiles
-                out[f"{fmt} {path}"] = {
+                out[f"{cell} {path}"] = {
                     k: [sorted(v)[len(v) * q // 4] for q in (2, 1, 3)]
                     for k, v in got.items()}
             del sides
@@ -393,8 +418,8 @@ def parent_frames_phase(worlds, hf, poses, card) -> dict:
     for fmt in worlds:
         noise = delta[f"{fmt} adaptive"]
         log(f"frames ({fmt}), this tree less the parent (medians, ms): "
-            + ", ".join(f"{k.split()[1]} {d:+.4f}" for k, d in delta.items()
-                        if k.startswith(fmt))
+            + ", ".join(f"{k[len(fmt) + 1:]} {d:+.4f}"
+                        for k, d in delta.items() if k.startswith(fmt))
             + f"; the noise, the opaque adaptive frame's (the same code on "
             f"both sides): {noise:+.4f} on {card}")
     if not all(d <= K3_MAX_ABS for d in diff.values()):
@@ -495,25 +520,30 @@ def k6_calls(calls, dev) -> list:
     return rows
 
 
-# the arguments a held launch writes (by position: of K9's wrappers, and
-# of _build.launch_kd_shadow, launch_kd_finish (the image, the pixel
-# verdicts or None) and launch_k7_shadow), for parent_launch and
-# held_calls; the finalize's image (position 5) is the sky, within
-# K3_MAX_ABS
+# the arguments a held launch writes (by position: of K9's and
+# K9-judged's wrappers, and of _build.launch_kd_primary (records, flags,
+# the image's sky), launch_kd_shadow, launch_kd_finish (the image, the
+# pixel verdicts or None) and launch_k7_shadow), for parent_launch and
+# held_calls; the finalizes' and kd_primary's images are the sky, within
+# K3_MAX_ABS (their max |d| is reported)
 # the shadow pass's held launches: the shadow stage, the finishing stage
 # and K7's shadow floors (where no sun map is attached)
 SHADOW_HELD = ("kd_shadow", "kd_finish", "k7_shadow")
 LAUNCH_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5),
                "k9_finalize": (3, 4, 5, 6, 7),
-               "k9_shadow_cells": (5, 7, 8, 11), "kd_shadow": (11,),
-               "kd_finish": (9, 10), "k7_shadow": (8,), "k9j_trace": (6,),
+               "k9_shadow_cells": (5, 7, 8, 11), "kd_primary": (6, 7, 8),
+               "kd_shadow": (11,), "kd_finish": (9, 10), "k7_shadow": (8,),
+               "k9j_trace": (6,), "k9j_merge": (5, 6),
                "k9j_finalize": (2, 3, 4, 5, 6), "k3": (4,)}
+SKY_LAUNCHES = ("k9_finalize", "k9j_finalize", "kd_primary")
 # the launches spied in _build (the others are K9's wrappers in
 # ops.adaptive and K9-judged's in ops.adaptive_judged), the position of
-# each one's count, and its plain version
-RAW_LAUNCHES = {"kd_shadow": 7, "kd_finish": 3, "k7_shadow": 7}
+# each one's count (None: it has none), and its plain version
+RAW_LAUNCHES = {"kd_primary": None, "kd_shadow": 7, "kd_finish": 3,
+                "k7_shadow": 7}
 # the launches whose grid is at most the blocks the card holds at once
-RESIDENT_LAUNCHES = (*RAW_LAUNCHES, "k3", "k9j_trace")
+RESIDENT_LAUNCHES = ("kd_shadow", "kd_finish", "k7_shadow", "k3",
+                     "k9j_trace")
 
 
 def copy_outs(name, args) -> list:
@@ -529,12 +559,12 @@ def outs_of(name, args) -> list:
 
 def launch_outputs_equal(name, outs, ref) -> tuple:
     """(equal, max |d|) of a launch's outputs against the plain version's
-    (outputs that are None on both sides skipped): bit for bit, K9's and
-    K9-judged's finalize's image within K3_MAX_ABS."""
+    (outputs that are None on both sides skipped): bit for bit, the images
+    of SKY_LAUNCHES (the sky of a miss: acosf) within K3_MAX_ABS."""
     pairs = [(a, b) for a, b in zip(outs, ref)
              if a is not None or b is not None]
     errs = [max_abs(a, b) for a, b in pairs]
-    eq = all(bits_equal(a, b) or (name in ("k9_finalize", "k9j_finalize")
+    eq = all(bits_equal(a, b) or (name in SKY_LAUNCHES
                                   and a.dtype.is_floating_point
                                   and e <= K3_MAX_ABS)
              for (a, b), e in zip(pairs, errs))
@@ -557,7 +587,8 @@ def plain_of(name):
     """The plain version of a held launch."""
     from voxelrs_tpu_torch.ops import adaptive, beams, shading
 
-    return {"kd_shadow": shading.kd_shadow_plain,
+    return {"kd_primary": shading.kd_primary_plain,
+            "kd_shadow": shading.kd_shadow_plain,
             "kd_finish": shading.kd_finish_plain,
             "k7_shadow": beams.k7_shadow_plain}.get(name) \
         or getattr(spied(name)[0], f"{name}_plain")
@@ -653,9 +684,10 @@ def zero_count(args, pos):
 
 
 def launch_call(name, args, kw) -> dict:
-    """One spied launch of the finishing stage or of K7's shadow floors
-    (``name`` kd_finish / k7_shadow: its ``_build`` launch function's
-    arguments): the kernel on copies of the arguments it writes against
+    """One spied launch of the primary stage, the finishing stage or K7's
+    shadow floors (``name`` kd_primary / kd_finish / k7_shadow: its
+    ``_build`` launch function's arguments): the kernel on copies of the
+    arguments it writes against
     the plain version on copies (bit for bit), the launch alone and at
     count 0 (where it has a count), the plain version's time and, with
     --parent, the parent's kernel held to the same plain outputs; its
@@ -680,7 +712,7 @@ def launch_call(name, args, kw) -> dict:
     ta = copy_outs(name, args)
     r = dict(equal=eq, err=err, plain_ms=plain_ms,
              ms=kernel_ms(lambda: launch(*ta, **kw)))
-    counted = args[pos] is not None
+    counted = pos is not None and args[pos] is not None
     if counted:
         idle = zero_count(ta, pos)
         r["ms_count0"] = kernel_ms(lambda: launch(*idle, **kw))
@@ -688,7 +720,9 @@ def launch_call(name, args, kw) -> dict:
                                 pos if counted else None)
     if r["parent"] is not None:
         r["equal"] = r["equal"] and r["parent"]["equal"]
-    if name == "kd_finish":
+    if name == "kd_primary":  # its bound comes from the traced steps
+        r["hits"] = int(outs_of(name, ka)[1].sum())
+    elif name == "kd_finish":
         (_fp, _hidx, sidx, scount, _c, _ds, blk, todo, traced, _img,
          blkp) = list(args) + [None] * (11 - len(args))
         n = min(int(scount), sidx.shape[0])
@@ -712,6 +746,62 @@ def launch_call(name, args, kw) -> dict:
                              + k * 4,
                              n * OPS_SHADOW_SETUP
                              + beams.last_march_steps * OPS_MARCH_STEP))
+    return r
+
+
+def primary_call(svo, args, kw) -> dict:
+    """One spied launch of the primary stage (``_build.launch_kd_primary``'s
+    arguments, one frame): ``launch_call`` (the kernel against
+    ``kd_primary_plain`` on copies, alone, the plain version's time and
+    the parent's kernel), its rays' steps from their floors with the
+    frame's cast (K1 / K4 on the same rays: mean, max, and the SIMD
+    efficiency of warps of 32 pixels of a row and of 4x8 tiles), K1 / K4
+    on the same rays unfloored (steps and time alone), and the
+    picoseconds a step of each."""
+    import numpy as np
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import adaptive, beams
+
+    r = launch_call("kd_primary", args, kw)
+    world, scale, tables, fp, alpha_mode, tf = args[:6]
+    csvo = svo.buffer_dtype == np.uint8
+    dev = args[6].device
+    n = fp.width * fp.height
+    lanes = torch.arange(n, device=dev)
+    ro, rd = adaptive._frame_rays(fp, lanes)
+    md = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    outs = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
+        (n, torch.float32), (n, torch.int32), (n, torch.int32),
+        ((n, 3), torch.float32), ((n, 2), torch.float32),
+        (n, torch.float32), (n, torch.bool), (n, torch.int32))]
+    if csvo:
+        head = (world.words, scale, world.root_ptr, world.total_depth)
+        launch = _build.launch_k4
+    else:
+        head = (world, scale)
+        launch = _build.launch_k1
+    tb = tables if alpha_mode else None
+    floors = None if tf is None else beams.pixel_floors(tf, width=fp.width,
+                                                        height=fp.height)
+    st = {}
+    for key, fl in (("floored", floors), ("unfloored", None)):
+        launch(*head, ro, rd, md, fp.primary_budget, alpha_mode, tb, *outs,
+               fl)
+        steps = outs[7].clone()
+        st[key] = warp_stats(steps, lanes // 32)
+        st[key]["tiled"] = warp_stats(steps, tiled_warps(lanes, fp.width,
+                                                         fp.height))
+    k1_ms = kernel_ms(lambda: launch(*head, ro, rd, md, fp.primary_budget,
+                                     alpha_mode, tb, *outs, None))
+    ps = lambda ms, s: ms * 1e9 / s if s else None  # noqa: E731
+    par = (r["parent"] or {}).get("ms")
+    r.update(st, k1_ms=k1_ms,
+             ps_per_step=ps(r["ms"], st["floored"]["lane_sum"]),
+             ps_per_step_parent=None if par is None
+             else ps(par, st["floored"]["lane_sum"]),
+             k1_ps_per_step=ps(k1_ms, st["unfloored"]["lane_sum"]))
     return r
 
 
@@ -941,6 +1031,7 @@ def launch_ops_phase(calls) -> dict:
 # instantiation in both formats (K3, K5, kd_primary, kd_shadow, K9's and
 # K9-judged's traces), the shadow pass's kernels and both finalizes
 PTXAS_KERNELS = {"k1_traverse": "k1_traverse_kernel",
+                 "k9j_merge": "k9j_merge_kernel",
                  "k4_traverse": "k4_traverse_kernel",
                  "k5_picker": "k5_picker_kernel",
                  "kd_primary": "kd_primary_kernel",
@@ -986,7 +1077,8 @@ def ptxas_of(build_log: str) -> dict:
     return out
 
 
-def sass_widths(names=("k9_trace", "k9_merge", "k9_finalize",
+def sass_widths(names=("k9_trace", "k9j_merge", "k9_merge", "k9_finalize",
+                       "kd_primary",
                        "k9_shadow_cells", "kd_shadow", "kd_finish",
                        "k7_shadow", "k3_frame", "k9j_trace", "k9j_finalize",
                        "k4_traverse", "k1_traverse")) -> dict:
@@ -1764,6 +1856,20 @@ def main() -> int:
         f"{csvo.stats.used_bytes / 1e6:.2f} MB CSVO, depth {csvo.depth}, "
         f"device buffer {csvo.device_buf.shape[0]} words")
     poses = bench_poses()
+    if "--kernels-only" in sys.argv:  # a quick comparison of shapes
+        with Phase("translucent world"):
+            tsvo = Svo(new_registry(), capacity_mb=64, device="cuda")
+            tworld, tcworld, _n, thf, _info = build_translucent_world(
+                opaque_lut_from_mask(tsvo.translucent_block_mask))
+            tsvo.update(tworld)
+            tcsvo = Svo(new_registry(), capacity_mb=64,
+                        buffer_dtype=np.uint8, device="cuda")
+            tcsvo.update(tcworld)
+        kernels_only_phase(dict(esvo=svo, csvo=csvo),
+                           dict(esvo=tsvo, csvo=tcsvo), hf, thf, poses, card)
+        log("--kernels-only: the build and the shape comparison ran; no "
+            "result")
+        return 3
 
     # ---- 3-5. the renderer's path in ESVO: K1 and K3 ------------------------
     e = renderer_phase(svo, poses, card)
@@ -1842,11 +1948,14 @@ def main() -> int:
 
     # ---- 10b. the pose batch: K10 ------------------------------------------
     be = batch_phase(svo, csvo, tsvo, hf, poses, card)
-    del tsvo, tcsvo, tworld, tcworld
+    del tsvo, tcsvo
 
     # ---- 10c. with --parent: the frames against the parent's --------------
-    pf = (parent_frames_phase(dict(esvo=world, csvo=cworld), hf, poses, card)
+    pf = (parent_frames_phase(dict(esvo=world, csvo=cworld), hf,
+                              dict(esvo=tworld, csvo=tcworld), thf, poses,
+                              card)
           if PARENT is not None else None)
+    del tworld, tcworld
 
     # ---- 11. the game loop's path, ESVO then CSVO: counts from 0 ----------
     ge, ce = game_phase("esvo", card)
@@ -1862,10 +1971,12 @@ def main() -> int:
                f"{r['parent_launches']} {r['parent_ops']}"))
         if r["launches"] is not None and r["launches"] > 2:
             fail(f"K6 ran {r['launches']} card operations a call (at most 2)")
-    with Phase("k9, kd_shadow, kd_finish, k7_shadow, k3 and k9j_trace "
-               "launches"):
+    with Phase("k9, kd_primary, kd_shadow, kd_finish, k7_shadow, k3 and "
+               "k9j_trace launches"):
         k9l = launch_ops_phase({**ae.pop("launch_args"), "k3": e["k3_call"],
-                                **je.pop("launch_args")})
+                                **je.pop("launch_args"),
+                                "kd_primary": de.pop("primary_args")})
+        dc.pop("primary_args")
         ac.pop("launch_args")
         jc.pop("launch_args")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2136,9 +2247,35 @@ def main() -> int:
         launches_per_call_parent=k9l["kd_finish"].get("parent_launches"),
         grids=k9l["kd_finish"]["grids"],
         grids_parent=k9l["kd_finish"].get("parent_grids"))
+    # the primary stage: held call by call to kd_primary_plain on every
+    # exact frame (opaque and judged, both formats) and the exact batch;
+    # pose 0's exact frame call and the batch's launch, alone, against the
+    # plain version and the parent's kernel
+    primary_held = held_sum("kd_primary")
+
+    def no_bound(c):
+        return {k: v for k, v in c.items() if k != "bound"}
+
+    primary_extra = dict(
+        plain_ms=de["kd_primary"]["plain_ms"],
+        plain_is="kd_primary_plain on the same call's inputs",
+        plain_ms_csvo=dc["kd_primary"]["plain_ms"],
+        parent_ms=(de["kd_primary"]["parent"] or {}).get("ms"),
+        parent_ms_csvo=(dc["kd_primary"]["parent"] or {}).get("ms"),
+        exact_frame_call=no_bound(de["kd_primary"]),
+        exact_frame_call_csvo=no_bound(dc["kd_primary"]),
+        batch=[no_bound(c) for c in be["launch_runs"]["kd_primary"]],
+        calls_checked=primary_held["calls"],
+        launches_per_call=k9l["kd_primary"]["launches"],
+        launches_per_call_parent=k9l["kd_primary"].get("parent_launches"),
+        grids=k9l["kd_primary"]["grids"],
+        grids_parent=k9l["kd_primary"].get("parent_grids"),
+        ptxas={k: v.get("kd_primary_esvo") for k, v in ptx.items()},
+        ptxas_csvo={k: v.get("kd_primary_csvo") for k, v in ptx.items()})
     # the deferred frame's stages: held, together, to the plain deferred
     # frame (their plain version) on every pose, variant and game buffer;
-    # the shadow stage also call by call to its own plain version
+    # the primary, shadow and finishing stages also call by call to their
+    # own plain versions
     for st in STAGES:
         kernels.append(dict(
             name=f"kd_{st}", route="cuda",
@@ -2160,11 +2297,13 @@ def main() -> int:
             bound_ms_csvo=dc["stages"]["bound"][st][0],
             launches_game=ge["launches"][f"kd_{st}"],
             launches_game_csvo=gc["launches"][f"kd_{st}"]))
-        if st in ("shadow", "finish"):
-            held = shadow_held if st == "shadow" else finish_held
+        if st in ("primary", "shadow", "finish"):
+            held, extra = {"primary": (primary_held, primary_extra),
+                           "shadow": (shadow_held, shadow_extra),
+                           "finish": (finish_held, finish_extra)}[st]
             kernels[-1].update(
-                shadow_extra if st == "shadow" else finish_extra,
-                ok=kernels[-1]["ok"] and held["equal"],
+                extra, ok=kernels[-1]["ok"] and held["equal"]
+                and held["calls"] > 0,
                 max_abs_err=max(kernels[-1]["max_abs_err"], held["err"]))
     # K9: held to its plain versions on pose 0's own inputs, the adaptive
     # frame to its plain version on every pose, variant and game buffer;
@@ -2235,14 +2374,24 @@ def main() -> int:
             bound_ms=je[f"{k}_bound"][0], bound_by=je[f"{k}_bound"][1],
             library_ms=None,
             ok=je["k9j"][k]["equal"] and jc["k9j"][k]["equal"]
-            and (k not in ("trace", "finalize")
-                 or held_sum(f"k9j_{k}")["equal"]),
+            and held_sum(f"k9j_{k}")["equal"]
+            and held_sum(f"k9j_{k}")["calls"] > 0,
             launches_per_frame=len(je["k9j"][k]["calls"]),
             ms_per_launch=[c["ms"] for c in je["k9j"][k]["calls"]],
             launches_csvo=jc["launches"][f"k9j_{k}"],
             ms_csvo=jc["k9j"][k]["ms"], plain_ms_csvo=jc["k9j"][k]["plain_ms"],
             bound_ms_csvo=jc[f"{k}_bound"][0],
             frame_vs_plain=max(je["vs_plain"], jc["vs_plain"]),
+            **({} if k != "merge" else dict(
+                calls_checked=held_sum("k9j_merge")["calls"],
+                calls_checked_hole_fill=sum(
+                    d["held_hole_fill"]["k9j_merge"]["calls"]
+                    for d in (je, jc)),
+                per_launch=[{f: c[f] for f in ("level", "ms", "parent")}
+                            for c in je["k9j"][k]["calls"]],
+                per_launch_csvo=[{f: c[f] for f in ("level", "ms", "parent")}
+                                 for c in jc["k9j"][k]["calls"]],
+                ptxas={s_: v.get("k9j_merge") for s_, v in ptx.items()})),
             **({} if k != "finalize" else dict(
                 calls_checked=held_sum("k9j_finalize")["calls"],
                 parent=je["k9j"][k]["calls"][0]["parent"],
@@ -2404,6 +2553,94 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernels_only_phase(svos, tsvos, hf, thf, poses, card) -> None:
+    """``--kernels-only``: the launches this slice redesigned, on pose 0's
+    own inputs at 1080p (spied from a real frame), each against its plain
+    version and, with --parent, timed against the parent's kernel in turns
+    (this tree, parent, AB_ROUNDS // 2 times): kd_primary of the exact
+    frame (opaque and judged, both formats) and of the exact batch of the
+    5 poses, and K9-judged's merge (both formats, hole fill off and
+    on)."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import adaptive_judged
+
+    def spy_calls(module, name, render):
+        with Spy(module, name) as sp:
+            render()
+        torch.cuda.synchronize()
+        return sp.calls
+
+    cases = []
+    for fmt, sv in svos.items():
+        sv.set_heightfield(hf)
+        cases += [(f"kd_primary {fmt}", "kd_primary", c) for c in spy_calls(
+            _build, "launch_kd_primary",
+            lambda: sv.render(poses[0], W, H, adaptive=False))]
+    os.environ["VOXELRS_ADAPTIVE"] = "0"
+    try:
+        cases += [("kd_primary batch", "kd_primary", c) for c in spy_calls(
+            _build, "launch_kd_primary",
+            lambda: svos["esvo"].render_batch(poses, W, H))]
+    finally:
+        del os.environ["VOXELRS_ADAPTIVE"]
+    for fmt, sv in tsvos.items():
+        sv.set_heightfield(thf)
+        cases += [(f"kd_primary judged {fmt}", "kd_primary", c)
+                  for c in spy_calls(_build, "launch_kd_primary",
+                                     lambda: sv.render(poses[0], W, H,
+                                                       adaptive=False))]
+        for fill in ("0", "1"):
+            os.environ["VOXELRS_HOLE_FILL"] = fill
+            try:
+                cases += [(f"k9j_merge {fmt} hole_fill={fill} level "
+                           f"{c[0][3]}", "k9j_merge", c)
+                          for c in spy_calls(adaptive_judged, "k9j_merge",
+                                             lambda: sv.render(poses[0], W,
+                                                               H))]
+            finally:
+                del os.environ["VOXELRS_HOLE_FILL"]
+    rows = {}
+    for label, name, (args, kw) in cases:
+        # the kernel and the plain version on copies of what it writes
+        ka, pa = copy_outs(name, args), copy_outs(name, args)
+        launch = (_build.launch_k9j_merge if name == "k9j_merge"
+                  else getattr(_build, f"launch_{name}"))
+        plib = None if PARENT is None else (
+            PARENT.launch_k9j_merge if name == "k9j_merge"
+            else getattr(PARENT, f"launch_{name}"))
+
+        def order(a):  # the wrapper's arguments as the launch takes them
+            if name != "k9j_merge":
+                return a
+            scale, tables, fp, level, lo, hi, refine, fill = a
+            return scale, tables, fp, level, fill, lo, hi, refine
+
+        launch(*order(ka), **kw)
+        plain_of(name)(*pa, **kw)
+        eq, err = launch_outputs_equal(name, outs_of(name, ka),
+                                       outs_of(name, pa))
+        ms, parent_ms = [], []
+        qa = copy_outs(name, args)
+        if plib is not None:
+            plib(*order(qa), **kw)
+            peq, _ = launch_outputs_equal(name, outs_of(name, qa),
+                                          outs_of(name, pa))
+            eq = eq and peq
+        for _ in range(max(1, AB_ROUNDS // 2)):
+            ms.append(kernel_ms(lambda: launch(*order(ka), **kw)))
+            if plib is not None:
+                parent_ms.append(kernel_ms(lambda: plib(*order(qa), **kw)))
+        rows[label] = dict(equal=eq, err=err, ms=ms, parent_ms=parent_ms)
+        log(f"{label}: equal to its plain version {eq} (max |d| {err:.3g});"
+            f" this tree {[round(x, 4) for x in ms]} ms, the parent's "
+            f"{[round(x, 4) for x in parent_ms]} ms on {card}")
+    log(json.dumps({"kernels_only": rows, "card": card}))
+    if not all(r["equal"] for r in rows.values()):
+        fail("a launch disagrees with its plain version")
 
 
 def renderer_phase(svo, poses, card) -> dict:
@@ -3337,7 +3574,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
     out = {}
     with Phase(f"deferred main path ({fmt})"):
         zero_deferred_counts()
-        with Held(SHADOW_HELD) as held:
+        with Held(("kd_primary",) + SHADOW_HELD) as held:
             frames = [svo.render(p, W, H, adaptive=False) for p in poses]
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
@@ -3345,12 +3582,14 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         out["held"] = held.check()
     log(f"deferred main path launches ({fmt}): {json.dumps(n)}; last frame "
         f"{json.dumps(info)}; sun map build {hf.sun_build_seconds} s host")
-    log(f"kd_shadow, kd_finish and k7_shadow vs their plain versions on "
-        f"every call of the {len(poses)} frames ({fmt}; bit for bit): "
+    log(f"kd_primary, kd_shadow, kd_finish and k7_shadow vs their plain "
+        f"versions on every call of the {len(poses)} frames ({fmt}; bit for "
+        f"bit, kd_primary's sky within {K3_MAX_ABS:g}): "
         f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"kd_shadow, kd_finish or K7's shadow floors disagree with "
-             f"their plain versions in the {fmt} deferred frames")
+        fail(f"kd_primary, kd_shadow, kd_finish or K7's shadow floors "
+             f"disagree with their plain versions in the {fmt} deferred "
+             "frames")
     if not (n["k6"] and n["k7"] and n["k8"]
             and all(n[f"kd_{s}"] for s in STAGES)):
         fail(f"a kernel of the {fmt} deferred path was not launched")
@@ -3369,7 +3608,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         variants = ("beams_sun", "beams", "no_heightfield")
         errs = dict.fromkeys(variants, 0.0)
         plain_errs = dict.fromkeys(variants, 0.0)
-        held = Held(SHADOW_HELD)
+        held = Held(("kd_primary",) + SHADOW_HELD)
         for i, p in enumerate(poses):
             fused = svo.render(p, W, H, mode="fused")
             ctx = svo.beam_context(p, W, H)
@@ -3385,12 +3624,14 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         variants_held = held.check()
         out["held"] = held_merge(out["held"], variants_held)
     out["vs_k3"], out["vs_plain"] = errs, plain_errs
-    log(f"kd_shadow, kd_finish and k7_shadow vs their plain versions on "
-        f"every call of the {len(poses)} poses' three variants ({fmt}; bit "
-        f"for bit): {json.dumps(variants_held)}")
+    log(f"kd_primary, kd_shadow, kd_finish and k7_shadow vs their plain "
+        f"versions on every call of the {len(poses)} poses' three variants "
+        f"({fmt}; bit for bit, kd_primary's sky within {K3_MAX_ABS:g}): "
+        f"{json.dumps(variants_held)}")
     if not held_ok(variants_held, branch=()):
-        fail(f"kd_shadow, kd_finish or K7's shadow floors disagree with "
-             f"their plain versions in the {fmt} deferred variants")
+        fail(f"kd_primary, kd_shadow, kd_finish or K7's shadow floors "
+             f"disagree with their plain versions in the {fmt} deferred "
+             "variants")
     out["vs_k3_ok"] = all(v <= K3_MAX_ABS for v in errs.values())
     out["vs_plain_ok"] = all(v <= K3_MAX_ABS for v in plain_errs.values())
     log(f"deferred vs k3 ({fmt}, {len(poses)} poses): max |d| "
@@ -3596,7 +3837,27 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         # the finishing stage's launch: alone, at count 0, its plain
         # version and the parent's kernel
         out["kd_finish"] = launch_call("kd_finish", *spies[3].calls[0])
-    ks, kfin = out["kd_shadow"], out["kd_finish"]
+        # the primary stage's launch: alone, its plain version and the
+        # parent's kernel; its rays' steps (K1 / K4 from the same floors,
+        # the same cast) and K1 / K4 on the same rays unfloored
+        out["kd_primary"] = primary_call(svo, *spies[0].calls[0])
+        out["primary_args"] = spies[0].calls[0]
+    ks, kfin, kp = out["kd_shadow"], out["kd_finish"], out["kd_primary"]
+    log(f"kd_primary launch ({fmt}, pose 0's exact frame, {kp['hits']} "
+        f"hits): equal to its plain version {kp['equal']} (max |d| "
+        f"{kp['err']:.3g}); alone {kp['ms']:.4f} ms, plain "
+        f"{kp['plain_ms']:.2f} ms; the parent's kernel "
+        f"{json.dumps(kp['parent'])}; steps and warps from the floors "
+        f"(rows of 32 pixels and 4x8 tiles) {json.dumps(kp['floored'])}; "
+        f"{'k4' if csvo else 'k1'} on the same rays unfloored "
+        f"{json.dumps(kp['unfloored'])}; ps a step: kd_primary "
+        f"{kp['ps_per_step']:.3f}, parent "
+        f"{kp['ps_per_step_parent'] or float('nan'):.3f}, "
+        f"{'k4' if csvo else 'k1'} unfloored {kp['k1_ps_per_step']:.3f} on "
+        f"{card}")
+    if not kp["equal"]:
+        fail(f"kd_primary disagrees with its plain version on the {fmt} "
+             "exact frame")
     log(f"kd_finish launch ({fmt}, pose 0's exact frame: {kfin['candidates']} "
         f"candidates, {kfin['blocked']} blocked): equal to its plain version "
         f"{kfin['equal']}; alone {kfin['ms']:.4f} ms, at count 0 "
@@ -3625,10 +3886,10 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         shadow_steps=shadow_steps,
         bound=dict(
             # tile floors in; hit records, hit mask and sky pixels out
-            # (steps: K1 / K4 from the same floors, the phase above)
+            # (steps: K1 / K4 from the same floors, the same cast)
             primary=bound(world_bytes + ntiles * 4 + B * 36 + B
                           + (B - hits) * 16,
-                          out["floored"]["steps_floored"] * OPS_PER_STEP),
+                          kp["floored"]["lane_sum"] * OPS_PER_STEP),
             # hit lanes and records in; colour, light, need, origin, pixel
             shade=bound(hits * (4 + 36 + 16 + 4 + 1 + 12 + 16),
                         hits * OPS_PER_PIXEL),
@@ -3823,8 +4084,8 @@ def judged_phase(svo, hf, poses, card) -> dict:
     with Phase(f"judged main path ({fmt})"):
         zero_judged_counts()
         frames, infos, marks = [], [], []
-        with Held(("k9j_trace", "k9j_finalize", "k9_shadow_cells")
-                  + SHADOW_HELD) as held:
+        with Held(("k9j_trace", "k9j_merge", "k9j_finalize",
+                   "k9_shadow_cells") + SHADOW_HELD) as held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
                 infos.append(dict(svo.last_frame))
@@ -3833,15 +4094,15 @@ def judged_phase(svo, hf, poses, card) -> dict:
         torch.cuda.synchronize()
         n = out["launches"] = judged_counts()
         out["held"] = held.check()
-    log(f"k9j trace, k9j finalize, k9 shadow cells, kd_shadow (judged "
-        f"rays), kd_finish and k7_shadow vs their plain versions on every "
-        f"call of the "
+    log(f"k9j trace, k9j merge, k9j finalize, k9 shadow cells, kd_shadow "
+        f"(judged rays), kd_finish and k7_shadow vs their plain versions on "
+        f"every call of the "
         f"{len(poses6)} judged frames ({fmt}; bit for bit): "
         f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"K9-judged's trace or finalize, K9's shadow cells, kd_shadow, "
-             f"kd_finish or K7's shadow floors disagree with their plain "
-             f"versions in the {fmt} judged frames")
+        fail(f"K9-judged's trace, merge or finalize, K9's shadow cells, "
+             f"kd_shadow, kd_finish or K7's shadow floors disagree with "
+             f"their plain versions in the {fmt} judged frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -3874,9 +4135,12 @@ def judged_phase(svo, hf, poses, card) -> dict:
 
     with Phase(f"judged vs plain and vs exact ({fmt})"):
         err, stats, cert, exact_vs_k3 = 0.0, [], [], 0.0
+        # the exact judged frames' primary stage, held on every call
+        pheld = Held(("kd_primary",))
         for i, p in enumerate(poses6):
             fused = svo.render(p, W, H, mode="fused")
-            exact = svo.render(p, W, H, adaptive=False)
+            with pheld:
+                exact = svo.render(p, W, H, adaptive=False)
             # the exact judged frame is K3's, so the budget against K3
             # (thick_ray) is the budget against the exact frame
             exact_vs_k3 = max(exact_vs_k3, max_abs(exact, fused))
@@ -3902,20 +4166,27 @@ def judged_phase(svo, hf, poses, card) -> dict:
         os.environ["VOXELRS_HOLE_FILL"] = "1"
         try:
             ctx = svo.beam_context(poses[0], W, H)
-            with Held(("k9j_trace", "k9j_finalize")) as fill_held:
+            with Held(("k9j_trace", "k9j_merge",
+                       "k9j_finalize")) as fill_held:
                 fill = svo.render(poses[0], W, H, beams=ctx)
-            out["held"] = held_merge(out["held"], fill_held.check())
+            fill_held = fill_held.check()
+            out["held"] = held_merge(out["held"], fill_held)
             fill_ref = plain_judged(svo, poses[0], ctx, hole_fill=True)
             fused = svo.render(poses[0], W, H, mode="fused")
-            exact = svo.render(poses[0], W, H, adaptive=False)
+            with pheld:
+                exact = svo.render(poses[0], W, H, adaptive=False)
         finally:
             del os.environ["VOXELRS_HOLE_FILL"]
+        out["held"] = held_merge(out["held"], pheld.check())
         fill_err = max_abs(fill, fill_ref)
         fill_stats = thick_ray(fill, fused, exact, levels)
         fill_changed = int((fill != frames[0]).any(-1).sum())
     out["vs_plain"] = max(err, fill_err)
+    out["held_hole_fill"] = fill_held
     out["vs_plain_ok"] = out["vs_plain"] <= K3_MAX_ABS and all(
-        out["held"][k]["equal"] for k in ("k9j_trace", "k9j_finalize"))
+        out["held"][k]["equal"] and out["held"][k]["calls"]
+        for k in ("k9j_trace", "k9j_merge", "k9j_finalize", "kd_primary")
+    ) and fill_held["k9j_merge"]["calls"] == levels
     out["vs_exact"], out["vs_exact_hole_fill"] = stats, fill_stats
     out["exact_vs_k3"] = exact_vs_k3
     out["vs_exact_ok"] = exact_vs_k3 <= K3_MAX_ABS and all(
@@ -3923,10 +4194,14 @@ def judged_phase(svo, hf, poses, card) -> dict:
     out["certificates_vs_traces"] = cert
     log(f"judged vs its plain version ({fmt}, {len(poses6)} poses and pose "
         f"0 with the hole fill): max |d| {err:.3g} / {fill_err:.3g} "
-        f"(tolerance {K3_MAX_ABS:g}); k9j trace and finalize held on every "
-        f"call of the {len(poses6) + 1} frames "
+        f"(tolerance {K3_MAX_ABS:g}); k9j trace, merge and finalize held on "
+        f"every call of the {len(poses6) + 1} frames "
         f"{json.dumps(out['held']['k9j_trace'])}, "
-        f"{json.dumps(out['held']['k9j_finalize'])}; "
+        f"{json.dumps(out['held']['k9j_merge'])}, "
+        f"{json.dumps(out['held']['k9j_finalize'])} (with the hole fill: "
+        f"{json.dumps(fill_held)}); kd_primary held on every call of the "
+        f"{len(poses6) + 1} exact judged frames "
+        f"{json.dumps(out['held']['kd_primary'])}; "
         f"ok {out['vs_plain_ok']}; plain frame (pose 0) "
         f"{out['plain_ms']:.1f} ms")
     log(f"judged vs the exact judged frame ({fmt}; the traced grid's pixels "
@@ -4066,6 +4341,17 @@ def judged_phase(svo, hf, poses, card) -> dict:
             to, tr = hi0.clone(), ref0.clone()
             kms = kernel_ms(lambda: _build.launch_k9j_merge(
                 scale, tables, fp, level, fill, lo, to, tr))
+            # with --parent, the parent's kernel on the same inputs, held
+            # to the plain outputs
+            par = None
+            if PARENT is not None:
+                qo, qr = hi0.clone(), ref0.clone()
+                PARENT.launch_k9j_merge(scale, tables, fp, level, fill, lo,
+                                        qo, qr)
+                par = dict(equal=bool(torch.equal(qo, po)
+                                      and torch.equal(qr, pr)),
+                           ms=kernel_ms(lambda: PARENT.launch_k9j_merge(
+                               scale, tables, fp, level, fill, lo, qo, qr)))
             wl, hl = adaptive.grid_dims(W, H, level)[level]
             g = adaptive.coarse_grid(wl, hl, dev)
             sample = g.sample_masks()[0]
@@ -4080,9 +4366,10 @@ def judged_phase(svo, hf, poses, card) -> dict:
             merge_bytes += lo.shape[0] * aj.REC_WORDS * 4 + nl * (
                 aj.REC_WORDS * 4 + 1)
             merge_ops += int(all4.sum()) * (OPS_K9_RAY + OPS_K9J_FILL)
-            note("merge", torch.equal(ko, po) and torch.equal(kr, pr),
+            note("merge", torch.equal(ko, po) and torch.equal(kr, pr)
+                 and (par is None or par["equal"]),
                  max(max_abs(ko, po), max_abs(kr, pr)), kms, pms,
-                 level=level)
+                 level=level, parent=par)
         out["merge_bound"] = bound(merge_bytes, merge_ops)
         shares[levels] = dict(lanes=spies["trace"].calls[0][0][6].shape[0],
                               samples=1.0, filled=0.0, refined=0.0)
@@ -4126,6 +4413,12 @@ def judged_phase(svo, hf, poses, card) -> dict:
             f"({json.dumps([round(c['ms'], 4) for c in r['calls']])}), "
             f"plain {r['plain_ms']:.2f} ms, bound {bd[0]:.4g} ms ({bd[1]}) "
             f"on {card}")
+    for c in res["merge"]["calls"]:
+        log(f"k9j merge launch ({fmt}, pose 0, level {c['level']}): alone "
+            f"{c['ms']:.4f} ms"
+            + ("" if c["parent"] is None
+               else f"; the parent's {json.dumps(c['parent'])}")
+            + f" on {card}")
     fin = res["finalize"]["calls"][0]
     log(f"k9j finalize launch ({fmt}, pose 0, {fin['hits']} hit pixels): "
         f"alone {fin['ms']:.4f} ms"
@@ -4299,24 +4592,27 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         hits_total = int(svo._batch_workspace.hcount)
         _, n1 = counted(lambda: svo.render(poses[0], W, H))
         os.environ["VOXELRS_ADAPTIVE"] = "0"
+        pheld = Held(("kd_primary",))  # the exact branch's primary stage
         try:
             svo.render_batch(poses, W, H)
-            with held:
+            with held, pheld:
                 imgs_e, nbe = counted(lambda: svo.render_batch(poses, W, H))
             hits_total_e = int(svo._batch_workspace.hcount)
-            _, n1e = counted(lambda: svo.render(poses[0], W, H))
+            with pheld:
+                _, n1e = counted(lambda: svo.render(poses[0], W, H))
         finally:
             del os.environ["VOXELRS_ADAPTIVE"]
         out["workspace_mb"] = workspace_mb(svo._batch_workspace)
-    with Phase("batch shadow stage vs plain, every call (esvo)"):
-        out["held"] = held.check()
-    log(f"k9 shadow cells, kd_shadow, kd_finish and k7_shadow vs their "
-        f"plain versions on every call of the adaptive and the exact batch "
-        f"(esvo, {N} poses, pose 0's sun map; bit for bit): "
-        f"{json.dumps(out['held'])}")
+    with Phase("batch stages vs plain, every call (esvo)"):
+        out["held"] = held_merge(held.check(), pheld.check())
+    log(f"k9 shadow cells, kd_primary, kd_shadow, kd_finish and k7_shadow "
+        f"vs their plain versions on every call of the adaptive and the "
+        f"exact batch and of the exact frame of pose 0 (esvo, {N} poses, "
+        f"pose 0's sun map; bit for bit, kd_primary's sky within "
+        f"{K3_MAX_ABS:g}): {json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail("K9's shadow cells, kd_shadow, kd_finish or K7's shadow floors "
-             "disagree with their plain versions in the batch")
+        fail("K9's shadow cells, kd_primary, kd_shadow, kd_finish or K7's "
+             "shadow floors disagree with their plain versions in the batch")
     hits = [(hstart + [hits_total])[q + 1] - hstart[q] for q in range(N)]
     out["launches"], out["launches_exact"] = nb, nbe
     out["launches_frame"], out["launches_frame_exact"] = n1, n1e
@@ -4468,6 +4764,8 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                                      count_pos)))
         runs["kd_finish"] = [launch_call("kd_finish", a, kw)
                              for a, kw in spies["kd_finish"].calls]
+        runs["kd_primary"] = [launch_call("kd_primary", a, kw)
+                              for a, kw in spies["kd_primary"].calls]
         # the stages' plain version: the plain frames of poses 0 and 3
         kws = [svo.frame_kwargs(p, W, H) for p in poses]
         tf = torch.stack([svo.beam_context(p, W, H).tile_floors
@@ -4592,8 +4890,8 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         log(f"k9_trace launch (batch, esvo, {N} poses, level {c['level']}):"
             f" {json.dumps(c['launch'])}; alone {c['ms']:.4f} ms; the "
             f"parent's kernel {json.dumps(c['parent'])} on {card}")
-    for name in ("k9_merge", "k9_finalize", "k9_shadow_cells", "kd_shadow",
-                 "kd_finish"):
+    for name in ("k9_merge", "k9_finalize", "k9_shadow_cells", "kd_primary",
+                 "kd_shadow", "kd_finish"):
         for c in runs[name]:
             log(f"{name} launch (batch, esvo, {N} poses"
                 + (f", level {c['level']}" if "level" in c else "")
@@ -4604,7 +4902,8 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
                 + f"; the parent's kernel {json.dumps(c['parent'])} on "
                 f"{card}")
     out["ok"] = all(r.get("equal", True) for r in res.values()) \
-        and stage_err <= K3_MAX_ABS
+        and stage_err <= K3_MAX_ABS \
+        and all(c["equal"] for c in runs["kd_primary"])
     for name, r in res.items():
         bd = out["bounds"][name]
         log(f"k10 {name} (esvo, the batch's {r['calls']} launches, {N} "

@@ -49,6 +49,10 @@ from voxelrs_tpu_torch.world import csvo as tcsvo
 from voxelrs_tpu_torch.world import esvo as tesvo
 from voxelrs_tpu_torch.world import heightfield as thf
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 W, H = 128, 96
 STONE, GRASS = jcontent.STONE, jcontent.GRASS
 CAMS = {

@@ -13,6 +13,10 @@ import test_torch_adaptive as ta
 from test_torch_adaptive import jax_frames, scenes  # noqa: F401
 from voxelrs_tpu_torch.graphics.svo import RenderParams
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 @pytest.mark.parametrize("config", ta.BUDGET_FILE_CONFIGS)
 def test_adaptive_frame_matches_jax(config, scenes, jax_frames, monkeypatch):

@@ -18,8 +18,8 @@ grazes an edge can land on the neighbouring voxel. The port's batch
 against its own per-pose frames, and the batched plain versions against
 their per-pose runs: equal bit for bit (the same operations).
 
-Each test runs with one torch thread (``one_torch_thread``, as
-tests/test_torch_judged.py) and clears the JAX package's whole-frame
+Each test runs with one torch thread (``one_torch_thread``,
+tests/torch_threads.py) and clears the JAX package's whole-frame
 program caches first: their keys do not hold ``VOXELRS_ADAPTIVE``, so a
 program traced under one branch would serve the other.
 """
@@ -49,6 +49,8 @@ from voxelrs_tpu_torch.world import Position as TPos
 from voxelrs_tpu_torch.world import csvo as tcsvo
 from voxelrs_tpu_torch.world import esvo as tesvo
 from voxelrs_tpu_torch.world import heightfield as thf
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 128, 96
 STEPS = 300
@@ -98,15 +100,7 @@ def scene():
     return _build_pair()
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's plain frames split torch's elementwise ops across its
-    OpenMP threads, which oversubscribe the CPU under several test
-    workers (tests/test_torch_judged.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _poses(cls):

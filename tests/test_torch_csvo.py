@@ -60,8 +60,12 @@ from voxelrs_tpu_torch.world.esvo import SerializedChunk
 
 import test_torch_judged as tj
 # the judged scene's module fixtures (a module of their own here)
-from test_torch_judged import (jax_frames, one_torch_thread,  # noqa: F401
+from test_torch_judged import (jax_frames,  # noqa: F401
                                port_exact, scenes)
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL_T = 1e-3
 TOL_UV = 1e-3
@@ -562,7 +566,6 @@ def test_csvo_frame_matches_jax(frame_pair, max_steps):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.usefixtures("one_torch_thread")
 def test_csvo_judged_adaptive_frame_matches_jax(scenes, jax_frames,
                                                 port_exact, monkeypatch):
     """The judged adaptive frame of a CSVO world (tests/test_torch_judged.py's

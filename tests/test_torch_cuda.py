@@ -53,7 +53,15 @@ launch path refuses words off a 16-byte word. K9-judged's finalize
 equals its plain version bit for bit (the sky within 1e-6) at 1x1,
 127x1, 129x1, 37x21 and 1080p on records from a seed whose words 9-15
 are never 0, and refuses each of its tensors off a 16-byte word. The
-crosshair equals the CPU's result bit for bit.
+primary stage (``kd_primary``: 16 x 4 pixel patches, HitRecs and flags
+stored through shared memory as 16-byte words, the trace through a
+shared stack) equals
+``ops.shading.kd_primary_plain`` bit for bit (a miss's sky within 1e-6)
+at 1001x597 and 37x23, opaque and judged, with and without floors, both
+formats, and on a batch of 3 poses; K9-judged's merge (K9's merge tile)
+equals ``k9j_merge_plain`` bit for bit at levels 0 and 1 of 1001x597 and
+37x21, hole fill off and on, both formats. The crosshair equals the
+CPU's result bit for bit.
 """
 
 import numpy as np
@@ -2225,3 +2233,116 @@ def test_k9j_trace_tiles_equal_plain(judged_scenes, dev, fmt, level, case):
     assert torch.equal(rec, ref)
     traced = int((rec != 9).any(1).sum())
     assert traced == (n if idx is None else min(int(count), idx.shape[0]))
+
+
+# ---- kd_primary and K9-judged's merge on their tiles -------------------------
+
+# frame sizes whose last kd_primary patches (16 x 4 pixels) cross the
+# frame's last column and row, and whose rows start off a 16-byte word of
+# the records
+KD_PRIMARY_SIZES = [(1001, 597), (37, 23)]
+
+
+def _primary_check(s, fp, tf, dev, cams=None):
+    """kd_primary (``_build.launch_kd_primary``) against
+    ``ops.shading.kd_primary_plain`` on the same inputs: every record and
+    hit flag bit for bit, a miss's sky within 1e-6, the pixels that hit
+    untouched."""
+    n = fp.width * fp.height * (1 if cams is None else cams.shape[0])
+    alpha_mode = 0 if s.is_opaque() else 1
+    outs = [(torch.full((n, 9), 7, dtype=torch.int32, device=dev),
+             torch.ones(n, dtype=torch.bool, device=dev),
+             torch.full((n, 4), 0.5, device=dev)) for _ in range(2)]
+    args = (s.world(), float(s.octree_scale), s.kernel_tables(), fp,
+            alpha_mode, tf)
+    n0 = shading.launches_primary
+    _build.launch_kd_primary(*args, *outs[0], cams=cams)
+    shading.kd_primary_plain(*args, *outs[1], cams=cams)
+    torch.cuda.synchronize()
+    (rec, hit, img), (rec_p, hit_p, img_p) = outs
+    assert shading.launches_primary == n0  # the launch alone: no frame
+    assert torch.equal(rec, rec_p) and torch.equal(hit, hit_p)
+    assert float((img - img_p).abs().max()) <= K3_MAX_ABS
+    assert bool((img[hit] == 0.5).all())
+    assert 0 < int(hit.sum()) < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("glass", [False, True])
+@pytest.mark.parametrize("floored", [False, True])
+@pytest.mark.parametrize("size", KD_PRIMARY_SIZES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kd_primary_equals_plain(terrains, dev, fmt, glass, floored, size):
+    """The primary stage (a block's 16 x 4 patch of HitRecs and flags
+    stored through shared memory as 16-byte words, rows that start off one
+    word by word, the trace through the block's shared stack) against
+    ``kd_primary_plain`` bit for bit, opaque and judged, with and without
+    the tile floors."""
+    s = terrains[(fmt, glass)]
+    p = _tparams("horizon")
+    fp = _k9_fp(s, p, *size)
+    tf = s.beam_context(p, *size).tile_floors if floored else None
+    _primary_check(s, fp, tf, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floored", [False, True])
+def test_kd_primary_of_a_batch_equals_plain(terrains, dev, floored):
+    """The primary stage of 3 poses in one launch (pose-major lanes, each
+    pose's camera and tile floors, no patch crossing a pose) against
+    ``kd_primary_plain`` pose by pose, bit for bit."""
+    s = terrains[("esvo", False)]
+    W, H = 101, 59
+    poses = [_tparams(c) for c in BATCH_CAMS]
+    kws = [s.frame_kwargs(p, W, H) for p in poses]
+    cams = shading.batch_cameras(tuple(np.stack([kw[k] for kw in kws]) for k
+                                       in ("cam_pos", "cam_right", "cam_up",
+                                           "cam_fwd")), dev)
+    tf = (torch.stack([s.beam_context(p, W, H).tile_floors for p in poses])
+          if floored else None)
+    _primary_check(s, _k9_fp(s, poses[0], W, H), tf, dev, cams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("hole_fill", [False, True])
+@pytest.mark.parametrize("size", [(1001, 597), (37, 21)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k9j_merge_tiles_equal_plain(judged_scenes, dev, fmt, level,
+                                     hole_fill, size):
+    """K9-judged's merge (a block a tile of the hi grid, its lo patch
+    loaded once and its hi rows stored as 16-byte words through shared
+    memory, the fill from a packed list) against ``k9j_merge_plain`` bit
+    for bit on odd grids, where the tiles and the clamped last row and
+    column meet the grid's edges, with the hole fill off and on."""
+    from voxelrs_tpu_torch.ops import adaptive_judged as aj
+
+    s = judged_scenes[fmt]
+    p = _jparams("overview")
+    fp = _k9_fp(s, p, *size)
+    tables = s.kernel_tables()
+    ctx = s.beam_context(p, *size)
+    dims = adaptive.grid_dims(*size, 2)
+    wl, hl = dims[level + 1]
+    lo = torch.zeros((wl * hl, aj.REC_WORDS), dtype=torch.int32, device=dev)
+    aj.k9j_trace(s.world(), float(s.octree_scale), tables, fp,
+                 None if ctx is None else ctx.tile_floors, level + 1, lo)
+    n = dims[level][0] * dims[level][1]
+    hi = torch.full((n, aj.REC_WORDS), 77, dtype=torch.int32, device=dev)
+    refine = torch.ones(n, dtype=torch.bool, device=dev)
+    hi_p, refine_p = hi.clone(), refine.clone()
+    n0 = aj.launches_merge
+    scale = float(s.octree_scale)
+    aj.k9j_merge(scale, tables, fp, level, lo, hi, refine, hole_fill)
+    aj.k9j_merge_plain(scale, tables, fp, level, lo, hi_p, refine_p,
+                       hole_fill)
+    torch.cuda.synchronize()
+    assert aj.launches_merge == n0 + 1
+    assert torch.equal(hi, hi_p) and torch.equal(refine, refine_p)
+    if size[0] > 100:  # the fill ran: an interior lane hit, not re-traced
+        g = adaptive.coarse_grid(*dims[level], dev)
+        filled = (hi_p.view(torch.float32)[:, 0] != -1.0) & ~refine_p \
+            & ~g.sample_masks()[0]
+        assert bool(filled.any())

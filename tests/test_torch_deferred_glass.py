@@ -11,6 +11,10 @@ import pytest
 import test_torch_deferred as td
 from test_torch_deferred import _drop_scenes  # noqa: F401
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 @pytest.mark.parametrize("scene,cam", td.GLASS_FILE_CASES)
 def test_deferred_matches_jax(scene, cam):

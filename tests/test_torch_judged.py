@@ -72,6 +72,8 @@ from voxelrs_tpu_torch.world import csvo as tcsvo
 from voxelrs_tpu_torch.world import esvo as tesvo
 from voxelrs_tpu_torch.world import heightfield as thf
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 W, H = 320, 240  # quarter grid 81 x 61 = 4,941 lanes: two levels
 SW, SH = 128, 96  # quarter grid 33 x 25: one level (the half grid)
 SEA = 9
@@ -138,20 +140,6 @@ def _build(fmt):
     jsvo.set_heightfield(jh)
     tsvo.set_heightfield(th)
     return jsvo, tsvo
-
-
-@pytest.fixture
-def one_torch_thread():
-    """The port's plain frames at 320x240 run torch's elementwise ops on
-    76,800 lanes, which torch splits across its OpenMP threads; when
-    several test workers share a CPU those threads oversubscribe its cores
-    (measured: 1,282 s under six workers on 8 cores against ~130 s alone,
-    182 s with one thread). One thread per test keeps the file near its
-    own time."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")

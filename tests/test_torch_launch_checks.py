@@ -1,5 +1,7 @@
 """The launch checks of the finishing stage's kernel (``kd_finish``), of
-K7's shadow floors, of K3, of K9-judged's trace and finalize and of every
+K7's shadow floors, of K3, of the primary stage (``kd_primary``: records,
+flags and a miss's pixel stored as 16-byte words), of K9-judged's trace,
+merge and finalize and of every
 CSVO launch (words on a 16-byte word, the CSVO kernels' launch contract),
 and the work items of the launches in 4x8 pixel tiles. ``kd_finish`` reads a thread's 4
 candidate slots as one 16-byte word of ``sidx`` and one 4-byte word of
@@ -226,6 +228,48 @@ def test_k9j_finalize_refuses_views_off_a_16_byte_word(name, offset):
             _build.launch_k9j_finalize(_build.FrameParams(), *views.values())
 
 
+@pytest.mark.parametrize("name", ["rec", "hit", "img"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_kd_primary_refuses_outputs_off_a_16_byte_word(name, offset):
+    """kd_primary stores a block's hit records and flags as 16-byte words
+    from lane 0, and a miss's pixel as one: each view off one is refused,
+    by name, before the kernel library is touched."""
+    views = dict(rec=_view(N, torch.int32, 0, 9),
+                 hit=_view(N, torch.bool, 0),
+                 img=_view(N, torch.float32, 0, 4))
+    dtype, cols = {"rec": (torch.int32, 9), "hit": (torch.bool, None),
+                   "img": (torch.float32, 4)}[name]
+    # offset 4-byte words into the buffer (4 flags to a word)
+    views[name] = _view(N, dtype, offset * (4 if dtype == torch.bool else 1),
+                        cols)
+    if views[name].data_ptr() % 16 == 0:
+        _build.check_kd_primary(**views)
+    else:
+        with pytest.raises(ValueError,
+                           match=f"{name}: expected a 16-byte aligned"):
+            _build.launch_kd_primary(None, 1.0, None, _build.FrameParams(), 0,
+                                     None, *views.values())
+
+
+@pytest.mark.parametrize("name", ["lo", "hi"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+def test_k9j_merge_refuses_records_off_a_16_byte_word(name, offset):
+    """K9-judged's merge loads its lo records and stores its hi records as
+    16-byte words from their first record: a view off one is refused, by
+    name, before the kernel library is touched."""
+    views = dict(lo=_view(N, torch.int32, 0, 16),
+                 hi=_view(N, torch.int32, 0, 16))
+    views[name] = _view(N, torch.int32, offset, 16)
+    if offset % 4 == 0:
+        _build.check_k9j_merge(**views)
+    else:
+        with pytest.raises(ValueError,
+                           match=f"{name}: expected a 16-byte aligned"):
+            _build.launch_k9j_merge(1.0, None, _build.FrameParams(), 0, False,
+                                    views["lo"], views["hi"],
+                                    _view(N, torch.bool, 0))
+
+
 def _csvo_world(offset):
     """A CSVO world whose words start ``offset`` words into a buffer that
     starts on a 16-byte word."""
@@ -254,8 +298,9 @@ def _launch_csvo(name, world):
         _build.launch_k5(world, 1.0, torch.zeros((4, 7)), 2,
                          torch.zeros((4, 8)))
     elif name == "kd_primary":
-        _build.launch_kd_primary(world, 1.0, None, fp, 1, None, None, None,
-                                 img)
+        _build.launch_kd_primary(world, 1.0, None, fp, 1, None,
+                                 _view(32, torch.int32, 0, 9),
+                                 _view(32, torch.bool, 0), img)
     elif name == "kd_shadow":
         idx = _view(16, torch.int32, 0)
         _build.launch_kd_shadow(world, 1.0, None, fp, 1, rays, idx, idx[:1],

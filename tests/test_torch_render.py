@@ -38,6 +38,10 @@ from voxelrs_tpu_torch.ops import shading
 from voxelrs_tpu_torch.ops.texture import build_mip_chain, sample_texture_lod
 from voxelrs_tpu_torch.world.esvo import Esvo as TEsvo
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "render_basic.npy")
 W, H = 64, 48

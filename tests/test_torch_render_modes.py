@@ -19,6 +19,10 @@ from voxelrs_tpu.world import ChunkPos
 from voxelrs_tpu.world.chunk import Chunk
 from voxelrs_tpu_torch.graphics.svo import RenderParams
 
+from torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 def test_trilinear_mode_matches_jax(translucent_pair, monkeypatch):
     monkeypatch.setenv("VOXELRS_TRILINEAR", "1")

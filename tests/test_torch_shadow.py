@@ -155,9 +155,10 @@ def test_kd_finish_plain_reproduces_the_plain_frame(case):
     traced, blk, todo = flags
     if not certified:
         blk = todo = None
-    # the shading stage's image: the sky, each hit lane in full light
+    # the shading stage's image: the primary stage's sky, each hit lane in
+    # full light
     light = torch.clamp(fp.ambient + st.ds, 0.0, 1.0)
-    img = shading.sky_color(st.rd)
+    img = st.sky.clone()
     img[st.hidx] = torch.cat([st.color[:, :3] * light[:, None],
                               st.color[:, 3:4]], dim=-1)
     img = img.reshape(H, W, 4)

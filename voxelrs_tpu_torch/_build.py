@@ -222,7 +222,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("vx_k9j_trace", [P, LL, F, P, P, P, I, I, P, P, I, P, P]),
             ("vx_k9j_trace_csvo", [P, LL, F, U, I, P, P, P, I, I, P, P, I,
                                    P, P]),
-            ("vx_k9j_merge", [F, P, P, I, I, P, P, P, P, I, P]),
+            ("vx_k9j_merge", [F, P, P, I, I, P, P, P, P, P]),
             ("vx_k9j_finalize", [P, P, P, P, P, P, P, P]),
             ("vx_p0_gather", [I, P, I, P, I, I, P, P])):
         fn = getattr(lib, name)
@@ -495,12 +495,22 @@ def _poses(cams) -> int:
     return 1 if cams is None else cams.shape[0]
 
 
+def check_kd_primary(rec, hit, img):
+    """Refuse what ``kd_primary``'s kernel cannot take: it stores a
+    block's hit records ``rec`` and flags ``hit`` as 16-byte words from
+    lane 0, and a miss's pixel of ``img`` as one 16-byte word."""
+    for name, t in (("rec", rec), ("hit", hit), ("img", img)):
+        check_aligned(name, t)
+
+
 def launch_kd_primary(world, octree_scale, tables, params: FrameParams,
                       alpha_mode, tf, rec, hit, img, cams=None):
     """The deferred frame's primary stage: ``tf`` None or the (nty, ntx)
     tile floors ((N, nty, ntx) for a batch), ``rec`` (N*H*W, 9) int32 hit
     records, ``hit`` (N*H*W,) bool, ``img`` (N, H, W, 4) float32 (its sky
-    pixels); N = 1 and ``cams`` None for one frame."""
+    pixels); N = 1 and ``cams`` None for one frame. Refuses views its
+    kernel's words cannot take (``check_kd_primary``)."""
+    check_kd_primary(rec, hit, img)
     csvo = csvo_words(world)
     lib = library()
     ntx = 0 if tf is None else tf.shape[-1]
@@ -654,15 +664,25 @@ def launch_k9j_trace(world, octree_scale, tables, params: FrameParams, tf,
     _raise_on(err, "K9-judged trace (vx_k9j_trace)")
 
 
+def check_k9j_merge(lo, hi):
+    """Refuse what K9-judged's merge kernel cannot take: it loads the
+    records ``lo`` and stores ``hi`` as 16-byte words from their first
+    record."""
+    check_aligned("lo", lo)
+    check_aligned("hi", hi)
+
+
 def launch_k9j_merge(octree_scale, tables, params: FrameParams, level,
                      hole_fill, lo, hi, refine):
     """K9-judged's merge of the records ``lo`` of level + 1 onto level
     ``level``: ``hi`` (n, 16) int32, ``refine`` (n,) bool; the hole table
-    is ``tables.hole``."""
+    is ``tables.hole``. Refuses views its kernel's words cannot take
+    (``check_k9j_merge``)."""
+    check_k9j_merge(lo, hi)
     err = library().vx_k9j_merge(
         octree_scale, ctypes.byref(tables.struct), ctypes.byref(params),
         level, int(bool(hole_fill)), _ptr(tables.hole), _ptr(lo), _ptr(hi),
-        _ptr(refine), hi.shape[0], _stream(hi.device))
+        _ptr(refine), _stream(hi.device))
     _raise_on(err, "K9-judged merge (vx_k9j_merge)")
 
 

@@ -10,9 +10,9 @@
 //
 // Design: one thread per ray, as in the reference GLSL
 // (assets/shaders/svo.esvo.glsl). The 12-entry (node, t_max) stack lives
-// in local memory (K3, K9's and K9-judged's traces and the shadow stage:
-// shared memory, see SharedStack); each step
-// reads one word of one 12-word block. The JAX
+// in local memory (K3, the primary stage, K9's and K9-judged's traces and
+// the shadow stage: shared memory, see SharedStack); each step reads one
+// word of one 12-word block. The JAX
 // version's TPU structure (lock-step batch, one-hot stacks, fat rows) is not
 // carried over. The arithmetic follows the JAX classic loop operation by
 // operation — separate multiplies and subtracts (build with -fmad=false),
@@ -352,8 +352,8 @@ struct EsvoCursorT {
 using EsvoCursor = EsvoCursorT<false>;
 
 // Where traverse_with keeps its 12-entry (node, t_max) stack, made inside
-// it from a Source. LocalStack: arrays of the thread (local memory: K1, K4,
-// K5 and kd_primary). SharedStack: the thread's column
+// it from a Source. LocalStack: arrays of the thread (local memory: K1, K4
+// and K5). SharedStack: the thread's column
 // of a block's shared-memory table, `stride` entries apart (entry
 // [slot][thread]: no bank conflicts).
 struct LocalStack {

@@ -1,6 +1,6 @@
 // K9, the adaptive thick-ray opaque frame: its four kernels. Included by
 // kernels.cu after the deferred stages (it uses FrameParams, HitRec,
-// gen_ray, write_sky and composite from there).
+// gen_ray, sky_color and composite from there).
 //
 // Replaces (JAX package, voxelrs_tpu/ops/shading.py): the adaptive block
 // of _opaque_frame_body (:3773-3895) and its two-pass shadow (:4019-4034):

@@ -73,8 +73,9 @@
 // in, hit records or the frame out) are a small share. A launch that
 // traces lasts as long as its slowest warp's chain of steps, so K3 and
 // K9's and K9-judged's traces give a warp a 4x8 pixel tile (its rays leave
-// from one patch and take like paths) and keep the stack in shared memory
-// (World::trace_shared). Where a launch's work is a count only the card
+// from one patch and take like paths; kd_primary's warps too) and keep
+// the stack in shared memory (World::trace_shared; kd_primary and
+// kd_shadow too). Where a launch's work is a count only the card
 // knows (K6's), a grid sized by the list's capacity is mostly empty
 // blocks: K6, K9's and K9-judged's traces, kd_shadow, kd_finish, K7's
 // shadow floors and K9's shadow cells launch at most the blocks the card
@@ -141,8 +142,8 @@ struct EsvoWorld {
   }
 
   // trace with the stack in shared memory and the cursor's pointer
-  // prefetch (EsvoCursorT<true>): K3, K9's and K9-judged's traces and the
-  // shadow stage
+  // prefetch (EsvoCursorT<true>): K3, kd_primary, K9's and K9-judged's
+  // traces and the shadow stage
   __device__ __forceinline__ void trace_shared(
       float octree_scale, float ox, float oy, float oz, float dx, float dy,
       float dz, float max_dst, int budget, int alpha_mode,
@@ -253,16 +254,6 @@ __device__ void sky_color(const FrameParams& fp, float rdx, float rdz,
   grad = 1.f - g1 * g1 * g1;
   for (int k = 0; k < 3; ++k)
     rgb[k] = fp.horizon[k] * (1.f - grad) + fp.sky[k] * grad;
-}
-
-__device__ __forceinline__ void write_sky(const FrameParams& fp,
-                                          const float* rd, float* out) {
-  float rgb[3];
-  sky_color(fp, rd[0], rd[2], rgb);
-  out[0] = rgb[0];
-  out[1] = rgb[1];
-  out[2] = rgb[2];
-  out[3] = 1.f;
 }
 
 // generate_rays: the direction of pixel (y, x) (row 0 = top of the image).
@@ -498,6 +489,8 @@ struct HitRec {
   float pos[3];
   float u, v, lod;
 };
+constexpr int HIT_WORDS = sizeof(HitRec) / 4;
+static_assert(HIT_WORDS == 9, "HitRec: t, value, face, pos, u, v, lod");
 
 __device__ __forceinline__ int count_of(const int* __restrict__ count,
                                         int size) {
@@ -505,42 +498,115 @@ __device__ __forceinline__ int count_of(const int* __restrict__ count,
   return c < size ? c : size;
 }
 
+// The HitRec of a trace's hit (or miss: t = -1 and the trace's other
+// fields) as its 9 words at w.
+__device__ __forceinline__ void put_hitrec(const Hit& p, uint32_t* w) {
+  w[0] = __float_as_uint(p.t);
+  w[1] = p.value;
+  w[2] = (uint32_t)p.face;
+  for (int k = 0; k < 3; ++k) w[3 + k] = __float_as_uint(p.pos[k]);
+  w[6] = __float_as_uint(p.u);
+  w[7] = __float_as_uint(p.v);
+  w[8] = __float_as_uint(p.lod);
+}
+
+// Threads of a kd_primary block (kd_primary_launch): two warps, so that a
+// block's shared stacks take 6 KB, on a 16 x 4 patch of one pose's pixels.
+// Registers are capped at 72 a thread, so that an SM holds
+// KD_PRIMARY_BLOCKS_PER_SM blocks: left to itself the compiler gave the
+// kernel 80-94 and it ran 1.5-6% slower on ESVO; a cap of 64 spilled and
+// was 1-3% slower (chip_smoke.py --kernels-only; PERF.md §6).
+constexpr int KD_PRIMARY_THREADS = 64, KD_PRIMARY_BLOCKS_PER_SM = 14;
+
 // Raygen, the primary trace from the pixel's tile floor (tf[py/8][px/8] of
 // K7; tf null = unfloored), the hit record and flag, the sky of a miss:
 // one thread per pixel of each of the n_poses poses (K10: lane = pose *
 // W * H + pixel, the pose's camera from cams and its floors from tf).
+//
+// What bounds it on an H100: the traversal's chain of dependent loads (a
+// block lasts as long as its slowest warp's steps), then its stores: 37
+// bytes a pixel out, and 16 more for a miss's sky. So a block takes a
+// 16 x 4 patch of one pose's pixels, warp w its 8 x 4 tile at column 8w,
+// which lies inside one 8 x 8 floor tile of K7 (its rays leave from one
+// floor); the trace keeps its stack in the block's shared memory with
+// ESVO's child pointer loaded beside its descriptor (World::trace_shared);
+// the block's HitRecs and flags are staged in shared memory (pixel (r, c)
+// of the patch at slot 16r + c, HitRecs at an odd word stride, so the 32
+// lanes of a warp write 32 banks) and each row of the patch goes out as
+// 16-byte words where its first lane is a multiple of 4 (its span starts
+// on one), else as words, its flags as one 16-byte word where the row is
+// whole and starts on one, else byte by byte; a miss's sky is one 16-byte
+// store. rec, hit and img start on a 16-byte word
+// (_build.launch_kd_primary checks). Of the shapes measured
+// (chip_smoke.py --kernels-only; PERF.md §6), blocks of 64 consecutive
+// lanes (a warp 32 pixels of a row) were 4% slower on CSVO and within 1%
+// on ESVO.
 template <class World>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(KD_PRIMARY_THREADS,
+                                  KD_PRIMARY_BLOCKS_PER_SM)
 kd_primary_kernel(World world, float octree_scale, TexTables tx,
-                  FrameParams fp, const float* __restrict__ cams, int n_poses,
+                  FrameParams fp, const float* __restrict__ cams,
                   int alpha_mode, const float* __restrict__ tf, int ntx,
                   HitRec* __restrict__ rec, uint8_t* __restrict__ hit,
-                  float* __restrict__ img) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                  float4* __restrict__ img) {
+  constexpr int P = KD_PRIMARY_THREADS;
+  __shared__ uint32_t s_node[STACK_HEIGHT * P];
+  __shared__ float s_tmax[STACK_HEIGHT * P];
+  __shared__ uint4 s_rec[HIT_WORDS * P / 4];
+  __shared__ uint4 s_hit[P / 16];
+  const SharedStack::Source stack{s_node + threadIdx.x, s_tmax + threadIdx.x,
+                                  P};
+  const int t = threadIdx.x;
   const int B = fp.width * fp.height;
-  if (i >= B * n_poses) return;
-  const int pose = i / B, px = i - pose * B;
-  const FrameParams f = pose_params(fp, cams, pose);
-  float rd[3];
-  gen_ray(f, px, rd);
-  const float* tfp = pose_floors(fp, tf, ntx, pose);
-  const float t_floor =
-      tfp ? tfp[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)] : 0.f;
-  Hit p;
-  world.trace(octree_scale, f.cam_pos[0], f.cam_pos[1], f.cam_pos[2], rd[0],
-              rd[1], rd[2], -1.f, fp.primary_budget, alpha_mode, tx, p,
-              tf != nullptr, t_floor);
-  HitRec r;
-  r.t = p.t;
-  r.value = p.value;
-  r.face = p.face;
-  for (int k = 0; k < 3; ++k) r.pos[k] = p.pos[k];
-  r.u = p.u;
-  r.v = p.v;
-  r.lod = p.lod;
-  rec[i] = r;
-  hit[i] = p.t != -1.f ? 1 : 0;
-  if (p.t == -1.f) write_sky(f, rd, img + 4 * (size_t)i);
+  const int nbx = (fp.width + 15) >> 4, nby = (fp.height + 3) >> 2;
+  const int pose = blockIdx.x / (nbx * nby), b = blockIdx.x % (nbx * nby);
+  const int x0 = (b % nbx) * 16, y0 = (b / nbx) * 4;
+  const int r = (t & 31) >> 3, c = ((t >> 5) << 3) | (t & 7);
+  const int slot = r * 16 + c;
+  if (y0 + r < fp.height && x0 + c < fp.width) {
+    const int px = (y0 + r) * fp.width + x0 + c;
+    const FrameParams f = pose_params(fp, cams, pose);
+    float rd[3];
+    gen_ray(f, px, rd);
+    const float* tfp = pose_floors(fp, tf, ntx, pose);
+    const float t_floor =
+        tfp ? tfp[((px / fp.width) >> 3) * ntx + ((px % fp.width) >> 3)]
+            : 0.f;
+    Hit p;
+    world.trace_shared(octree_scale, f.cam_pos[0], f.cam_pos[1],
+                       f.cam_pos[2], rd[0], rd[1], rd[2], -1.f,
+                       fp.primary_budget, alpha_mode, tx, p, tf != nullptr,
+                       t_floor, stack);
+    put_hitrec(p, reinterpret_cast<uint32_t*>(s_rec) + HIT_WORDS * slot);
+    reinterpret_cast<uint8_t*>(s_hit)[slot] = p.t != -1.f ? 1 : 0;
+    if (p.t == -1.f) {
+      float rgb[3];
+      sky_color(f, rd[0], rd[2], rgb);
+      img[(long long)pose * B + px] = make_float4(rgb[0], rgb[1], rgb[2], 1.f);
+    }
+  }
+  __syncthreads();
+  const int n = min(16, fp.width - x0);
+  const int words = HIT_WORDS * n;
+  for (int rr = 0; rr < 4 && y0 + rr < fp.height; ++rr) {
+    const long long l0 = (long long)pose * B + (long long)(y0 + rr) * fp.width
+                         + x0;
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(s_rec) +
+                         HIT_WORDS * 16 * rr;
+    int q = t;
+    if ((l0 & 3) == 0) {
+      uint4* dst = reinterpret_cast<uint4*>(rec + l0);
+      for (; q < words / 4; q += P)
+        dst[q] = reinterpret_cast<const uint4*>(sw)[q];
+      q = (words & ~3) + t;
+    }
+    for (; q < words; q += P) reinterpret_cast<uint32_t*>(rec + l0)[q] = sw[q];
+    if (n == 16 && (l0 & 15) == 0) {
+      if (t == 0) reinterpret_cast<uint4*>(hit + l0)[0] = s_hit[rr];
+    } else if (t < n) {
+      hit[l0 + t] = reinterpret_cast<const uint8_t*>(s_hit)[16 * rr + t];
+    }
+  }
 }
 
 // One thread per compacted hit lane j < *hcount (pixel hidx[j]): surface
@@ -851,6 +917,25 @@ static int k9j_trace_launch(const World& world, float octree_scale,
   return (int)cudaGetLastError();
 }
 
+// The primary stage's launch (kd_primary_kernel): a block a 16 x 4 patch
+// of each pose's pixels (every pixel traces). rec, hit and img start on a
+// 16-byte word.
+template <class World>
+static int kd_primary_launch(const World& world, float octree_scale,
+                             const vx::TexTables* tex,
+                             const vx::FrameParams* fp, const float* cams,
+                             int n_poses, int alpha_mode, const float* tf,
+                             int ntx, void* rec, uint8_t* hit, float* img,
+                             void* stream) {
+  const long long blocks = (long long)n_poses * ((fp->width + 15) / 16) *
+                           ((fp->height + 3) / 4);
+  vx::kd_primary_kernel<World><<<(unsigned)blocks, vx::KD_PRIMARY_THREADS, 0,
+                                 (cudaStream_t)stream>>>(
+      world, octree_scale, *tex, *fp, cams, alpha_mode, tf, ntx,
+      (vx::HitRec*)rec, hit, (float4*)img);
+  return (int)cudaGetLastError();
+}
+
 // The shadow stage's launch (kd_shadow_kernel): a grid of at most the
 // blocks the card holds at once, each looping over the slots up to the
 // count on the card, so a launch schedules few blocks past that count,
@@ -1027,12 +1112,8 @@ int vx_kd_primary(const uint32_t* desc, long long n_words, float octree_scale,
                   const float* tf, int ntx, void* rec, uint8_t* hit,
                   float* img, void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
-  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height *
-                                       n_poses),
-                          vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, cams, n_poses, alpha_mode, tf, ntx,
-      (vx::HitRec*)rec, hit, img);
-  return (int)cudaGetLastError();
+  return kd_primary_launch(world, octree_scale, tex, fp, cams, n_poses,
+                           alpha_mode, tf, ntx, rec, hit, img, stream);
 }
 
 int vx_kd_primary_csvo(const uint32_t* words, long long n_words,
@@ -1043,12 +1124,8 @@ int vx_kd_primary_csvo(const uint32_t* words, long long n_words,
                        float* img, void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
-  vx::kd_primary_kernel<<<vx::grid_for((long long)fp->width * fp->height *
-                                       n_poses),
-                          vx::BLOCK, 0, (cudaStream_t)stream>>>(
-      world, octree_scale, *tex, *fp, cams, n_poses, alpha_mode, tf, ntx,
-      (vx::HitRec*)rec, hit, img);
-  return (int)cudaGetLastError();
+  return kd_primary_launch(world, octree_scale, tex, fp, cams, n_poses,
+                           alpha_mode, tf, ntx, rec, hit, img, stream);
 }
 
 int vx_kd_shade(const vx::TexTables* tex, const vx::FrameParams* fp,
@@ -1220,13 +1297,19 @@ int vx_k9j_trace_csvo(const uint32_t* words, long long n_words,
                           count, size, out, stream);
 }
 
-// lo: the records of level + 1; hi, refine: the n lanes of level `level`;
-// hole: the (mat_rows, n_levels) hole table of the texture tables.
+// lo: the records of level + 1; hi, refine: the lanes of level `level`
+// (lo and hi start on a 16-byte word); hole: the (mat_rows, n_levels) hole
+// table of the texture tables. One block a K9JM_TW x K9JM_TH tile of the
+// hi grid.
 int vx_k9j_merge(float octree_scale, const vx::TexTables* tex,
                  const vx::FrameParams* fp, int level, int hole_fill,
                  const uint8_t* hole, const void* lo, void* hi,
-                 uint8_t* refine, int n, void* stream) {
-  vx::k9j_merge_kernel<<<vx::grid_for(n), vx::BLOCK, 0,
+                 uint8_t* refine, void* stream) {
+  int wh, hh;
+  vx::k9_dims(fp->width, fp->height, level, wh, hh);
+  const long long blocks = (long long)((wh + vx::K9JM_TW - 1) / vx::K9JM_TW) *
+                           ((hh + vx::K9JM_TH - 1) / vx::K9JM_TH);
+  vx::k9j_merge_kernel<<<(unsigned)blocks, vx::K9JM_THREADS, 0,
                          (cudaStream_t)stream>>>(
       octree_scale, *tex, *fp, level, hole_fill, hole, (const vx::K9JRec*)lo,
       (vx::K9JRec*)hi, refine);

@@ -48,7 +48,8 @@ from . import compact
 from .beams import sun_verdict_masks_plain
 from .bits import fdiv, u32_to_i32
 from .texture import level_meta, sample_texture_lod
-from .traversal import MAX_STEPS, intersect_octree_plain, step_budget
+from .traversal import (MAX_STEPS, TraversalResult, intersect_octree_plain,
+                        step_budget)
 from .traversal_csvo import CsvoBuffer, check_words, intersect_octree_csvo_plain
 from .traversal_csvo import step_budget as csvo_step_budget
 
@@ -649,15 +650,64 @@ def shadow_blocked_plain(world, octree_scale, sro, light_dir, beams, opaque,
     return traced if blk is None else blk | (todo & traced)
 
 
+def hit_records(res) -> torch.Tensor:
+    """(n, 9) int32 hit records of traversal results, as ``kd_primary``
+    stores them (``csrc/kernels.cu`` HitRec): t, value, face, pos, uv,
+    lod, a float as its bits."""
+    def w(x):
+        return x.to(torch.float32).contiguous().view(torch.int32)
+
+    return torch.stack([w(res.t), u32_to_i32(res.value),
+                        res.face_id.to(torch.int32), w(res.pos[:, 0]),
+                        w(res.pos[:, 1]), w(res.pos[:, 2]), w(res.uv[:, 0]),
+                        w(res.uv[:, 1]), w(res.lod)], 1)
+
+
+def kd_primary_plain(world, octree_scale, tables, params, alpha_mode, tf,
+                     rec, hit, img, cams=None):
+    """``_build.launch_kd_primary``'s function, on its arguments: every
+    pixel of each pose (``cams`` None: one frame at ``params``' camera;
+    else pose p's camera from ``cams[p]``, lanes pose-major) traced from
+    its tile floor ``tf[py // 8, px // 8]`` (``tf`` None: unfloored; a
+    batch's (N, nty, ntx)) with the frame's primary budget, judged by
+    ``tables.alpha_fn`` unless ``alpha_mode`` is 0; its 9-word hit record
+    into ``rec`` ((N*H*W, 9) int32), its hit flag into ``hit`` and, for a
+    miss, its sky into ``img``, whose other pixels keep their values.
+    Returns (rec, hit, img)."""
+    from .adaptive import _frame_rays
+    from .beams import pixel_floors_at
+
+    if alpha_mode not in (0, 1):
+        raise ValueError(f"kd_primary_plain: alpha mode {alpha_mode}")
+    B = params.width * params.height
+    ids = torch.arange(B, device=rec.device)
+    pix = img.view(-1, 4)
+    for p in range(1 if cams is None else cams.shape[0]):
+        fp = params if cams is None else pose_params(params, cams, p)
+        ro, rd = _frame_rays(fp, ids)
+        floors = None if tf is None else pixel_floors_at(
+            tf if cams is None else tf[p], ids, params.width)
+        res = trace_plain(world, octree_scale, ro, rd, -1.0, alpha_mode != 0,
+                          None if alpha_mode == 0 else tables.alpha_fn,
+                          params.primary_budget, floors)
+        h = res.t != -1.0
+        rec[p * B:(p + 1) * B] = hit_records(res)
+        hit[p * B:(p + 1) * B] = h.to(hit.dtype)
+        miss = torch.nonzero(~h)[:, 0]
+        pix[p * B + miss] = sky_color(rd[miss])
+    return rec, hit, img
+
+
 class DeferredStagesPlain(NamedTuple):
-    """The plain deferred frame's intermediates: the primary rays'
-    directions ``rd`` ((B, 3), the sky of a miss); the hit lanes' pixels
+    """The plain deferred frame's intermediates: the primary stage's
+    pixels ``sky`` ((B, 4): a miss's sky, 0 where a ray hit); the hit
+    lanes' pixels
     ``hidx`` ((k,) int64), colour ``color`` ((k, 4)), light ``ds``
     (diffuse + specular, (k,)) and shadow need ``need`` ((k,) bool); the
     shadow candidates' hit lanes ``sidx`` ((m,) int64) and their verdicts
     ``blk``, ``todo``, ``traced`` (``shadow_verdicts_plain``)."""
 
-    rd: torch.Tensor
+    sky: torch.Tensor
     hidx: torch.Tensor
     color: torch.Tensor
     ds: torch.Tensor
@@ -676,24 +726,36 @@ def deferred_stages_plain(world, octree_scale, mips, mat_params, mat_tex, *,
                           opaque: bool = False, beams=None,
                           mip_mode: str | None = None) -> DeferredStagesPlain:
     """``render_frame_deferred_plain``'s stages up to the shadow verdicts
-    (its arguments), in torch ops and the plain versions of K6, K7 and
-    K8."""
+    (its arguments): the primary stage (``kd_primary_plain``), then torch
+    ops and the plain versions of K6, K7 and K8."""
     dev = world_tensor(world).device
     mip_mode = mip_mode or mip_mode_from_env()
+    fp = frame_params(width=width, height=height,
+                      render_shadows=render_shadows, cam_pos=cam_pos,
+                      cam_right=cam_right, cam_up=cam_up, cam_fwd=cam_fwd,
+                      fov_y_rad=fov_y_rad, aspect=aspect, ambient=ambient,
+                      light_dir=light_dir, shadow_distance=shadow_distance,
+                      highlight_pos=highlight_pos, max_steps=max_steps,
+                      mip_mode=mip_mode, csvo=isinstance(world, CsvoBuffer),
+                      deferred=True)
+    tables = KernelTables(mips, mat_tex, mat_params)
     cam_pos, light_dir = _vec3(cam_pos, dev), _vec3(light_dir, dev)
-    ro, rd = generate_rays(width, height, cam_pos, _vec3(cam_right, dev),
-                           _vec3(cam_up, dev), _vec3(cam_fwd, dev),
-                           tan_half_fov(fov_y_rad), float(np.float32(aspect)))
     B = width * height
-    alpha_fn = None if opaque else make_alpha_fn(mips, mat_tex)
-    res = trace_plain(world, octree_scale, ro, rd, -1.0, not opaque,
-                      alpha_fn, max_steps,
-                      None if beams is None else beams.t_floor)
-    hit = res.t != -1.0
+    rec = torch.empty((B, _build.HIT_WORDS), dtype=torch.int32, device=dev)
+    hit = torch.empty(B, dtype=torch.bool, device=dev)
+    sky = torch.zeros((B, 4), dtype=torch.float32, device=dev)
+    kd_primary_plain(world, octree_scale, tables, fp, 0 if opaque else 1,
+                     None if beams is None else beams.tile_floors, rec, hit,
+                     sky)
+    alpha_fn = None if opaque else tables.alpha_fn
     hidx, hcount = compact.compact_indices_plain(hit, B)
     lane = hidx[: int(hcount)].to(torch.int64)
-    res_k = res._replace(**{f: getattr(res, f)[lane] for f in
-                            ("t", "value", "face_id", "pos", "uv", "lod")})
+    r = rec[lane]
+    rf = r.view(torch.float32)
+    res_k = TraversalResult(
+        t=rf[:, 0], value=r[:, 1].to(torch.int64) & 0xFFFFFFFF,
+        face_id=r[:, 2], pos=rf[:, 3:6], uv=rf[:, 6:8], lod=rf[:, 8],
+        inside_voxel=None, steps=None)
     color, normal, diffuse, specular = surface_shading(
         res_k, mips, mat_params, mat_tex, cam_pos, light_dir,
         _vec3(highlight_pos, dev), mip_mode)
@@ -707,7 +769,7 @@ def deferred_stages_plain(world, octree_scale, mips, mat_params, mat_tex, *,
     blk, todo, traced = shadow_verdicts_plain(
         world, octree_scale, res_k.pos[cand] + normal[cand] * 0.001,
         light_dir, beams, opaque, alpha_fn, max_steps, certify=opaque)
-    return DeferredStagesPlain(rd, lane, color, ds, need, cand, blk, todo,
+    return DeferredStagesPlain(sky, lane, color, ds, need, cand, blk, todo,
                                traced)
 
 
@@ -735,7 +797,7 @@ def render_frame_deferred_plain(world, octree_scale, mips, mat_params,
     shadow = torch.where(st.need, torch.where(blocked, 0.0, 1.0), 1.0)
     light = torch.clamp(float(np.float32(ambient)) + st.ds * shadow, 0.0, 1.0)
     rgb = st.color[:, :3] * light[:, None]
-    img = sky_color(st.rd)
+    img = st.sky
     img[st.hidx] = torch.cat([rgb, st.color[:, 3:4]], dim=-1)
     return img.reshape(height, width, 4)
 
