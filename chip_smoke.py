@@ -150,12 +150,32 @@ the parent's kernel, with its rays' steps from the floors (mean, max,
 SIMD efficiency in rows and in 4x8 tiles, K1 / K4 on the same rays) and
 the picoseconds a step of it and of K1 / K4 unfloored; K9-judged's merge
 is held to ``k9j_merge_plain`` on every call of the judged phases'
-frames, the hole-fill frame too, and timed against the parent's.
+frames, the hole-fill frame too, and timed against the parent's. K7's
+tile floors (``_build.launch_k7_tiles`` against
+``ops.beams.k7_tiles_plain``) and K8 (``_build.launch_k8`` against
+``ops.beams.k8_plain``: verdicts, the lanes left to trace, lit floors)
+are held to their plain versions on every call of the exact, adaptive,
+exact judged and judged adaptive frames (both formats), of the batch and
+of each game's final frames (the game's pyramid too large to stage in
+shared memory, its tile launch reads it from global memory);
+pose 0's tile launch is timed alone, without its march (max_iters 0),
+against the plain version and the parent's kernel, with the plain
+march's longest lane (iterations and descents), and pose 0's K8 launch
+(and its lit floors on the same inputs) alone, at count 0, plain and the
+parent's, and in each row word its table allows (the table copied 0, 8
+and 4 bytes past a 16-byte word, ``k8_widths``); each game's final exact
+frame's tile launch (its pyramid read from global memory) and K8 launch
+(the game's map) are timed the same way; K8's bound counts each distinct
+row its rays read once (``k8_table_bytes``); the kernels line carries
+both kernels' ptxas lines (K8's three row-word instantiations, K7's
+staged and global-memory ones) and the profiler reads K8's grid.
 ``--kernels-only`` stops after the build and the worlds and times the
-launches this slice redesigned (kd_primary of the exact frames and
-batch, K9-judged's merge with the hole fill off and on) against the
-parent's kernel in turns: a quick comparison of shapes, with --parent a
-copy of the tree with another shape.
+launches this slice redesigned (K7's tile floors of the 5 poses and of
+pose 0 at march budgets 0-32, K8 of the exact frame and at count 0, of
+the adaptive passes and of the exact judged frame, both formats, K8 also
+in each row word) against the parent's kernel in turns: a quick
+comparison of shapes, with --parent a copy of the tree with another
+shape.
 ``--renderer-only`` stops after the
 renderer phases (the build, K1 / K4 and K3 in both formats, with --parent
 the parent's K1 / K4 and K3 on the same inputs) and prints no result: a
@@ -225,6 +245,9 @@ KERNEL_REPS = 20
 K6_LAUNCH_SEED = 11  # the masks of k6_launch_phase
 KERNEL_SLEEP_CYCLES = 4_000_000  # ~2 ms of the card's clock: kernel_ms
 AB_ROUNDS = 6  # rounds of turns of the frames against the parent's
+K8_WIDTH_ROUNDS = 9  # rounds of turns of K8's row words (k8_widths)
+# the march budgets at which --kernels-only times pose 0's tile floors
+K7_BUDGET_SWEEP = (0, 1, 2, 4, 8, 16, 32)
 HOST_REPS = 50
 K3_MAX_ABS = 1e-6
 IMAGE_BUDGET = 0.015  # mean |d| of two renders of one scene
@@ -529,21 +552,25 @@ def k6_calls(calls, dev) -> list:
 # the shadow pass's held launches: the shadow stage, the finishing stage
 # and K7's shadow floors (where no sun map is attached)
 SHADOW_HELD = ("kd_shadow", "kd_finish", "k7_shadow")
+# the beam pre-pass's held launches: K7's tile floors (Svo.beam_context)
+# and K8 (the sun map's verdicts or lit floors, in the shadow pass)
+BEAM_HELD = ("k7_tiles", "k8")
 LAUNCH_OUTS = {"k9_trace": (5,), "k9_merge": (4, 5),
                "k9_finalize": (3, 4, 5, 6, 7),
                "k9_shadow_cells": (5, 7, 8, 11), "kd_primary": (6, 7, 8),
                "kd_shadow": (11,), "kd_finish": (9, 10), "k7_shadow": (8,),
                "k9j_trace": (6,), "k9j_merge": (5, 6),
-               "k9j_finalize": (2, 3, 4, 5, 6), "k3": (4,)}
+               "k9j_finalize": (2, 3, 4, 5, 6), "k3": (4,),
+               "k7_tiles": (3,), "k8": (7, 8, 9, 10)}
 SKY_LAUNCHES = ("k9_finalize", "k9j_finalize", "kd_primary")
 # the launches spied in _build (the others are K9's wrappers in
 # ops.adaptive and K9-judged's in ops.adaptive_judged), the position of
 # each one's count (None: it has none), and its plain version
 RAW_LAUNCHES = {"kd_primary": None, "kd_shadow": 7, "kd_finish": 3,
-                "k7_shadow": 7}
+                "k7_shadow": 7, "k7_tiles": None, "k8": 5}
 # the launches whose grid is at most the blocks the card holds at once
 RESIDENT_LAUNCHES = ("kd_shadow", "kd_finish", "k7_shadow", "k3",
-                     "k9j_trace")
+                     "k9j_trace", "k8")
 
 
 def copy_outs(name, args) -> list:
@@ -590,7 +617,8 @@ def plain_of(name):
     return {"kd_primary": shading.kd_primary_plain,
             "kd_shadow": shading.kd_shadow_plain,
             "kd_finish": shading.kd_finish_plain,
-            "k7_shadow": beams.k7_shadow_plain}.get(name) \
+            "k7_shadow": beams.k7_shadow_plain,
+            "k7_tiles": beams.k7_tiles_plain, "k8": beams.k8_plain}.get(name) \
         or getattr(spied(name)[0], f"{name}_plain")
 
 
@@ -684,9 +712,10 @@ def zero_count(args, pos):
 
 
 def launch_call(name, args, kw) -> dict:
-    """One spied launch of the primary stage, the finishing stage or K7's
-    shadow floors (``name`` kd_primary / kd_finish / k7_shadow: its
-    ``_build`` launch function's arguments): the kernel on copies of the
+    """One spied launch of the primary stage, the finishing stage, K7's
+    shadow or tile floors or K8 (``name`` kd_primary / kd_finish /
+    k7_shadow / k7_tiles / k8: its ``_build`` launch function's
+    arguments): the kernel on copies of the
     arguments it writes against
     the plain version on copies (bit for bit), the launch alone and at
     count 0 (where it has a count), the plain version's time and, with
@@ -697,7 +726,8 @@ def launch_call(name, args, kw) -> dict:
     lane's pixel index, colour and light and its pixel written (or its
     verdict byte); K7's the pyramids, each ray's index, origin and limit,
     every lane written, and the march's operations (its steps from the
-    plain version)."""
+    plain version); K7's tiles also time the launch without its march
+    (max_iters 0) and report the longest march and its descents."""
     from voxelrs_tpu_torch import _build
     from voxelrs_tpu_torch.ops import beams
 
@@ -735,6 +765,36 @@ def launch_call(name, args, kw) -> dict:
             n * (4 + (1 if blk is None else 3)) + touched * 4
             + nb * (16 + 4 + 16) + (n if blkp is not None else 0),
             n * 4 + nb * 8))
+    elif name == "k7_tiles":
+        # the bound counts the pyramid, the params, each tile's floor and
+        # the set-up and march steps' operations (the plain version's
+        # steps); the longest march and its descents are the kernel's chain
+        levels, bounds, params, out = args
+        n = out.numel()
+        bare = _build.BeamParams.from_buffer_copy(params)
+        bare.max_iters = 0
+        r.update(tiles=n, pyramid_ints=levels.numel(),
+                 march_steps=beams.last_march_steps,
+                 march_max=beams.last_march_max,
+                 march_descents=beams.last_march_descents,
+                 ms_no_march=kernel_ms(lambda: launch(levels, bounds, bare,
+                                                      ta[3])),
+                 bound=bound(levels.numel() * 4 + 16 + n * 4,
+                             n * OPS_TILE_SETUP
+                             + beams.last_march_steps * OPS_MARCH_STEP))
+    elif name == "k8":
+        # each ray's index, origin and limit, the table's bytes that its
+        # rays need (k8_table_bytes), each output lane written; the
+        # operations of its window and band tests
+        sb, sp, ro, md, idx, count, k, *outs = args
+        n = k if count is None else max(0, min(int(count), k))
+        lane_bytes = sum(0 if o is None else o.element_size() for o in outs)
+        rows, row_bytes = k8_table_bytes(sb, sp, ro, md, idx, count, k, n)
+        r.update(rays=n, lanes=k, rows_read=rows, table_bytes=row_bytes,
+                 bound=bound(n * ((4 if idx is not None else 0) + 12
+                                  + (4 if md is not None else 0))
+                             + row_bytes + k * lane_bytes,
+                             n * OPS_SUN_RAY))
     else:
         levels_e, h3d0, _b, _p, _ro, md, idx, count, out = args
         k = out.shape[0]
@@ -747,6 +807,88 @@ def launch_call(name, args, kw) -> dict:
                              n * OPS_SHADOW_SETUP
                              + beams.last_march_steps * OPS_MARCH_STEP))
     return r
+
+
+def k8_table_bytes(sb, sp, ro, md, idx, count, k, n) -> tuple:
+    """(rows, bytes) of K8's sun table that its first ``n`` rays need
+    (``_build.launch_k8``'s arguments): the 76 fixed fields of every
+    distinct row that a ray inside the window reads, and the 2K band
+    fields of every distinct row that a ray reads to its last band (a ray
+    neither lit nor blocked, where the bands may claim: no limit or one of
+    at least ``d_len``). A row that several rays read counts once (the L2
+    serves it again), and a ray that a band blocks counts no band: a
+    least count of what the data needs."""
+    import torch
+
+    from voxelrs_tpu_torch.ops import beams
+
+    if n == 0:
+        return 0, 0
+    dev = ro.device
+    r = ro[idx[:n].long()] if idx is not None else ro[:n]
+    org = torch.tensor(list(sp.origin), dtype=torch.float32, device=dev)
+    rox, roz = r[:, 0] - org[0], r[:, 2] - org[1]
+    edge = torch.tensor(sp.n1 + 0.125, dtype=torch.float32, device=dev)
+    inw = (rox >= -0.125) & (rox < edge) & (roz >= -0.125) & (roz < edge)
+    ci = (torch.clamp(torch.floor(rox), 0.0, sp.n1 - 1.0).long() * sp.n1
+          + torch.clamp(torch.floor(roz), 0.0, sp.n1 - 1.0).long())
+    cnt = torch.tensor([n], dtype=torch.int32, device=dev)
+    lit, blk = beams.sun_verdict_masks_plain(
+        sb, sp.n1, ro, md, sp.d_len, list(sp.d), list(sp.origin), idx=idx,
+        count=cnt, margin=sp.margin)
+    bands = torch.ones(n, dtype=torch.bool, device=dev) if md is None else (
+        (md[:n] < 0) | (md[:n] >= torch.tensor(sp.d_len, device=dev)))
+    full = inw & ~lit[:n] & ~blk[:n] & bands
+    n_band = 2 * (sb.shape[1] - 76)  # bytes of a row's 2K band fields
+    rows = int(torch.unique(ci[inw]).numel())
+    return rows, rows * 152 + int(torch.unique(ci[full]).numel()) * n_band
+
+
+def k8_table_at(sb, off):
+    """A copy of the sun table ``sb`` starting ``off`` bytes (a multiple
+    of 4) past a 16-byte word."""
+    import torch
+
+    buf = torch.empty(sb.numel() + 8, dtype=sb.dtype, device=sb.device)
+    t = buf[off // 2: off // 2 + sb.numel()].view(sb.shape)
+    t.copy_(sb)
+    return t
+
+
+def k8_row_word(sb) -> int:
+    """The row word (bytes) in which K8 reads table ``sb``: the widest of
+    16, 8 and 4 on which every row starts (``vx_k8_sun``)."""
+    row, at = sb.shape[1] * 2, sb.data_ptr()
+    return next(w for w in (16, 8, 4) if row % w == 0 and at % w == 0)
+
+
+def k8_widths(args, kw, rounds=K8_WIDTH_ROUNDS) -> dict:
+    """K8's launch (``_build.launch_k8``'s arguments) with its table
+    copied 0, 8 and 4 bytes past a 16-byte word, so that it takes each row
+    word the table's width allows: each held to the plain version (bit for
+    bit) and timed alone in turns, ``rounds`` times; a row word's median
+    and quartiles (ms)."""
+    from voxelrs_tpu_torch import _build
+
+    tables = {}
+    for off in (0, 8, 4):
+        t = k8_table_at(args[0], off)
+        tables.setdefault(k8_row_word(t), t)
+    pa = copy_outs("k8", args)
+    plain_of("k8")(*pa, **kw)
+    runs, eq = {}, True
+    for wb, t in tables.items():
+        a = copy_outs("k8", [t] + list(args[1:]))
+        _build.launch_k8(*a, **kw)
+        e, _ = launch_outputs_equal("k8", outs_of("k8", a), outs_of("k8", pa))
+        eq = eq and e
+        runs[wb] = (a, [])
+    for _ in range(rounds):
+        for a, ms in runs.values():
+            ms.append(kernel_ms(lambda: _build.launch_k8(*a, **kw)))
+    return dict(equal=eq, row_bytes=args[0].shape[1] * 2, ms={
+        wb: [sorted(ms)[len(ms) * q // 4] for q in (2, 1, 3)]
+        for wb, (_a, ms) in runs.items()})
 
 
 def primary_call(svo, args, kw) -> dict:
@@ -1042,7 +1184,8 @@ PTXAS_KERNELS = {"k1_traverse": "k1_traverse_kernel",
                  "kd_shadow": "kd_shadow_kernel",
                  "k9_shadow_cells": "k9_shadow_cells_kernel",
                  "kd_finish": "kd_finish_kernel",
-                 "k7_shadow": "k7_shadow_kernel"}
+                 "k7_shadow": "k7_shadow_kernel",
+                 "k7_tiles": "k7_tile_kernel", "k8_sun": "k8_sun_kernel"}
 
 
 def ptxas_of(build_log: str) -> dict:
@@ -1059,8 +1202,13 @@ def ptxas_of(build_log: str) -> dict:
             key = None
             for name, fn in PTXAS_KERNELS.items():
                 if fn in line:
+                    # K8's instantiations by the bytes of its row words
+                    words = re.search(r"k8_sun_kernelILi(\d+)E", line)
                     key = name + ("_csvo" if "CsvoWorld" in line else
-                                  "_esvo" if "EsvoWorld" in line else "")
+                                  "_esvo" if "EsvoWorld" in line else
+                                  f"_w{words.group(1)}" if words else
+                                  "_staged" if "k7_tile_kernelILb1E" in line
+                                  else "")
             continue
         if key is None:
             continue
@@ -1078,7 +1226,7 @@ def ptxas_of(build_log: str) -> dict:
 
 
 def sass_widths(names=("k9_trace", "k9j_merge", "k9_merge", "k9_finalize",
-                       "kd_primary",
+                       "kd_primary", "k8_sun", "k7_tile",
                        "k9_shadow_cells", "kd_shadow", "kd_finish",
                        "k7_shadow", "k3_frame", "k9j_trace", "k9j_finalize",
                        "k4_traverse", "k1_traverse")) -> dict:
@@ -1106,8 +1254,12 @@ def sass_widths(names=("k9_trace", "k9j_merge", "k9_merge", "k9_finalize",
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = next((n for n in names if n in m.group(1)), None)
+            words = re.search(r"k8_sun_kernelILi(\d+)E", m.group(1))
             key = None if fn is None else (
-                fn + ("_csvo" if "Csvo" in m.group(1) else ""))
+                fn + ("_csvo" if "Csvo" in m.group(1) else "")
+                + (f"_w{words.group(1)}" if words else "")
+                + ("_staged" if "k7_tile_kernelILb1E" in m.group(1)
+                   else ""))
             continue
         m = re.search(r"\b(LDG|STG|LDS|STS)(\.\S+)?\s", line)
         if key and m:
@@ -1654,12 +1806,14 @@ def check_game(game, recorder, card):
         f"{waited} more frames ({out['sun_wait_s']:.1f} s); builds "
         f"{out['sun_build_s']} s on its thread; table {out['sun_shape']}, "
         f"{out['sun_mb']:.1f} MB on the card")
-    held = Held(("k9_shadow_cells",) + SHADOW_HELD)
+    # the game's pyramid is larger than a tile block stages: its K7 tile
+    # launch takes the instantiation that reads it from global memory
+    held = Held(("k9_shadow_cells",) + SHADOW_HELD + BEAM_HELD)
     with Phase(f"deferred vs k3 and vs plain (streamed world, {fmt})"):
         p = world.world_svo.svo_params(world.render_params(W / H))
         fused = gsvo.render(p, W, H, mode="fused")
-        ctx = gsvo.beam_context(p, W, H)
         with held:
+            ctx = gsvo.beam_context(p, W, H)
             deferred = gsvo.render(p, W, H, beams=ctx, adaptive=False)
         info = dict(gsvo.last_frame)
         d = max_abs(deferred, fused)
@@ -1679,6 +1833,8 @@ def check_game(game, recorder, card):
             # the games' branch while no sun map is attached: K7's floors
             gsvo.render(p, W, H, beams=ctx.without_sun())
         da = max_abs(adaptive_img, plain_adaptive(gsvo, p, ctx))
+        # the final exact frame's first tile and K8 launches, timed below
+        beam_calls = {n: held.spies[n].calls[:1] for n in BEAM_HELD}
         out["held"] = held.check()
         paths = {}
         for path, kw in (("adaptive", {}), ("exact", dict(adaptive=False)),
@@ -1688,18 +1844,51 @@ def check_game(game, recorder, card):
                                                        **kw))
     out["adaptive_game_err"], out["paths_ms"] = da, paths
     out["adaptive_game_ok"] = da <= K3_MAX_ABS and bool(info.get("adaptive"))
-    log(f"k9 shadow cells, kd_shadow, kd_finish and k7_shadow vs their "
-        f"plain versions on every call of the final exact frame and the "
-        f"final adaptive frame, with the sun map and without ({fmt}; bit "
-        f"for bit): {json.dumps(out['held'])}")
-    if not held_ok(out["held"], branch=()):
-        fail(f"K9's shadow cells, kd_shadow, kd_finish or K7's shadow floors "
-             f"disagree with their plain versions in the {fmt} game's final "
-             "frames")
+    log(f"k9 shadow cells, kd_shadow, kd_finish, k7_shadow, k7_tiles and "
+        f"k8 vs their plain versions on every call of the final exact frame "
+        f"and the final adaptive frame, with the sun map and without "
+        f"({fmt}; bit for bit): {json.dumps(out['held'])}")
+    if not held_ok(out["held"],
+                   branch=() if out["sun_attached"] else ("k8",)):
+        fail(f"K9's shadow cells, kd_shadow, kd_finish, K7's shadow or tile "
+             f"floors or K8 disagree with their plain versions in the {fmt} "
+             "game's final frames")
     log(f"adaptive vs its plain version on the streamed {fmt} buffer (final "
         f"pose, {json.dumps(info)}): max |d| {da:.3g} (tolerance "
         f"{K3_MAX_ABS:g}); ok {out['adaptive_game_ok']}; one frame each, "
         f"call to done, same buffer: {json.dumps(paths)} ms on {card}")
+
+    with Phase(f"k7 tile floors and k8 alone (streamed world, {fmt})"):
+        # the final exact frame's tile launch (its pyramid read from global
+        # memory) and K8 launch (the game's map), each alone, at count 0
+        # and against the parent's kernel; K8 in each row word its table
+        # allows
+        out["k7_tiles_call"] = launch_call("k7_tiles",
+                                           *beam_calls["k7_tiles"][0])
+        k8s = beam_calls["k8"]
+        out["k8_call"] = launch_call("k8", *k8s[0]) if k8s else None
+        out["k8_row_words"] = k8_widths(*k8s[0]) if k8s else None
+    tc, kc, kw8 = out["k7_tiles_call"], out["k8_call"], out["k8_row_words"]
+    log(f"k7 tile floors alone ({fmt} game, the final exact frame's launch, "
+        f"{tc['tiles']} tiles, the pyramid {tc['pyramid_ints']} ints): "
+        f"equal {tc['equal']}, {tc['ms']:.4f} ms, without the march "
+        f"{tc['ms_no_march']:.4f}, the parent's "
+        f"{(tc['parent'] or {}).get('ms')}; the longest march "
+        f"{tc['march_max']} iterations ({tc['march_descents']} descents) "
+        f"on {card}")
+    if kc is not None:
+        log(f"k8 alone ({fmt} game, the final exact frame's launch, "
+            f"{kc['rays']} rays of {kc['lanes']}, {kc['rows_read']} rows): "
+            f"equal {kc['equal'] and kw8['equal']}, {kc['ms']:.4f} ms, at "
+            f"count 0 {kc['ms_count0']:.4f}, the parent's "
+            f"{json.dumps(kc['parent'])}; bound {kc['bound'][0]:.5f} "
+            f"({kc['bound'][1]}); {kw8['row_bytes']}-byte rows as 16- / 8- "
+            f"/ 4-byte words (those the width allows), median [quartiles] of "
+            f"{K8_WIDTH_ROUNDS} turns: {json.dumps(kw8['ms'])} ms on {card}")
+    if not tc["equal"] or (kc is not None
+                           and not (kc["equal"] and kw8["equal"])):
+        fail(f"K7's tile floors or K8 alone disagree with their plain "
+             f"versions in the {fmt} game")
 
     with Phase(f"k5 timing ({fmt})"):
         # the last AABB sweep of the run, on the final buffer
@@ -1831,7 +2020,8 @@ def main() -> int:
             log(f"ptxas {name} ({side}): {info}")
     sass = sass_widths()
     log(f"K9's, kd_shadow's, kd_finish's, k7_shadow's, K3's, k9j_trace's, "
-        f"k9j_finalize's, K4's and K1's loads and stores in the SASS by width "
+        f"k9j_finalize's, K4's, K1's, K7 tiles' and K8's loads and stores in "
+        f"the SASS by width "
         f"(cuobjdump -sass; instructions in the code): {json.dumps(sass)}")
     log(f"native serializers: loaded {libs}; g++ {' '.join(native.GXX_FLAGS)}"
         f", seconds {native.build_seconds}")
@@ -1971,12 +2161,14 @@ def main() -> int:
                f"{r['parent_launches']} {r['parent_ops']}"))
         if r["launches"] is not None and r["launches"] > 2:
             fail(f"K6 ran {r['launches']} card operations a call (at most 2)")
-    with Phase("k9, kd_primary, kd_shadow, kd_finish, k7_shadow, k3 and "
-               "k9j_trace launches"):
+    with Phase("k9, kd_primary, kd_shadow, kd_finish, k7_shadow, k3, "
+               "k9j_trace and k8 launches"):
         k9l = launch_ops_phase({**ae.pop("launch_args"), "k3": e["k3_call"],
                                 **je.pop("launch_args"),
-                                "kd_primary": de.pop("primary_args")})
+                                "kd_primary": de.pop("primary_args"),
+                                "k8": de.pop("k8_args")})
         dc.pop("primary_args")
+        dc.pop("k8_args")
         ac.pop("launch_args")
         jc.pop("launch_args")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2026,13 +2218,17 @@ def main() -> int:
                 "bound_ms": c["bound"][0]}
 
     finish_held, k7_held = held_sum("kd_finish"), held_sum("k7_shadow")
+    tiles_held, k8_held = held_sum("k7_tiles"), held_sum("k8")
     log(f"kd_finish and k7_shadow held to their plain versions on every "
         f"call of the deferred, adaptive and judged frames, the batch and "
         f"the games' final frames: {json.dumps(finish_held)}; "
-        f"{json.dumps(k7_held)}")
-    if not (finish_held["calls"] and k7_held["calls"]
-            and finish_held["equal"] and k7_held["equal"]):
-        fail("kd_finish or K7's shadow floors was not held on every path")
+        f"{json.dumps(k7_held)}; k7_tiles and k8 on every call of the "
+        f"exact, adaptive, exact judged and judged adaptive frames and the "
+        f"batch: {json.dumps(tiles_held)}; {json.dumps(k8_held)}")
+    if not all(h["calls"] and h["equal"]
+               for h in (finish_held, k7_held, tiles_held, k8_held)):
+        fail("kd_finish, K7's shadow or tile floors or K8 was not held on "
+             "every path")
     kernels = [
         dict(name="k1_traversal", route="cuda",
              source="voxelrs_tpu_torch/csrc/k1_traversal.cuh",
@@ -2146,8 +2342,19 @@ def main() -> int:
              library_ms=None,
              ok=all(d[k] for d in (de, dc) for k in ("k7_tile_ok",
                                                      "k7_shadow_ok"))
-             and k7_held["equal"],
+             and k7_held["equal"] and tiles_held["equal"],
              tiles_march_steps=de["k7_tile_steps"],
+             tiles_march_max=de["k7_tiles"]["march_max"],
+             tiles_march_max_descents=de["k7_tiles"]["march_descents"],
+             ms_tiles_no_march=de["k7_tiles"]["ms_no_march"],
+             parent_ms=(de["k7_tiles"]["parent"] or {}).get("ms"),
+             parent_ms_csvo=(dc["k7_tiles"]["parent"] or {}).get("ms"),
+             tiles_calls_checked=tiles_held["calls"],
+             tiles_game_call=call_row(ce["k7_tiles_call"]),
+             tiles_game_call_csvo=call_row(cc["k7_tiles_call"]),
+             ptxas={k: {n: i for n, i in v.items()
+                        if n.startswith("k7_tiles")}
+                    for k, v in ptx.items()},
              tile_inf_share=de["tile_inf_share"],
              shadow_replaces="voxelrs_tpu/ops/beams.py:309",
              ms_shadow=de["k7_shadow_ms"],
@@ -2187,9 +2394,30 @@ def main() -> int:
              launches=de["launches"]["k8"], max_abs_err=de["k8_err"],
              ms=de["k8_ms"], plain_ms=de["k8_plain_ms"],
              bound_ms=de["k8_bound"][0], bound_by=de["k8_bound"][1],
-             library_ms=None, ok=de["k8_ok"] and dc["k8_ok"],
+             library_ms=None,
+             ok=de["k8_ok"] and dc["k8_ok"] and k8_held["equal"],
              rays=de["k8_rays"], certified_share=de["k8_certified_share"],
              ms_lit_floors=de["k8_lit_floors_ms"],
+             ms_count0=de["k8"]["ms_count0"],
+             ms_lit_floors_count0=de["k8_lit_floors"]["ms_count0"],
+             parent_ms=(de["k8"]["parent"] or {}).get("ms"),
+             parent_ms_count0=(de["k8"]["parent"] or {}).get("ms_count0"),
+             parent_ms_lit_floors=(de["k8_lit_floors"]["parent"]
+                                   or {}).get("ms"),
+             exact_frame_call=call_row(de["k8"]),
+             exact_frame_call_csvo=call_row(dc["k8"]),
+             lit_floors_call=call_row(de["k8_lit_floors"]),
+             row_words=de["k8_row_words"],
+             game_call=ce["k8_call"] and call_row(ce["k8_call"]),
+             game_call_csvo=cc["k8_call"] and call_row(cc["k8_call"]),
+             game_row_words=ce["k8_row_words"],
+             game_row_words_csvo=cc["k8_row_words"],
+             calls_checked=k8_held["calls"],
+             launches_per_call=k9l["k8"]["launches"],
+             grids=k9l["k8"]["grids"],
+             grids_parent=k9l["k8"].get("parent_grids"),
+             ptxas={k: {n: i for n, i in v.items() if n.startswith("k8_sun")}
+                    for k, v in ptx.items()},
              lit_floors_replaces="voxelrs_tpu/ops/beams.py:473",
              launches_csvo=dc["launches"]["k8"], ms_csvo=dc["k8_ms"],
              max_abs_err_csvo=dc["k8_err"],
@@ -2556,88 +2784,95 @@ def main() -> int:
 
 
 def kernels_only_phase(svos, tsvos, hf, thf, poses, card) -> None:
-    """``--kernels-only``: the launches this slice redesigned, on pose 0's
-    own inputs at 1080p (spied from a real frame), each against its plain
+    """``--kernels-only``: the launches this slice redesigned, on their own
+    inputs at 1080p (spied from real frames), each against its plain
     version and, with --parent, timed against the parent's kernel in turns
-    (this tree, parent, AB_ROUNDS // 2 times): kd_primary of the exact
-    frame (opaque and judged, both formats) and of the exact batch of the
-    5 poses, and K9-judged's merge (both formats, hole fill off and
-    on)."""
+    (this tree, parent, AB_ROUNDS // 2 times): K7's tile floors of the 5
+    poses, K8 of the exact frame (verdicts, both formats, and at count 0),
+    of the adaptive frame's passes and of the exact judged frame (lit
+    floors, both formats), K8 also in each row word its table allows
+    (``k8_widths``)."""
     import torch
 
     from voxelrs_tpu_torch import _build
-    from voxelrs_tpu_torch.ops import adaptive_judged
+    from voxelrs_tpu_torch.ops import beams
 
-    def spy_calls(module, name, render):
-        with Spy(module, name) as sp:
+    def spy_calls(name, render):
+        with Spy(_build, name) as sp:
             render()
         torch.cuda.synchronize()
         return sp.calls
 
-    cases = []
+    sv = svos["esvo"]
+    sv.set_heightfield(hf)
+    cases = [(f"k7_tiles pose {i}", "k7_tiles", c)
+             for i, p in enumerate(poses)
+             for c in spy_calls("launch_k7_tiles",
+                                lambda p=p: sv.beam_context(p, W, H))]
+    # pose 0's tiles at smaller march budgets: the set-up (0) and the
+    # march's time against its iterations
+    (levels, bounds, params, out), kw0 = cases[0][2]
+    for budget in K7_BUDGET_SWEEP:
+        bp = _build.BeamParams.from_buffer_copy(params)
+        bp.max_iters = budget
+        cases.append((f"k7_tiles pose 0 max_iters {budget}", "k7_tiles",
+                      ((levels, bounds, bp, out), kw0)))
     for fmt, sv in svos.items():
         sv.set_heightfield(hf)
-        cases += [(f"kd_primary {fmt}", "kd_primary", c) for c in spy_calls(
-            _build, "launch_kd_primary",
-            lambda: sv.render(poses[0], W, H, adaptive=False))]
-    os.environ["VOXELRS_ADAPTIVE"] = "0"
-    try:
-        cases += [("kd_primary batch", "kd_primary", c) for c in spy_calls(
-            _build, "launch_kd_primary",
-            lambda: svos["esvo"].render_batch(poses, W, H))]
-    finally:
-        del os.environ["VOXELRS_ADAPTIVE"]
+        exact = spy_calls("launch_k8", lambda: sv.render(
+            poses[0], W, H, adaptive=False))
+        cases += [(f"k8 exact {fmt}", "k8", c) for c in exact]
+        cases += [(f"k8 exact {fmt} count 0", "k8",
+                   (zero_count(c[0], RAW_LAUNCHES["k8"]), c[1]))
+                  for c in exact]
+        cases += [(f"k8 adaptive {fmt} pass {j}", "k8", c)
+                  for j, c in enumerate(spy_calls(
+                      "launch_k8", lambda: sv.render(poses[0], W, H)))]
     for fmt, sv in tsvos.items():
         sv.set_heightfield(thf)
-        cases += [(f"kd_primary judged {fmt}", "kd_primary", c)
-                  for c in spy_calls(_build, "launch_kd_primary",
-                                     lambda: sv.render(poses[0], W, H,
-                                                       adaptive=False))]
-        for fill in ("0", "1"):
-            os.environ["VOXELRS_HOLE_FILL"] = fill
-            try:
-                cases += [(f"k9j_merge {fmt} hole_fill={fill} level "
-                           f"{c[0][3]}", "k9j_merge", c)
-                          for c in spy_calls(adaptive_judged, "k9j_merge",
-                                             lambda: sv.render(poses[0], W,
-                                                               H))]
-            finally:
-                del os.environ["VOXELRS_HOLE_FILL"]
+        cases += [(f"k8 exact judged {fmt} (lit floors)", "k8", c)
+                  for c in spy_calls("launch_k8", lambda: sv.render(
+                      poses[0], W, H, adaptive=False))]
     rows = {}
     for label, name, (args, kw) in cases:
         # the kernel and the plain version on copies of what it writes
         ka, pa = copy_outs(name, args), copy_outs(name, args)
-        launch = (_build.launch_k9j_merge if name == "k9j_merge"
-                  else getattr(_build, f"launch_{name}"))
-        plib = None if PARENT is None else (
-            PARENT.launch_k9j_merge if name == "k9j_merge"
-            else getattr(PARENT, f"launch_{name}"))
-
-        def order(a):  # the wrapper's arguments as the launch takes them
-            if name != "k9j_merge":
-                return a
-            scale, tables, fp, level, lo, hi, refine, fill = a
-            return scale, tables, fp, level, fill, lo, hi, refine
-
-        launch(*order(ka), **kw)
+        launch = getattr(_build, f"launch_{name}")
+        plib = None if PARENT is None else getattr(PARENT, f"launch_{name}")
+        launch(*ka, **kw)
         plain_of(name)(*pa, **kw)
         eq, err = launch_outputs_equal(name, outs_of(name, ka),
                                        outs_of(name, pa))
         ms, parent_ms = [], []
         qa = copy_outs(name, args)
         if plib is not None:
-            plib(*order(qa), **kw)
+            plib(*qa, **kw)
             peq, _ = launch_outputs_equal(name, outs_of(name, qa),
                                           outs_of(name, pa))
             eq = eq and peq
         for _ in range(max(1, AB_ROUNDS // 2)):
-            ms.append(kernel_ms(lambda: launch(*order(ka), **kw)))
+            ms.append(kernel_ms(lambda: launch(*ka, **kw)))
             if plib is not None:
-                parent_ms.append(kernel_ms(lambda: plib(*order(qa), **kw)))
+                parent_ms.append(kernel_ms(lambda: plib(*qa, **kw)))
         rows[label] = dict(equal=eq, err=err, ms=ms, parent_ms=parent_ms)
+        if name == "k7_tiles":  # the plain march's longest lane
+            rows[label].update(march_max=beams.last_march_max,
+                               march_descents=beams.last_march_descents,
+                               march_steps=beams.last_march_steps)
+        else:  # the row words the table's width allows, in turns
+            wd = rows[label]["row_words"] = k8_widths(args, kw)
+            rows[label]["equal"] = eq = eq and wd["equal"]
+            log(f"{label}: {wd['row_bytes']}-byte rows read as "
+                f"16- / 8- / 4-byte words (those the width allows), median "
+                f"[quartiles] of {K8_WIDTH_ROUNDS} turns: "
+                f"{json.dumps(wd['ms'])} ms on {card}")
         log(f"{label}: equal to its plain version {eq} (max |d| {err:.3g});"
             f" this tree {[round(x, 4) for x in ms]} ms, the parent's "
-            f"{[round(x, 4) for x in parent_ms]} ms on {card}")
+            f"{[round(x, 4) for x in parent_ms]} ms on {card}"
+            + ("" if name != "k7_tiles" else
+               f"; the longest march {beams.last_march_max} iterations, "
+               f"{beams.last_march_descents} of them descents; "
+               f"{beams.last_march_steps} in all"))
     log(json.dumps({"kernels_only": rows, "card": card}))
     if not all(r["equal"] for r in rows.values()):
         fail("a launch disagrees with its plain version")
@@ -3142,7 +3377,7 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
         zero_deferred_counts()
         frames, infos, marks = [], [], []
         held = Held(("k9_merge", "k9_finalize", "k9_shadow_cells")
-                    + SHADOW_HELD)
+                    + SHADOW_HELD + BEAM_HELD)
         with held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
@@ -3157,13 +3392,13 @@ def adaptive_phase(svo, hf, poses, card) -> dict:
         out["held"] = held.check()
         del held
     log(f"k9 merge, finalize, shadow cells (both steps), kd_shadow, "
-        f"kd_finish and k7_shadow vs their plain versions on every call of "
-        f"the {len(poses6)} frames ({fmt}; bit for bit, the finalize's sky "
-        f"within {K3_MAX_ABS:g}): {json.dumps(out['held'])}")
+        f"kd_finish, k7_shadow, k7_tiles and k8 vs their plain versions on "
+        f"every call of the {len(poses6)} frames ({fmt}; bit for bit, the "
+        f"finalize's sky within {K3_MAX_ABS:g}): {json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"K9's merge, finalize or shadow cells, kd_shadow, kd_finish or "
-             f"K7's shadow floors disagree with their plain versions in the "
-             f"{fmt} adaptive frames")
+        fail(f"K9's merge, finalize or shadow cells, kd_shadow, kd_finish, "
+             f"K7's shadow or tile floors or K8 disagree with their plain "
+             f"versions in the {fmt} adaptive frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -3574,7 +3809,7 @@ def deferred_phase(svo, hf, poses, card) -> dict:
     out = {}
     with Phase(f"deferred main path ({fmt})"):
         zero_deferred_counts()
-        with Held(("kd_primary",) + SHADOW_HELD) as held:
+        with Held(("kd_primary",) + SHADOW_HELD + BEAM_HELD) as held:
             frames = [svo.render(p, W, H, adaptive=False) for p in poses]
         torch.cuda.synchronize()
         n = out["launches"] = deferred_counts()
@@ -3582,14 +3817,14 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         out["held"] = held.check()
     log(f"deferred main path launches ({fmt}): {json.dumps(n)}; last frame "
         f"{json.dumps(info)}; sun map build {hf.sun_build_seconds} s host")
-    log(f"kd_primary, kd_shadow, kd_finish and k7_shadow vs their plain "
-        f"versions on every call of the {len(poses)} frames ({fmt}; bit for "
-        f"bit, kd_primary's sky within {K3_MAX_ABS:g}): "
+    log(f"kd_primary, kd_shadow, kd_finish, k7_shadow, k7_tiles and k8 vs "
+        f"their plain versions on every call of the {len(poses)} frames "
+        f"({fmt}; bit for bit, kd_primary's sky within {K3_MAX_ABS:g}): "
         f"{json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail(f"kd_primary, kd_shadow, kd_finish or K7's shadow floors "
-             f"disagree with their plain versions in the {fmt} deferred "
-             "frames")
+        fail(f"kd_primary, kd_shadow, kd_finish, K7's shadow or tile floors "
+             f"or K8 disagree with their plain versions in the {fmt} "
+             "deferred frames")
     if not (n["k6"] and n["k7"] and n["k8"]
             and all(n[f"kd_{s}"] for s in STAGES)):
         fail(f"a kernel of the {fmt} deferred path was not launched")
@@ -3608,10 +3843,11 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         variants = ("beams_sun", "beams", "no_heightfield")
         errs = dict.fromkeys(variants, 0.0)
         plain_errs = dict.fromkeys(variants, 0.0)
-        held = Held(("kd_primary",) + SHADOW_HELD)
+        held = Held(("kd_primary",) + SHADOW_HELD + BEAM_HELD)
         for i, p in enumerate(poses):
             fused = svo.render(p, W, H, mode="fused")
-            ctx = svo.beam_context(p, W, H)
+            with held:
+                ctx = svo.beam_context(p, W, H)
             for name, b in zip(variants, (ctx, ctx.without_sun(), None)):
                 with held:
                     img = svo.render(p, W, H, beams=b, adaptive=False)
@@ -3624,14 +3860,14 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         variants_held = held.check()
         out["held"] = held_merge(out["held"], variants_held)
     out["vs_k3"], out["vs_plain"] = errs, plain_errs
-    log(f"kd_primary, kd_shadow, kd_finish and k7_shadow vs their plain "
-        f"versions on every call of the {len(poses)} poses' three variants "
-        f"({fmt}; bit for bit, kd_primary's sky within {K3_MAX_ABS:g}): "
-        f"{json.dumps(variants_held)}")
+    log(f"kd_primary, kd_shadow, kd_finish, k7_shadow, k7_tiles and k8 vs "
+        f"their plain versions on every call of the {len(poses)} poses' "
+        f"three variants ({fmt}; bit for bit, kd_primary's sky within "
+        f"{K3_MAX_ABS:g}): {json.dumps(variants_held)}")
     if not held_ok(variants_held, branch=()):
-        fail(f"kd_primary, kd_shadow, kd_finish or K7's shadow floors "
-             f"disagree with their plain versions in the {fmt} deferred "
-             "variants")
+        fail(f"kd_primary, kd_shadow, kd_finish, K7's shadow or tile floors "
+             f"or K8 disagree with their plain versions in the {fmt} "
+             "deferred variants")
     out["vs_k3_ok"] = all(v <= K3_MAX_ABS for v in errs.values())
     out["vs_plain_ok"] = all(v <= K3_MAX_ABS for v in plain_errs.values())
     log(f"deferred vs k3 ({fmt}, {len(poses)} poses): max |d| "
@@ -3647,19 +3883,22 @@ def deferred_phase(svo, hf, poses, card) -> dict:
 
     with Phase(f"k6 k7 k8 vs plain ({fmt})"):
         p0 = poses[0]
-        ctx = svo.beam_context(p0, W, H)
+        with Spy(_build, "launch_k7_tiles") as k7t:
+            ctx = svo.beam_context(p0, W, H)
         with Spy(compact, "compact_indices") as k6s, \
-                Spy(beams, "sun_verdict_masks") as k8s:
+                Spy(_build, "launch_k8", LAUNCH_OUTS["k8"]) as k8l:
             svo.render(p0, W, H, beams=ctx, adaptive=False)
         with Spy(beams, "shadow_ray_floors") as k7s, \
                 Spy(_build, "launch_k7_shadow") as k7l:
             svo.render(p0, W, H, beams=ctx.without_sun(),
                        adaptive=False)
         torch.cuda.synchronize()
-        if len(k6s.calls) != 3 or len(k8s.calls) != 1 or len(k7s.calls) != 1:
+        if len(k6s.calls) != 3 or len(k8l.calls) != 1 or len(k7s.calls) != 1 \
+                or len(k7t.calls) != 1:
             fail(f"the {fmt} deferred frame's stages ran another way: "
-                 f"{len(k6s.calls)} compactions, {len(k8s.calls)} K8, "
-                 f"{len(k7s.calls)} K7 shadow calls")
+                 f"{len(k6s.calls)} compactions, {len(k8l.calls)} K8, "
+                 f"{len(k7s.calls)} K7 shadow, {len(k7t.calls)} K7 tile "
+                 "calls")
         # K6 on the frame's own masks: hits, shadow candidates, uncertified
         k6 = k6_calls(k6s.calls, dev)
         k6_ms, k6_plain_ms, k6_library_ms, k6_bound = (
@@ -3667,34 +3906,13 @@ def deferred_phase(svo, hf, poses, card) -> dict:
             k6[0]["bound"])
         k6_fixed = k6_fixed_ms(dev)
 
-        # K7 tile floors on pose 0
-        kw = svo.frame_kwargs(p0, W, H)
-        levels, offsets, nn, hmax, bounds, levels_e = ctx._dev
-        ccx = int(np.floor(kw["cam_pos"][0] / beams.CELL)) - 2
-        ccz = int(np.floor(kw["cam_pos"][2] / beams.CELL)) - 2
-        near = hf.near_window(ccx + 2, ccz + 2).astype(np.float32)
-        base = np.array([ccx, ccz], np.float32)
-        targs = (offsets, nn, hmax, near, base, kw["cam_pos"],
-                 kw["cam_right"], kw["cam_up"], kw["cam_fwd"],
-                 shading.tan_half_fov(p0.fov_y_rad), p0.aspect_ratio, -1.0)
-        tf_plain_ms = event_ms(lambda: beams.tile_floors_plain(
-            levels, offsets, nn, hmax, bounds, *targs[3:], width=W,
-            height=H))
-        tile_steps = beams.last_march_steps
-        tf_plain = beams.tile_floors_plain(levels, offsets, nn, hmax, bounds,
-                                           *targs[3:], width=W, height=H)
-        tf_err = max_abs(ctx.tile_floors, tf_plain)
-        tf_ok = bool(torch.equal(ctx.tile_floors, tf_plain))
-        tparams = beams.tile_params(*targs, W, H)
-        tf_out = torch.empty_like(ctx.tile_floors)
-        tf_ms = kernel_ms(lambda: _build.launch_k7_tiles(levels, bounds,
-                                                         tparams, tf_out))
-        ntiles = tf_out.numel()
-        tf_bound = bound(levels.numel() * 4 + 16 + ntiles * 4,
-                         ntiles * OPS_TILE_SETUP + tile_steps * OPS_MARCH_STEP)
+        # K7 tile floors on pose 0: the frame's own launch (alone, without
+        # its march, the plain version and the parent's kernel)
+        k7tc = out["k7_tiles"] = launch_call("k7_tiles", *k7t.calls[0])
         floors = ctx.t_floor
 
         # K7 shadow floors on the frame's candidates (beams only)
+        levels, offsets, nn, hmax, bounds, levels_e = ctx._dev
         sargs, skw = k7s.calls[0]
         # shadow_ray_floors(levels_e, h3d0, offsets, n, hmax, bounds, ro,
         # light_to, max_dst, idx=, count=)
@@ -3713,62 +3931,53 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         sh_ms, sh_plain_ms, sh_bound = k7c["ms"], k7c["plain_ms"], k7c["bound"]
         sh_steps, k_cand = k7c["march_steps"], k7c["rays"]
 
-        # K8 verdicts and lit floors on the frame's candidates (sun map)
-        vargs, vkw = k8s.calls[0]
-        # sun_verdict_masks(sb, n1, ro, max_dst, ..., idx=, count=, todo=)
-        vro, vmd = vargs[2], vargs[3]
-        vidx, vcount = vkw["idx"], vkw["count"]
-        g = dict(idx=vidx, count=vcount, margin=vkw["margin"])
-        sb, n1, d_len, dvec, origin = ctx._sun
-        kl, kb = beams.sun_verdict_masks(sb, n1, vro, vmd, d_len, dvec, origin,
-                                         **g)
-        v_plain_ms = event_ms(lambda: beams.sun_verdict_masks_plain(
-            sb, n1, vro, vmd, d_len, dvec, origin, **g))
-        pl, pb = beams.sun_verdict_masks_plain(sb, n1, vro, vmd, d_len, dvec,
-                                               origin, **g)
-        v_ok = bool(torch.equal(kl, pl) and torch.equal(kb, pb))
-        v_err = max(max_abs(kl, pl), max_abs(kb, pb))
-        kfl = beams.sun_lit_floors(sb, n1, vro, vmd, d_len, dvec, origin, **g)
-        pfl = beams.sun_lit_floors_plain(sb, n1, vro, vmd, d_len, dvec,
-                                         origin, **g)
-        lf_ok, lf_err = bool(torch.equal(kfl, pfl)), max_abs(kfl, pfl)
-        vparams = beams.sun_params(sb, n1, d_len, dvec, origin, g["margin"])
-        lit_o = torch.empty_like(kl)
-        blk_o = torch.empty_like(kb)
-        k8_lanes = vidx.shape[0]
-        v_ms = kernel_ms(lambda: _build.launch_k8(
-            sb, vparams, vro, vmd, vidx, vcount, k8_lanes, lit_o, blk_o, None,
-            None))
-        lf_o = torch.empty_like(kfl)
-        lf_ms = kernel_ms(lambda: _build.launch_k8(
-            sb, vparams, vro, vmd, vidx, vcount, k8_lanes, None, None, None,
-            lf_o))
-        v_cand = int(vcount)
-        v_bound = bound(v_cand * (4 + 12 + 2 * sb.shape[1]) + k8_lanes * 2,
-                        v_cand * OPS_SUN_RAY)
-        certified = float((kl | kb).sum()) / max(v_cand, 1)
+        # K8 on the frame's candidates (sun map): the frame's own launch
+        # (verdicts and the lanes left to trace) and the lit floors on its
+        # inputs, each alone, at count 0, plain and the parent's kernel
+        vargs, vkw = k8l.calls[0]
+        out["k8_args"] = k8l.calls[0]
+        k8c = out["k8"] = launch_call("k8", vargs, vkw)
+        out["k8_row_words"] = k8_widths(vargs, vkw)
+        if not out["k8_row_words"]["equal"]:
+            fail(f"K8 in another row word disagrees with its plain version "
+                 f"({fmt})")
+        largs = list(vargs[:7]) + [None, None, None,
+                                   torch.empty(vargs[6], device=dev)]
+        k8f = out["k8_lit_floors"] = launch_call("k8", largs, vkw)
+        kl, kb = k8l.outs[0][:2]
+        certified = float((kl | kb).sum()) / max(k8c["rays"], 1)
+        sb = vargs[0]
     out.update(
         k6=k6, k6_fixed_ms=k6_fixed, k6_ok=all(c["equal"] for c in k6),
         k6_err=max(c["err"] for c in k6), k6_ms=k6_ms,
         k6_plain_ms=k6_plain_ms, k6_library_ms=k6_library_ms,
-        k6_bound=k6_bound, k7_tile_ok=tf_ok, k7_tile_err=tf_err,
-        k7_tile_ms=tf_ms, k7_tile_plain_ms=tf_plain_ms, k7_tile_bound=tf_bound,
-        k7_tile_steps=tile_steps, k7_shadow_ok=sh_ok, k7_shadow_err=sh_err,
-        k7_shadow_ms=sh_ms, k7_shadow_plain_ms=sh_plain_ms,
-        k7_shadow_bound=sh_bound, k7_shadow_steps=sh_steps,
-        k7_shadow_rays=k_cand, k8_ok=v_ok and lf_ok, k8_err=max(v_err, lf_err),
-        k8_ms=v_ms, k8_plain_ms=v_plain_ms, k8_bound=v_bound,
-        k8_lit_floors_ms=lf_ms, k8_rays=v_cand, k8_certified_share=certified,
+        k6_bound=k6_bound, k7_tile_ok=k7tc["equal"],
+        k7_tile_err=k7tc["err"], k7_tile_ms=k7tc["ms"],
+        k7_tile_plain_ms=k7tc["plain_ms"], k7_tile_bound=k7tc["bound"],
+        k7_tile_steps=k7tc["march_steps"], k7_shadow_ok=sh_ok,
+        k7_shadow_err=sh_err, k7_shadow_ms=sh_ms,
+        k7_shadow_plain_ms=sh_plain_ms, k7_shadow_bound=sh_bound,
+        k7_shadow_steps=sh_steps, k7_shadow_rays=k_cand,
+        k8_ok=k8c["equal"] and k8f["equal"],
+        k8_err=max(k8c["err"], k8f["err"]), k8_ms=k8c["ms"],
+        k8_plain_ms=k8c["plain_ms"], k8_bound=k8c["bound"],
+        k8_lit_floors_ms=k8f["ms"], k8_rays=k8c["rays"],
+        k8_certified_share=certified,
         shadow_inf_share=float(torch.isinf(kf[:k_cand]).float().mean()),
         tile_inf_share=float(torch.isinf(ctx.tile_floors).float().mean()))
     log_k6(f"exact deferred frame ({fmt}, pose 0: hits, shadow candidates, "
            "uncertified)", k6, card)
     log(f"k6 alone, above its bytes: {json.dumps(k6_fixed)} ms (a 1-lane "
         f"mask; {W * H} lanes, none set, size 1) on {card}")
-    log(f"k7 tile floors vs plain ({fmt}): equal {tf_ok} (max |d| {tf_err:.3g})"
-        f"; {ntiles} tiles, {tile_steps} march steps, +inf share "
-        f"{out['tile_inf_share']:.4f}; alone {tf_ms:.4f} ms, plain "
-        f"{tf_plain_ms:.2f} ms, bound {tf_bound[0]:.4g} ms ({tf_bound[1]})")
+    log(f"k7 tile floors vs plain ({fmt}, pose 0's launch): equal "
+        f"{k7tc['equal']} (max |d| {k7tc['err']:.3g}); {k7tc['tiles']} "
+        f"tiles, {k7tc['march_steps']} march steps, the longest march "
+        f"{k7tc['march_max']} iterations ({k7tc['march_descents']} of them "
+        f"descents), +inf share {out['tile_inf_share']:.4f}; alone "
+        f"{k7tc['ms']:.4f} ms, without its march (max_iters 0) "
+        f"{k7tc['ms_no_march']:.4f} ms, plain {k7tc['plain_ms']:.2f} ms, "
+        f"bound {k7tc['bound'][0]:.4g} ms ({k7tc['bound'][1]}); the "
+        f"parent's kernel {json.dumps(k7tc['parent'])} on {card}")
     log(f"k7 shadow floors vs plain ({fmt}, {k_cand} candidates of "
         f"{k7c['lanes']} lanes): equal {sh_ok} (max |d| {sh_err:.3g}); "
         f"{sh_steps} march steps, +inf share "
@@ -3776,12 +3985,23 @@ def deferred_phase(svo, hf, poses, card) -> dict:
         f"{k7c['ms_count0']:.4f} ms, plain {sh_plain_ms:.2f} ms, bound "
         f"{sh_bound[0]:.4g} ms ({sh_bound[1]}); the parent's kernel "
         f"{json.dumps(k7c['parent'])} on {card}")
-    log(f"k8 vs plain ({fmt}, {v_cand} candidates, table "
-        f"{tuple(sb.shape)} = {sb.numel() * 2 / 1e6:.2f} MB): verdicts "
-        f"equal {v_ok}, lit floors equal {lf_ok}; certified share "
-        f"{certified:.4f}; alone {v_ms:.4f} ms (lit floors {lf_ms:.4f} ms), "
-        f"plain {v_plain_ms:.2f} ms, bound {v_bound[0]:.4g} ms ({v_bound[1]})")
-    if not (out["k6_ok"] and tf_ok and sh_ok and out["k8_ok"]):
+    for label, c in (("verdicts and todo, the frame's launch", k8c),
+                     ("lit floors on its inputs", k8f)):
+        log(f"k8 {label} vs plain ({fmt}, {c['rays']} candidates of "
+            f"{c['lanes']} lanes, table {tuple(sb.shape)} = "
+            f"{sb.numel() * 2 / 1e6:.2f} MB, K {(sb.shape[1] - 76) // 2}, "
+            f"rows of {sb.shape[1] * 2} bytes, {c['rows_read']} of them "
+            f"read): equal {c['equal']} (max |d| "
+            f"{c['err']:.3g}); certified share {certified:.4f}; alone "
+            f"{c['ms']:.4f} ms, at count 0 {c['ms_count0']:.4f} ms, plain "
+            f"{c['plain_ms']:.2f} ms, bound {c['bound'][0]:.4g} ms "
+            f"({c['bound'][1]}); the parent's kernel "
+            f"{json.dumps(c['parent'])} on {card}")
+    log(f"k8, the frame's launch ({fmt}), its rows read as 16- / 8- / "
+        f"4-byte words (those the width allows), median [quartiles] of "
+        f"{K8_WIDTH_ROUNDS} turns: {json.dumps(out['k8_row_words']['ms'])} "
+        f"ms on {card}")
+    if not (out["k6_ok"] and out["k7_tile_ok"] and sh_ok and out["k8_ok"]):
         fail(f"K6, K7 or K8 disagrees with its plain version ({fmt})")
 
     with Phase(f"floored {'k4' if csvo else 'k1'} vs unfloored ({fmt})"):
@@ -4085,7 +4305,7 @@ def judged_phase(svo, hf, poses, card) -> dict:
         zero_judged_counts()
         frames, infos, marks = [], [], []
         with Held(("k9j_trace", "k9j_merge", "k9j_finalize",
-                   "k9_shadow_cells") + SHADOW_HELD) as held:
+                   "k9_shadow_cells") + SHADOW_HELD + BEAM_HELD) as held:
             for p in poses6:
                 frames.append(svo.render(p, W, H))
                 infos.append(dict(svo.last_frame))
@@ -4095,14 +4315,14 @@ def judged_phase(svo, hf, poses, card) -> dict:
         n = out["launches"] = judged_counts()
         out["held"] = held.check()
     log(f"k9j trace, k9j merge, k9j finalize, k9 shadow cells, kd_shadow "
-        f"(judged rays), kd_finish and k7_shadow vs their plain versions on "
-        f"every call of the "
-        f"{len(poses6)} judged frames ({fmt}; bit for bit): "
-        f"{json.dumps(out['held'])}")
+        f"(judged rays), kd_finish, k7_shadow, k7_tiles and k8 vs their "
+        f"plain versions on every call of the {len(poses6)} judged frames "
+        f"({fmt}; bit for bit): {json.dumps(out['held'])}")
     if not held_ok(out["held"]):
         fail(f"K9-judged's trace, merge or finalize, K9's shadow cells, "
-             f"kd_shadow, kd_finish or K7's shadow floors disagree with "
-             f"their plain versions in the {fmt} judged frames")
+             f"kd_shadow, kd_finish, K7's shadow or tile floors or K8 "
+             f"disagree with their plain versions in the {fmt} judged "
+             "frames")
     branches = [dict(hits=int(h), dense=bool(int(d)),
                      dense_rule=adaptive.dense_frame(int(h), B))
                 for h, d in marks]
@@ -4135,8 +4355,9 @@ def judged_phase(svo, hf, poses, card) -> dict:
 
     with Phase(f"judged vs plain and vs exact ({fmt})"):
         err, stats, cert, exact_vs_k3 = 0.0, [], [], 0.0
-        # the exact judged frames' primary stage, held on every call
-        pheld = Held(("kd_primary",))
+        # the exact judged frames' primary stage, tile floors and K8's lit
+        # floors, held on every call
+        pheld = Held(("kd_primary",) + BEAM_HELD)
         for i, p in enumerate(poses6):
             fused = svo.render(p, W, H, mode="fused")
             with pheld:
@@ -4186,7 +4407,7 @@ def judged_phase(svo, hf, poses, card) -> dict:
     out["vs_plain_ok"] = out["vs_plain"] <= K3_MAX_ABS and all(
         out["held"][k]["equal"] and out["held"][k]["calls"]
         for k in ("k9j_trace", "k9j_merge", "k9j_finalize", "kd_primary")
-    ) and fill_held["k9j_merge"]["calls"] == levels
+        + BEAM_HELD) and fill_held["k9j_merge"]["calls"] == levels
     out["vs_exact"], out["vs_exact_hole_fill"] = stats, fill_stats
     out["exact_vs_k3"] = exact_vs_k3
     out["vs_exact_ok"] = exact_vs_k3 <= K3_MAX_ABS and all(
@@ -4583,7 +4804,7 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
     levels = adaptive.adaptive_levels(W, H)
     with Phase("batch main path (esvo)"):
         svo.render_batch(poses, W, H)  # warm-up: workspace, tables
-        held = Held(("k9_shadow_cells",) + SHADOW_HELD)
+        held = Held(("k9_shadow_cells",) + SHADOW_HELD + BEAM_HELD)
         with held:
             imgs, nb = counted(lambda: svo.render_batch(poses, W, H))
         info = dict(svo.last_frame)
@@ -4605,14 +4826,15 @@ def batch_phase(svo, csvo, tsvo, hf, poses, card) -> dict:
         out["workspace_mb"] = workspace_mb(svo._batch_workspace)
     with Phase("batch stages vs plain, every call (esvo)"):
         out["held"] = held_merge(held.check(), pheld.check())
-    log(f"k9 shadow cells, kd_primary, kd_shadow, kd_finish and k7_shadow "
-        f"vs their plain versions on every call of the adaptive and the "
-        f"exact batch and of the exact frame of pose 0 (esvo, {N} poses, "
-        f"pose 0's sun map; bit for bit, kd_primary's sky within "
-        f"{K3_MAX_ABS:g}): {json.dumps(out['held'])}")
+    log(f"k9 shadow cells, kd_primary, kd_shadow, kd_finish, k7_shadow, "
+        f"k7_tiles and k8 vs their plain versions on every call of the "
+        f"adaptive and the exact batch and of the exact frame of pose 0 "
+        f"(esvo, {N} poses, pose 0's sun map; bit for bit, kd_primary's sky "
+        f"within {K3_MAX_ABS:g}): {json.dumps(out['held'])}")
     if not held_ok(out["held"]):
-        fail("K9's shadow cells, kd_primary, kd_shadow, kd_finish or K7's "
-             "shadow floors disagree with their plain versions in the batch")
+        fail("K9's shadow cells, kd_primary, kd_shadow, kd_finish, K7's "
+             "shadow or tile floors or K8 disagree with their plain versions "
+             "in the batch")
     hits = [(hstart + [hits_total])[q + 1] - hstart[q] for q in range(N)]
     out["launches"], out["launches_exact"] = nb, nbe
     out["launches_frame"], out["launches_frame_exact"] = n1, n1e

@@ -230,8 +230,9 @@ def _camera(name):
     return cam
 
 
-@pytest.mark.parametrize("name", sorted(CAMS))
-def test_tile_and_pixel_floors_match_jax(terrain, name):
+def _tile_floors_both(terrain, name, max_iters=beams.TILE_ITERS):
+    """The port's and the JAX tile floors of camera ``name`` at W x H, the
+    march's budget ``max_iters`` a tile."""
     jh, _th = terrain
     jdev = jh.device()
     tdev, _ = convert.beam_state_from_jax(
@@ -251,10 +252,17 @@ def test_tile_and_pixel_floors_match_jax(terrain, name):
         cam_right=jnp.asarray(s), cam_up=jnp.asarray(u),
         cam_fwd=jnp.asarray(f), fov_y_rad=jnp.float32(fov),
         aspect=jnp.float32(W / H), max_dst=jnp.float32(-1.0), width=W,
-        height=H)
+        height=H, max_iters=max_iters)
     ttf = beams.tile_floors(tdev[0], tdev[1], tdev[2], tdev[3], tdev[4],
                             near, base, cam.position, s, u, f,
-                            tan_half_fov(fov), W / H, -1.0, width=W, height=H)
+                            tan_half_fov(fov), W / H, -1.0, width=W, height=H,
+                            max_iters=max_iters)
+    return ttf, jtf
+
+
+@pytest.mark.parametrize("name", sorted(CAMS))
+def test_tile_and_pixel_floors_match_jax(terrain, name):
+    ttf, jtf = _tile_floors_both(terrain, name)
     assert tuple(ttf.shape) == (12, 16)
     _assert_floors_close(ttf.numpy(), jtf)
     # the pixel broadcast, and the tile read the deferred kernel makes
@@ -264,6 +272,17 @@ def test_tile_and_pixel_floors_match_jax(terrain, name):
                                                     width=W, height=H)))
     py, px = np.divmod(np.arange(W * H), W)
     np.testing.assert_array_equal(tpf.numpy(), ttf.numpy()[py // 8, px // 8])
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("name", sorted(CAMS))
+def test_tile_floors_budget_matches_jax(terrain, name, max_iters):
+    """``tile_floors_plain`` at march budgets that end mid-march (and,
+    from the top level, mid-descent) against the JAX ``tile_floors`` at
+    the same ``max_iters``: a floor is the march's t where the budget
+    runs out."""
+    ttf, jtf = _tile_floors_both(terrain, name, max_iters)
+    _assert_floors_close(ttf.numpy(), jtf)
 
 
 def _shadow_origins(rng, chunks, n=3000):

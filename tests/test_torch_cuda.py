@@ -60,8 +60,15 @@ shared stack) equals
 at 1001x597 and 37x23, opaque and judged, with and without floors, both
 formats, and on a batch of 3 poses; K9-judged's merge (K9's merge tile)
 equals ``k9j_merge_plain`` bit for bit at levels 0 and 1 of 1001x597 and
-37x21, hole fill off and on, both formats. The crosshair equals the
-CPU's result bit for bit.
+37x21, hole fill off and on, both formats. K8 on its resident grid
+equals ``ops.beams.k8_plain`` bit for bit at counts around a 16-lane pad
+word and past its lanes, each output alone and all four together, and
+on tables whose rows start on each 4-byte word of a 16-byte one (every
+row word its launch may take); K7's
+tile floors (a group of lanes a tile) equal ``ops.beams.k7_tiles_plain``
+bit for bit from 1x1 to 1920x1080 at march budgets that end
+mid-descent, with the pyramid staged in shared memory and read from
+global memory. The crosshair equals the CPU's result bit for bit.
 """
 
 import numpy as np
@@ -832,6 +839,170 @@ def test_k7_k8_equal_plain(terrains, dev, cam):
                                         **g, **m)
         assert torch.equal(kf, pf)
     assert int(kl.sum()) > 0 or cam == "underground"
+
+
+# K8's counts around its 16-lane pad words and past its lanes, K8_K of them
+K8_K = TW * TH - 7  # not a multiple of 16
+K8_COUNTS = (0, 1, 15, 16, 17, 1001, K8_K, K8_K + 5)
+K8_OUTS = (("lit",), ("blk",), ("todo",), ("floors",),
+           ("lit", "blk", "todo", "floors"))
+
+
+@pytest.fixture(scope="module")
+def k8_case(terrains, dev):
+    """K8's inputs from the horizon camera's frame: the sun table, the
+    shadow origins of its hits and their list (as K6 leaves it), cut to
+    K8_K lanes."""
+    s = terrains[("esvo", False)]
+    p = _tparams("horizon")
+    ctx = s.beam_context(p, TW, TH)
+    sro, idx, _count = _k7_origins(s, p, dev)
+    return ctx, sro, idx[:K8_K]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", K8_COUNTS)
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("limits", ["margin0", "margin-dlen", "margin"])
+def test_k8_resident_equals_plain(k8_case, dev, count, gather, limits):
+    """K8 on its resident grid against ``beams.k8_plain`` bit for bit: the
+    counts around a 16-lane word, at and past the k lanes (k not a
+    multiple of 16), a gather list or none, each output alone and all four
+    together, margin 0 and the world's ``sun_margin``, no limits and
+    per-lane limits around ``d_len``."""
+    ctx, sro, idx = k8_case
+    sb, n1, d_len, d, origin = ctx._sun
+    margin = 0.0 if limits == "margin0" else ctx.sun_margin
+    params = beams.sun_params(sb, n1, d_len, d, origin, margin)
+    ro = sro if gather else sro[:K8_K].contiguous()
+    g = idx if gather else None
+    rng = np.random.default_rng(count)
+    md = None
+    if limits == "margin-dlen":
+        lim = np.float32(d_len) + rng.uniform(-2.0, 2.0, K8_K)
+        lim[rng.random(K8_K) < 0.2] = -1.0
+        md = torch.tensor(lim, dtype=torch.float32, device=dev)
+    cnt = torch.tensor([count], dtype=torch.int32, device=dev)
+    for outs in K8_OUTS:
+        def fresh():
+            return {n: (torch.full((K8_K,), 7.0, device=dev)
+                        if n == "floors" else
+                        torch.ones(K8_K, dtype=torch.bool, device=dev))
+                    if n in outs else None
+                    for n in ("lit", "blk", "todo", "floors")}
+        ko, po = fresh(), fresh()
+        _build.launch_k8(sb, params, ro, md, g, cnt, K8_K, *ko.values())
+        beams.k8_plain(sb, params, ro, md, g, cnt, K8_K, *po.values())
+        torch.cuda.synchronize()
+        for n in outs:
+            assert _bits_equal(ko[n], po[n]), (outs, n)
+    if 0 < count <= K8_K:
+        assert int(po["lit"][:count].sum() + po["blk"][:count].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 1, 2, 3])
+@pytest.mark.parametrize("off", [0, 4, 8, 12])
+def test_k8_row_words_equal_plain(k8_case, dev, extra, off):
+    """K8 on sun tables whose rows start on every 4-byte word of a 16-byte
+    one: the terrain's table widened by ``extra`` bands that never claim
+    (rows of 152 + 4K bytes for four K in a row, so a multiple of 16, of
+    8 and neither) and copied ``off`` bytes past a 16-byte word, so that
+    the launch reads its rows in every row word it may take; all four
+    outputs against ``beams.k8_plain`` bit for bit."""
+    ctx, sro, idx = k8_case
+    sb, n1, d_len, d, origin = ctx._sun
+    k = (sb.shape[1] - 76) // 2
+    never = torch.full((sb.shape[0], extra), -1, dtype=torch.int16,
+                       device=dev)  # raw 0xFFFF: lows no ray reaches
+    wide = torch.cat([sb[:, :76 + k], never, sb[:, 76 + k:],
+                      torch.zeros_like(never)], dim=1)
+    buf = torch.empty(wide.numel() + 8, dtype=torch.int16, device=dev)
+    table = buf[off // 2: off // 2 + wide.numel()].view(wide.shape)
+    table.copy_(wide)
+    params = beams.sun_params(table, n1, d_len, d, origin, ctx.sun_margin)
+    cnt = torch.tensor([K8_K], dtype=torch.int32, device=dev)
+
+    def fresh():
+        return [torch.ones(K8_K, dtype=torch.bool, device=dev)
+                for _ in range(3)] + [torch.full((K8_K,), 7.0, device=dev)]
+    ko, po = fresh(), fresh()
+    _build.launch_k8(table, params, sro, None, idx, cnt, K8_K, *ko)
+    beams.k8_plain(table, params, sro, None, idx, cnt, K8_K, *po)
+    torch.cuda.synchronize()
+    for a, b in zip(ko, po):
+        assert _bits_equal(a, b)
+    assert int(po[0].sum() + po[1].sum()) > 0
+
+
+# K7's tile floors: frame sizes, cameras past TCAMS and march budgets
+# that end mid-descent
+K7_SIZES = ((1, 1), (8, 8), (9, 9), (15, 12), (33, 17), (1001, 597),
+            (1920, 1080))
+K7_CAMS = {**TCAMS,
+           "up": ([48.0, 40.0, 48.0], [0.002, 1.0, 0.001]),
+           "straight-down": ([48.0, 60.0, 48.0], [0.0, -1.0, 0.0005]),
+           "graze": ([48.0, 22.5, -10.0], [0.0, -0.004, 1.0]),
+           "near-window": ([44.0, 9.0, 44.0], [0.3, -0.2, 0.9])}
+K7_BUDGETS = (1, 2, 3, 5, 8, 96)
+
+
+@pytest.fixture(scope="module")
+def wide_field():
+    """An envelope of 16 x 16 chunks of random column tops: 64 x 64
+    columns, a pyramid of 5,461 ints, more than a tile block stages in
+    shared memory (4,096 ints: ``K7_STAGE_INTS`` of
+    ``csrc/k7_beams.cuh``), so its launches read it from global memory;
+    the terrain's 16 x 16 columns, a pyramid of 341 ints, are staged."""
+    rng = np.random.default_rng(19)
+    hf = HeightField()
+    for cx in range(16):
+        for cz in range(16):
+            hf.set_chunk((cx, 0, cz),
+                         rng.integers(0, 24, (4, 4)).astype(np.int16))
+    return hf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["terrain", "wide"])
+@pytest.mark.parametrize("size", K7_SIZES)
+@pytest.mark.parametrize("cam", sorted(K7_CAMS))
+def test_k7_tiles_equal_plain(terrains, wide_field, dev, size, cam, field):
+    """K7's tile floors (a group of lanes a tile, the descents at once,
+    the pyramid staged in shared memory or read from global memory)
+    against ``beams.k7_tiles_plain`` bit for bit (as words: no -0 where
+    the plain version has +0) at every budget; straight
+    up every tile of a full frame over the terrain misses (a tile of a
+    small frame is a wide cone, whose padded near boxes hold the
+    camera)."""
+    s = terrains[("esvo", False)]
+    hf = s.heightfield if field == "terrain" else wide_field
+    w, h = size
+    pos, fwd = K7_CAMS[cam]
+    fwd = np.asarray(fwd, np.float32)
+    p = RenderParams(cam_pos=np.asarray(pos, np.float32),
+                     cam_fwd=fwd / np.linalg.norm(fwd), aspect_ratio=w / h,
+                     fov_y_rad=np.radians(70.0))
+    levels, offsets, n, hmax, bounds = hf.device(dev)[:5]
+    kw = s.frame_kwargs(p, w, h)
+    ccx = int(np.floor(kw["cam_pos"][0] / 8)) - 2
+    ccz = int(np.floor(kw["cam_pos"][2] / 8)) - 2
+    near = hf.near_window(ccx + 2, ccz + 2).astype(np.float32)
+    for budget in K7_BUDGETS:
+        params = beams.tile_params(
+            offsets, n, hmax, near, np.array([ccx, ccz], np.float32),
+            kw["cam_pos"], kw["cam_right"], kw["cam_up"], kw["cam_fwd"],
+            shading.tan_half_fov(p.fov_y_rad), p.aspect_ratio, -1.0, w, h,
+            budget)
+        shape = (-(-h // 8), -(-w // 8))
+        out = torch.full(shape, -7.0, device=dev)
+        _build.launch_k7_tiles(levels, bounds, params, out)
+        plain = beams.k7_tiles_plain(levels, bounds, params,
+                                     torch.empty(shape, device=dev))
+        torch.cuda.synchronize()
+        assert _bits_equal(out, plain), budget  # a zero's sign too
+        if cam == "up" and w >= 1001 and field == "terrain":
+            assert bool(torch.isinf(out).all())
 
 
 @pytest.mark.cuda

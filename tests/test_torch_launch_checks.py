@@ -1,5 +1,6 @@
 """The launch checks of the finishing stage's kernel (``kd_finish``), of
-K7's shadow floors, of K3, of the primary stage (``kd_primary``: records,
+K7's shadow floors, of K8 (its sun table on a 4-byte word, each output
+on a 16-byte word), of K3, of the primary stage (``kd_primary``: records,
 flags and a miss's pixel stored as 16-byte words), of K9-judged's trace,
 merge and finalize and of every
 CSVO launch (words on a 16-byte word, the CSVO kernels' launch contract),
@@ -128,6 +129,70 @@ def test_k7_shadow_refuses_an_output_off_a_16_byte_word(offset):
         _build.launch_k7_shadow(None, None, None, _build.BeamParams(), None,
                                 None, None, None,
                                 _view(2 * N, torch.float32, 0)[::2])
+
+
+def _at_byte(n, dtype, byte):
+    """A 1-d tensor of ``n`` ``dtype`` elements whose first byte lies
+    ``byte`` bytes past a 16-byte word (any byte, also inside an
+    element)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    buf = bytearray(n * size + 32)
+    base = torch.frombuffer(buf, dtype=torch.uint8).data_ptr()
+    t = torch.frombuffer(buf, dtype=dtype, offset=(byte - base) % 16,
+                         count=n)
+    assert t.data_ptr() % 16 == byte
+    return t
+
+
+K8_OUTS = {"lit": torch.bool, "blk": torch.bool, "todo": torch.uint8,
+           "floors": torch.float32}
+
+
+def _k8(sb=None, **outs):
+    """``launch_k8`` over N lanes with the given outputs (the rest None);
+    its check refuses before the library is touched."""
+    sb = torch.zeros((4, 80), dtype=torch.int16) if sb is None else sb
+    args = {n: outs.get(n) for n in K8_OUTS}
+    _build.launch_k8(sb, _build.SunParams(), None, None, None, None, N,
+                     *args.values())
+
+
+@pytest.mark.parametrize("name", sorted(K8_OUTS))
+@pytest.mark.parametrize("byte", range(1, 16))
+def test_k8_refuses_outputs_off_a_16_byte_word(name, byte):
+    """K8 writes its pads as 16-byte words from lane 0 of each output: an
+    output 1-15 bytes off a 16-byte word is refused, alone or beside
+    aligned ones."""
+    out = _at_byte(N, K8_OUTS[name], byte)
+    others = {n: _at_byte(N, dt, 0) for n, dt in K8_OUTS.items()
+              if n != name}
+    with pytest.raises(ValueError,
+                       match=f"{name}: expected a 16-byte aligned"):
+        _k8(**{name: out})
+    with pytest.raises(ValueError,
+                       match=f"{name}: expected a 16-byte aligned"):
+        _k8(**others, **{name: out})
+    _build.check_k8(torch.zeros((4, 80), dtype=torch.int16), N,
+                    *(_at_byte(N, dt, 0) for dt in K8_OUTS.values()))
+
+
+@pytest.mark.parametrize("name", sorted(K8_OUTS))
+def test_k8_refuses_a_wrong_dtype_or_size(name):
+    """Each output is 1-d, contiguous, of its dtype (flags bool or uint8,
+    floors float32) and holds at least the k lanes; the sun table is a
+    contiguous int16 (rows, 76+2K) tensor on a 4-byte word."""
+    wrong = torch.int32 if name != "floors" else torch.float64
+    for bad in (_at_byte(N, wrong, 0), _at_byte(N - 1, K8_OUTS[name], 0),
+                _at_byte(2 * N, K8_OUTS[name], 0)[::2],
+                _at_byte(N, K8_OUTS[name], 0).view(1, N)):
+        with pytest.raises(ValueError, match=f"{name}: expected a contig"):
+            _k8(**{name: bad})
+    for sb in (torch.zeros((4, 80), dtype=torch.int32),
+               torch.zeros((4, 81), dtype=torch.int16),
+               torch.zeros((4, 160), dtype=torch.int16)[:, ::2],
+               _at_byte(320, torch.int16, 2).view(4, 80)):
+        with pytest.raises(ValueError, match="sb_words: expected a"):
+            _k8(sb=sb, **{name: _at_byte(N, K8_OUTS[name], 0)})
 
 
 @pytest.mark.parametrize("size", [(1, 1), (15, 12), (33, 17), (127, 95),

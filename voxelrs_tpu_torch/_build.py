@@ -479,11 +479,31 @@ def launch_k7_shadow(levels_e, h3d0, bounds, params: BeamParams, ro, max_dst,
     _raise_on(err, "K7 (vx_k7_shadow)")
 
 
+def check_k8(sb_words, k, lit, blk, todo, floors):
+    """Refuse what K8's kernel cannot take: it reads the sun table
+    ``sb_words`` in 4-byte (or wider) words from its first row, and writes
+    the pads of each output that is not None (``lit``/``blk``/``todo``
+    flags, ``floors`` float32, >= ``k`` lanes) as 16-byte words from lane
+    0."""
+    if sb_words.dtype != torch.int16 or sb_words.dim() != 2 \
+            or sb_words.shape[1] % 2 or not sb_words.is_contiguous():
+        raise ValueError("sb_words: expected a contiguous (rows, 76+2K) "
+                         "int16 tensor")
+    check_aligned("sb_words", sb_words, 4)
+    for name, t in (("lit", lit), ("blk", blk), ("todo", todo)):
+        if t is not None:
+            _check_words(name, t, _FLAGS, k, 16)
+    if floors is not None:
+        _check_words("floors", floors, (torch.float32,), k, 16)
+
+
 def launch_k8(sb_words, params: SunParams, ro, max_dst, idx, count, k, lit,
               blk, todo, floors):
     """Launch K8 over ``k`` lanes: each of ``lit``/``blk``/``todo`` ((k,)
-    bool) and ``floors`` ((k,) float32) is None or receives its output;
-    ``max_dst`` None = all unbounded."""
+    bool) and ``floors`` ((k,) float32) is None or receives its output,
+    on a 16-byte word (``check_k8``); ``max_dst`` None = all
+    unbounded."""
+    check_k8(sb_words, k, lit, blk, todo, floors)
     err = library().vx_k8_sun(
         _ptr(sb_words), ctypes.byref(params), _ptr(ro), _ptr(max_dst),
         _ptr(idx), _ptr(count), k, _ptr(lit), _ptr(blk), _ptr(todo),

@@ -1,29 +1,37 @@
-// K7: conservative ray-entry floors from the terrain envelope — one thread
-// per 8x8 pixel tile for the primary rays, one thread per ray for the
-// shadow rays, both marching the max-pyramid of the column-top envelope.
+// K7: conservative ray-entry floors from the terrain envelope — a group of
+// K7_GROUP lanes per 8x8 pixel tile for the primary rays, one thread per
+// ray for the shadow rays, both marching the max-pyramid of the
+// column-top envelope.
 //
 // Replaces voxelrs_tpu/ops/beams.py::tile_floors (:137) with its
 // _envelope_march (:52) and _dir_for, and ::shadow_ray_floors (:309);
 // ::pixel_floors (:289) is not materialized: the deferred primary kernel
 // reads tf[py / 8][px / 8] in its place. The TPU version runs the march as
 // a lock-step while_loop over all lanes with one-hot level-offset lookups
-// (ops/smalltab.py); here each thread runs its own loop and exits when its
-// beam stops, and the level offsets are an indexed load from the by-value
-// parameter struct.
+// (ops/smalltab.py); here each tile's group (each shadow thread) runs its
+// own loop and exits when its beam stops.
 //
 // The float operations, their order and their rounding are those of the
 // plain PyTorch version (voxelrs_tpu_torch/ops/beams.py), so the two agree
 // bit for bit (build with -fmad=false).
 //
-// What bounds it on an H100: neither bytes nor operations. 32,400 tile
-// threads at 1080p (a quarter of one wave of the card's 132 SMs) run up to
-// 96 dependent iterations, each one load from the ~100 KB pyramid (L2- and
-// L1-resident) and ~30 float operations; the kernel's time is the longest
-// beam's chain of dependent loads. The shadow kernel marches one candidate
-// ray a thread (up to 48 iterations), the same shape at larger width, on a
+// What bounds it on an H100: neither bytes nor operations. 32,400 tiles at
+// 1080p run a set-up of ~1,000 float operations (5 directions, 16 corner
+// distances, 25 near boxes; ~80 IEEE divisions) and up to 96 dependent
+// march iterations, each one load from the pyramid (5.3 KB for the bench,
+// 341 KB for the game) and ~30 float operations; one thread a tile is
+// under a quarter of one wave of the card's 132 SMs, and its time is the
+// longest beam's chain. So a group of lanes takes a tile: the set-up's
+// parts run on its lanes at once, and the march evaluates the current
+// level and the levels below it on its lanes at the same t, so the chain
+// is the beam's advances (envelope_march_group), not its advances and
+// descents; a pyramid that fits is read from shared memory. The shadow
+// kernel marches one candidate ray a thread (up to 48 iterations), on a
 // grid of at most the blocks the card holds at once (k7_shadow_kernel).
 
 #pragma once
+#include <cuda_pipeline.h>
+
 #include <cstdint>
 
 namespace vx {
@@ -130,43 +138,234 @@ __device__ __forceinline__ float corner_dist(const float* ro, float x, float y,
   return sqrtf(a * a + b * b + c * c);
 }
 
-// One thread per tile: the (nty, ntx) floors, +inf = the tile misses.
-__global__ void __launch_bounds__(128)
+// Threads of a tile-floor block (64 and 256 took longer on an H100), and
+// the lanes of one tile's group (a power of two dividing 32; 4 took the
+// least time of 2-32, see PERF.md: more lanes shorten the chain of a
+// tile's descents but every lane issues the set-up's shared divisions
+// and roots).
+constexpr int K7_TILE_THREADS = 128;
+constexpr int K7_GROUP = 4;
+static_assert(K7_GROUP >= 2 && K7_GROUP <= 32 && 32 % K7_GROUP == 0,
+              "a tile's group: 2, 4, 8, 16 or 32 lanes of one warp");
+// the set-up's directions a lane: the centre (q = 0) and the 4 corner
+// pixel rays (q = 1-4, corner (x0|x1, y0|y1) = bits 1, 0 of q - 1), q =
+// lane, lane + K7_GROUP, ...
+constexpr int K7_DIRS = (5 + K7_GROUP - 1) / K7_GROUP;
+// the largest pyramid a tile block stages in shared memory (ints): the
+// bench's 32 x 32 columns (1,365) fit, the game's 256 x 256 (87,381) do
+// not and are read from global memory. A march step waits on its
+// pyramid load; from shared memory the bench's tiles took 0.0110 ms
+// against 0.0124 on an H100 (PERF.md)
+constexpr int K7_STAGE_INTS = 4096;
+
+// The pyramid's ints: the last level's offset and its cells.
+__host__ __device__ __forceinline__ int k7_pyramid_ints(const BeamParams& bp) {
+  const int nl = bp.n >> (bp.n_levels - 1);
+  return bp.offsets[bp.n_levels - 1] + nl * nl;
+}
+
+// The group's values joined by fminf over xor shuffles: exact and
+// order-free on these values (no NaN; a zero's sign cannot reach a floor,
+// since floor_finish maps either zero to +0).
+__device__ __forceinline__ float group_min(float v, unsigned gmask) {
+#pragma unroll
+  for (int o = 1; o < K7_GROUP; o <<= 1)
+    v = fminf(v, __shfl_xor_sync(gmask, v, o));
+  return v;
+}
+
+// envelope_march for one beam on a group of K7_GROUP lanes (lane `lane`,
+// the group's first lane `base` of the warp; `live`: the group has a
+// tile), with the descents in parallel: at the march's t, lane j
+// evaluates level lvl - j with the loop's operations (its cell, hv,
+// t_exit, y_lo); a ballot finds the first level from lvl down that is not
+// threatened, where the loop advances after j descents, each spending one
+// iteration of max_iters (a budget that runs out mid-descent returns t, as
+// the loop does). If every level down to 0 is threatened the beam stops
+// there with the loop's t_y. The cell size's reciprocal is exact (a power
+// of two), so p * (1 / s) rounds the real quotient p / s does; the level
+// offsets are read from shared memory (s_off). The whole warp runs the
+// loop until its last group is done, every ballot and shuffle over all 32
+// lanes, so the warp's groups step together and the warp takes its
+// longest beam's chain (groups of a warp that diverged would take turns).
+// Every lane of the group returns envelope_march's value.
+template <bool STAGED>
+__device__ float envelope_march_group(const int* __restrict__ levels,
+                                      const int* s_off, const BeamParams& bp,
+                                      float rox, float roy, float roz,
+                                      float dx, float dy, float dz,
+                                      float inv_x, float inv_z, float sin_t,
+                                      float m0, float t_start, float t_hard,
+                                      int lane, int base, bool live) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  const int max_lvl = bp.n_levels - 1;
+  const float slope = dy - sin_t;
+  float t = t_start;
+  int lvl = max_lvl;
+  float stop_t = INFINITY;
+  bool done = (t >= t_hard) || ((slope > 0.f) && (roy + t * slope - m0 > bp.hmax));
+  bool spent = false;  // the budget ran out
+  int it = 0;
+  bool active = live && !done && it < bp.max_iters;
+  while (__any_sync(FULL, active)) {
+    const int l = lvl - lane;  // this lane's level
+    bool calm = false;         // level l is not threatened at t
+    float hv = 0.f, t_exit = 0.f;
+    if (active && l >= 0) {
+      const float s = (float)(8 << l);  // cell size in voxels
+      const float inv_s = __int_as_float((124 - l) << 23);  // 2^-(3+l)
+      const float px = rox + t * dx;
+      const float pz = roz + t * dz;
+      const float cx = floorf(px * inv_s);
+      const float cz = floorf(pz * inv_s);
+      const int nl = bp.n >> l;
+      const float top = (float)(nl - 1);
+      const int cxi = (int)fminf(fmaxf(cx, 0.f), top);
+      const int czi = (int)fminf(fmaxf(cz, 0.f), top);
+      const int at = s_off[l] + cxi * nl + czi;
+      hv = (float)(STAGED ? levels[at] : __ldg(levels + at));
+      // exit of the (virtual, unclamped) cell in xz
+      const float bx = (cx + (dx > 0.f ? 1.f : 0.f)) * s;
+      const float bz = (cz + (dz > 0.f ? 1.f : 0.f)) * s;
+      t_exit = fminf((bx - rox) * inv_x, (bz - roz) * inv_z);
+      t_exit = fminf(fmaxf(t_exit, t), t_hard);
+      const float y_lo = roy + (slope >= 0.f ? t : t_exit) * slope - m0;
+      calm = !(y_lo <= hv);
+    }
+    unsigned calm_bits = __ballot_sync(FULL, calm) >> base;
+    if (K7_GROUP < 32) calm_bits &= (1u << K7_GROUP) - 1u;
+    const int j = calm_bits ? __ffs(calm_bits) - 1 : 0;
+    // the advance's t_exit (lane j, calm) or level 0's hv (lane lvl)
+    const float pub = __shfl_sync(
+        FULL, calm ? t_exit : hv,
+        base + (calm_bits ? j : (lvl < K7_GROUP ? lvl : 0)));
+    if (active) {
+      const int left = bp.max_iters - it;
+      if (calm_bits) {  // j descents, then the advance past level lvl - j
+        if (j >= left) {
+          spent = true;  // the budget ran out mid-descent
+        } else {
+          t = pub * (1.f + 0x1p-21f) + 0x1p-16f;
+          lvl = lvl - j + 1 < max_lvl ? lvl - j + 1 : max_lvl;
+          it += j + 1;
+          const bool rising =
+              (slope > 0.f) && (roy + t * slope - m0 > bp.hmax);
+          if (t >= t_hard || rising) done = true;
+        }
+      } else if (lvl < K7_GROUP) {  // lvl descents, the stop at level 0
+        if (lvl >= left) {
+          spent = true;
+        } else {
+          // the threat starts where y_lo crosses hv
+          const float t_y = (roy - m0 - pub) / fmaxf(-slope, EPS_DIR);
+          stop_t = slope >= 0.f ? t : fmaxf(t, t_y);
+          done = true;
+        }
+      } else if (K7_GROUP >= left) {  // K7_GROUP descents
+        spent = true;
+      } else {
+        lvl -= K7_GROUP;
+        it += K7_GROUP;
+      }
+      active = !done && !spent && it < bp.max_iters;
+    }
+  }
+  if (isfinite(stop_t)) return stop_t;
+  return done ? INFINITY : t;
+}
+
+// A group of K7_GROUP lanes a tile: the (nty, ntx) floors, +inf = the tile
+// misses. The set-up's parts that hold for every tile (the 8 + 8 corner
+// distances of the occupied and the near box) run once a block, on warp
+// 0; a tile's independent parts are spread across its group and joined by
+// group_min: the centre and 4 corner directions and the 25 near boxes
+// (part q on lane q mod K7_GROUP), each with the operations of the
+// one-thread loop; the march is envelope_march_group, reading the
+// pyramid from shared memory where STAGED (copied while the set-up runs).
+// Lane 0 stores the floor. The rest of the set-up (a few divisions and
+// roots) runs on every lane of the group: its issue slots grow with
+// K7_GROUP, its chain does not.
+template <bool STAGED>
+__global__ void __launch_bounds__(K7_TILE_THREADS)
 k7_tile_kernel(const int* __restrict__ levels,
                const float* __restrict__ bounds, BeamParams bp,
                float* __restrict__ out) {
+  extern __shared__ int s_pyr[];  // STAGED: the whole pyramid
+  if constexpr (STAGED) {  // copied while the set-up runs
+    const int total = k7_pyramid_ints(bp);
+    for (int q = threadIdx.x; q < total; q += K7_TILE_THREADS)
+      __pipeline_memcpy_async(s_pyr + q, levels + q, sizeof(int));
+    __pipeline_commit();
+  }
+  __shared__ int s_off[MAX_BEAM_LEVELS];
+  __shared__ float s_near[25];
+  __shared__ float s_far[2];  // far, d_far: the same for every tile
+  const float* ro = bp.cam_pos;
+  const float b0 = bounds[0], b1 = bounds[1], b2 = bounds[2], b3 = bounds[3];
+  const float ccx = bp.near_base[0], ccz = bp.near_base[1];
+  const float nbx0 = ccx * BEAM_CELL, nbz0 = ccz * BEAM_CELL;
+  if (threadIdx.x < 32) {  // warp 0: the block's tile-independent set-up
+    const int t = threadIdx.x;
+    if (t < MAX_BEAM_LEVELS) s_off[t] = bp.offsets[t];
+    if (t < 25) s_near[t] = bp.near_h[t];
+    __syncwarp();
+    // the farthest corner of the occupied box (t < 8) and of the near
+    // box (8 <= t < 16), corner (a, b, c) = bits 2, 1, 0 of t
+    const int a = (t >> 2) & 1, b = (t >> 1) & 1, c = t & 1;
+    float v = 0.f;
+    if (t < 8) {
+      v = corner_dist(ro, a ? b1 : b0, b ? bp.hmax + 1.f : 0.f, c ? b3 : b2);
+    } else if (t < 16) {
+      float h_top = s_near[0];
+      for (int q = 1; q < 25; ++q) h_top = fmaxf(h_top, s_near[q]);
+      h_top = h_top + 1.f;
+      v = corner_dist(ro, a ? nbx0 + 5.f * BEAM_CELL : nbx0, b ? h_top : 0.f,
+                      c ? nbz0 + 5.f * BEAM_CELL : nbz0);
+    }
+    for (int o = 1; o < 8; o <<= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+    if (t == 0 || t == 8) s_far[t / 8] = v;
+  }
+  __syncthreads();
   const int ntx = (bp.width + 7) / 8, nty = (bp.height + 7) / 8;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= ntx * nty) return;
+  const int lane = threadIdx.x % K7_GROUP;
+  const int base = threadIdx.x % 32 / K7_GROUP * K7_GROUP;
+  const unsigned gmask =
+      K7_GROUP >= 32 ? 0xFFFFFFFFu : ((1u << K7_GROUP) - 1u) << base;
+  const int i =
+      blockIdx.x * (K7_TILE_THREADS / K7_GROUP) + threadIdx.x / K7_GROUP;
+  const bool live = i < ntx * nty;  // a group past the last tile marches
+                                    // nothing and stores nothing
   const float x0 = (float)(i % ntx) * 8.f;
   const float x1 = fminf(x0 + 7.f, (float)(bp.width - 1));
   const float y0 = (float)(i / ntx) * 8.f;
   const float y1 = fminf(y0 + 7.f, (float)(bp.height - 1));
+  float dq[K7_DIRS][3] = {};
+#pragma unroll
+  for (int m = 0; m < K7_DIRS; ++m) {
+    const int q = lane + m * K7_GROUP;
+    if (q < 5)
+      beam_dir(bp, q == 0 ? (x0 + x1) * 0.5f : (q <= 2 ? x0 : x1),
+               q == 0 ? (y0 + y1) * 0.5f : (q % 2 ? y0 : y1), dq[m]);
+  }
   float dc[3];
-  beam_dir(bp, (x0 + x1) * 0.5f, (y0 + y1) * 0.5f, dc);
+  for (int k = 0; k < 3; ++k) dc[k] = __shfl_sync(gmask, dq[0][k], base);
   // cone half-angle: min cosine against the 4 corner pixel rays
-  float cos_t = 1.f;
-  const float xs[2] = {x0, x1}, ys[2] = {y0, y1};
-  for (int a = 0; a < 2; ++a)
-    for (int b = 0; b < 2; ++b) {
-      float dq[3];
-      beam_dir(bp, xs[a], ys[b], dq);
-      cos_t = fminf(cos_t, dq[0] * dc[0] + dq[1] * dc[1] + dq[2] * dc[2]);
-    }
+  float cos_q = 1.f;
+#pragma unroll
+  for (int m = 0; m < K7_DIRS; ++m) {
+    const int q = lane + m * K7_GROUP;
+    if (q >= 1 && q < 5)
+      cos_q = fminf(cos_q, dq[m][0] * dc[0] + dq[m][1] * dc[1] +
+                               dq[m][2] * dc[2]);
+  }
+  const float cos_t = group_min(cos_q, gmask);
   const float sin_t = sqrtf(fmaxf(1.f - cos_t * cos_t, 0.f)) + 1e-4f;
   const float dx = eps_dir(dc[0]), dy = dc[1], dz = eps_dir(dc[2]);
   const float inv_x = 1.f / dx, inv_z = 1.f / dz;
-  const float* ro = bp.cam_pos;
-  const float b0 = bounds[0], b1 = bounds[1], b2 = bounds[2], b3 = bounds[3];
+  const float far = s_far[0], d_far = s_far[1];
 
   // hard stop: exit of the deviation-padded occupied box
-  float far = 0.f;
-  const float bxs[2] = {b0, b1}, bys[2] = {0.f, bp.hmax + 1.f},
-              bzs[2] = {b2, b3};
-  for (int a = 0; a < 2; ++a)
-    for (int b = 0; b < 2; ++b)
-      for (int c = 0; c < 2; ++c)
-        far = fmaxf(far, corner_dist(ro, bxs[a], bys[b], bzs[c]));
   const float dy_safe = fabsf(dy) < EPS_DIR ? EPS_DIR : dy;
   const float pad_box = sin_t * far + 2.f;
   float t_entry, t_exit;
@@ -177,36 +376,25 @@ k7_tile_kernel(const int* __restrict__ levels,
   float t_hard = t_exit >= fmaxf(t_entry, 0.f) ? fmaxf(t_exit, 0.f) : 0.f;
   if (bp.max_dst >= 0.f) t_hard = fminf(t_hard, bp.max_dst);
 
-  // near field: 5x5 exact column boxes, slab-tested per tile
-  const float ccx = bp.near_base[0], ccz = bp.near_base[1];
-  const float nbx0 = ccx * BEAM_CELL, nbz0 = ccz * BEAM_CELL;
-  float h_top = bp.near_h[0];
-  for (int q = 1; q < 25; ++q) h_top = fmaxf(h_top, bp.near_h[q]);
-  h_top = h_top + 1.f;
-  float d_far = 0.f;
-  const float nxs[2] = {nbx0, nbx0 + 5.f * BEAM_CELL}, nys[2] = {0.f, h_top},
-              nzs[2] = {nbz0, nbz0 + 5.f * BEAM_CELL};
-  for (int a = 0; a < 2; ++a)
-    for (int b = 0; b < 2; ++b)
-      for (int c = 0; c < 2; ++c)
-        d_far = fmaxf(d_far, corner_dist(ro, nxs[a], nys[b], nzs[c]));
+  // near field: 5x5 exact column boxes, slab-tested per tile (their
+  // common lower y plane once)
   const float pad = sin_t * d_far + 1.f;
+  const float ty_lo = (-pad - ro[1]) / dy_safe;
   float t_near = INFINITY;
-  for (int ix = 0; ix < 5; ++ix)
-    for (int iz = 0; iz < 5; ++iz) {
-      const float h = bp.near_h[ix * 5 + iz];
-      if (!(h > 0.f)) continue;
-      const float bx0 = (ccx + (float)ix) * BEAM_CELL;
-      const float bz0 = (ccz + (float)iz) * BEAM_CELL;
-      float t_in, t_out;
-      slab_box((bx0 - pad - ro[0]) * inv_x,
-               (bx0 + BEAM_CELL + pad - ro[0]) * inv_x,
-               (-pad - ro[1]) / dy_safe, (h + pad - ro[1]) / dy_safe,
-               (bz0 - pad - ro[2]) * inv_z,
-               (bz0 + BEAM_CELL + pad - ro[2]) * inv_z, t_in, t_out);
-      const float lo = fmaxf(t_in, 0.f);
-      if (t_out >= lo) t_near = fminf(t_near, lo);
-    }
+  for (int q = lane; q < 25; q += K7_GROUP) {
+    const float h = s_near[q];
+    if (!(h > 0.f)) continue;
+    const float bx0 = (ccx + (float)(q / 5)) * BEAM_CELL;
+    const float bz0 = (ccz + (float)(q % 5)) * BEAM_CELL;
+    float t_in, t_out;
+    slab_box((bx0 - pad - ro[0]) * inv_x,
+             (bx0 + BEAM_CELL + pad - ro[0]) * inv_x, ty_lo,
+             (h + pad - ro[1]) / dy_safe, (bz0 - pad - ro[2]) * inv_z,
+             (bz0 + BEAM_CELL + pad - ro[2]) * inv_z, t_in, t_out);
+    const float lo = fmaxf(t_in, 0.f);
+    if (t_out >= lo) t_near = fminf(t_near, lo);
+  }
+  t_near = group_min(t_near, gmask);
 
   // DDA start: the near box's exit, backed up by the deviation
   const float tx_far = ((dx > 0.f ? nbx0 + 5.f * BEAM_CELL : nbx0) - ro[0]) * inv_x;
@@ -216,12 +404,17 @@ k7_tile_kernel(const int* __restrict__ levels,
   const float backup = (sin_t * t_box + 2.f) / fmaxf(d_xz, EPS_DIR);
   const float t_start = fmaxf(t_box - backup, 0.f);
 
-  float beam = envelope_march(levels, bp, ro[0], ro[1], ro[2], dx, dy, dz,
-                              inv_x, inv_z, sin_t, 0.75f, t_start, t_hard);
+  if constexpr (STAGED) {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  float beam = envelope_march_group<STAGED>(
+      STAGED ? s_pyr : levels, s_off, bp, ro[0], ro[1], ro[2], dx, dy, dz,
+      inv_x, inv_z, sin_t, 0.75f, t_start, t_hard, lane, base, live);
   // the 1-column dilation covers t*sin(theta) <= CELL - slack
   const float t8 = (BEAM_CELL - 1.f) / sin_t;
   if (!(isinf(beam) && t_hard <= t8)) beam = fminf(beam, t8);
-  out[i] = floor_finish(fminf(beam, t_near));
+  if (live && lane == 0) out[i] = floor_finish(fminf(beam, t_near));
 }
 
 // Threads of a shadow-floor block (k7_shadow_kernel).

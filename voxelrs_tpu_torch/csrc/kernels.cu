@@ -78,9 +78,10 @@
 // kd_shadow too). Where a launch's work is a count only the card
 // knows (K6's), a grid sized by the list's capacity is mostly empty
 // blocks: K6, K9's and K9-judged's traces, kd_shadow, kd_finish, K7's
-// shadow floors and K9's shadow cells launch at most the blocks the card
-// holds at once (resident_grid), each looping up to the count; K3's
-// warps take the frame's tiles from a counter on such a grid.
+// shadow floors, K8 and K9's shadow cells launch at most the blocks the
+// card holds at once (resident_grid), each looping up to the count; K3's
+// warps take the frame's tiles from a counter on such a grid. K7's tile
+// floors give a tile's beam a group of lanes (k7_beams.cuh).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC (-fmad=false keeps the
@@ -958,6 +959,25 @@ static int kd_shadow_launch(const World& world, float octree_scale,
   return (int)cudaGetLastError();
 }
 
+// K8 reading rows in WB-byte words: a grid of at most the blocks the card
+// holds at once, capped by the k lanes' items.
+template <int WB>
+static int k8_launch(const uint16_t* sb, const vx::SunParams* sp,
+                     const float* ro, const float* max_dst, const int* idx,
+                     const int* count, int k, uint8_t* lit, uint8_t* blk,
+                     uint8_t* todo, float* floors, void* stream) {
+  const auto kernel = vx::k8_sun_kernel<WB>;
+  const long long items =
+      (long long)k + (k + vx::K8_PAD_LANES - 1) / vx::K8_PAD_LANES;
+  static int resident = 0;
+  kernel<<<vx::resident_grid(items, vx::K8_THREADS,
+                             vx::resident_blocks(kernel, vx::K8_THREADS,
+                                                 resident)),
+           vx::K8_THREADS, 0, (cudaStream_t)stream>>>(
+      sb, *sp, ro, max_dst, idx, count, k, lit, blk, todo, floors);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -1067,11 +1087,23 @@ int vx_k6_compact(const uint8_t* mask, int n, int size, int* out, int* count,
   return (int)cudaGetLastError();
 }
 
+// A group of K7_GROUP lanes a tile, K7_TILE_THREADS / K7_GROUP tiles a
+// block.
 int vx_k7_tiles(const int* levels, const float* bounds,
                 const vx::BeamParams* bp, float* out, void* stream) {
   const long long n = (long long)((bp->width + 7) / 8) * ((bp->height + 7) / 8);
-  vx::k7_tile_kernel<<<vx::grid_for(n), 128, 0, (cudaStream_t)stream>>>(
-      levels, bounds, *bp, out);
+  constexpr int per_block = vx::K7_TILE_THREADS / vx::K7_GROUP;
+  const unsigned grid = (unsigned)((n + per_block - 1) / per_block);
+  const int ints = vx::k7_pyramid_ints(*bp);
+  if (ints <= vx::K7_STAGE_INTS) {  // the pyramid staged in shared memory
+    vx::k7_tile_kernel<true><<<grid, vx::K7_TILE_THREADS, ints * sizeof(int),
+                               (cudaStream_t)stream>>>(levels, bounds, *bp,
+                                                       out);
+  } else {
+    vx::k7_tile_kernel<false><<<grid, vx::K7_TILE_THREADS, 0,
+                                (cudaStream_t)stream>>>(levels, bounds, *bp,
+                                                        out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1092,13 +1124,23 @@ int vx_k7_shadow(const int* levels_e, const int* h3d0, const float* bounds,
   return (int)cudaGetLastError();
 }
 
+// sb starts on a 4-byte word, each output on a 16-byte word
+// (_build.check_k8). A row of sp->width u16 fields is read in the widest
+// words (16, 8 or 4 bytes) on which every row starts.
 int vx_k8_sun(const uint16_t* sb, const vx::SunParams* sp, const float* ro,
               const float* max_dst, const int* idx, const int* count, int k,
               uint8_t* lit, uint8_t* blk, uint8_t* todo, float* floors,
               void* stream) {
-  vx::k8_sun_kernel<<<vx::grid_for(k), 128, 0, (cudaStream_t)stream>>>(
-      sb, *sp, ro, max_dst, idx, count, k, lit, blk, todo, floors);
-  return (int)cudaGetLastError();
+  const uintptr_t at = reinterpret_cast<uintptr_t>(sb);
+  const int row_bytes = sp->width * 2;
+  if (row_bytes % 16 == 0 && at % 16 == 0)
+    return k8_launch<16>(sb, sp, ro, max_dst, idx, count, k, lit, blk, todo,
+                         floors, stream);
+  if (row_bytes % 8 == 0 && at % 8 == 0)
+    return k8_launch<8>(sb, sp, ro, max_dst, idx, count, k, lit, blk, todo,
+                        floors, stream);
+  return k8_launch<4>(sb, sp, ro, max_dst, idx, count, k, lit, blk, todo,
+                      floors, stream);
 }
 
 // ---- the deferred frame's stages ------------------------------------------

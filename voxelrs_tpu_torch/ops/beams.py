@@ -20,13 +20,15 @@ rests on the same arithmetic here.
 Each function has a plain PyTorch version, which the CPU takes and which
 the card's results are held to, and a wrapper that launches its kernel on
 a CUDA tensor: ``tile_floors`` and ``shadow_ray_floors`` launch K7
-(``csrc/k7_beams.cuh``: one thread per tile, up to 96 march iterations;
-one thread per ray, up to 48), ``sun_verdict_masks`` and
-``sun_lit_floors`` K8 (``csrc/k8_sun.cuh``: one thread per ray, one row
-read, the 25 near-window tests and the K band tests). Per-frame scalars
-(camera, window, sun) cross by value; the envelope pyramid, the bounds and
-the sun table stay device tensors. The small-table lookups the TPU version
-turns into one-hot reductions (``ops/smalltab.py``) are indexed loads.
+(``csrc/k7_beams.cuh``: a group of lanes per tile, up to 96 march
+iterations, the descents evaluated at once; one thread per ray, up to 48),
+``sun_verdict_masks`` and ``sun_lit_floors`` K8 (``csrc/k8_sun.cuh``: a
+grid the card holds at once looping up to the count, one row read as
+words, the 25 near-window tests on shared planes and the K band tests).
+Per-frame scalars (camera, window, sun) cross by value; the envelope
+pyramid, the bounds and the sun table stay device tensors. The small-table
+lookups the TPU version turns into one-hot reductions (``ops/smalltab.py``)
+are indexed loads.
 
 Exactness: the plain versions spell out every float operation in the
 kernels' order (no reductions, IEEE divisions through tensors), so kernel
@@ -73,8 +75,11 @@ def sun_margin(octree_scale) -> float:
     return _f(SUN_MARGIN_ULPS * 2.0**-23 / float(octree_scale))
 
 # march iterations (summed over lanes) of the last plain march: the work
-# a kernel's bound counts
+# a kernel's bound counts; the longest lane's iterations and, of them, its
+# descents (a kernel's chain: the march's dependent iterations)
 last_march_steps = 0
+last_march_max = 0
+last_march_descents = 0
 
 # kernel launches by the wrappers below
 launches_tile = 0  # K7 tile_floors
@@ -127,12 +132,13 @@ def _envelope_march(levels, offsets, n, hmax, rox, roy, roz, dx, dy, dz,
     lvl = torch.full((B,), max_lvl, dtype=i64, device=dev)
     stop_t = torch.full((B,), math.inf, dtype=f32, device=dev)
     done = (t >= t_hard) | ((slope > 0) & (roy + t * slope - m0 > hmax))
-    steps = torch.zeros((), dtype=i64, device=dev)
+    its = torch.zeros((B,), dtype=i64, device=dev)
+    descents = torch.zeros((B,), dtype=i64, device=dev)
     for _ in range(max_iters):
         if bool(done.all()):
             break
         live = ~done
-        steps = steps + live.sum()
+        its += live
         s = (8 << lvl).to(f32)  # cell size in voxels, CELL * 2^lvl
         px = rox + t * dx
         pz = roz + t * dz
@@ -154,6 +160,7 @@ def _envelope_march(levels, offsets, n, hmax, rox, roy, roz, dx, dy, dz,
         stop = live & hit & (lvl == 0)
         descend = live & hit & (lvl > 0)
         advance = live & ~hit
+        descents += descend
         t_y = (roy - m0 - hv) / torch.clamp(-slope, min=_EPS_DIR)
         stop_val = torch.where(slope >= 0, t, torch.maximum(t, t_y))
         stop_t = torch.where(stop, stop_val, stop_t)
@@ -164,8 +171,11 @@ def _envelope_march(levels, offsets, n, hmax, rox, roy, roz, dx, dy, dz,
                                       torch.clamp(lvl + 1, max=max_lvl), lvl))
         rising = (slope > 0) & (roy + t * slope - m0 > hmax)
         done = done | stop | (advance & ((t >= t_hard) | rising))
-    global last_march_steps
-    last_march_steps = int(steps)
+    global last_march_steps, last_march_max, last_march_descents
+    last_march_steps = int(its.sum())
+    longest = int(its.argmax()) if B else 0
+    last_march_max = int(its[longest]) if B else 0
+    last_march_descents = int(descents[longest]) if B else 0
     stopped = torch.isfinite(stop_t)
     exhausted = ~done & ~stopped  # ran out of iterations mid-march
     return torch.where(stopped, stop_t,
@@ -194,13 +204,15 @@ def _vec(x):
 
 def tile_floors_plain(levels, offsets, n, hmax, bounds, near_h, near_base,
                       cam_pos, cam_right, cam_up, cam_fwd, tan_half, aspect,
-                      max_dst, *, width: int, height: int):
+                      max_dst, *, width: int, height: int,
+                      max_iters: int = TILE_ITERS):
     """Per-tile conservative entry floors, (nty, ntx) float32; +inf = the
     whole tile certainly misses all geometry (JAX :137). ``levels`` is the
     dilated pyramid (int32 tensor), ``bounds`` the (4,) float32 tensor of
     ``HeightField.device``; ``near_h`` (5,5) and ``near_base`` (2,) host
     arrays; the camera basis host 3-vectors; ``tan_half`` is
-    ``ops.shading.tan_half_fov`` of the frame's fov."""
+    ``ops.shading.tan_half_fov`` of the frame's fov; ``max_iters`` the
+    march's budget of iterations a tile (JAX's ``max_iters``)."""
     dev = levels.device
     tile = TILE
     ntx = -(-width // tile)
@@ -296,7 +308,7 @@ def tile_floors_plain(levels, offsets, n, hmax, bounds, near_h, near_base,
     beam = _envelope_march(levels, offsets, n, hmax, ro[0] * ones,
                            ro[1] * ones, ro[2] * ones, dx, dy, dz, inv_x,
                            inv_z, sin_t, _Y_SLACK * ones, t_start, t_hard,
-                           TILE_ITERS)
+                           max_iters)
     # the 1-column dilation covers t*sin(theta) <= CELL - slack
     t8 = torch.full_like(sin_t, CELL - 1.0) / sin_t
     beam = torch.where(torch.isinf(beam) & (t_hard <= t8), beam,
@@ -546,21 +558,23 @@ def _rays_in(ro, max_dst, idx, count, dev):
 
 def tile_floors(levels, offsets, n, hmax, bounds, near_h, near_base,
                 cam_pos, cam_right, cam_up, cam_fwd, tan_half, aspect,
-                max_dst, *, width: int, height: int):
+                max_dst, *, width: int, height: int,
+                max_iters: int = TILE_ITERS):
     """``tile_floors_plain``'s function: the plain version on the CPU, K7
-    (one thread per tile) on the card."""
+    (a group of lanes per tile) on the card."""
     if not levels.is_cuda:
         return tile_floors_plain(levels, offsets, n, hmax, bounds, near_h,
                                  near_base, cam_pos, cam_right, cam_up,
                                  cam_fwd, tan_half, aspect, max_dst,
-                                 width=width, height=height)
+                                 width=width, height=height,
+                                 max_iters=max_iters)
     global launches_tile
     _check_levels(levels, offsets, n)
     dev = levels.device
     bounds = _f32_on(bounds, dev)
     p = tile_params(offsets, n, hmax, near_h, near_base, cam_pos, cam_right,
                     cam_up, cam_fwd, tan_half, aspect, max_dst, width,
-                    height)
+                    height, max_iters)
     ntx, nty = -(-width // TILE), -(-height // TILE)
     out = torch.empty((nty, ntx), dtype=f32, device=dev)
     if ntx * nty:
@@ -580,10 +594,10 @@ def _beam_params(offsets, n, hmax, max_iters) -> _build.BeamParams:
 
 def tile_params(offsets, n, hmax, near_h, near_base, cam_pos, cam_right,
                 cam_up, cam_fwd, tan_half, aspect, max_dst, width,
-                height) -> _build.BeamParams:
+                height, max_iters: int = TILE_ITERS) -> _build.BeamParams:
     """K7's tile-kernel inputs (``tile_floors``'s host values) as the C
     struct."""
-    p = _beam_params(offsets, n, hmax, TILE_ITERS)
+    p = _beam_params(offsets, n, hmax, max_iters)
     p.width, p.height = int(width), int(height)
     p.cam_pos[:], p.right[:] = _vec(cam_pos), _vec(cam_right)
     p.up[:], p.fwd[:] = _vec(cam_up), _vec(cam_fwd)
@@ -591,6 +605,20 @@ def tile_params(offsets, n, hmax, near_h, near_base, cam_pos, cam_right,
     p.near_h[:] = _vec(near_h)
     p.near_base[:] = _vec(near_base)
     return p
+
+
+def k7_tiles_plain(levels, bounds, params: _build.BeamParams, out):
+    """``_build.launch_k7_tiles``'s function, on its arguments: the floors
+    of ``tile_floors_plain`` (every host value read from ``params``,
+    ``max_iters`` too) written into ``out``."""
+    p = params
+    out.copy_(tile_floors_plain(
+        levels, list(p.offsets[: p.n_levels]), p.n, p.hmax, bounds,
+        np.asarray(list(p.near_h), np.float32).reshape(NEAR, NEAR),
+        list(p.near_base), list(p.cam_pos), list(p.right), list(p.up),
+        list(p.fwd), p.tan_half, p.aspect, p.max_dst, width=p.width,
+        height=p.height, max_iters=p.max_iters))
+    return out
 
 
 def shadow_params(offsets, n, hmax, light_to) -> _build.BeamParams:
@@ -651,6 +679,27 @@ def sun_params(sb_words, n1, d_len, d, origin,
     s.d[:] = _vec(d)
     s.origin[:] = _vec(origin)
     return s
+
+
+def k8_plain(sb_words, params: _build.SunParams, ro, max_dst, idx, count, k,
+             lit, blk, todo, floors):
+    """``_build.launch_k8``'s function, on its arguments: the verdicts of
+    ``sun_verdict_masks_plain`` (the sun map's host values read from
+    ``params``) over the ``k`` lanes, written into each output that is not
+    None (``todo``: the lanes below the count neither lit nor blocked;
+    ``floors``: ``sun_lit_floors_plain``'s view)."""
+    p = params
+    pl, pb = sun_verdict_masks_plain(
+        sb_words, p.n1, ro, max_dst, p.d_len, list(p.d), list(p.origin),
+        idx=idx, count=count, margin=p.margin)
+    valid = torch.ones(k, dtype=torch.bool, device=ro.device)
+    if count is not None:
+        valid = torch.arange(k, device=ro.device) < count.to(i64)
+    for t, v in ((lit, pl), (blk, pb), (todo, valid & ~pl & ~pb),
+                 (floors, torch.where(pl, math.inf, 0.0).to(f32))):
+        if t is not None:
+            t[:k].copy_(v)
+    return lit, blk, todo, floors
 
 
 def _check_sun(sb_words, dev):
