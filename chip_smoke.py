@@ -170,12 +170,24 @@ row its rays read once (``k8_table_bytes``); the kernels line carries
 both kernels' ptxas lines (K8's three row-word instantiations, K7's
 staged and global-memory ones) and the profiler reads K8's grid.
 ``--kernels-only`` stops after the build and the worlds and times the
-launches this slice redesigned (K7's tile floors of the 5 poses and of
-pose 0 at march budgets 0-32, K8 of the exact frame and at count 0, of
-the adaptive passes and of the exact judged frame, both formats, K8 also
-in each row word) against the parent's kernel in turns: a quick
-comparison of shapes, with --parent a copy of the tree with another
-shape.
+launches this slice redesigned (``slice_kernels_phase``: K1 on pose 0's
+rays, K5's shapes on picker batches near the 5 poses in both formats,
+and the ESVO launches that trace with K1's cursor: K3, ``kd_primary``,
+``kd_shadow``, K9's and K9-judged's traces) against the parent's kernel
+in turns: a quick comparison of shapes, with --parent a copy of the
+tree with another shape; it also counts each kernel's SASS instructions
+and the size and shortest step of the traversal loops of K1, K5 and
+``kd_primary`` (``sass_loop``), this tree's and the parent's. The game
+phases hold K5 (the one-call pick of
+``Svo.raycast``, ``ops.picker.pick``) to its plain version, to the
+launch-and-copy path and in every shape (K5_SHAPES) on every recorded
+batch, time each shape and the parent's K5 on the last sweep, the last
+look ray and the batch of the longest chain, time each pick of the run
+under the job threads and the quiet round trip, and report the physics
+span a step; the scripted flight takes turns, a frame each, between the
+one-call pick and the parent's round trip (``launch_and_copy``: a
+pageable upload, K5, a blocking copy back), each side's picks and
+physics span reported on their own.
 ``--renderer-only`` stops after the
 renderer phases (the build, K1 / K4 and K3 in both formats, with --parent
 the parent's K1 / K4 and K3 on the same inputs) and prints no result: a
@@ -246,10 +258,11 @@ K6_LAUNCH_SEED = 11  # the masks of k6_launch_phase
 KERNEL_SLEEP_CYCLES = 4_000_000  # ~2 ms of the card's clock: kernel_ms
 AB_ROUNDS = 6  # rounds of turns of the frames against the parent's
 K8_WIDTH_ROUNDS = 9  # rounds of turns of K8's row words (k8_widths)
-# the march budgets at which --kernels-only times pose 0's tile floors
-K7_BUDGET_SWEEP = (0, 1, 2, 4, 8, 16, 32)
 HOST_REPS = 50
 K3_MAX_ABS = 1e-6
+# K5's shapes timed and held (lanes a task: 1 = S1, the classic loop on
+# lane 0; 8 and 32 = S2, the task's ray cut into segments)
+K5_SHAPES = (1, 8, 32)
 IMAGE_BUDGET = 0.015  # mean |d| of two renders of one scene
 K4_T_TOL = 1e-3  # K4 against K1: t (tests/test_torch_csvo.py)
 BUDGET_S = 600  # this script's own wall-clock budget on one H100
@@ -1271,6 +1284,86 @@ def sass_widths(names=("k9_trace", "k9j_merge", "k9_merge", "k9_finalize",
     return out
 
 
+def sass_loop(lines) -> dict | None:
+    """The traversal loop of one kernel's SASS (``cuobjdump -sass`` lines):
+    the back-edge of the widest span is the loop's; its instructions from
+    head to back-edge, and the fewest a trip around it issues (the
+    shortest path from the head to the back-edge over fall-throughs and
+    branch targets: a step that neither hits, pushes nor pops). None
+    without a back-edge."""
+    import heapq
+    import re
+
+    ins = []
+    for line in lines:
+        m = re.match(r"\s+/\*([0-9a-f]+)\*/\s+(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    at = {a: k for k, (a, _) in enumerate(ins)}
+
+    def target(t):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+
+    back = [(a, target(t)) for a, t in ins
+            if target(t) is not None and target(t) < a]
+    if not back:
+        return None
+    end, head = max(back, key=lambda b: b[0] - b[1])
+    start, goal = at[head], at[end]
+    dist, pq = {start: 1}, [(1, start)]
+    while pq:
+        d, k = heapq.heappop(pq)
+        if k == goal:
+            break
+        if d > dist.get(k, 1 << 30):
+            continue
+        t = ins[k][1]
+        tg, cond = target(t), t.startswith("@")
+        nxt = [] if re.search(r"\b(EXIT|RET)\b", t) and not cond else (
+            ([at[tg]] if tg in at else []) + ([k + 1] if cond else [])
+            if tg is not None else [k + 1])
+        for n in nxt:
+            if start <= n <= goal and d + 1 < dist.get(n, 1 << 30):
+                dist[n] = d + 1
+                heapq.heappush(pq, (d + 1, n))
+    return dict(loop_instructions=goal - start + 1,
+                shortest_step=dist.get(goal))
+
+
+SASS_LOOPS = ("k1_traverse_kernel", "k5_picker_kernel", "kd_primary_kernel")
+
+
+def sass_dump(build) -> dict:
+    """The SASS of ``build``'s library (``cuobjdump -sass``): each
+    kernel's instruction count (every instantiation), and for the kernels
+    of SASS_LOOPS (ESVO instantiations) their traversal loop
+    (``sass_loop``). None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = os.path.join(build._HERE, "_build", build.source_digest(),
+                       build.LIB_NAME)
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, texts, fn = {}, {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[fn] = counts.get(fn, 0) + 1
+            texts.setdefault(fn, []).append(line)
+    loops = {name: sass_loop(lines) for name in SASS_LOOPS
+             for fn, lines in texts.items()
+             if name in fn and "Csvo" not in fn}
+    return dict(instructions=counts, loops=loops)
+
+
 def k6_summary(rows) -> dict:
     """K6's calls of one path, summed."""
     par = [r["parent_ms"] for r in rows]
@@ -1449,20 +1542,36 @@ def golden_check(repo: str) -> float:
     return float(np.abs(img.astype(np.float64) - golden).mean())
 
 class PickerRecorder:
-    """Stands in for ``ops.picker.raycast`` inside ``graphics.svo``: calls
-    it, and keeps each batch, its K5 rows and the world it was cast on (one
-    device copy per buffer state, ESVO or CSVO), for the comparison after
-    the run."""
+    """Stands in for ``ops.picker.pick`` inside ``graphics.svo``: calls
+    it, and keeps each batch (numpy), its rows and the world it was cast
+    on (one device copy per buffer state, ESVO or CSVO), for the
+    comparison after the run; with ``timed`` it also keeps each pick's
+    host microseconds and whether the stream had work queued before it
+    (``torch.cuda.Stream.query``, asked before the pick). With ``legacy``
+    it picks through ``launch_and_copy`` (the parent's round trip)
+    instead."""
 
-    def __init__(self, raycast):
-        self.raycast = raycast
+    def __init__(self, pick):
+        self.pick = pick
         self.buffers = {}  # (address, version, words, root, depth) -> copy
         self.batches = []  # (buffer key, octree_scale, tasks, rows)
+        self.timed = False
+        self.legacy = False
+        self.times = []  # (us, the stream idle before the pick, legacy)
 
-    def __call__(self, desc, octree_scale, tasks):
+    def __call__(self, desc, octree_scale, tasks, buffers):
+        import torch
+
         from voxelrs_tpu_torch.ops.traversal_csvo import CsvoBuffer
 
-        rows = self.raycast(desc, octree_scale, tasks)
+        idle = (torch.cuda.current_stream().query() if self.timed
+                else None)
+        t0 = time.perf_counter()
+        rows = (launch_and_copy if self.legacy else self.pick)(
+            desc, octree_scale, tasks, buffers)
+        if self.timed:
+            self.times.append(((time.perf_counter() - t0) * 1e6, idle,
+                               self.legacy))
         csvo = isinstance(desc, CsvoBuffer)
         buf = desc.words if csvo else desc
         key = (buf.data_ptr(), buf._version, buf.numel(),
@@ -1470,8 +1579,22 @@ class PickerRecorder:
         if key not in self.buffers:
             self.buffers[key] = (desc._replace(words=buf.clone()) if csvo
                                  else buf.clone())
-        self.batches.append((key, octree_scale, tasks.clone(), rows.clone()))
+        self.batches.append((key, octree_scale, tasks.copy(), rows.copy()))
         return rows
+
+
+def launch_and_copy(desc, octree_scale, tasks, buffers):
+    """The parent's pick, its ``Svo.raycast``'s body: the padded numpy
+    tasks uploaded from pageable memory, K5 launched
+    (``ops.picker.raycast``) and its rows copied back by a blocking
+    ``.cpu()``, three calls that each give up the interpreter lock
+    (``buffers`` only names the device)."""
+    import torch
+
+    from voxelrs_tpu_torch.ops import picker
+
+    return picker.raycast(desc, octree_scale, torch.from_numpy(tasks).to(
+        buffers.device)).cpu().numpy()
 
 
 def driver_copy():
@@ -1555,7 +1678,9 @@ class CompactRecorder:
 
 def play_game(game, recorder):
     """Load the game's world, then play the scripted run with ``recorder``
-    in place of the picker's kernel call. Returns the run's numbers."""
+    in place of the picker's kernel call, its frames taking turns between
+    the one-call pick and the parent's round trip (``launch_and_copy``).
+    Returns the run's numbers."""
     import math
 
     import torch
@@ -1595,6 +1720,7 @@ def play_game(game, recorder):
     # the frame's spans: host clock around each, the render's ending in a
     # synchronize (the frame's own synchronize follows it anyway)
     spans = {"streaming": [], "look ray": [], "physics": [], "render": []}
+    legacy = {k: [] for k in spans}  # each span: run in a launch-and-copy turn
     timed = [(world, "update", "streaming", False),
              (game.gameplay, "update_look_ray", "look ray", False),
              (world, "update_fixed", "physics", False),
@@ -1607,6 +1733,7 @@ def play_game(game, recorder):
             if sync:
                 torch.cuda.synchronize()
             spans[name].append(time.perf_counter() - t0)
+            legacy[name].append(recorder.legacy)
             return r
         return run
 
@@ -1619,6 +1746,7 @@ def play_game(game, recorder):
         to 60 Hz as a display paces the game: the job threads stream chunks
         in the rest of the 1/60 s (the pause is not in the frame time)."""
         n0 = {k: len(v) for k, v in spans.items()}
+        recorder.legacy = len(frame_s) % 2 == 1  # the two picks in turns
         busy = game.job_system.len()  # queued + running jobs
         t0 = time.perf_counter()
         img = game.step_frame(dt=1 / 60, render=True)
@@ -1636,7 +1764,8 @@ def play_game(game, recorder):
     for obj, attr, name, sync in timed:
         setattr(obj, attr, span(name, getattr(obj, attr), sync))
     svo_mod = sys.modules["voxelrs_tpu_torch.graphics.svo"]
-    svo_mod.raycast = recorder
+    svo_mod.pick = recorder
+    recorder.timed = True  # each pick's round trip under the job threads
     k5_0 = picker.launches
     try:
         with Phase(f"game run ({fmt})") as ph:
@@ -1679,7 +1808,8 @@ def play_game(game, recorder):
     finally:
         for obj, attr, _, _ in timed:
             delattr(obj, attr)  # the class's method again
-        svo_mod.raycast = recorder.raycast
+        svo_mod.pick = recorder.pick
+        recorder.timed = recorder.legacy = False
     out["run_s"] = ph.seconds
     out["frames"] = len(frame_s)
     out.update(deferred_frames=modes["deferred"], beam_frames=modes["beams"],
@@ -1704,6 +1834,31 @@ def play_game(game, recorder):
                            for k, v in spans.items()}
     out["physics_steps"] = len(spans["physics"])
 
+    def span_ms(name, side):
+        xs = sorted(x for x, lg in zip(spans[name], legacy[name])
+                    if lg == side)
+        return dict(n=len(xs), mean=sum(xs) / max(1, len(xs)) * 1e3,
+                    median=xs[len(xs) // 2] * 1e3 if xs else None)
+
+    def picks_us(side):
+        times = [(us, idle) for us, idle, lg in recorder.times if lg == side]
+        rt = sorted(us for us, _ in times)
+        return dict(
+            picks=len(rt), median=rt[len(rt) // 2] if rt else None,
+            p90=rt[int(0.9 * len(rt))] if rt else None,
+            max=rt[-1] if rt else None,
+            stream_busy_share=(sum(not idle for _, idle in times)
+                               / max(1, len(times))))
+
+    # the physics span a step (World.update_fixed runs one step a call), the
+    # look ray's span and each pick of the run (Svo.raycast past its memo)
+    # under the job threads: the one-call pick's frames, and the frames in
+    # between, which picked through the parent's launch and copy
+    for key, side in (("", False), ("_launch_and_copy", True)):
+        out["physics_ms_per_step" + key] = span_ms("physics", side)
+        out["look_ray_ms" + key] = span_ms("look ray", side)
+        out["pick_under_load_us" + key] = picks_us(side)
+
     def med(xs):
         return sorted(xs)[len(xs) // 2]
 
@@ -1725,6 +1880,14 @@ def play_game(game, recorder):
         f"p99 {out['frame_ms_p99']:.3f} ms, "
         f"max {out['frame_ms_max']:.3f} ms; K5 {out['k5_per_frame']:.2f} "
         f"launches/frame, {out['physics_steps']} physics steps")
+    for key, what in (("", "Svo.raycast's one native call"),
+                      ("_launch_and_copy", "the parent's launch and copy, "
+                       "the frames in between")):
+        log(f"game picks ({fmt}; {what}, host clock, during the scripted "
+            f"run with the job threads streaming): "
+            f"{json.dumps(out['pick_under_load_us' + key])} us; the physics "
+            f"span a step {json.dumps(out['physics_ms_per_step' + key])} ms;"
+            f" the look ray's span {json.dumps(out['look_ray_ms' + key])} ms")
     log("game frame spans, share of frame time (mean ms a frame): " + ", ".join(
         f"{k} {out['share'][k]:.3f} ({out['ms_per_frame'][k]:.3f})"
         for k in spans))
@@ -1741,31 +1904,10 @@ def check_game(game, recorder, card):
     plain frame on the streamed buffer, and K5's timing."""
     import torch
 
-    from voxelrs_tpu_torch import _build
-    from voxelrs_tpu_torch.ops import picker, shading, traversal_csvo
-    from voxelrs_tpu_torch.ops.traversal import MAX_STEPS, step_budget
+    from voxelrs_tpu_torch.ops import shading
 
     fmt = game.args.svo_format
-    out = {}
-    with Phase(f"k5 vs plain ({fmt})"):
-        by_buffer = {}
-        for key, scale, tasks, rows in recorder.batches:
-            by_buffer.setdefault((key, scale), []).append((tasks, rows))
-        bad = 0
-        k5_err = 0.0
-        for (key, scale), items in by_buffer.items():
-            tasks = torch.cat([t for t, _ in items])
-            rows = torch.cat([r for _, r in items])
-            ref = picker.raycast_plain(recorder.buffers[key], scale, tasks)
-            bad += int((rows != ref).any(1).sum())
-            k5_err = max(k5_err, float((rows - ref).abs().max()))
-    n_tasks = sum(t.shape[0] for _, _, t, _ in recorder.batches)
-    out.update(k5_batches=len(recorder.batches), k5_tasks=n_tasks,
-               k5_buffers=len(recorder.buffers), k5_bad=bad, k5_err=k5_err,
-               k5_ok=bad == 0 and len(recorder.batches) > 0)
-    log(f"k5 vs plain ({fmt}): {len(recorder.batches)} batches, {n_tasks} tasks, "
-        f"{len(recorder.buffers)} buffer states; tasks differing {bad}, "
-        f"max |d| {k5_err:.3g}; ok {out['k5_ok']}")
+    out, chains = k5_checks(game, recorder)
 
     gsvo = game.world.world_svo.graphics_svo
     desc, scale = gsvo.world(), float(gsvo.octree_scale)
@@ -1890,18 +2032,139 @@ def check_game(game, recorder, card):
         fail(f"K7's tile floors or K8 alone disagree with their plain "
              f"versions in the {fmt} game")
 
+    out.update(k5_timing(game, recorder, chains, card))
+    return out
+
+
+def k5_checks(game, recorder):
+    """K5 on every batch ``recorder`` kept of a game run: the one-call
+    pick's rows against the plain version and against the launch-and-copy
+    path (``ops.picker.raycast``, then a copy), and every shape
+    (K5_SHAPES) against the plain version. Returns the numbers and each
+    batch's longest chain (the classic loop's steps) with its buffer."""
+    import numpy as np
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import picker, traversal_csvo
+    from voxelrs_tpu_torch.ops.traversal import MAX_STEPS, step_budget
+
+    fmt = game.args.svo_format
+    out = {}
+    dev = game.world.world_svo.graphics_svo.device_buf.device
+    csvo = fmt == "csvo"
+    budget = (traversal_csvo.step_budget if csvo else step_budget)(MAX_STEPS)
+    with Phase(f"k5 vs plain ({fmt})"):
+        by_buffer = {}
+        for key, scale, tasks, rows in recorder.batches:
+            by_buffer.setdefault((key, scale), []).append((tasks, rows))
+        bad = bad_old = 0
+        bad_shape = {s_: 0 for s_ in K5_SHAPES}
+        k5_err = 0.0
+        chains = []  # (longest chain, buffer key, scale, tasks) a batch
+        for (key, scale), items in by_buffer.items():
+            buf = recorder.buffers[key]
+            tasks = torch.from_numpy(np.concatenate([t for t, _ in items])
+                                     ).to(dev)
+            rows = torch.from_numpy(np.concatenate([r for _, r in items])
+                                    ).to(dev)
+            ref = picker.raycast_plain(buf, scale, tasks)
+            bad += int((rows != ref).any(1).sum())
+            k5_err = max(k5_err, float((rows - ref).abs().max()))
+            bad_old += int((picker.raycast(buf, scale, tasks).cpu()
+                            != rows.cpu()).any(1).sum())
+            for seg in K5_SHAPES:
+                kout = torch.empty_like(rows)
+                st = torch.empty(len(tasks), dtype=torch.int32, device=dev)
+                _build.launch_k5(buf, float(scale), tasks, budget, kout, st,
+                                 segments=seg)
+                bad_shape[seg] += int((kout != ref).any(1).sum())
+                if seg == 1:  # the classic loop's steps: each batch's chain
+                    at = 0
+                    for t, _ in items:
+                        chains.append((int(st[at:at + len(t)].max()), key,
+                                       scale, t))
+                        at += len(t)
+    n_tasks = sum(t.shape[0] for _, _, t, _ in recorder.batches)
+    out.update(k5_batches=len(recorder.batches), k5_tasks=n_tasks,
+               k5_buffers=len(recorder.buffers), k5_bad=bad, k5_err=k5_err,
+               k5_bad_vs_launch_and_copy=bad_old,
+               k5_bad_shapes={str(k): v for k, v in bad_shape.items()},
+               k5_ok=bad == 0 and bad_old == 0
+               and not any(bad_shape.values())
+               and len(recorder.batches) > 0)
+    log(f"k5 vs plain ({fmt}): {len(recorder.batches)} batches, {n_tasks} "
+        f"tasks, {len(recorder.buffers)} buffer states; the one-call "
+        f"pick's tasks differing {bad} (max |d| {k5_err:.3g}), from the "
+        f"launch-and-copy path's {bad_old}; each shape's (segments: tasks "
+        f"differing) {json.dumps(out['k5_bad_shapes'])}; ok {out['k5_ok']}")
+
+    return out, chains
+
+
+def k5_timing(game, recorder, chains, card) -> dict:
+    """K5's shapes and the parent's K5 on batches of the run (the last
+    sweep, the last look ray, the batch of the longest chain), the shipped
+    shape alone and at its fixed cost, the plain version, the wrapper's
+    host time, and the pick's round trip with the game quiet."""
+    import torch
+
+    from voxelrs_tpu_torch import _build
+    from voxelrs_tpu_torch.ops import picker, traversal_csvo
+    from voxelrs_tpu_torch.ops.traversal import MAX_STEPS, step_budget
+
+    fmt = game.args.svo_format
+    gsvo = game.world.world_svo.graphics_svo
+    dev = gsvo.device_buf.device
+    scale = float(gsvo.octree_scale)
+    csvo = fmt == "csvo"
+    budget = (traversal_csvo.step_budget if csvo else step_budget)(MAX_STEPS)
+    out = {}
     with Phase(f"k5 timing ({fmt})"):
-        # the last AABB sweep of the run, on the final buffer
-        tasks = next(t for _, _, t, _ in reversed(recorder.batches)
+        # batches of the run: the last AABB sweep, the last look ray, and
+        # the batch of the longest chain (the classic loop's steps); each
+        # shape and the parent's K5 on the same inputs
+        desc = gsvo.world()
+        sweep = next(t for _, _, t, _ in reversed(recorder.batches)
                      if t.shape[0] >= 32)
+        look = next(t for _, _, t, _ in reversed(recorder.batches)
+                    if t.shape[0] == 8)
+        longest = max(chains, key=lambda c: c[0])
+        cases = {"sweep": (desc, scale, sweep), "look": (desc, scale, look),
+                 "longest": (recorder.buffers[longest[1]], longest[2],
+                             longest[3])}
+        shapes = {}
+        for label, (w, sc, t) in cases.items():
+            tasks = torch.from_numpy(t).to(dev)
+            n = tasks.shape[0]
+            ref = picker.raycast_plain(w, sc, tasks)
+            row = dict(tasks=n)
+            for seg in K5_SHAPES:
+                rows = torch.empty((n, 8), dtype=torch.float32, device=dev)
+                steps = torch.empty(n, dtype=torch.int32, device=dev)
+                _build.launch_k5(w, float(sc), tasks, budget, rows, steps,
+                                 segments=seg)
+                row[f"s{seg}"] = dict(
+                    equal=bool(torch.equal(rows, ref)),
+                    chain=int(steps.max()), steps=int(steps.sum()),
+                    ms=[kernel_ms(lambda: _build.launch_k5(
+                        w, float(sc), tasks, budget, rows, segments=seg))
+                        for _ in range(3)])
+            if PARENT is not None:
+                prow = torch.empty((n, 8), dtype=torch.float32, device=dev)
+                PARENT.launch_k5(w, float(sc), tasks, budget, prow)
+                row["parent"] = dict(
+                    equal=bool(torch.equal(prow, ref)),
+                    ms=[kernel_ms(lambda: PARENT.launch_k5(
+                        w, float(sc), tasks, budget, prow))
+                        for _ in range(3)])
+            shapes[label] = row
+        tasks = torch.from_numpy(sweep).to(dev)
         n = tasks.shape[0]
         rows = torch.empty((n, 8), dtype=torch.float32, device=dev)
         steps = torch.empty(n, dtype=torch.int32, device=dev)
-        csvo = fmt == "csvo"
-        budget = (traversal_csvo.step_budget if csvo else step_budget)(
-            MAX_STEPS)
-        _build.launch_k5(desc, scale, tasks, budget, rows, steps)
-        k5_steps = int(steps.sum())
+        _build.launch_k5(desc, scale, tasks, budget, rows, steps, segments=1)
+        k5_steps, k5_chain = int(steps.sum()), int(steps.max())
         k5_ms = kernel_ms(lambda: _build.launch_k5(desc, scale, tasks,
                                                    budget, rows))
         # the launch's fixed cost: one task that starts outside the world
@@ -1923,7 +2186,8 @@ def check_game(game, recorder, card):
         k5_plain_ms = a.elapsed_time(b)
         k5_host = host_us(lambda: picker.raycast(desc, scale, tasks))
         # the physics step's picker call (the world's Svo.raycast) with the
-        # memo cleared: coordinates, upload, launch, copy back
+        # memo cleared, the game quiet: the serialization and one native
+        # call (upload, K5, copy back, wait)
         from voxelrs_tpu_torch.graphics.picker import (Aabb, PickerBatch,
                                                        PickerBatchResult)
 
@@ -1939,20 +2203,34 @@ def check_game(game, recorder, card):
             times.append((time.perf_counter() - t0) * 1e6)
         times.sort()
         round_trip_us = times[len(times) // 2]
+        # the pick alone (ops.picker.pick on the sweep's tasks), quiet
+        pick_us = host_us(lambda: picker.pick(desc, scale, sweep,
+                                              gsvo._pick_buffers))
     k5_bytes = n * (28 + 32) + k5_steps * (CSVO_BYTES_PER_STEP if csvo
                                            else BYTES_PER_STEP)
     k5_bound = bound(k5_bytes, k5_steps * OPS_PER_STEP)
     out.update(k5_ms=k5_ms, k5_plain_ms=k5_plain_ms, k5_host_us=k5_host,
-               k5_round_trip_us=round_trip_us, k5_bound=k5_bound,
-               k5_steps=k5_steps, k5_n=n, k5_fixed_ms=k5_fixed_ms,
-               k5_fixed_steps=k5_fixed_steps)
-    log(f"k5 alone ({fmt}; {n} tasks, {k5_steps} steps, {KERNEL_REPS} back-to-back "
-        f"launches): {k5_ms:.4f} ms; its fixed cost (one task outside the "
-        f"world, {k5_fixed_steps} steps) {k5_fixed_ms:.4f} ms; plain "
-        f"{k5_plain_ms:.1f} ms; wrapper "
-        f"host time {k5_host:.1f} us; Svo.raycast round trip (upload, "
-        f"launch, copy back) {round_trip_us:.1f} us; bound "
-        f"{k5_bound[0]:.3g} ms ({k5_bound[1]}) on {card}")
+               k5_round_trip_us=round_trip_us, k5_pick_us=pick_us,
+               k5_bound=k5_bound, k5_steps=k5_steps, k5_chain=k5_chain,
+               k5_n=n, k5_fixed_ms=k5_fixed_ms,
+               k5_fixed_steps=k5_fixed_steps, k5_shapes=shapes)
+    log(f"k5 alone ({fmt}; the last sweep: {n} tasks, {k5_steps} steps, its "
+        f"longest task {k5_chain}; {KERNEL_REPS} back-to-back launches, the "
+        f"shipped shape, {_build.K5_SEGMENTS} lanes a task): {k5_ms:.4f} "
+        f"ms; its fixed cost (one task outside the world, {k5_fixed_steps} "
+        f"steps) {k5_fixed_ms:.4f} ms; plain {k5_plain_ms:.1f} ms; wrapper "
+        f"host time {k5_host:.1f} us; Svo.raycast round trip (serialize, "
+        f"one native call: upload, K5, copy back, wait), the game quiet, "
+        f"median {round_trip_us:.1f} us, ops.picker.pick alone "
+        f"{pick_us:.1f} us; bound {k5_bound[0]:.3g} ms ({k5_bound[1]}) on "
+        f"{card}")
+    log(f"k5 shapes ({fmt}; segments a task: equal to the plain version, "
+        f"the longest lane chain, steps, ms of 3 timings; the parent's K5 "
+        f"on the same inputs): {json.dumps(shapes)} on {card}")
+    if not all(r[f"s{seg}"]["equal"] for r in shapes.values()
+               for seg in K5_SHAPES) or not all(
+            r.get("parent", {}).get("equal", True) for r in shapes.values()):
+        fail(f"a K5 shape disagrees with the plain version ({fmt})")
     return out
 
 
@@ -2047,6 +2325,14 @@ def main() -> int:
         f"device buffer {csvo.device_buf.shape[0]} words")
     poses = bench_poses()
     if "--kernels-only" in sys.argv:  # a quick comparison of shapes
+        for side, build in [("this_tree", _build)] + (
+                [] if PARENT is None else [("parent", PARENT)]):
+            counts = sass_dump(build)
+            log(f"SASS ({side}; cuobjdump -sass, instructions in the code, "
+                f"not executions): the traversal loops of "
+                f"{', '.join(SASS_LOOPS)} "
+                f"{json.dumps((counts or {}).get('loops'))}; instructions a "
+                f"kernel {json.dumps((counts or {}).get('instructions'))}")
         with Phase("translucent world"):
             tsvo = Svo(new_registry(), capacity_mb=64, device="cuda")
             tworld, tcworld, _n, thf, _info = build_translucent_world(
@@ -2055,8 +2341,9 @@ def main() -> int:
             tcsvo = Svo(new_registry(), capacity_mb=64,
                         buffer_dtype=np.uint8, device="cuda")
             tcsvo.update(tcworld)
-        kernels_only_phase(dict(esvo=svo, csvo=csvo),
-                           dict(esvo=tsvo, csvo=tcsvo), hf, thf, poses, card)
+        slice_kernels_phase(dict(esvo=svo, csvo=csvo),
+                            dict(esvo=tsvo, csvo=tcsvo), hf, thf, poses,
+                            card)
         log("--kernels-only: the build and the shape comparison ran; no "
             "result")
         return 3
@@ -2306,7 +2593,29 @@ def main() -> int:
              max_abs_err_csvo=cc["k5_err"], steps_csvo=cc["k5_steps"],
              batches_checked_csvo=cc["k5_batches"],
              launches_per_frame_csvo=gc["k5_per_frame"],
-             svo_raycast_round_trip_us_csvo=cc["k5_round_trip_us"]),
+             svo_raycast_round_trip_us_csvo=cc["k5_round_trip_us"],
+             segments=_build.K5_SEGMENTS, longest_task_steps=ce["k5_chain"],
+             longest_task_steps_csvo=cc["k5_chain"],
+             pick_us=ce["k5_pick_us"], pick_us_csvo=cc["k5_pick_us"],
+             pick_under_load_us=ge["pick_under_load_us"],
+             pick_under_load_us_csvo=gc["pick_under_load_us"],
+             physics_ms_per_step=ge["physics_ms_per_step"],
+             physics_ms_per_step_csvo=gc["physics_ms_per_step"],
+             pick_under_load_us_launch_and_copy=ge[
+                 "pick_under_load_us_launch_and_copy"],
+             pick_under_load_us_launch_and_copy_csvo=gc[
+                 "pick_under_load_us_launch_and_copy"],
+             physics_ms_per_step_launch_and_copy=ge[
+                 "physics_ms_per_step_launch_and_copy"],
+             physics_ms_per_step_launch_and_copy_csvo=gc[
+                 "physics_ms_per_step_launch_and_copy"],
+             shapes=ce["k5_shapes"], shapes_csvo=cc["k5_shapes"],
+             parent_ms=(ce["k5_shapes"]["sweep"].get("parent") or {}).get(
+                 "ms"),
+             ptxas={k: v.get("k5_picker_esvo") for k, v in ptx.items()},
+             ptxas_csvo={k: v.get("k5_picker_csvo") for k, v in ptx.items()},
+             bad_vs_launch_and_copy=ce["k5_bad_vs_launch_and_copy"]
+             + cc["k5_bad_vs_launch_and_copy"]),
         dict(name="k6_compact", route="cuda",
              source="voxelrs_tpu_torch/csrc/k6_compact.cuh",
              replaces="voxelrs_tpu/ops/shading.py:313",
@@ -2783,99 +3092,168 @@ def main() -> int:
     return 0
 
 
-def kernels_only_phase(svos, tsvos, hf, thf, poses, card) -> None:
-    """``--kernels-only``: the launches this slice redesigned, on their own
-    inputs at 1080p (spied from real frames), each against its plain
-    version and, with --parent, timed against the parent's kernel in turns
-    (this tree, parent, AB_ROUNDS // 2 times): K7's tile floors of the 5
-    poses, K8 of the exact frame (verdicts, both formats, and at count 0),
-    of the adaptive frame's passes and of the exact judged frame (lit
-    floors, both formats), K8 also in each row word its table allows
-    (``k8_widths``)."""
+# the ESVO launches that trace with K1's cursor, and the arguments each
+# writes (the _build launch functions' positions)
+CURSOR_OUTS = {"k3": (4,), "kd_primary": (6, 7, 8), "kd_shadow": (11,),
+               "k9_trace": (5,), "k9j_trace": (6,)}
+
+
+def picker_tasks(ground, n, seed):
+    """n picker tasks over the terrain, as the game casts them: half look
+    rays (30 blocks, random directions) from 1.6 blocks above a point of
+    ``ground`` (the hit positions of a frame's primary rays, numpy (m,
+    3)), half axis-aligned AABB sweeps (10 blocks) from the corners of a
+    player's box standing on one (feet on the block's top face)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    at = ground[rng.integers(0, len(ground), n)]
+    half = n // 2
+    o = at + (0.0, 1.6, 0.0)
+    o[half:] = np.floor(at[half:]) + rng.choice(
+        [0.1, 0.9], (n - half, 3)) * (1, 0, 1) + (0, 1, 0)
+    d = rng.normal(size=(n, 3))
+    d[half:] = np.eye(3)[rng.integers(0, 3, n - half)] * rng.choice(
+        [-1.0, 1.0], (n - half, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    md = np.where(np.arange(n) < half, 30.0, 10.0)
+    return torch.tensor(np.concatenate([md[:, None], o, d], 1),
+                        dtype=torch.float32, device="cuda")
+
+
+def slice_kernels_phase(svos, tsvos, hf, thf, poses, card) -> None:
+    """``--kernels-only``, this slice: K1 on pose 0's judged primary rays,
+    K5's shapes (K5_SHAPES) on 5 picker batches of 8 and of 32 tasks on
+    the terrain pose 0 sees (``picker_tasks``), and the ESVO launches that
+    trace with K1's cursor (K3, ``kd_primary``, ``kd_shadow``, K9's and
+    K9-judged's traces; pose 0's own calls, spied), each equal to the
+    parent's outputs (K1 and K5 to their plain versions too) and timed
+    against the parent's kernel in turns (this tree, the parent,
+    AB_ROUNDS // 2 times)."""
     import torch
 
     from voxelrs_tpu_torch import _build
-    from voxelrs_tpu_torch.ops import beams
+    from voxelrs_tpu_torch.ops import picker, shading, traversal
+    from voxelrs_tpu_torch.ops.traversal import MAX_STEPS, step_budget
 
-    def spy_calls(name, render):
-        with Spy(_build, name) as sp:
+    rounds = max(1, AB_ROUNDS // 2)
+
+    def turns(mine, parent):
+        ms, pms = [], []
+        for _ in range(rounds):
+            ms.append(kernel_ms(mine))
+            if parent is not None:
+                pms.append(kernel_ms(parent))
+        return ms, pms
+
+    rows = {}
+    sv = svos["esvo"]
+    world, scale = sv.world(), float(sv.octree_scale)
+    budget = step_budget(MAX_STEPS)
+    # K1: pose 0's primary rays, judged, as the renderer phase times it
+    ro, rd = primary_rays(sv, poses[0])
+    B = ro.shape[0]
+    alpha = shading.make_alpha_fn(sv.mips, sv.mat_tex)
+    md = torch.full((B,), -1.0, dtype=torch.float32, device=sv.device)
+    shapes = ((B, torch.float32), (B, torch.int32), (B, torch.int32),
+              ((B, 3), torch.float32), ((B, 2), torch.float32),
+              (B, torch.float32), (B, torch.bool), (B, torch.int32))
+    outs = [torch.empty(sh, dtype=dt, device=sv.device) for sh, dt in shapes]
+    pouts = [torch.empty_like(x) for x in outs]
+    args = (world, scale, ro, rd, md, budget, 1, alpha.tables)
+    _build.launch_k1(*args, *outs)
+    ref = traversal.intersect_octree_plain(world, scale, ro, rd, -1.0, True,
+                                           alpha)
+    eq = all(torch.equal(o.long() & 0xFFFFFFFF if f == "value" else o,
+                         getattr(ref, f))
+             for o, f in zip(outs, ref._fields))
+    plaunch = None
+    if PARENT is not None:
+        PARENT.launch_k1(*args, *pouts)
+        eq = eq and all(bits_equal(a, b) for a, b in zip(outs, pouts))
+        plaunch = lambda: PARENT.launch_k1(*args, *pouts)  # noqa: E731
+    ms, pms = turns(lambda: _build.launch_k1(*args, *outs), plaunch)
+    rows["k1 pose 0"] = dict(equal=eq, ms=ms, parent_ms=pms,
+                             steps=int(outs[7].sum()))
+    # K5's shapes on batches of 8 and 32 tasks on the terrain pose 0 sees
+    ground = outs[3][outs[0] > 0].cpu().numpy()
+    for fmt, s_ in svos.items():
+        w, sc = s_.world(), float(s_.octree_scale)
+        bud = _budget_of(s_)
+        for i in range(len(poses)):
+            for n in (8, 32):
+                tasks = picker_tasks(ground, n, 100 * i + n)
+                ref = picker.raycast_plain(w, sc, tasks)
+                for seg in K5_SHAPES:
+                    out = torch.empty((n, 8), dtype=torch.float32,
+                                      device=s_.device)
+                    st = torch.empty(n, dtype=torch.int32, device=s_.device)
+                    _build.launch_k5(w, sc, tasks, bud, out, st, segments=seg)
+                    pl = None
+                    if PARENT is not None and seg == K5_SHAPES[0]:
+                        pout = torch.empty_like(out)
+                        PARENT.launch_k5(w, sc, tasks, bud, pout)
+                        pl = lambda: PARENT.launch_k5(  # noqa: E731
+                            w, sc, tasks, bud, pout)
+                    ms, pms = turns(lambda: _build.launch_k5(
+                        w, sc, tasks, bud, out, segments=seg), pl)
+                    rows[f"k5 {fmt} batch {i} {n} tasks s{seg}"] = dict(
+                        equal=bool(torch.equal(out, ref)), ms=ms,
+                        parent_ms=pms, chain=int(st.max()))
+    # the ESVO launches on K1's cursor: pose 0's calls, spied
+    tv = tsvos["esvo"]
+    sv.set_heightfield(hf)
+    tv.set_heightfield(thf)
+    renders = {"k3": lambda: sv.render(poses[0], W, H, mode="fused"),
+               "kd_primary": lambda: sv.render(poses[0], W, H,
+                                               adaptive=False),
+               "kd_shadow": lambda: sv.render(poses[0], W, H,
+                                              adaptive=False),
+               "k9_trace": lambda: sv.render(poses[0], W, H),
+               "k9j_trace": lambda: tv.render(poses[0], W, H)}
+    for name, render in renders.items():
+        with Spy(_build, f"launch_{name}") as sp:
             render()
         torch.cuda.synchronize()
-        return sp.calls
-
-    sv = svos["esvo"]
-    sv.set_heightfield(hf)
-    cases = [(f"k7_tiles pose {i}", "k7_tiles", c)
-             for i, p in enumerate(poses)
-             for c in spy_calls("launch_k7_tiles",
-                                lambda p=p: sv.beam_context(p, W, H))]
-    # pose 0's tiles at smaller march budgets: the set-up (0) and the
-    # march's time against its iterations
-    (levels, bounds, params, out), kw0 = cases[0][2]
-    for budget in K7_BUDGET_SWEEP:
-        bp = _build.BeamParams.from_buffer_copy(params)
-        bp.max_iters = budget
-        cases.append((f"k7_tiles pose 0 max_iters {budget}", "k7_tiles",
-                      ((levels, bounds, bp, out), kw0)))
-    for fmt, sv in svos.items():
-        sv.set_heightfield(hf)
-        exact = spy_calls("launch_k8", lambda: sv.render(
-            poses[0], W, H, adaptive=False))
-        cases += [(f"k8 exact {fmt}", "k8", c) for c in exact]
-        cases += [(f"k8 exact {fmt} count 0", "k8",
-                   (zero_count(c[0], RAW_LAUNCHES["k8"]), c[1]))
-                  for c in exact]
-        cases += [(f"k8 adaptive {fmt} pass {j}", "k8", c)
-                  for j, c in enumerate(spy_calls(
-                      "launch_k8", lambda: sv.render(poses[0], W, H)))]
-    for fmt, sv in tsvos.items():
-        sv.set_heightfield(thf)
-        cases += [(f"k8 exact judged {fmt} (lit floors)", "k8", c)
-                  for c in spy_calls("launch_k8", lambda: sv.render(
-                      poses[0], W, H, adaptive=False))]
-    rows = {}
-    for label, name, (args, kw) in cases:
-        # the kernel and the plain version on copies of what it writes
-        ka, pa = copy_outs(name, args), copy_outs(name, args)
-        launch = getattr(_build, f"launch_{name}")
-        plib = None if PARENT is None else getattr(PARENT, f"launch_{name}")
-        launch(*ka, **kw)
-        plain_of(name)(*pa, **kw)
-        eq, err = launch_outputs_equal(name, outs_of(name, ka),
-                                       outs_of(name, pa))
-        ms, parent_ms = [], []
-        qa = copy_outs(name, args)
-        if plib is not None:
-            plib(*qa, **kw)
-            peq, _ = launch_outputs_equal(name, outs_of(name, qa),
-                                          outs_of(name, pa))
-            eq = eq and peq
-        for _ in range(max(1, AB_ROUNDS // 2)):
-            ms.append(kernel_ms(lambda: launch(*ka, **kw)))
-            if plib is not None:
-                parent_ms.append(kernel_ms(lambda: plib(*qa, **kw)))
-        rows[label] = dict(equal=eq, err=err, ms=ms, parent_ms=parent_ms)
-        if name == "k7_tiles":  # the plain march's longest lane
-            rows[label].update(march_max=beams.last_march_max,
-                               march_descents=beams.last_march_descents,
-                               march_steps=beams.last_march_steps)
-        else:  # the row words the table's width allows, in turns
-            wd = rows[label]["row_words"] = k8_widths(args, kw)
-            rows[label]["equal"] = eq = eq and wd["equal"]
-            log(f"{label}: {wd['row_bytes']}-byte rows read as "
-                f"16- / 8- / 4-byte words (those the width allows), median "
-                f"[quartiles] of {K8_WIDTH_ROUNDS} turns: "
-                f"{json.dumps(wd['ms'])} ms on {card}")
-        log(f"{label}: equal to its plain version {eq} (max |d| {err:.3g});"
-            f" this tree {[round(x, 4) for x in ms]} ms, the parent's "
-            f"{[round(x, 4) for x in parent_ms]} ms on {card}"
-            + ("" if name != "k7_tiles" else
-               f"; the longest march {beams.last_march_max} iterations, "
-               f"{beams.last_march_descents} of them descents; "
-               f"{beams.last_march_steps} in all"))
-    log(json.dumps({"kernels_only": rows, "card": card}))
+        for j, (a, kw) in enumerate(sp.calls[:3]):
+            mine = [x.clone() if k in CURSOR_OUTS[name] and x is not None
+                    else x for k, x in enumerate(a)]
+            theirs = [x.clone() if k in CURSOR_OUTS[name] and x is not None
+                      else x for k, x in enumerate(a)]
+            launch = getattr(_build, f"launch_{name}")
+            launch(*mine, **kw)
+            eq, pl = True, None
+            if PARENT is not None:
+                plib = getattr(PARENT, f"launch_{name}")
+                plib(*theirs, **kw)
+                eq = all(bits_equal(mine[k], theirs[k])
+                         for k in CURSOR_OUTS[name] if mine[k] is not None)
+                pl = lambda: plib(*theirs, **kw)  # noqa: E731
+            ms, pms = turns(lambda: launch(*mine, **kw), pl)
+            rows[f"{name} pose 0 call {j}"] = dict(equal=eq, ms=ms,
+                                                   parent_ms=pms)
+    for label, r in rows.items():
+        log(f"{label}: equal {r['equal']}; this tree "
+            f"{[round(x, 4) for x in r['ms']]} ms, the parent's "
+            f"{[round(x, 4) for x in r['parent_ms']]} ms"
+            + (f"; the longest lane {r['chain']} steps" if "chain" in r
+               else "") + f" on {card}")
+    log(json.dumps({"slice_kernels": rows, "card": card}))
     if not all(r["equal"] for r in rows.values()):
-        fail("a launch disagrees with its plain version")
+        fail("a launch of this slice disagrees with its plain version or "
+             "the parent's")
+
+
+def _budget_of(svo):
+    """The picker's step budget in ``svo``'s format."""
+    import numpy as np
+
+    from voxelrs_tpu_torch.ops import traversal, traversal_csvo
+    from voxelrs_tpu_torch.ops.traversal import MAX_STEPS
+
+    return (traversal_csvo if svo.buffer_dtype == np.uint8
+            else traversal).step_budget(MAX_STEPS)
 
 
 def renderer_phase(svo, poses, card) -> dict:
@@ -3019,14 +3397,22 @@ def renderer_phase(svo, poses, card) -> dict:
         budget = trav.step_budget(MAX_STEPS)
         out["trav_ms"] = kernel_ms(lambda: launch_fn(
             *head, ro, rd, md, budget, 1, alpha.tables, *trav_out))
-        if PARENT is not None:  # the parent's K1 / K4 on the same inputs
+        if PARENT is not None:  # the parent's K1 / K4 on the same inputs,
+            # in turns with this tree's (medians of AB_ROUNDS // 2 each)
             p_out = [torch.empty_like(x) for x in trav_out]
             p_launch = getattr(PARENT, "launch_k4" if csvo else "launch_k1")
             p_launch(*head, ro, rd, md, budget, 1, alpha.tables, *p_out)
+            mine, theirs = [], []
+            for _ in range(max(1, AB_ROUNDS // 2)):
+                mine.append(kernel_ms(lambda: launch_fn(
+                    *head, ro, rd, md, budget, 1, alpha.tables, *trav_out)))
+                theirs.append(kernel_ms(lambda: p_launch(
+                    *head, ro, rd, md, budget, 1, alpha.tables, *p_out)))
+            out["trav_ms"] = sorted(mine)[len(mine) // 2]
             out["trav_parent"] = dict(
                 equal=all(bits_equal(a, b) for a, b in zip(p_out, trav_out)),
-                ms=kernel_ms(lambda: p_launch(*head, ro, rd, md, budget, 1,
-                                              alpha.tables, *p_out)))
+                ms=sorted(theirs)[len(theirs) // 2], turns=dict(
+                    this_tree=mine, parent=theirs))
         fp = shading.frame_params(mip_mode=shading.mip_mode_from_env(),
                                   csvo=csvo, **svo.frame_kwargs(poses[0], W, H))
         tables = svo.kernel_tables()
@@ -3057,7 +3443,8 @@ def renderer_phase(svo, poses, card) -> dict:
     log(f"kernels alone ({fmt}, pose 0, {KERNEL_REPS} back-to-back "
         f"launches): {kname} {out['trav_ms']:.4f} ms"
         + ("" if tpar is None else f" (the parent's {kname.upper()} "
-           f"{tpar['ms']:.4f} ms, its hits equal {tpar['equal']})")
+           f"{tpar['ms']:.4f} ms, its hits equal {tpar['equal']}; turns "
+           f"{json.dumps(tpar['turns'])})")
         + f", k3 {out['k3_ms']:.4f} "
         f"ms" + ("" if par is None else f" (the parent's K3 {par['ms']:.4f} "
                  f"ms, its frame equal {par['equal']})")
@@ -5239,7 +5626,7 @@ def game_phase(fmt: str, card):
     from voxelrs_tpu_torch.ops import (compact, picker, shading, traversal,
                                        traversal_csvo)
 
-    recorder = PickerRecorder(picker.raycast)
+    recorder = PickerRecorder(picker.pick)
     k6rec = CompactRecorder(compact.compact_indices, W * H, GAME_K6_CALLS,
                             "cuda")
     compact.compact_indices = k6rec

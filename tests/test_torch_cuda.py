@@ -19,8 +19,11 @@ max |d| <= 1e-6 over every pixel and channel — the same operations again,
 with room only for a last-bit rounding of powf/acosf against
 torch.pow/torch.acos. K4 equals its plain version bit for bit, field by
 field, as K1. K5 equals its plain version bit for bit, every column of
-every task. K6, K7 and K8 equal their plain versions bit for bit (torch.
-equal). Floored K1 and K4 equal their unfloored runs on value, face_id,
+every task, with a task's ray cast by 1, 2, 8, 31 and 32 lanes (its plain
+split too), and one native call a pick (``ops.picker.pick``: pinned
+upload, K5, copy back) gives the rows of the launch-and-copy path at 8,
+32 and 5,000 tasks, its buffers grown to the largest batch and reused.
+K6, K7 and K8 equal their plain versions bit for bit (torch.equal). Floored K1 and K4 equal their unfloored runs on value, face_id,
 inside_voxel and t. The deferred frame is within max |d| 1e-6 of K3's
 frame (its stages are K3's device functions; measured 0). K9's kernels
 equal their plain versions bit for bit (the finalize's sky within 1e-6:
@@ -232,17 +235,7 @@ def test_k5_csvo_equals_plain(csvo, dev, n):
 
 
 def _check_k5(svo, dev, n, fmt):
-    rng = np.random.default_rng(n)
-    o = rng.uniform(-4, 68, (n, 3))
-    o[::3] = np.round(o[::3])  # on the lattice
-    d = rng.normal(size=(n, 3))
-    d[1::2] = np.eye(3)[rng.integers(0, 3, n // 2)] * rng.choice([-1, 1], (n // 2, 1))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    md = rng.choice([10.0, 30.0], (n, 1))
-    md[-1] = 0.0  # a padding task: max_dst 0, direction +x
-    d[-1] = (1.0, 0.0, 0.0)
-    tasks = torch.tensor(np.concatenate([md, o, d], 1), dtype=torch.float32,
-                         device=dev)
+    tasks = _k5_tasks(n, dev)
     n0, c0 = picker.launches, picker.launches_csvo
     k = picker.raycast(svo.world(), svo.octree_scale, tasks)
     p = picker.raycast_plain(svo.world(), svo.octree_scale, tasks)
@@ -255,6 +248,87 @@ def _check_k5(svo, dev, n, fmt):
     for col, name in ((slice(0, 1), "dst"), (slice(1, 2), "inside"),
                       (slice(2, 5), "pos"), (slice(5, 8), "normal")):
         assert torch.equal(k[:, col], p[:, col]), name
+
+
+def _k5_tasks(n, dev=None):
+    """_check_k5's batch: look rays and axis-aligned sweep rays (origins on
+    and off the voxel lattice), limits of 10 and 30 blocks, a padding
+    task last; numpy, or on ``dev``."""
+    rng = np.random.default_rng(n)
+    o = rng.uniform(-4, 68, (n, 3))
+    o[::3] = np.round(o[::3])  # on the lattice
+    d = rng.normal(size=(n, 3))
+    d[1::2] = np.eye(3)[rng.integers(0, 3, n // 2)] * rng.choice([-1, 1], (n // 2, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    md = rng.choice([10.0, 30.0], (n, 1))
+    md[-1] = 0.0  # a padding task: max_dst 0, direction +x
+    d[-1] = (1.0, 0.0, 0.0)
+    tasks = np.concatenate([md, o, d], 1).astype(np.float32)
+    return tasks if dev is None else torch.tensor(tasks, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("segments", [1, 2, 8, 31, 32])
+@pytest.mark.parametrize("n", [8, 33, 5000])
+def test_k5_segments_equal_plain(svo, csvo, dev, fmt, segments, n):
+    """K5 with a task's ray cut into ``segments`` lanes' segments (1: lane
+    0 casts it whole) equals the plain picker bit for bit, and its plain
+    split (``raycast_split_plain``) too."""
+    s = svo if fmt == "esvo" else csvo
+    tasks = _k5_tasks(n, dev)
+    budget = (traversal_csvo if fmt == "csvo" else traversal).step_budget(
+        traversal.MAX_STEPS)
+    out = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    _build.launch_k5(s.world(), float(s.octree_scale), tasks, budget, out,
+                     steps, segments=segments)
+    ref = picker.raycast_plain(s.world(), s.octree_scale, tasks)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(picker.raycast_split_plain(
+        s.world(), s.octree_scale, tasks, segments), ref)
+    assert int(steps.min()) >= 0 and int(steps.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["esvo", "csvo"])
+@pytest.mark.parametrize("n", [8, 32, 5000])
+def test_k5_pick_equals_launch_and_copy(svo, csvo, dev, fmt, n):
+    """One native call a pick (``ops.picker.pick``: pinned upload, K5,
+    copy back, wait) gives the rows of ``raycast`` and a copy, and of the
+    plain version, counting one launch."""
+    s = svo if fmt == "esvo" else csvo
+    tasks = _k5_tasks(n)
+    bufs = picker.PickBuffers(s.device_buf.device)
+    n0, c0 = picker.launches, picker.launches_csvo
+    rows = picker.pick(s.world(), s.octree_scale, tasks, bufs)
+    assert picker.launches == n0 + 1
+    assert picker.launches_csvo == c0 + (fmt == "csvo")
+    assert bufs.host_tasks.is_pinned() and bufs.host_rows.is_pinned()
+    assert isinstance(rows, np.ndarray) and rows.shape == (n, 8)
+    t = torch.from_numpy(tasks).to(dev)
+    old = picker.raycast(s.world(), s.octree_scale, t).cpu().numpy()
+    ref = picker.raycast_plain(s.world(), s.octree_scale, t).cpu().numpy()
+    np.testing.assert_array_equal(rows, old)
+    np.testing.assert_array_equal(rows, ref)
+
+
+@pytest.mark.cuda
+def test_k5_pick_buffers_grow_and_are_reused(svo, dev):
+    """A pick's buffers grow to the largest batch and are reused below it;
+    each pick's rows are its own."""
+    bufs = picker.PickBuffers(svo.device_buf.device)
+    seen = []
+    for n in (8, 32, 8, 5000, 33):
+        tasks = _k5_tasks(n)
+        rows = picker.pick(svo.world(), svo.octree_scale, tasks, bufs)
+        seen.append((bufs.size, bufs.host_rows.data_ptr()))
+        ref = picker.raycast_plain(svo.world(), svo.octree_scale,
+                                   torch.from_numpy(tasks).to(dev))
+        np.testing.assert_array_equal(rows, ref.cpu().numpy())
+    assert [s for s, _ in seen] == [8, 32, 32, 5000, 5000]
+    assert seen[1][1] == seen[2][1] and seen[3][1] == seen[4][1]
 
 
 @pytest.mark.cuda

@@ -2,9 +2,14 @@
 K7's shadow floors, of K8 (its sun table on a 4-byte word, each output
 on a 16-byte word), of K3, of the primary stage (``kd_primary``: records,
 flags and a miss's pixel stored as 16-byte words), of K9-judged's trace,
-merge and finalize and of every
+merge and finalize, of every
 CSVO launch (words on a 16-byte word, the CSVO kernels' launch contract),
-and the work items of the launches in 4x8 pixel tiles. ``kd_finish`` reads a thread's 4
+and of the one-call pick
+(``_build.launch_k5_pick``: buffers of the batch's rows, float32,
+contiguous, on the world's device or in host memory; ``PickBuffers``
+grown to the largest batch; the split's depth, ``picker.split_cells``),
+and the work items of the
+launches in 4x8 pixel tiles. ``kd_finish`` reads a thread's 4
 candidate slots as one 16-byte word of ``sidx`` and one 4-byte word of
 each flag array (``traced``, ``blk``, ``todo``) from slot 0, and gathers
 colours and writes pixels as 16-byte words; K7's shadow kernel writes its
@@ -403,3 +408,93 @@ def test_check_words_refuses_words_off_a_16_byte_word(offset):
                            match="words: expected a 16-byte aligned"):
             check_words(*world)
 
+
+
+def _pick_args(n=8, **bad):
+    """A pick's world and buffers on the CPU (the world's device), each
+    replaceable by a bad one."""
+    world = torch.zeros(24, dtype=torch.int32)
+    bufs = dict(host_tasks=torch.zeros((n, 7)), dev_tasks=torch.zeros((n, 7)),
+                dev_rows=torch.zeros((n, 8)), host_rows=torch.zeros((n, 8)))
+    bufs.update(bad)
+    return world, bufs
+
+
+@pytest.mark.parametrize("name", ["host_tasks", "dev_tasks", "dev_rows",
+                                  "host_rows"])
+@pytest.mark.parametrize("kind", ["dtype", "rows", "strided", "device"])
+def test_k5_pick_refuses_buffers_it_cannot_use(name, kind):
+    """``launch_k5_pick`` refuses a buffer of another dtype, with fewer
+    rows than the batch, not contiguous, or on another device (the device
+    buffers on the world's, the host buffers in host memory), before it
+    touches the kernel library."""
+    width = 7 if name.endswith("tasks") else 8
+    bad = {"dtype": torch.zeros((8, width), dtype=torch.float64),
+           "rows": torch.zeros((7, width)),
+           "strided": torch.zeros((8, 2 * width))[:, ::2],
+           "device": torch.zeros((8, width), device="meta")}[kind]
+    world, bufs = _pick_args(**{name: bad})
+    with pytest.raises(ValueError, match=name):
+        _build.launch_k5_pick(world, 2.0 ** -7, 8, 1000, **bufs)
+
+
+def test_k5_pick_refuses_an_empty_batch_and_bad_shapes():
+    world, bufs = _pick_args()
+    with pytest.raises(ValueError, match="at least 1 task"):
+        _build.launch_k5_pick(world, 1.0, 0, 1000, **bufs)
+    for segments in (0, 33):  # the lanes of a task (a pick casts with 32)
+        with pytest.raises(ValueError, match="segments"):
+            _build.launch_k5(world, 1.0, bufs["dev_tasks"], 1000,
+                             bufs["dev_rows"], segments=segments)
+
+
+def test_k5_pick_refuses_pageable_host_buffers():
+    """A host buffer must be pinned (``check_pinned``, which
+    ``PickBuffers`` runs when it allocates on a card): a CPU tensor here
+    is pageable."""
+    with pytest.raises(ValueError, match="host_rows: expected a tensor in "
+                                         "pinned host memory"):
+        _build.check_pinned("host_rows", torch.zeros((8, 8)))
+
+
+@pytest.mark.parametrize("scale,depth", [(1.0, 0), (0.5, 1), (2.0 ** -11, 11),
+                                         (0.3, 2), (2.0, 0), (0.75, 1)])
+def test_scale_depth(scale, depth):
+    """K5's split bounds a ray's cells by the octree's depth D, of
+    octree_scale = 2^-D (the kernel's -ilogb): another scale's depth is
+    rounded up, at least 0, on the CPU as on the card; a task of length 0
+    crosses at most 4 D + 3 cells."""
+    from voxelrs_tpu_torch.ops.picker import split_cells
+
+    tasks = torch.zeros((2, 7))
+    tasks[1, 4] = 1.0
+    assert split_cells(scale, tasks).tolist() == [4.0 * depth + 3.0] * 2
+
+
+def test_pick_buffers_grow_to_the_largest_batch():
+    """``PickBuffers`` allocates for a batch once and reuses the buffers
+    for every smaller one; its numpy views are the host tensors' memory."""
+    from voxelrs_tpu_torch.ops.picker import PickBuffers
+
+    b = PickBuffers("cpu")
+    sizes, ptrs = [], []
+    for n in (8, 32, 8, 5000, 33, 5000):
+        b.hold(n)
+        sizes.append(b.size)
+        ptrs.append((b.host_tasks.data_ptr(), b.dev_rows.data_ptr()))
+        assert b.host_tasks.shape == (b.size, 7)
+        assert b.host_rows.shape == b.dev_rows.shape == (b.size, 8)
+    assert sizes == [8, 32, 32, 5000, 5000, 5000]
+    assert ptrs[1] == ptrs[2] and ptrs[3] == ptrs[4] == ptrs[5]
+    assert ptrs[0] != ptrs[1]
+    b.tasks[0, 0] = 7.0
+    assert float(b.host_tasks[0, 0]) == 7.0
+    assert not b.host_tasks.is_pinned()  # pinned only for a card
+
+
+def test_pick_refuses_buffers_of_another_device():
+    from voxelrs_tpu_torch.ops.picker import PickBuffers, pick
+
+    world = torch.zeros(24, dtype=torch.int32)
+    with pytest.raises(ValueError, match="buffers: on meta"):
+        pick(world, 1.0, torch.zeros((8, 7)).numpy(), PickBuffers("meta"))

@@ -60,6 +60,9 @@ MAX_LEVELS = 8
 MAX_BEAM_LEVELS = 16  # envelope pyramid levels (csrc/k7_beams.cuh)
 K6_TILE = 8192  # mask lanes of a K6 tile (csrc/k6_compact.cuh)
 HIT_WORDS = 9  # words of a deferred hit record (kernels.cu HitRec)
+# lanes casting a task in a pick (kernels.cu K5_SEGMENTS, which a pick
+# uses): 32 beat 1 and 8 on the games' sweeps and longest chains (PERF.md §6)
+K5_SEGMENTS = 32
 K9_WORDS = 8  # words of a K9 record (k9_adaptive.cuh K9Rec)
 K9J_WORDS = 16  # words of a K9-judged record (k9_judged.cuh K9JRec)
 
@@ -189,16 +192,20 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vx_k1_traverse.restype = I
     lib.vx_k3_frame.argtypes = [P, LL, F, P, P, P, P, P, P]
     lib.vx_k3_frame.restype = I
-    lib.vx_k5_picker.argtypes = [P, LL, F, P, I, I, P, P, P]
+    lib.vx_k5_picker.argtypes = [P, LL, F, P, I, I, I, P, P, P]
     lib.vx_k5_picker.restype = I
+    lib.vx_k5_pick.argtypes = [P, LL, F, P, P, I, I, P, P, P]
+    lib.vx_k5_pick.restype = I
     U = ctypes.c_uint
     lib.vx_k4_traverse.argtypes = [P, LL, F, U, I, P, P, P, I, I, I, P,
                                    P, P, P, P, P, P, P, P, P, P]
     lib.vx_k4_traverse.restype = I
     lib.vx_k3_frame_csvo.argtypes = [P, LL, F, U, I, P, P, P, P, P, P]
     lib.vx_k3_frame_csvo.restype = I
-    lib.vx_k5_picker_csvo.argtypes = [P, LL, F, U, I, P, I, I, P, P, P]
+    lib.vx_k5_picker_csvo.argtypes = [P, LL, F, U, I, P, I, I, I, P, P, P]
     lib.vx_k5_picker_csvo.restype = I
+    lib.vx_k5_pick_csvo.argtypes = [P, LL, F, U, I, P, P, I, I, P, P, P]
+    lib.vx_k5_pick_csvo.restype = I
     for name, args in (
             ("vx_k6_compact", [P, I, I, P, P, P, U, I, P, P]),
             ("vx_k7_tiles", [P, P, P, P, P]),
@@ -402,15 +409,23 @@ def launch_k4(words, octree_scale, root_ptr, total_depth, ro, rd, max_dst,
     _raise_on(err, "K4 (vx_k4_traverse)")
 
 
-def launch_k5(world, octree_scale, tasks, budget, out, steps=None):
+def launch_k5(world, octree_scale, tasks, budget, out, steps=None,
+              segments=K5_SEGMENTS):
     """Launch K5 on the current stream (inputs checked by the caller), the
-    ESVO or the CSVO instantiation by ``world``: ``tasks`` (n, 7) float32,
-    ``out`` (n, 8) float32. ``steps``, a diagnostic no wrapper passes, is
-    None or a contiguous (n,) int32 tensor that receives each task's
-    traversal steps."""
+    ESVO or the CSVO instantiation by ``world``: ``tasks`` (n >= 1, 7)
+    float32, ``out`` (n, 8) float32, ``segments`` lanes casting each task
+    (1-32; csrc/kernels.cu ``k5_picker_kernel``; a pick casts with
+    ``K5_SEGMENTS``, the other counts are timed and tested only).
+    ``steps``, a diagnostic no wrapper passes, is None or a contiguous (n,)
+    int32 tensor that receives each task's chain: the steps of its longest
+    lane, plus the whole ray's where lane 0 cast it after all."""
+    if not 1 <= segments <= 32:
+        raise ValueError(f"segments: expected 1-32 lanes a task, got "
+                         f"{segments}")
     csvo = csvo_words(world)
     lib = library()
-    tail = (_ptr(tasks), tasks.shape[0], budget, _ptr(out), _ptr(steps))
+    tail = (_ptr(tasks), tasks.shape[0], budget, segments, _ptr(out),
+            _ptr(steps))
     if csvo is None:
         err = lib.vx_k5_picker(_ptr(world), world.shape[0], octree_scale,
                                *tail, _stream(world.device))
@@ -420,6 +435,63 @@ def launch_k5(world, octree_scale, tasks, budget, out, steps=None):
                                     octree_scale, root_ptr, depth, *tail,
                                     _stream(words.device))
     _raise_on(err, "K5 (vx_k5_picker)")
+
+
+def check_k5_pick(world, n, host_tasks, dev_tasks, dev_rows, host_rows):
+    """Refuse what one pick (``launch_k5_pick``) cannot take: every buffer
+    a contiguous float32 tensor of at least ``n`` (>= 1) rows, the tasks'
+    7 floats a row and the rows' 8, the two device buffers on the world's
+    device and the two host buffers in host memory. It reads only a
+    tensor's attributes, so it keeps the interpreter lock; that the host
+    buffers are pinned is ``check_pinned``'s, once (a pageable buffer
+    would make the copies synchronous, not wrong)."""
+    if n < 1:
+        raise ValueError(f"n: expected at least 1 task, got {n}")
+    dev = (world if isinstance(world, torch.Tensor) else world[0]).device
+    for name, x, width in (("host_tasks", host_tasks, 7),
+                           ("dev_tasks", dev_tasks, 7),
+                           ("dev_rows", dev_rows, 8),
+                           ("host_rows", host_rows, 8)):
+        if (x.dtype != torch.float32 or not x.is_contiguous()
+                or x.numel() < width * n):
+            raise ValueError(f"{name}: expected a contiguous float32 tensor "
+                             f"of >= {n} rows of {width}")
+    for name, x, want in (("dev_tasks", dev_tasks, dev),
+                          ("dev_rows", dev_rows, dev),
+                          ("host_tasks", host_tasks, torch.device("cpu")),
+                          ("host_rows", host_rows, torch.device("cpu"))):
+        if x.device != want:
+            raise ValueError(f"{name}: on {x.device}, expected {want}")
+
+
+def check_pinned(name, t):
+    """Refuse a host buffer that is not in pinned memory."""
+    if t.device.type != "cpu" or not t.is_pinned():
+        raise ValueError(f"{name}: expected a tensor in pinned host memory")
+
+
+def launch_k5_pick(world, octree_scale, n, budget, host_tasks, dev_tasks,
+                   dev_rows, host_rows):
+    """One pick in one native call on the current stream of the world's
+    device (``check_k5_pick``): the first ``n`` tasks of ``host_tasks``
+    (pinned: ``check_pinned``) go to ``dev_tasks``, K5 casts them into
+    ``dev_rows`` (``K5_SEGMENTS`` lanes a task), and their rows are in
+    ``host_rows`` when it returns. The library is a ``ctypes.PyDLL``, so
+    the call keeps the interpreter lock from the upload to the rows."""
+    check_k5_pick(world, n, host_tasks, dev_tasks, dev_rows, host_rows)
+    csvo = csvo_words(world)
+    lib = library()
+    tail = (_ptr(host_tasks), _ptr(dev_tasks), n, budget, _ptr(dev_rows),
+            _ptr(host_rows))
+    if csvo is None:
+        err = lib.vx_k5_pick(_ptr(world), world.shape[0], octree_scale,
+                             *tail, _stream(world.device))
+    else:
+        words, root_ptr, depth = csvo
+        err = lib.vx_k5_pick_csvo(_ptr(words), words.shape[0], octree_scale,
+                                  root_ptr, depth, *tail,
+                                  _stream(words.device))
+    _raise_on(err, "K5 (vx_k5_pick)")
 
 
 def k6_blocks(n: int) -> int:

@@ -10,19 +10,20 @@
 //
 // Design: one thread per ray, as in the reference GLSL
 // (assets/shaders/svo.esvo.glsl). The 12-entry (node, t_max) stack lives
-// in local memory (K3, the primary stage, K9's and K9-judged's traces and
-// the shadow stage: shared memory, see SharedStack); each step reads one
-// word of one 12-word block. The JAX
+// in local memory (K3, K5, the primary stage, K9's and K9-judged's traces
+// and the shadow stage: shared memory, see SharedStack); each step reads
+// one word of one 12-word block (two with the pointer prefetch). The JAX
 // version's TPU structure (lock-step batch, one-hot stacks, fat rows) is not
 // carried over. The arithmetic follows the JAX classic loop operation by
 // operation — separate multiplies and subtracts (build with -fmad=false),
 // IEEE division — so hits agree bit for bit with the plain PyTorch version.
 //
-// What bounds it on an H100: dependent loads. Each step is one dependent
-// 4-byte load from the 6.5 MB buffer (L2-resident) plus ~40 scalar float
-// and integer operations; warps diverge once their rays take different
-// paths. Making it fast (coherent packets, shared-memory stacks, the push
-// engine's fetch elision) is later work.
+// What bounds it on an H100: the chain of dependent steps, not instruction
+// issue. A step issues some 80 instructions around its dependent load
+// from the 6.5 MB buffer (L2-resident); a cursor that loads a node's words
+// once, when the traversal enters it, issues 9 fewer a step and ran 5-12%
+// slower on every ESVO kernel (PERF.md §6). Warps diverge once their rays
+// take different paths; the frame kernels give a warp a 4x8 pixel tile.
 
 #pragma once
 #include <cstdint>
@@ -302,7 +303,10 @@ __device__ __forceinline__ void finalize_hit(const RayConsts& c,
 // has the same four methods over the CSVO byte stream. PREFETCH: the probe
 // also loads the node's child-pointer word (same block), beside its
 // descriptor word, so a push or a leaf's value waits for one load fewer;
-// the words read, and so the result, are the same.
+// the words read, and so the result, are the same. The frame kernels
+// trace with it, K1 without it (1.2% faster there); forms that read a
+// node's words once, when the traversal enters it, or keep its block
+// index were slower on every ESVO kernel (PERF.md §6).
 template <bool PREFETCH>
 struct EsvoCursorT {
   const uint32_t* __restrict__ desc;
@@ -352,8 +356,8 @@ struct EsvoCursorT {
 using EsvoCursor = EsvoCursorT<false>;
 
 // Where traverse_with keeps its 12-entry (node, t_max) stack, made inside
-// it from a Source. LocalStack: arrays of the thread (local memory: K1, K4
-// and K5). SharedStack: the thread's column
+// it from a Source. LocalStack: arrays of the thread (local memory: K1 and
+// K4). SharedStack: the thread's column
 // of a block's shared-memory table, `stride` entries apart (entry
 // [slot][thread]: no bank conflicts).
 struct LocalStack {

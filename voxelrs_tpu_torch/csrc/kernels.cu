@@ -30,15 +30,15 @@
 // indexed loads here.
 //
 // K5 replaces voxelrs_tpu/graphics/svo.py::_raycast_fn (:526-557), the
-// picker: one thread per task of an (n, 7) [max_dst, pos.xyz, dir.xyz]
-// batch runs K1's traversal as an opaque cast (no alpha judge) and packs
-// [dst, inside, pos.xyz, normal.xyz] into one (n, 8) float32 row, so the
-// caller makes one allocation and one device-to-host copy. A batch holds
-// 8 or 32 tasks (the look ray, or one player AABB sweep) of at most 30
-// blocks each, so one block runs it (the CSVO instantiation replaces the
-// CSVO branch :535-541): the longest task's chain of dependent
-// loads sets the kernel's time, and around it the caller's upload and copy
-// back, not bytes or operations.
+// picker: each task of an (n, 7) [max_dst, pos.xyz, dir.xyz] batch is cast
+// opaque (no alpha judge) and its hit packed into one (n, 8) float32 row
+// [dst, inside, pos.xyz, normal.xyz] (the CSVO instantiation replaces the
+// CSVO branch :535-541). A batch holds 8 or 32 tasks (the look ray, or
+// one player AABB sweep) of at most 30 blocks each: the longest task's
+// chain of dependent loads sets the kernel's time, so a task gets a warp
+// of its own (k5_picker_kernel). Around it, the caller's upload and copy
+// back cost more than the kernel: vx_k5_pick does the whole pick in one
+// call from pinned host memory and waits for its rows.
 //
 // The deferred frame replaces voxelrs_tpu/ops/shading.py::
 // render_frame_deferred (:3058) in its non-adaptive configuration: the
@@ -131,20 +131,9 @@ struct EsvoWorld {
   const uint32_t* __restrict__ desc;
   uint32_t n_rows;
 
-  __device__ __forceinline__ void trace(float octree_scale, float ox,
-                                        float oy, float oz, float dx,
-                                        float dy, float dz, float max_dst,
-                                        int budget, int alpha_mode,
-                                        const TexTables& tx, Hit& out,
-                                        bool floored = false,
-                                        float t_floor = 0.f) const {
-    traverse(desc, n_rows, octree_scale, ox, oy, oz, dx, dy, dz, max_dst,
-             budget, alpha_mode, tx, out, floored, t_floor);
-  }
-
   // trace with the stack in shared memory and the cursor's pointer
-  // prefetch (EsvoCursorT<true>): K3, kd_primary, K9's and K9-judged's
-  // traces and the shadow stage
+  // prefetch (EsvoCursorT<true>): K3, K5, kd_primary, K9's and
+  // K9-judged's traces and the shadow stage
   __device__ __forceinline__ void trace_shared(
       float octree_scale, float ox, float oy, float oz, float dx, float dy,
       float dz, float max_dst, int budget, int alpha_mode,
@@ -188,6 +177,12 @@ struct CsvoWorld {
   }
 };
 
+// K1: one thread per ray of a batch in 128-thread blocks, the stack in
+// local memory, the ESVO cursor without the pointer prefetch. Of the
+// shapes measured on pose 0's rays (PERF.md §6), the frame kernels'
+// forms (64-thread blocks, the stack in shared memory, the outputs staged
+// through shared memory and stored as 16-byte words) were 4-8% slower,
+// the staging alone 4%, and the prefetching cursor 1.2%.
 __global__ void __launch_bounds__(BLOCK)
 k1_traverse_kernel(const uint32_t* __restrict__ desc, uint32_t n_rows,
                    float octree_scale, const float* __restrict__ ro,
@@ -784,31 +779,151 @@ kd_finish_kernel(FrameParams fp, const int* __restrict__ hidx,
   }
 }
 
+// K5, the picker: a warp a task [max_dst, pos.xyz, dir.xyz] of the
+// batch, one block a warp, its row [dst, inside, pos.xyz, normal.xyz] out.
+// A picker batch holds 8 or 32 tasks, so a launch's time is its longest
+// task's chain of dependent steps: each task gets a warp of its own (no
+// task waits on another's branches) and the stack in shared memory.
+//
+// `segments` S (1-32) lanes cast the task: K5_SEGMENTS in a pick (the other
+// counts are timed and tested only). With S = 1, or max_dst at most
+// K5_FIRST, lane 0 casts the ray (the classic loop with the budget). Else
+// lane 0 casts [0, K5_FIRST] (a block's height or two: a ray that starts
+// on or in a voxel passes through it there) and lanes k = 1 .. S - 1 the
+// segments of [K5_FIRST, max_dst] at fractions (k - 1) / (S - 1) and k /
+// (S - 1) (the last ending at max_dst), from that floor (traverse_with's
+// floored start); the nearest hit wins, the lower lane on a tie (a warp
+// reduction on the distance's bits, then the ballot's first lane). A lane
+// that starts inside a leaf reports its floor, not the leaf's entry: the
+// ray entered that leaf in an earlier segment, whose lane hits it or an
+// earlier leaf first, unless the ray starts inside a voxel (`inside`,
+// which only steps at t = 0 set: lane 0's), which the classic loop passes
+// through. So lane 0 casts the whole ray after all where the winner hit
+// at its floor, and where the budget could cut the classic loop: past lane
+// 0's segment a ray probes each octree cell it crosses at most once, and
+// a cast of length m (world units) with direction d in an octree of depth
+// D (octree_scale = 2^-D; D = -ilogb(octree_scale), at least 0, rounds
+// another scale's depth up) crosses at most 4 D + 2 m |d|_1 cells, so lane
+// 0's steps plus 4 D + 3 + 2 m (|d|_1 + 1e-6) under the budget leaves the
+// budget nothing to cut. ops.picker.raycast_split_plain is this split in
+// plain PyTorch.
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+constexpr float K5_FIRST = 2.f;  // world units cast by lane 0 of a split
+// lanes casting a task in a pick (_build.K5_SEGMENTS): 32 beat 1 and 8 on
+// the games' sweeps and longest chains (PERF.md section 6)
+constexpr int K5_SEGMENTS = 32;
+
 template <class World>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(32)
 k5_picker_kernel(World world, float octree_scale,
-                 const float* __restrict__ tasks, int n, int budget,
+                 const float* __restrict__ tasks, int budget, int segments,
                  float* __restrict__ out, int* __restrict__ steps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* task = tasks + 7 * (size_t)i;
+  __shared__ uint32_t s_node[STACK_HEIGHT * 32];
+  __shared__ float s_tmax[STACK_HEIGHT * 32];
+  const int lane = threadIdx.x;
+  const SharedStack::Source stack{s_node + lane, s_tmax + lane, 32};
+  const float* task = tasks + 7 * (size_t)blockIdx.x;
+  const float md = task[0];
+  const float o[3] = {task[1], task[2], task[3]};
+  const float d[3] = {task[4], task[5], task[6]};
   const TexTables no_tables = {};  // the opaque cast reads no texture
-  Hit hit;
-  world.trace(octree_scale, task[1], task[2], task[3], task[4], task[5],
-              task[6], task[0], budget, 0, no_tables, hit);
+  const bool split = segments > 1 && md > K5_FIRST;
+  Hit hit;  // a lane that casts nothing: a miss of 0 steps
+  hit.t = -1.f;
+  hit.steps = 0;
+  hit.inside = false;
+  float floor_t = 0.f;
+  if (lane < (split ? segments : 1)) {
+    float end = md;
+    if (split) {
+      const float span = md - K5_FIRST, s = (float)(segments - 1);
+      floor_t = lane == 0 ? 0.f : K5_FIRST + span * ((float)(lane - 1) / s);
+      end = lane == 0 ? K5_FIRST
+            : lane == segments - 1 ? md
+            : K5_FIRST + span * ((float)lane / s);
+    }
+    world.trace_shared(octree_scale, o[0], o[1], o[2], d[0], d[1], d[2], end,
+                       budget, 0, no_tables, hit, lane > 0, floor_t, stack);
+  }
+  int src = 0, chain = hit.steps;
+  bool inside = hit.inside;
+  if (split) {
+    const uint32_t key = hit.t > 0.f ? __float_as_uint(hit.t) : FULL_MASK;
+    const uint32_t best = __reduce_min_sync(FULL_MASK, key);
+    src = __ffs(__ballot_sync(FULL_MASK, key == best)) - 1;
+    const bool floor_hit =
+        lane > 0 && hit.t == (floor_t * octree_scale) / octree_scale;
+    const int depth = max(0, -ilogbf(octree_scale));
+    const float cells =
+        4.f * (float)depth + 3.f
+        + 2.f * md * (((fabsf(d[0]) + fabsf(d[1])) + fabsf(d[2])) + 1e-6f);
+    const int steps0 = __shfl_sync(FULL_MASK, hit.steps, 0);
+    const bool redo =
+        (float)steps0 + cells > (float)budget
+        || (best != FULL_MASK && __shfl_sync(FULL_MASK, floor_hit, src));
+    inside = __shfl_sync(FULL_MASK, hit.inside, 0);
+    chain = (int)__reduce_max_sync(FULL_MASK, (unsigned)hit.steps);
+    if (redo) {
+      src = 0;
+      if (lane == 0) {
+        world.trace_shared(octree_scale, o[0], o[1], o[2], d[0], d[1], d[2],
+                           md, budget, 0, no_tables, hit, false, 0.f, stack);
+        inside = hit.inside;
+        chain += hit.steps;
+      }
+    }
+  }
+  if (lane != src) return;
   const bool h = hit.t > 0.f;
   const int f = clampi(hit.face, 0, 5);
-  float* o = out + 8 * (size_t)i;
-  o[0] = h ? hit.t : -1.f;
-  o[1] = (h && hit.inside) ? 1.f : 0.f;
+  float* row = out + 8 * (size_t)blockIdx.x;
+  row[0] = h ? hit.t : -1.f;
+  row[1] = (h && inside) ? 1.f : 0.f;
   for (int k = 0; k < 3; ++k) {
-    o[2 + k] = h ? hit.pos[k] : 0.f;
-    o[5 + k] = h ? FACE_N[f][k] : 0.f;
+    row[2 + k] = h ? hit.pos[k] : 0.f;
+    row[5 + k] = h ? FACE_N[f][k] : 0.f;
   }
-  if (steps) steps[i] = hit.steps;
+  if (steps) steps[blockIdx.x] = chain;
 }
 
 inline int grid_for(long long n) { return (int)((n + BLOCK - 1) / BLOCK); }
+
+// K5 on `n` tasks (n >= 1): a block of one warp a task.
+template <class World>
+int k5_launch(const World& world, float octree_scale, const float* tasks,
+              int n, int budget, int segments, float* out, int* steps,
+              cudaStream_t stream) {
+  k5_picker_kernel<<<n, 32, 0, stream>>>(world, octree_scale, tasks, budget,
+                                         segments, out, steps);
+  return (int)cudaGetLastError();
+}
+
+// A whole pick on `stream`: the n padded tasks from pinned host memory
+// onto the card, K5 (K5_SEGMENTS lanes a task), the rows back into pinned host memory, and a wait on
+// an event recorded after that copy. The caller holds the interpreter lock
+// throughout (a ctypes.PyDLL call), so the calls are never concurrent and
+// one event serves them (one card a process, as resident_blocks).
+template <class World>
+int k5_pick(const World& world, float octree_scale, const float* host_tasks,
+            float* dev_tasks, int n, int budget, float* dev_rows,
+            float* host_rows, cudaStream_t stream) {
+  static cudaEvent_t done = nullptr;
+  int err = 0;
+  if (done == nullptr)
+    err = (int)cudaEventCreateWithFlags(&done, cudaEventDisableTiming);
+  if (!err)
+    err = (int)cudaMemcpyAsync(dev_tasks, host_tasks, sizeof(float) * 7 * n,
+                               cudaMemcpyHostToDevice, stream);
+  if (!err)
+    err = k5_launch(world, octree_scale, dev_tasks, n, budget, K5_SEGMENTS,
+                    dev_rows, nullptr, stream);
+  if (!err)
+    err = (int)cudaMemcpyAsync(host_rows, dev_rows, sizeof(float) * 8 * n,
+                               cudaMemcpyDeviceToHost, stream);
+  if (!err) err = (int)cudaEventRecord(done, stream);
+  if (!err) err = (int)cudaEventSynchronize(done);
+  return err;
+}
 
 // The blocks of `threads` threads of `kernel` that the card holds at once
 // (at least 1), asked at the first call and kept in `cache` (a launcher's
@@ -1009,13 +1124,20 @@ int vx_k3_frame(const uint32_t* desc, long long n_words, float octree_scale,
 }
 
 int vx_k5_picker(const uint32_t* desc, long long n_words, float octree_scale,
-                 const float* tasks, int n_tasks, int budget, float* out,
-                 int* steps, void* stream) {
+                 const float* tasks, int n_tasks, int budget, int segments,
+                 float* out, int* steps, void* stream) {
   const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
-  vx::k5_picker_kernel<<<vx::grid_for(n_tasks), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(world, octree_scale, tasks,
-                                                 n_tasks, budget, out, steps);
-  return (int)cudaGetLastError();
+  return vx::k5_launch(world, octree_scale, tasks, n_tasks, budget, segments,
+                       out, steps, (cudaStream_t)stream);
+}
+
+// Returns the first CUDA error of the pick (0 = the rows are in host_rows).
+int vx_k5_pick(const uint32_t* desc, long long n_words, float octree_scale,
+               const float* host_tasks, float* dev_tasks, int n_tasks,
+               int budget, float* dev_rows, float* host_rows, void* stream) {
+  const vx::EsvoWorld world = {desc, (uint32_t)(n_words / 12)};
+  return vx::k5_pick(world, octree_scale, host_tasks, dev_tasks, n_tasks,
+                     budget, dev_rows, host_rows, (cudaStream_t)stream);
 }
 
 // words: the CSVO node stream after its 4-byte prefix, n_words >= 1,
@@ -1052,14 +1174,23 @@ int vx_k3_frame_csvo(const uint32_t* words, long long n_words,
 
 int vx_k5_picker_csvo(const uint32_t* words, long long n_words,
                       float octree_scale, unsigned root_ptr, int total_depth,
-                      const float* tasks, int n_tasks, int budget, float* out,
-                      int* steps, void* stream) {
+                      const float* tasks, int n_tasks, int budget,
+                      int segments, float* out, int* steps, void* stream) {
   const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
                                total_depth};
-  vx::k5_picker_kernel<<<vx::grid_for(n_tasks), vx::BLOCK, 0,
-                         (cudaStream_t)stream>>>(world, octree_scale, tasks,
-                                                 n_tasks, budget, out, steps);
-  return (int)cudaGetLastError();
+  return vx::k5_launch(world, octree_scale, tasks, n_tasks, budget, segments,
+                       out, steps, (cudaStream_t)stream);
+}
+
+int vx_k5_pick_csvo(const uint32_t* words, long long n_words,
+                    float octree_scale, unsigned root_ptr, int total_depth,
+                    const float* host_tasks, float* dev_tasks, int n_tasks,
+                    int budget, float* dev_rows, float* host_rows,
+                    void* stream) {
+  const vx::CsvoWorld world = {words, (uint32_t)n_words, root_ptr,
+                               total_depth};
+  return vx::k5_pick(world, octree_scale, host_tasks, dev_tasks, n_tasks,
+                     budget, dev_rows, host_rows, (cudaStream_t)stream);
 }
 
 // ---- K6, K7, K8 -----------------------------------------------------------

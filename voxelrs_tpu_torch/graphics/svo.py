@@ -30,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.adaptive import frame_levels
-from ..ops.picker import raycast
+from ..ops.picker import PickBuffers, pick, raycast
 from ..ops.shading import (DeferredWorkspace, KernelTables, check_batch,
                            render_frame, render_frame_deferred_at,
                            render_frames_opaque_batch)
@@ -97,6 +97,7 @@ class Svo:
         # instead of a launch and a device-to-host copy.
         self._buffer_version = 0
         self._raycast_memo = None
+        self._pick_buffers = None  # ops.picker.PickBuffers, on the card
         # terrain envelope for the beam pre-pass (set_heightfield; None = no
         # pre-pass), and what the last frame ran: its mode, whether the
         # world was proved opaque, whether beams and a sun map fed it
@@ -409,9 +410,11 @@ class Svo:
 
     def raycast(self, batch: PickerBatch, result: PickerBatchResult) -> None:
         """Run the picker over the batch (reference: svo.rs:233-255 +
-        picker.glsl:30-51): K5 on the card, the plain version on the CPU.
-        The batch is padded to ``1 << max(3, bit_length(n - 1))`` tasks, as
-        the JAX package pads it; padding tasks have ``max_dst`` 0 and
+        picker.glsl:30-51): on the card one native call (``ops.picker.
+        pick``: the upload from pinned memory, K5 and the rows' copy back,
+        holding the interpreter lock), the plain version on the CPU. The
+        batch is padded to ``1 << max(3, bit_length(n - 1))`` tasks, as the
+        JAX package pads it; padding tasks have ``max_dst`` 0 and
         direction +x."""
         tasks = batch.serialize_tasks()
         n = len(tasks)
@@ -428,9 +431,14 @@ class Svo:
             padded = np.zeros((n_pad, 7), np.float32)
             padded[:n] = tasks
             padded[n:, 4] = 1.0  # a valid direction for the padding tasks
-            rows = raycast(self.world(), self.octree_scale,
-                           torch.from_numpy(padded).to(self.device))
-            rows = rows.cpu().numpy()[:n]
+            if self.device.type == "cuda":
+                if self._pick_buffers is None:
+                    self._pick_buffers = PickBuffers(self.device_buf.device)
+                rows = pick(self.world(), self.octree_scale, padded,
+                            self._pick_buffers)[:n]
+            else:
+                rows = raycast(self.world(), self.octree_scale,
+                               torch.from_numpy(padded)).numpy()[:n]
             if len(memo) >= 16:  # bound the entries of one buffer version
                 memo.clear()
             hit = (rows[:, 0], rows[:, 1] != 0, rows[:, 2:5], rows[:, 5:8])
